@@ -1,0 +1,26 @@
+"""mamba_tpu_torch: the PyTorch/CUDA port of mamba_tpu.
+
+A DAG-based hierarchical-model DSL, block-wise Gibbs sampling with pluggable
+sampler kernels over a batch of chains, and Mamba's posterior summaries — in
+PyTorch, for one NVIDIA GPU (Hopper), with the JAX package ``mamba_tpu`` as
+its reference.  Hot functions the JAX package wrote as TPU kernels are
+hand-written CUDA kernels here (``csrc/``), each beside a plain torch
+version that CPU tensors take.
+"""
+
+from .ops import bijectors
+from .ops import distributions as dists
+from .ops.distributions import Bernoulli, InverseGamma, Normal
+from .model.nodes import Logical, Stochastic
+from .model.model import Model
+from .model.compile import CompiledModel, compile_model
+from .model.mcmc import mcmc
+from . import samplers
+from .samplers import Gibbs, NUTS
+from . import models
+from .utils.math import cummean, invlogit, logit
+from . import output
+from .output import (Chains, ModelChains, ChainSummary, ess_bulk, ess_rhat,
+                     ess_tail, rhat_rank, summarystats)
+
+__version__ = "0.1.0"

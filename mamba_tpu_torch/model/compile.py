@@ -1,0 +1,303 @@
+"""Graph compiler: Model -> log-density and pack/unpack functions on tensors.
+
+Counterpart of the JAX package's compiler.  Where Mamba.jl re-walks the DAG
+and differentiates by finite differences (src/model/simulation.jl:47-90),
+the graph is resolved **once** here into functions over a ``state`` dict
+(site name -> constrained value tensor of ONE chain); the engine batches
+them over the chain axis with ``torch.func.vmap`` and takes exact gradients
+with ``torch.func.grad_and_value``.  Each block function sums only the
+log-density terms its parameters touch (reference block pruning,
+model.jl:185-205).
+
+Spaces: the canonical state holds *constrained* values (like the reference's
+node values).  Each sampler block declares ``transform``: True means the
+block's flat vector lives in unconstrained space with log-Jacobian terms
+added for the block's own sites (reference transformdistribution.jl), False
+means the flat vector is the raw constrained values with hard support
+masking to -inf (reference distributionstruct.jl:138-140).
+
+Node functions run under ``with torch.device(cm.device)``, so a model
+lambda's fresh tensors (``torch.zeros(G)``) land beside the state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..utils.convert import to_tensor
+from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
+from .model import Model
+from .nodes import LogicalNode, StochasticNode
+
+
+def default_dtype(device: torch.device) -> torch.dtype:
+    """float64 on the CPU (how the tests run the reference), float32 on an
+    accelerator (how the reference runs on its chip)."""
+    return torch.float64 if device.type == "cpu" else torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteSpec:
+    """Static per-stochastic-site metadata resolved at compile time."""
+    name: str
+    shape: tuple[int, ...]
+    unconstrained_shape: tuple[int, ...]
+
+
+class CompiledModel:
+    """Compile-once representation of (Model, inputs, example inits) on one
+    device.  Inputs are held as tensors on that device; the dynamic state
+    is a dict {site name -> constrained value tensor}.
+    """
+
+    def __init__(self, model: Model, inputs: dict[str, Any],
+                 example_inits: dict[str, Any], *, device, dtype=None,
+                 masks: dict[str, Any] | None = None):
+        self.model = model
+        self.device = torch.device(device)
+        self.dtype = dtype or default_dtype(self.device)
+        #: per-site likelihood masks (True = real observation); masked-out
+        #: entries contribute exactly 0 to every log density
+        self.masks = {k: torch.as_tensor(np.asarray(v, dtype=bool),
+                                         device=self.device)
+                      for k, v in (masks or {}).items()}
+        missing = model.input_names - set(inputs)
+        if missing:
+            raise ValueError(f"missing input values for {sorted(missing)}")
+        self.inputs = {k: self.tensor(v) for k, v in inputs.items()
+                       if k in model.input_names}
+
+        self.stochastic = model.keys("stochastic")
+        self.logical = model.keys("logical")
+
+        # --- resolve shapes / bijectors with one eager forward pass -------
+        state = {}
+        for name in self.stochastic:
+            if name not in example_inits:
+                raise ValueError(f"no initial value for stochastic node {name!r}")
+            state[name] = self.tensor(np.asarray(example_inits[name],
+                                                 dtype=np.float64))
+        env = self._eval_env(state)
+        dists = {n: self._node_dist(n, env) for n in self.stochastic}
+        #: concrete example distributions (bijector resolution, support
+        #: metadata)
+        self.example_dists = dists
+        self.sites: dict[str, SiteSpec] = {}
+        for name in self.stochastic:
+            shape = tuple(env[name].shape)
+            self.sites[name] = SiteSpec(
+                name=name, shape=shape,
+                unconstrained_shape=tuple(
+                    dists[name].bijector().unconstrained_shape(shape)))
+        # logical node shapes (for monitors)
+        self.logical_shapes = {n: tuple(env[n].shape) for n in self.logical}
+        self._block_cache: dict = {}
+
+    def tensor(self, v) -> torch.Tensor:
+        """A value as a tensor on this model's device: floating values in
+        the model's dtype, others keep their kind."""
+        return to_tensor(v, self.device, self.dtype)
+
+    # ---- graph evaluation ---------------------------------------------
+    def _call(self, node, env):
+        with torch.device(self.device):
+            return node.fn(*[env[d] for d in node.deps])
+
+    def _eval_env(self, state: dict) -> dict:
+        """All node values: inputs + stochastic state + logicals in topo
+        order."""
+        env = dict(self.inputs)
+        env.update(state)
+        for name in self.model.topo:
+            node = self.model.nodes[name]
+            if isinstance(node, LogicalNode):
+                env[name] = self._call(node, env)
+        return env
+
+    def _node_dist(self, name: str, env: dict):
+        return self._call(self.model.nodes[name], env)
+
+    # ---- full log density ---------------------------------------------
+    def _site_lp(self, name: str, dist, value, *, support_mask=True) -> torch.Tensor:
+        """Total log density of one site, honoring an optional observation
+        mask (masked entries contribute exactly 0, even if their values
+        would be NaN/-inf)."""
+        mask = self.masks.get(name)
+        if mask is None:
+            if support_mask:
+                return dist.total_log_prob(value)
+            return torch.sum(dist.log_prob(value))
+        lp = dist.log_prob(value)
+        if support_mask:
+            lp = torch.where(dist.in_support(value), lp, -torch.inf)
+        if mask.dim() > lp.dim():  # mask covers event dims: reduce with AND
+            mask = torch.all(mask.reshape(mask.shape[:lp.dim()] + (-1,)), dim=-1)
+        return torch.sum(torch.where(mask, lp, torch.zeros_like(lp)))
+
+    def logpdf(self, state: dict, terms: tuple[str, ...] | None = None) -> torch.Tensor:
+        """Sum of stochastic log-densities (constrained space, no Jacobian).
+        ``terms`` restricts to a subset (reference block logpdf,
+        simulation.jl:54-58)."""
+        env = self._eval_env(state)
+        names = self.stochastic if terms is None else terms
+        lp = torch.zeros((), dtype=self.dtype, device=self.device)
+        for n in names:
+            dist = self._node_dist(n, env)
+            lp = lp + self._site_lp(n, dist, env[n])
+        return lp
+
+    def eval_logicals(self, state: dict) -> dict:
+        """State extended with logical node values (for monitoring)."""
+        env = self._eval_env(state)
+        return {n: env[n] for n in list(self.stochastic) + list(self.logical)}
+
+    # ---- block machinery ----------------------------------------------
+    def block_terms(self, params: tuple[str, ...]) -> tuple[str, ...]:
+        """Stochastic log-density terms affected by ``params``: the params
+        themselves plus their stochastic targets (reference model.jl:185-205,
+        gettargets pruning graph.jl:93-103)."""
+        terms = list(params)
+        for t in self.model.keys("target", list(params)):
+            if isinstance(self.model.nodes.get(t), StochasticNode) and t not in terms:
+                terms.append(t)
+        order = {n: i for i, n in enumerate(self.model.topo)}
+        return tuple(sorted(terms, key=order.__getitem__))
+
+    def block_ravel_spec(self, params: tuple[str, ...], transform: bool) -> RavelSpec:
+        shapes = {p: (self.sites[p].unconstrained_shape if transform
+                      else self.sites[p].shape) for p in params}
+        example = {p: np.zeros(s) for p, s in shapes.items()}
+        return make_ravel_spec(example, dtype=self.dtype)
+
+    def block_functions(self, params: tuple[str, ...], transform: bool):
+        """Returns (pack, unpack, spec, logf), each on ONE chain's values:
+
+        - ``pack(state) -> flat``          (reference unlist, simulation.jl:110-134)
+        - ``unpack(flat, state) -> {p: value}``  (reference relist)
+        - ``logf(flat, state) -> scalar``  (reference logpdf!, simulation.jl:77-90)
+
+        With ``transform=True`` the flat vector is unconstrained and ``logf``
+        includes the log-Jacobian of the block's own sites.
+        """
+        key = (tuple(params), bool(transform))
+        if key in self._block_cache:
+            return self._block_cache[key]
+        params = tuple(params)
+        terms = self.block_terms(params)
+        spec = self.block_ravel_spec(params, transform)
+        pset = set(params)
+
+        def pack(state):
+            if not transform:
+                return spec.ravel({p: state[p] for p in params})
+            env = self._eval_env(state)
+            packed = {}
+            for p in params:
+                b = self._node_dist(p, env).bijector()
+                packed[p] = b.inverse(env[p])
+            return spec.ravel(packed)
+
+        def _decode(flat, state):
+            """Walk topo order decoding block sites (whose bijectors may
+            depend on parents) and recomputing intermediate logicals."""
+            parts = spec.unravel(flat)
+            env = dict(self.inputs)
+            env.update({n: v for n, v in state.items() if n not in pset})
+            logdet = torch.zeros((), dtype=self.dtype, device=self.device)
+            dists = {}
+            for name in self.model.topo:
+                node = self.model.nodes[name]
+                if isinstance(node, LogicalNode):
+                    env[name] = self._call(node, env)
+                elif name in pset:
+                    dist = self._call(node, env)
+                    dists[name] = dist
+                    if transform:
+                        b = dist.bijector()
+                        u = parts[name]
+                        env[name] = b.forward(u)
+                        logdet = logdet + torch.sum(
+                            b.event_log_det(u, max(dist.event_ndim, 0)))
+                    else:
+                        env[name] = parts[name]
+                elif name in terms:
+                    dists[name] = self._call(node, env)
+            return env, dists, logdet
+
+        def unpack(flat, state):
+            env, _, _ = _decode(flat, state)
+            return {p: env[p] for p in params}
+
+        def logf(flat, state):
+            env, dists, logdet = _decode(flat, state)
+            lp = logdet
+            for n in terms:
+                dist = dists[n]
+                if transform and n in pset:
+                    # in-support by construction; no masking (keeps autodiff clean)
+                    lp = lp + self._site_lp(n, dist, env[n], support_mask=False)
+                else:
+                    lp = lp + self._site_lp(n, dist, env[n])
+            if not transform:
+                # Reference early -Inf exit (simulation.jl:77-90): when block
+                # params leave their support, downstream terms may evaluate to
+                # NaN (e.g. sqrt of a negative variance); the whole block
+                # density is -inf, not NaN, so rejection loops terminate.
+                lp = torch.where(torch.isnan(lp), -torch.inf, lp)
+            return lp
+
+        out = (pack, unpack, spec, logf)
+        self._block_cache[key] = out
+        return out
+
+    # ---- monitoring ----------------------------------------------------
+    def monitor_spec(self):
+        """(names, flat element labels, pack fn) for monitored nodes.
+        Labels follow the reference's ``beta[1]`` convention
+        (src/variate.jl:76-88); nodes may monitor a subset of elements via
+        1-based column-major index vectors (reference setmonitor!,
+        dependent.jl:31-48).  The pack fn takes one chain's state."""
+        monitored = sorted(self.model.keys("monitor"))
+        labels = []
+        selections = []      # (name, indices-or-None)
+        for n in monitored:
+            shape = (self.sites[n].shape if n in self.sites
+                     else self.logical_shapes[n])
+            size = int(np.prod(shape)) if shape else 1
+            idx = self.model.nodes[n].monitor_indices(size)
+            names_n = elementwise_names(n, shape)
+            if idx is None:
+                labels.extend(names_n)
+            else:
+                labels.extend(names_n[i] for i in idx)
+            selections.append((n, None if idx is None else torch.as_tensor(
+                idx, device=self.device)))
+
+        def pack_monitored(state):
+            vals = self.eval_logicals(state)
+            # Julia column-major flatten for >1-d arrays
+            flat = []
+            for n, idx in selections:
+                v = vals[n]
+                v = torch.reshape(v.permute(*reversed(range(v.dim())))
+                                  if v.dim() > 1 else v, (-1,))
+                v = v.to(self.dtype)
+                if idx is not None:
+                    v = v[idx]
+                flat.append(v)
+            return (torch.cat(flat) if flat
+                    else torch.zeros((0,), dtype=self.dtype, device=self.device))
+
+        return tuple(monitored), labels, pack_monitored
+
+
+def compile_model(model: Model, inputs: dict, inits: dict, *, device,
+                  dtype=None, masks: dict | None = None) -> CompiledModel:
+    """Compile ``model`` for ``device`` (required: nothing defaults to the
+    CPU).  ``dtype`` defaults to float64 on the CPU and float32 elsewhere."""
+    return CompiledModel(model, inputs, inits, device=device, dtype=dtype,
+                         masks=masks)

@@ -1,0 +1,141 @@
+"""Distribution protocol: batched distributions over torch tensors.
+
+Counterpart of the reference's Distributions.jl dependency plus its
+DistributionStruct dispatch layer (reference: src/Mamba.jl:67-69,
+src/distributions/distributionstruct.jl:14-186).  Where the reference holds
+``Array{UnivariateDistribution}`` — one Julia object per observation, looped
+over serially — here a single distribution object carries *batched*
+parameter tensors and ``log_prob`` evaluates every element in one pass.
+
+Conventions
+-----------
+- Every distribution is a frozen dataclass whose parameter fields are
+  (broadcastable) tensors or Python numbers.  Distributions are built inside
+  the compiled model's functions, under ``torch.func.vmap`` over chains.
+- ``event_ndim``: 0 univariate, 1 vector-variate, 2 matrix-variate.
+- ``log_prob(x)`` reduces over the event dims only and returns batch-shaped
+  values; node-level densities sum the batch.
+- ``sample(gen, shape)`` prepends ``shape`` to the broadcasted batch shape,
+  drawing from the ``torch.Generator`` ``gen``.
+- ``bijector()`` returns the support transform used for unconstrained
+  sampling (reference link/invlink, transformdistribution.jl).
+- ``in_support(x)`` is the vectorized ``insupport`` check used to mask
+  impossible states to -inf (reference: distributionstruct.jl:138-140).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .. import bijectors as bij
+
+
+def distribution(cls):
+    """Class decorator: frozen dataclass."""
+    return dataclasses.dataclass(frozen=True)(cls)
+
+
+def _shape(a):
+    return a.shape if isinstance(a, torch.Tensor) else torch.Size()
+
+
+class Distribution:
+    event_ndim: int = 0
+    is_discrete: bool = False
+
+    # ---- shapes -------------------------------------------------------
+    @property
+    def param_shapes(self):
+        return tuple(_shape(getattr(self, f.name))
+                     for f in dataclasses.fields(self))
+
+    @property
+    def batch_shape(self):
+        shapes = self.param_shapes
+        if not shapes:
+            return torch.Size()
+        full = torch.broadcast_shapes(*shapes)
+        if self.event_ndim == 0:
+            return full
+        return full[: len(full) - self.event_ndim]
+
+    @property
+    def event_shape(self):
+        if self.event_ndim == 0:
+            return torch.Size()
+        full = torch.broadcast_shapes(*self.param_shapes)
+        return full[len(full) - self.event_ndim:]
+
+    # ---- interface ----------------------------------------------------
+    def log_prob(self, x) -> torch.Tensor:
+        raise NotImplementedError
+
+    def sample(self, gen, shape=()) -> torch.Tensor:
+        raise NotImplementedError
+
+    def bijector(self) -> bij.Bijector:
+        return bij.Identity()
+
+    def in_support(self, x) -> torch.Tensor:
+        """Boolean mask, batch-shaped (event dims reduced with AND)."""
+        shape = torch.broadcast_shapes(x.shape, self.batch_shape + self.event_shape)
+        if self.event_ndim:
+            shape = shape[: len(shape) - self.event_ndim]
+        return torch.ones(shape, dtype=torch.bool, device=x.device)
+
+    # total log density of a value under this (possibly batched) distribution
+    def total_log_prob(self, x) -> torch.Tensor:
+        lp = self.log_prob(x)
+        ok = self.in_support(x)
+        lp = torch.where(ok, lp, -torch.inf)
+        return torch.sum(lp)
+
+    # ---- optional moments (used by user Gibbs blocks) ----------------
+    def mean(self):
+        raise NotImplementedError(f"mean not defined for {type(self).__name__}")
+
+    def variance(self):
+        raise NotImplementedError(f"variance not defined for {type(self).__name__}")
+
+
+class UnivariateDistribution(Distribution):
+    event_ndim = 0
+
+    def in_support(self, x):
+        return torch.ones(torch.broadcast_shapes(x.shape, self.batch_shape),
+                          dtype=torch.bool, device=x.device)
+
+
+class DiscreteUnivariateDistribution(UnivariateDistribution):
+    is_discrete = True
+
+    def bijector(self):
+        return bij.Discrete()
+
+    def support_bounds(self):
+        """(lo, hi) integer bounds of the support, for DGS enumeration
+        (reference: src/samplers/dgs.jl:109-126).  ``hi`` may be a tensor."""
+        raise NotImplementedError
+
+
+def _bc(*params, like=None):
+    """Broadcast scalar-ish params to a common shape as float tensors.
+
+    With ``like`` (the value a density is evaluated at) every parameter is
+    promoted to its dtype and device, so a model lambda's ``torch.zeros(G)``
+    (default dtype) meets a float64 state on the CPU without losing
+    precision; Python numbers are converted straight to that dtype."""
+    tensors = [p for p in params if isinstance(p, torch.Tensor)]
+    if like is not None and like.is_floating_point():
+        dtype, device = like.dtype, like.device
+    else:
+        dtype = torch.get_default_dtype()
+        for t in tensors:
+            if t.is_floating_point():
+                dtype = torch.promote_types(dtype, t.dtype)
+        device = tensors[0].device if tensors else None
+    out = [p.to(dtype=dtype, device=device) if isinstance(p, torch.Tensor)
+           else torch.as_tensor(p, dtype=dtype, device=device) for p in params]
+    return tuple(torch.broadcast_tensors(*out))
