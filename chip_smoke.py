@@ -4,14 +4,34 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA device and the CUDA
-toolkit.  It builds the fused GLMM kernel from ``mamba_tpu_torch/csrc``,
-holds it against its plain torch version, and drives the port's main path
-— ``glmm.build(fused=True)`` sampled by NUTS through ``mcmc`` — first small
-enough to check posterior recovery, then at full width (10,000 groups,
-1,024 chains).  Every phase raises on failure.  The last line of standard
-output is ``{"ok": true, "device": {...}}``; the line before it lists each
-kernel with its launches on the main path, its error and its time.  With no
-CUDA device the script exits with status 2 and prints no result.
+toolkit.  It drives every arm of the JAX package's ``bench.py`` through the
+port's public entry points (``mcmc``, ``advi``, ``summarystats``,
+``rhat_rank``, ``ess_bulk``), in these phases:
+
+1. device: the card's name and power limit;
+2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` with nvcc (sm_90a);
+3. kernel: the fused GLMM kernel against its plain torch version at three
+   shapes, and both timed at full width;
+4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains;
+5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
+6. rats NUTS, the bench's headline: ``rats.build("nuts")``, 1024 chains,
+   cut from 1500 to 100 iterations (50 burnin), gated on the golden
+   mu_beta mean (rank R-hat and bulk ESS printed; they are gated only for
+   runs of 500 kept draws or more);
+7. rats ChEES: ADVI warm start, then ChEES-HMC with the conjugate Gibbs
+   block, 1024 chains x 1500 iterations (500 burnin), gated on the golden
+   mu_beta mean, rank R-hat < 1.01 and bulk ESS > 400;
+8. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
+   through the fused kernel, 1024 chains, a short run.
+
+The GLMM phases 5 and 8 each set the kernel's launch count to 0 just before
+they run and read it just after.  Every phase raises on failure.  The whole
+run takes about 8 minutes on an H100 (486 s measured), 5.5 of them in the
+rats NUTS phase and 1.3 in rats ChEES.  The paths are host-bound, so the
+time follows the host's CPU.  The last line of standard output is
+``{"ok": true, "device": {...}}``; the line before it lists the kernel with
+its launches on the main paths, its error and its time.  With no CUDA device
+the script exits with status 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -30,6 +50,27 @@ LP_RTOL = 1e-5
 #: gradient error max|d| / max|g_ref| over (grad_beta, grad_b): every
 #: contraction is float32 FMA
 GRAD_RTOL = 1e-4
+
+CHAINS = 1024
+#: GLMM NUTS at full width (phase 5): iterations, burnin
+GLMM_NUTS_RUN = (10, 5)
+#: rats NUTS headline (phase 6), cut from bench.py's 1500/500
+#: (bench.py:39-46): at 1024 chains the warmup trees are 9-10 deep and each
+#: leapfrog costs ~5 ms of host time, so 100 iterations take ~5.5 minutes
+RATS_NUTS_RUN = (100, 50)
+#: rats ChEES (phase 7), bench.py:63-98
+RATS_CHEES_RUN = (1500, 500)
+#: GLMM ChEES at full width (phase 8); depth cut from bench.py's 1300/300
+GLMM_CHEES_RUN = (20, 10)
+#: convergence gates of bench.py:48-52
+RHAT_MAX = 1.01
+ESS_MIN = 400.0
+#: kept draws below which a cut run is not held to R-hat and ESS
+MIN_KEPT = 500
+#: rats golden mu_beta (doc/examples/rats.rst:42-47) and the gate on it
+MU_BETA, MU_BETA_TOL = 6.1831, 0.1
+#: where the main paths run
+DEVICE = "cuda"
 
 
 def log(*args):
@@ -73,7 +114,7 @@ def kernel_case(torch, fg, C, G, n=10, P=4, seed=0, time_reps=0):
     inputs; returns the errors and, with ``time_reps``, ms per call of the
     kernel and of the float32 plain version."""
     rng = np.random.default_rng(seed)
-    f32 = dict(dtype=torch.float32, device="cuda")
+    f32 = dict(dtype=torch.float32, device=DEVICE)
     Xt = torch.as_tensor(rng.normal(0, 1, (P, n, G)), **f32)
     y = torch.as_tensor((rng.random((n, G)) < 0.5).astype(np.float64), **f32)
     betas = torch.as_tensor(rng.normal(0, 0.5, (C, P)), **f32)
@@ -120,26 +161,48 @@ def phase_kernels(torch, fg):
             for i, (C, G) in enumerate(KERNEL_CASES)]
 
 
-def _record_depths(nuts):
-    """Wrap ``nuts_sub`` to observe every transition's per-chain tree depth
-    (the smoke test's own instrument; the sampler is unchanged)."""
-    depths = []
-    inner = nuts.nuts_sub
+def _recording(module, name, pick):
+    """Wrap ``module.name`` so every call's ``pick(output)`` is appended to a
+    list (the smoke test's own instrument; the sampler is unchanged).
+    Returns the list and a function that restores the original."""
+    seen = []
+    inner = getattr(module, name)
 
     def recording(*args, **kwargs):
         out = inner(*args, **kwargs)
-        depths.append(out[3].detach().cpu())
+        seen.append(pick(out))
         return out
 
-    nuts.nuts_sub = recording
-    return depths, lambda: setattr(nuts, "nuts_sub", inner)
+    setattr(module, name, recording)
+    return seen, lambda: setattr(module, name, inner)
+
+
+def _record_depths(nuts):
+    """Every NUTS transition's per-chain tree depth."""
+    return _recording(nuts, "nuts_sub", lambda out: out[3].detach().cpu())
+
+
+def _nuts_work(torch, depths):
+    """Mean and max tree depth, and the leapfrog steps the lockstep chains
+    evaluated: an iteration costs the deepest chain's 2**depth - 1."""
+    d = torch.stack(depths)                    # (iterations, chains)
+    return {"mean_tree_depth": float(d.float().mean()),
+            "max_tree_depth": int(d.max()),
+            "leapfrog_steps": int((2 ** d.max(dim=1).values.long() - 1).sum())}
+
+
+def _timing(sim, chains, iters):
+    t = sim.timing
+    return {"setup_s": t["setup_s"], "sample_s": t["sample_s"],
+            "fetch_s": t["fetch_s"],
+            "chain_iters_per_s": chains * iters / t["sample_s"]}
 
 
 def phase_recovery(mt, glmm):
     model, inputs, inits, truth = glmm.build(G=64, n=10, seed=2, fused=True,
                                              mass_window=50)
     sim = mt.mcmc(model, inputs, inits, 400, burnin=150, chains=4,
-                  verbose=False, device="cuda")
+                  verbose=False, device=DEVICE)
     s = mt.summarystats(sim).to_dict()
     est = np.array([s[f"beta[{i + 1}]"]["Mean"] for i in range(4)])
     err = float(np.abs(est - truth["beta"]).max())
@@ -150,43 +213,176 @@ def phase_recovery(mt, glmm):
         raise AssertionError(f"beta not recovered: max error {err}")
 
 
-def phase_full_width(torch, mt, glmm, fg, nuts):
-    iters, burnin, chains = 30, 10, 1024
-    model, inputs, inits, _ = glmm.build(G=10_000, n=10, seed=0, fused=True)
-    depths, restore = _record_depths(nuts)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fg.glmm_loglik_grads.launches = 0          # count the main path only
-    try:
-        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
-                      chains=chains, verbose=False, device="cuda")
-    finally:
-        restore()
-    launches = fg.glmm_loglik_grads.launches
-    d = torch.stack(depths)                    # (iterations, chains)
-    # all chains step in lockstep, so an iteration evaluates the deepest
-    # chain's 2**depth - 1 leapfrog steps
-    leapfrogs = int((2 ** d.max(dim=1).values.long() - 1).sum())
-    t = sim.timing
-    res = {"setup_s": t["setup_s"], "sample_s": t["sample_s"],
-           "fetch_s": t["fetch_s"],
-           "chain_iters_per_s": chains * iters / t["sample_s"],
-           "mean_tree_depth": float(d.float().mean()),
-           "max_tree_depth": int(d.max()), "leapfrog_steps": leapfrogs,
-           "kernel_launches": launches,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log("full width (G=10000, n=10, P=4, 1024 chains, 30 iters, 10 burnin): "
-        + json.dumps(res))
+def _check_glmm_draws(sim, iters, burnin, chains):
     v = sim.value
     if v.shape != (iters - burnin, 5, chains) or not np.isfinite(v).all():
         raise AssertionError(f"kept draws: shape {v.shape}, finite "
                              f"{np.isfinite(v).all()}")
-    s2 = v[:, sim.names.index("s2"), :]
-    if not (s2 > 0).all():
+    if not (v[:, sim.names.index("s2"), :] > 0).all():
         raise AssertionError("s2 left its support")
-    if launches < leapfrogs or launches == 0:
+
+
+def phase_glmm_nuts(torch, mt, glmm, fg, nuts):
+    iters, burnin = GLMM_NUTS_RUN
+    model, inputs, inits, _ = glmm.build(G=10_000, n=10, seed=0, fused=True)
+    depths, restore = _record_depths(nuts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fg.glmm_loglik_grads.launches = 0          # count this path only
+    try:
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE)
+    finally:
+        restore()
+    launches = fg.glmm_loglik_grads.launches
+    res = {**_timing(sim, CHAINS, iters), **_nuts_work(torch, depths),
+           "kernel_launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
+    log(f"GLMM NUTS at full width (G=10000, n=10, P=4, {CHAINS} chains, "
+        f"{iters} iters, {burnin} burnin): " + json.dumps(res))
+    _check_glmm_draws(sim, iters, burnin, CHAINS)
+    if launches < res["leapfrog_steps"] or launches == 0:
         raise AssertionError(f"the fused kernel ran {launches} times for "
-                             f"{leapfrogs} leapfrog steps")
+                             f"{res['leapfrog_steps']} leapfrog steps")
+    return res
+
+
+def _rats_gates(mt, rats, sim, name):
+    """bench.py's gates on a rats run; raises on any failure.  A run cut
+    below ``MIN_KEPT`` kept draws cannot reach rank R-hat < 1.01
+    (bench.py:41-46), so there R-hat and bulk ESS are printed, not gated."""
+    v = sim.value
+    converge = v.shape[0] >= MIN_KEPT
+    s = mt.summarystats(sim).to_dict()
+    rhat = float(np.max(mt.rhat_rank(v)))
+    ess = mt.ess_bulk(v)
+    ess_s = np.array([s[k]["ESS"] for k in sim.names]) / sim.timing["sample_s"]
+    state = sim.states["state"]
+    variances = {k: bool((state[k] > 0).all()) for k in ("s2_c", "s2_alpha",
+                                                         "s2_beta")}
+    out = {"mu_beta_mean": s["mu_beta"]["Mean"],
+           "s2_c_mean": s["s2_c"]["Mean"], "alpha0_mean": s["alpha0"]["Mean"],
+           "rhat_rank_max": rhat, "ess_bulk_min": float(np.min(ess)),
+           "ess_per_s_total": float(ess_s.sum()),
+           "ess_per_s_min": float(ess_s.min()),
+           "finite": bool(np.isfinite(v).all()),
+           "kept_s2_c_positive": bool((v[:, sim.names.index("s2_c"), :] > 0).all()),
+           "final_variances_positive": variances,
+           "kept_draws": v.shape[0], "convergence_gated": converge}
+    log(f"{name} gates: " + json.dumps(out))
+    failed = []
+    if not abs(out["mu_beta_mean"] - MU_BETA) < MU_BETA_TOL:
+        failed.append("golden mu_beta")
+    if converge and not rhat < RHAT_MAX:
+        failed.append("rank R-hat")
+    if converge and not out["ess_bulk_min"] > ESS_MIN:
+        failed.append("bulk ESS")
+    if not (out["finite"] and out["kept_s2_c_positive"] and all(variances.values())):
+        failed.append("finite draws and positive variances")
+    if failed:
+        raise AssertionError(f"{name}: gates failed: {failed}: {out}")
+    return out
+
+
+def phase_rats_nuts(torch, mt, rats, nuts):
+    iters, burnin = RATS_NUTS_RUN
+    model, inputs, inits = rats.build("nuts")
+    depths, restore = _record_depths(nuts)
+    try:
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE)
+    finally:
+        restore()
+    res = {**_timing(sim, CHAINS, iters), **_nuts_work(torch, depths)}
+    res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
+    log(f"rats NUTS ({CHAINS} chains, {iters} iters, {burnin} burnin): "
+        + json.dumps(res))
+    res.update(_rats_gates(mt, rats, sim, "rats NUTS"))
+    return res
+
+
+def _advi_warm_inits(torch, mt, model, inputs, init, steps, chains):
+    """bench.py's ADVI warm start: fit, then one draw from q per chain."""
+    t0 = time.perf_counter()
+    res = mt.advi(model, inputs, init, steps=steps, nmc=4, seed=1, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    draws = {k: v.cpu().numpy() for k, v in res.sample(gen, chains).items()}
+    advi_s = time.perf_counter() - t0
+    inits = [dict(init, **{k: d[i] for k, d in draws.items()})
+             for i in range(chains)]
+    trace = res.elbo_trace
+    log(f"ADVI ({steps} steps, nmc 4): {advi_s:.2f} s, ELBO first/last "
+        f"{trace[0]:.2f} / {trace[-1]:.2f}")
+    if not np.isfinite(trace[-1]):
+        raise AssertionError("ADVI ELBO is not finite")
+    return inits, advi_s
+
+
+def _chees_block(mt, model, **kw):
+    """The model's gradient block (its first) as ChEES-HMC, as bench.py
+    sets it; later blocks stay."""
+    model.set_samplers([mt.ChEESHMC(model.samplers[0].params, **kw),
+                        *model.samplers[1:]])
+    return model
+
+
+def phase_rats_chees(torch, mt, rats, chees):
+    iters, burnin = RATS_CHEES_RUN
+    model, inputs, inits = rats.build("nuts")
+    model = _chees_block(mt, model, mass_window=50)
+    warm, advi_s = _advi_warm_inits(torch, mt, model, inputs, inits[0], 1500,
+                                    CHAINS)
+    steps, restore = _recording(chees, "_steps", lambda L: L)
+    try:
+        sim = mt.mcmc(model, inputs, warm, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE)
+    finally:
+        restore()
+    res = {**_timing(sim, CHAINS, iters), "advi_s": advi_s,
+           "leapfrog_steps": sum(steps), "mean_L": float(np.mean(steps)),
+           "max_L": max(steps)}
+    res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
+    log(f"rats ChEES ({CHAINS} chains, {iters} iters, {burnin} burnin): "
+        + json.dumps(res))
+    res.update(_rats_gates(mt, rats, sim, "rats ChEES"))
+    return res
+
+
+def phase_glmm_chees(torch, mt, glmm, fg, chees):
+    iters, burnin = GLMM_CHEES_RUN
+    model, inputs, inits, _ = glmm.build(10_000, fused=True)
+    model_g, inputs_g, inits_g, _ = glmm.build(10_000, fused=False)
+    # ADVI on the generic build (same posterior, same sites), as bench.py
+    warm, advi_s = _advi_warm_inits(torch, mt, model_g, inputs_g, inits_g[0],
+                                    1000, CHAINS)
+    warm = [dict(inits[0], **{k: w[k] for k in ("beta", "z", "s2")})
+            for w in warm]
+    model = _chees_block(mt, model, max_steps=256, mass_window=40)
+    steps, restore = _recording(chees, "_steps", lambda L: L)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fg.glmm_loglik_grads.launches = 0          # count this path only
+    try:
+        sim = mt.mcmc(model, inputs, warm, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE)
+    finally:
+        restore()
+    launches = fg.glmm_loglik_grads.launches
+    need = sum(L + 1 for L in steps)           # logfgrad at x, then L steps
+    res = {**_timing(sim, CHAINS, iters), "advi_s": advi_s,
+           "steps_per_iteration": steps, "leapfrog_steps": sum(steps),
+           "kernel_launches": launches,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
+    res["wall_ms_per_gradient"] = 1e3 * res["sample_s"] / need
+    log(f"GLMM ChEES at full width (G=10000, {CHAINS} chains, {iters} iters, "
+        f"{burnin} burnin): " + json.dumps(res))
+    _check_glmm_draws(sim, iters, burnin, CHAINS)
+    if launches < need or launches == 0:
+        raise AssertionError(f"the fused kernel ran {launches} times for "
+                             f"{need} gradient evaluations")
     return res
 
 
@@ -196,24 +392,43 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     import mamba_tpu_torch as mt
-    from mamba_tpu_torch.models import glmm
+    from mamba_tpu_torch.models import glmm, rats
     from mamba_tpu_torch.ops import fused_glmm as fg
-    from mamba_tpu_torch.samplers import nuts
+    from mamba_tpu_torch.samplers import chees, nuts
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        log(f"phase {name}: {walls[name]:.1f} s")
+        return out
+
     card = phase_device(torch)
-    phase_build(fg)
-    cases = phase_kernels(torch, fg)
-    phase_recovery(mt, glmm)
-    full = phase_full_width(torch, mt, glmm, fg, nuts)
+    timed("build", phase_build, fg)
+    cases = timed("kernel", phase_kernels, torch, fg)
+    timed("glmm_recovery", phase_recovery, mt, glmm)
+    glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts)
+    timed("rats_nuts", phase_rats_nuts, torch, mt, rats, nuts)
+    timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
+    glmm_chees = timed("glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
+    log(f"fused kernel launches: GLMM NUTS {glmm_nuts['kernel_launches']}, "
+        f"GLMM ChEES {glmm_chees['kernel_launches']}; wall ms per leapfrog: "
+        f"NUTS {glmm_nuts['wall_ms_per_leapfrog']:.3f}, "
+        f"ChEES {glmm_chees['wall_ms_per_leapfrog']:.3f}")
+    log(f"phase walls (s): {json.dumps(walls)}; total "
+        f"{time.perf_counter() - t_start:.1f} s")
     slice_case = cases[0]
     log(f"card: {card}")
     print(json.dumps({"kernels": [{
         "name": "fused_glmm_loglik_grads", "route": "cuda",
         "source": "mamba_tpu_torch/csrc/fused_glmm.cu",
         "replaces": "mamba_tpu/ops/fused_glmm.py:59",
-        "launches": full["kernel_launches"],
+        "launches": glmm_nuts["kernel_launches"] + glmm_chees["kernel_launches"],
         "max_abs_err": slice_case["grad_max_abs_err"],
         "lp_rel_err": slice_case["lp_rel_err"],
         "grad_rel_err": slice_case["grad_rel_err"],

@@ -16,7 +16,10 @@ from .model.model import Model
 from .model.compile import CompiledModel, compile_model
 from .model.mcmc import mcmc
 from . import samplers
-from .samplers import Gibbs, NUTS
+from .samplers import (AMWG, HMC, MALA, NUTS, RWM, ChEESHMC, Gibbs, Slice,
+                       chees_init, chees_step)
+from . import infer
+from .infer import ADVIResult, advi
 from . import models
 from .utils.math import cummean, invlogit, logit
 from . import output

@@ -3,9 +3,23 @@ functions ``<name>_init`` / ``<name>_step`` on chain-stacked vectors plus an
 engine-facing ``SamplerSpec`` subclass binding the kernel to a block of
 model nodes."""
 
-from .base import BlockKernel, SamplerSpec
+from .base import BlockKernel, SamplerSpec, metropolis_accept
 from .custom import Gibbs
+from .amwg import AMWG, AMWGTune, amwg_init, amwg_step
+from .chees import ChEESHMC, ChEESTune, chees_init, chees_step
+from .hmc import HMC, HMCTune, hmc_init, hmc_step
+from .mala import MALA, MALATune, mala_init, mala_step
 from .nuts import NUTS, NUTSTune, nuts_init, nuts_step, nutsepsilon
+from .rwm import RWM, RWMTune, rwm_init, rwm_step
+from .slice import (Slice, SliceTune, slice_init, slice_multivariate_step,
+                    slice_univariate_step)
 
-__all__ = ["BlockKernel", "SamplerSpec", "Gibbs", "NUTS", "NUTSTune",
-           "nuts_init", "nuts_step", "nutsepsilon"]
+__all__ = ["BlockKernel", "SamplerSpec", "metropolis_accept", "Gibbs",
+           "AMWG", "AMWGTune", "amwg_init", "amwg_step",
+           "ChEESHMC", "ChEESTune", "chees_init", "chees_step",
+           "HMC", "HMCTune", "hmc_init", "hmc_step",
+           "MALA", "MALATune", "mala_init", "mala_step",
+           "NUTS", "NUTSTune", "nuts_init", "nuts_step", "nutsepsilon",
+           "RWM", "RWMTune", "rwm_init", "rwm_step",
+           "Slice", "SliceTune", "slice_init", "slice_multivariate_step",
+           "slice_univariate_step"]

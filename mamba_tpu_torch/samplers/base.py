@@ -84,3 +84,12 @@ class SamplerSpec:
 
     def __repr__(self):
         return f"{type(self).__name__}({list(self.params)})"
+
+
+def metropolis_accept(gen, log_ratio, x_new, x_old):
+    """Per-chain MH accept: row ``c`` of ``x_new (C, dim)`` is taken with
+    probability ``exp(log_ratio[c])``; one uniform per chain."""
+    u = torch.rand(log_ratio.shape, generator=gen, dtype=log_ratio.dtype,
+                   device=log_ratio.device)
+    accept = torch.log(u) < log_ratio
+    return torch.where(accept[:, None], x_new, x_old), accept

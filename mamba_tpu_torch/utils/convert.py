@@ -1,19 +1,30 @@
-"""Carry numpy trees — inputs, chain-stacked states and NUTS tunes exported
-from another implementation of the same model — into this package's tensors
-on a given device, so both can be evaluated at the same state."""
+"""Carry numpy trees — inputs, chain-stacked states, sampler tunes and ADVI
+fits exported from another implementation of the same model — into this
+package's tensors on a given device, so both can be evaluated at, or
+continue from, the same state.
+
+A tune exported from a chain-batched implementation has the chain axis
+first on every field.  Where this package stores a field once for all
+chains (it is shared by construction), the converter checks that every
+chain row holds the same value before it keeps one."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..samplers.amwg import AMWGTune
+from ..samplers.chees import ChEESTune
 from ..samplers.nuts import NUTSTune
+from ..samplers.slice import SliceTune
 
 
 def to_tensor(v, device, dtype: torch.dtype) -> torch.Tensor:
     """A numpy value as a tensor: floating values in ``dtype``, integer and
     boolean values keep their kind."""
     a = np.asarray(v)
+    if not a.flags.writeable:      # e.g. a broadcast view: torch wants its own
+        a = a.copy()
     return torch.as_tensor(
         a, dtype=dtype if np.issubdtype(a.dtype, np.floating) else None,
         device=device)
@@ -24,13 +35,82 @@ def to_tensors(tree: dict, device, dtype: torch.dtype) -> dict:
     return {k: to_tensor(v, device, dtype) for k, v in tree.items()}
 
 
+def _fields(tune) -> dict:
+    return dict(tune._asdict() if hasattr(tune, "_asdict") else tune)
+
+
+def _shared(name: str, v, ndim: int) -> np.ndarray:
+    """One value of a field shared by every chain: ``v`` holds it with a
+    leading chain axis when it has more than ``ndim`` dims."""
+    a = np.asarray(v)
+    if a.ndim == ndim:
+        return a
+    if a.ndim != ndim + 1:
+        raise ValueError(f"tune field {name!r}: expected {ndim} or {ndim + 1} "
+                         f"dims, got shape {a.shape}")
+    if not np.array_equal(a, np.broadcast_to(a[:1], a.shape), equal_nan=True):
+        raise ValueError(f"tune field {name!r} differs across chains; it is "
+                         f"shared by every chain")
+    return a[0]
+
+
 def nuts_tune(tune, device, dtype: torch.dtype) -> NUTSTune:
     """A NUTS tune with numpy fields (a NamedTuple or a mapping of the
     same field names; ``adapted`` may be absent) -> ``NUTSTune``.  Without
     an ``adapted`` field, adaptation counts as having run once the averaged
     step has left its initial 1.0, the other implementation's test."""
-    fields = dict(tune._asdict() if hasattr(tune, "_asdict") else tune)
+    fields = _fields(tune)
     if "adapted" not in fields:
         fields["adapted"] = np.asarray(fields["epsilonbar"]) != 1.0
     return NUTSTune(**{k: to_tensor(fields[k], device, dtype)
                        for k in NUTSTune._fields})
+
+
+def chees_tune(tune, device, dtype: torch.dtype) -> ChEESTune:
+    """A ChEES tune, per chain (chain axis first) or already shared ->
+    ``ChEESTune``: scalars as 0-d tensors, the mass and window statistics
+    as ``(dim,)`` tensors, the counters as ints."""
+    fields = _fields(tune)
+    out = {}
+    for k in ChEESTune._fields:
+        if k in ("m", "max_steps", "w_n", "window", "it"):
+            out[k] = int(_shared(k, fields[k], 0))
+        elif k in ("minv", "w_mean", "w_m2", "w_sw"):
+            out[k] = to_tensor(_shared(k, fields[k], 1), device, dtype)
+        else:
+            out[k] = to_tensor(_shared(k, fields[k], 0), device, dtype)
+    return ChEESTune(**out)
+
+
+def slice_tune(tune, device, dtype: torch.dtype) -> SliceTune:
+    """A slice tune (``width`` per chain ``(C, dim)`` or shared ``(dim,)``)
+    -> ``SliceTune`` with one shared ``(dim,)`` width."""
+    return SliceTune(width=to_tensor(_shared("width", _fields(tune)["width"], 1),
+                                     device, dtype))
+
+
+def amwg_tune(tune, device, dtype: torch.dtype) -> AMWGTune:
+    """An AMWG tune with per-chain ``sigma`` and ``accept`` ``(C, dim)`` ->
+    ``AMWGTune``; the counter, batch size and target are shared."""
+    f = _fields(tune)
+    return AMWGTune(
+        sigma=to_tensor(f["sigma"], device, dtype),
+        accept=torch.as_tensor(np.asarray(f["accept"]), dtype=torch.int32,
+                               device=device),
+        m=int(_shared("m", f["m"], 0)),
+        batchsize=int(_shared("batchsize", f["batchsize"], 0)),
+        target=float(_shared("target", f["target"], 0)))
+
+
+def advi_result(mu, log_sigma, model, inputs: dict, inits: dict, params=None,
+                *, device, dtype=None):
+    """An ADVI fit ``(mu, log_sigma)`` (the block's unconstrained ravel
+    order, which sorts sites by name in both packages) -> this package's
+    ``ADVIResult`` for ``model``, to sample from or warm-start with."""
+    from ..infer.advi import ADVIResult, _setup
+    cm, params, _, unpack, spec, _, state0 = _setup(
+        model, inputs, inits, params, device=device, dtype=dtype)
+    return ADVIResult(mu=cm.tensor(np.asarray(mu)),
+                      log_sigma=cm.tensor(np.asarray(log_sigma)),
+                      elbo_trace=np.zeros(0), params=params, _cm=cm,
+                      _unpack=unpack, _spec=spec, _state0=state0)
