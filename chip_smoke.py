@@ -8,10 +8,12 @@ toolkit.  It drives every arm of the JAX package's ``bench.py`` through the
 port's public entry points (``mcmc``, ``advi``, ``summarystats``,
 ``rhat_rank``, ``ess_bulk``), in these phases:
 
-1. device: the card's name and power limit;
+1. device: the card's name, power limit and SM clocks;
 2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` with nvcc (sm_90a);
-3. kernel: the fused GLMM kernel against its plain torch version at three
-   shapes, and both timed at full width;
+3. kernel: the fused GLMM kernel against its plain torch version in five
+   cases (``KERNEL_CASES``): full width, where both are timed; a ragged
+   edge; one chain; a shape that takes the generic kernel; and full width
+   near a posterior mode, where ``grad_beta`` cancels;
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
 6. rats NUTS, the bench's headline: ``rats.build("nuts")``, 1024 chains,
@@ -26,12 +28,16 @@ port's public entry points (``mcmc``, ``advi``, ``summarystats``,
 
 The GLMM phases 5 and 8 each set the kernel's launch count to 0 just before
 they run and read it just after.  Every phase raises on failure.  The whole
-run takes about 8 minutes on an H100 (486 s measured), 5.5 of them in the
-rats NUTS phase and 1.3 in rats ChEES.  The paths are host-bound, so the
-time follows the host's CPU.  The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it lists the kernel with
-its launches on the main paths, its error and its time.  With no CUDA device
-the script exits with status 2 and prints no result.
+run takes 8 to 14 minutes on an H100, 5 to 9 of them in the rats NUTS phase
+and 1 to 2 in rats ChEES.  The paths are host-bound, so the time follows the
+host's CPU.  The last line of standard output is ``{"ok": true, "device": {...}}``;
+the line before it lists the kernel with its launches on the main paths, its
+error, its time, the plain version's, and the least time the card could take
+(``bound_ms``, from ``ops.fused_glmm.glmm_bound_ms``: the floors set by
+memory, float32 arithmetic and the special-function pipe are in
+``floors_ms``, for the kernel's arithmetic and for the form with a polynomial
+logarithm; ``bound_floor`` names the one that sets the bound).  With no CUDA device the script exits with status 2 and
+prints no result.
 """
 
 from __future__ import annotations
@@ -43,8 +49,17 @@ import time
 
 import numpy as np
 
-#: phase-3 shapes (C chains, G groups); n = 10 observations, P = 4 effects
-KERNEL_CASES = ((1024, 10_000), (1000, 9_999), (1, 37))
+#: phase-3 cases: C chains, G groups, and unless given n = 10 observations
+#: and P = 4 effects, which is the shape the register kernel is compiled for;
+#: P = 3, n = 7 takes the generic kernel.  ``near_mode`` takes the GLMM's own
+#: data with every chain close to the truth, where grad_beta cancels.
+KERNEL_CASES = (
+    {"C": 1024, "G": 10_000},
+    {"C": 1000, "G": 9_999},
+    {"C": 1, "G": 37},
+    {"C": 33, "G": 300, "P": 3, "n": 7},
+    {"C": 1024, "G": 10_000, "near_mode": True},
+)
 #: lp relative error: a sum of 100k negative terms has no cancellation
 LP_RTOL = 1e-5
 #: gradient error max|d| / max|g_ref| over (grad_beta, grad_b): every
@@ -56,7 +71,8 @@ CHAINS = 1024
 GLMM_NUTS_RUN = (10, 5)
 #: rats NUTS headline (phase 6), cut from bench.py's 1500/500
 #: (bench.py:39-46): at 1024 chains the warmup trees are 9-10 deep and each
-#: leapfrog costs ~5 ms of host time, so 100 iterations take ~5.5 minutes
+#: leapfrog costs 5 to 9 ms of host time, by the host's load, so these 100
+#: iterations (60,668 leapfrogs) take 5 to 9 minutes
 RATS_NUTS_RUN = (100, 50)
 #: rats ChEES (phase 7), bench.py:63-98
 RATS_CHEES_RUN = (1500, 500)
@@ -88,12 +104,22 @@ def phase_device(torch):
     return card
 
 
+def sm_clocks_mhz():
+    """The card's SM clock now and at its most, in MHz."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    now, most = smi.stdout.strip().splitlines()[0].split(",")
+    return float(now), float(most)
+
+
 def phase_build(fg):
     t0 = time.perf_counter()
     fg.build_library()
     fg._lib()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    for line in (fg.BUILD_DIR / "fused_glmm.build.log").read_text().splitlines():
+    for line in fg.BUILD_LOG.read_text().splitlines():
         if "ptxas" in line and ("registers" in line or "Compiling" in line):
             log("  " + line.strip())
 
@@ -109,26 +135,26 @@ def _event_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def kernel_case(torch, fg, C, G, n=10, P=4, seed=0, time_reps=0):
+def kernel_case(torch, fg, glmm_cases, C, G, n=10, P=4, seed=0, near_mode=False,
+                time_reps=0):
     """Kernel (float32) against the plain version in float64 on the same
-    inputs; returns the errors and, with ``time_reps``, ms per call of the
-    kernel and of the float32 plain version."""
-    rng = np.random.default_rng(seed)
-    f32 = dict(dtype=torch.float32, device=DEVICE)
-    Xt = torch.as_tensor(rng.normal(0, 1, (P, n, G)), **f32)
-    y = torch.as_tensor((rng.random((n, G)) < 0.5).astype(np.float64), **f32)
-    betas = torch.as_tensor(rng.normal(0, 0.5, (C, P)), **f32)
-    bs = torch.as_tensor(rng.normal(0, 0.7, (C, G)), **f32)
-    args = (Xt, y, betas, bs)
+    inputs, with the float32 plain version's own errors beside it; with
+    ``time_reps`` also ms per call of the kernel and of the float32 plain
+    version."""
+    arrays = (glmm_cases.near_mode_inputs(G, C, seed, n=n) if near_mode
+              else glmm_cases.random_inputs(P, n, G, C, seed))
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                 for a in arrays)
+    plan = fg.kernel_plan(P, n, G, C)
     lp, gbeta, gb = fg.glmm_loglik_grads(*args)
     torch.cuda.synchronize()
-    lp_r, gbeta_r, gb_r = fg.glmm_loglik_grads_plain(*(a.double() for a in args))
-    lp_err = ((lp.double() - lp_r).abs() / lp_r.abs()).max().item()
-    gmax = max(gbeta_r.abs().max().item(), gb_r.abs().max().item())
-    gabs = max((gbeta.double() - gbeta_r).abs().max().item(),
-               (gb.double() - gb_r).abs().max().item())
-    out = {"C": C, "G": G, "lp_rel_err": lp_err, "grad_rel_err": gabs / gmax,
-           "grad_max_abs_err": gabs}
+    ref = fg.glmm_loglik_grads_plain(*(a.double() for a in args))
+    out = {"C": C, "G": G, "n": n, "P": P, "near_mode": near_mode, **plan,
+           **glmm_cases.glmm_errors((lp, gbeta, gb), ref)}
+    plain32 = glmm_cases.glmm_errors(fg.glmm_loglik_grads_plain(*args), ref)
+    out["plain_float32"] = {k: plain32[k] for k in ("grad_rel_err",
+                                                     "gbeta_rel_err")}
+    del ref
     # bit-for-bit reproducible: no float atomics in the reduction
     lp2, gbeta2, gb2 = fg.glmm_loglik_grads(*args)
     out["reproducible"] = bool(torch.equal(lp, lp2) and torch.equal(gbeta, gbeta2)
@@ -145,20 +171,26 @@ def kernel_case(torch, fg, C, G, n=10, P=4, seed=0, time_reps=0):
         p2 = _event_ms(torch, plain, time_reps)
         out.update(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                    ms_runs=[k1, k2], plain_ms_runs=[p1, p2])
-        out.update(us_per_call=out["ms"] * 1e3,
-                   plain_us_per_call=out["plain_ms"] * 1e3)
+        clock_now, clock_max = sm_clocks_mhz()
+        bound = fg.glmm_bound_ms(P, n, G, C, 1e6 * clock_max)
+        out.update(bound=bound, sm_clock_mhz=clock_now,
+                   sm_clock_max_mhz=clock_max,
+                   pct_of_bound=100 * bound["bound_ms"] / out["ms"])
     log("kernel vs plain: " + json.dumps(out))
     if not (out["lp_rel_err"] <= LP_RTOL and out["grad_rel_err"] <= GRAD_RTOL):
         raise AssertionError(f"fused GLMM kernel disagrees with its plain "
                              f"version at C={C}, G={G}: {out}")
     if not out["reproducible"]:
         raise AssertionError(f"fused GLMM kernel is not reproducible at C={C}, G={G}")
+    want = "glmm_reg_kernel" if (P, n) == (4, 10) else "glmm_generic_kernel"
+    if plan["kernel"] != want:
+        raise AssertionError(f"P={P}, n={n} ran {plan['kernel']}, not {want}")
     return out
 
 
-def phase_kernels(torch, fg):
-    return [kernel_case(torch, fg, C, G, time_reps=20 if i == 0 else 0)
-            for i, (C, G) in enumerate(KERNEL_CASES)]
+def phase_kernels(torch, fg, glmm_cases):
+    return [kernel_case(torch, fg, glmm_cases, **case, time_reps=20 if i == 0 else 0)
+            for i, case in enumerate(KERNEL_CASES)]
 
 
 def _recording(module, name, pick):
@@ -395,6 +427,7 @@ def main() -> int:
     from mamba_tpu_torch.models import glmm, rats
     from mamba_tpu_torch.ops import fused_glmm as fg
     from mamba_tpu_torch.samplers import chees, nuts
+    from mamba_tpu_torch.scripts import glmm_cases
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -410,7 +443,7 @@ def main() -> int:
 
     card = phase_device(torch)
     timed("build", phase_build, fg)
-    cases = timed("kernel", phase_kernels, torch, fg)
+    cases = timed("kernel", phase_kernels, torch, fg, glmm_cases)
     timed("glmm_recovery", phase_recovery, mt, glmm)
     glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts)
     timed("rats_nuts", phase_rats_nuts, torch, mt, rats, nuts)
@@ -423,7 +456,11 @@ def main() -> int:
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     slice_case = cases[0]
+    bound = slice_case["bound"]
     log(f"card: {card}")
+    # no single PyTorch call computes lp, grad_beta and grad_b together, so
+    # there is no library time.  bound_by says whether bytes or operations
+    # set the bound; bound_floor names the floor: "memory", "fp32" or "sfu"
     print(json.dumps({"kernels": [{
         "name": "fused_glmm_loglik_grads", "route": "cuda",
         "source": "mamba_tpu_torch/csrc/fused_glmm.cu",
@@ -432,7 +469,14 @@ def main() -> int:
         "max_abs_err": slice_case["grad_max_abs_err"],
         "lp_rel_err": slice_case["lp_rel_err"],
         "grad_rel_err": slice_case["grad_rel_err"],
-        "ms": slice_case["ms"], "plain_ms": slice_case["plain_ms"]}]}))
+        "ms": slice_case["ms"], "plain_ms": slice_case["plain_ms"],
+        "bound_ms": bound["bound_ms"],
+        "bound_by": "bytes" if bound["bound_by"] == "memory" else "operations",
+        "bound_floor": bound["bound_by"],
+        "floors_ms": {k[:-3]: v for k, v in bound.items() if k.endswith("_ms")
+                      and k != "bound_ms"},
+        "pct_of_bound": slice_case["pct_of_bound"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,13 @@ The hot function of the GLMM model (models/glmm.py with ``fused=True``) is
     lp(beta, b) = sum_{i,g} [ y * l - softplus(l) ],
     l[i, g] = sum_p Xt[p, i, g] * beta[p] + b[g]
 
-evaluated for every chain at every NUTS leapfrog.  On a CUDA device one
+evaluated for every chain at every leapfrog.  On a CUDA device one
 hand-written kernel (``csrc/fused_glmm.cu``) computes the log-likelihood and
 both gradients for all chains in one pass, without writing the logits to
-device memory.  On the CPU the same function runs as plain torch ops
-(``glmm_loglik_grads_plain``), which is also the kernel's reference.
+device memory.  On the CPU the same function runs as plain
+torch ops (``glmm_loglik_grads_plain``), which is also the kernel's reference.
+``glmm_work`` and ``glmm_bound_ms`` count a call's work and the least time an
+H100 could take for it.
 
 The kernel's library is built with ``nvcc`` at first use into ``build/`` at
 the root of the checkout and loaded with ``ctypes``.
@@ -39,9 +41,20 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_glmm.cu"
 #: build directory at the root of the checkout (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _LIB_PATH = BUILD_DIR / "libfused_glmm.so"
-_LOG_PATH = BUILD_DIR / "fused_glmm.build.log"
-#: fixed effects the kernel holds in registers (MAX_P in the source)
+#: what nvcc and ptxas said when the library was last built
+BUILD_LOG = BUILD_DIR / "libfused_glmm.build.log"
+#: how the source is compiled: Hopper only, ptxas' resource report kept
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+#: fixed effects the kernel takes (MAX_P in the source)
 MAX_P = 8
+
+#: published peaks of one NVIDIA H100 SXM: device memory, float32 outside the
+#: tensor cores, and special-function (MUFU) results per clock
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_FLOPS = 67e12
+H100_SMS = 132
+H100_MUFU_PER_CLOCK_PER_SM = 16
 
 
 def _nvcc() -> str:
@@ -59,16 +72,14 @@ def _nvcc() -> str:
 def build_library() -> Path:
     """Compile ``csrc/fused_glmm.cu`` for sm_90a unless the library is newer
     than its source.  The compiler's output (ptxas register and shared
-    memory report included) is kept in ``build/fused_glmm.build.log``."""
+    memory report included) is kept beside the library as ``BUILD_LOG``."""
     if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
         return _LIB_PATH
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    _LOG_PATH.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
+    BUILD_LOG.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, _LIB_PATH)      # atomic: a concurrent loader sees old or new
@@ -83,7 +94,48 @@ def _lib():
     lib.fused_glmm_loglik_grads.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.fused_glmm_loglik_grads.restype = ctypes.c_int
+    lib.fused_glmm_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.fused_glmm_plan.restype = ctypes.c_int
     return lib
+
+
+def glmm_work(P: int, n: int, G: int, C: int) -> dict:
+    """What one call must do, from its shapes.  ``bytes``: every input read
+    once, every output written once, float32.  ``flops`` and ``sfu`` count
+    the arithmetic as the kernel does it: 2P float32 operations for the
+    logit, 2P for grad_beta and 12 for the rest of an observation (each
+    transcendental counted once), and three special-function (MUFU) results,
+    an exp2, a log2 and a reciprocal.  Three is this design's count and no
+    floor of the function: log(t) on t in (1, 2] can be a polynomial of about
+    seven FMAs instead, which leaves two special-function results and adds 14
+    float32 operations (``poly_log_sfu``, ``poly_log_flops``)."""
+    N = C * n * G
+    floats = P * n * G + n * G + C * P + C * G + C + C * P + C * G
+    return {"bytes": 4 * floats, "flops": (4 * P + 12) * N, "sfu": 3 * N,
+            "poly_log_flops": (4 * P + 26) * N, "poly_log_sfu": 2 * N}
+
+
+def glmm_bound_ms(P: int, n: int, G: int, C: int, sm_clock_hz: float) -> dict:
+    """The least time in ms an H100 could take for one call.  ``memory_ms``,
+    ``fp32_ms`` and ``sfu_ms`` are the floors set by device memory, by float32
+    arithmetic and by the special-function pipe at ``sm_clock_hz`` for the
+    arithmetic as the kernel does it; ``poly_log_fp32_ms`` and
+    ``poly_log_sfu_ms`` are those of the form with a polynomial logarithm
+    (``glmm_work``).  Each form needs the larger of its two floors, the card
+    may take the cheaper form, and memory holds for both: that is
+    ``bound_ms``, with the floor that sets it (``"memory"``, ``"fp32"`` or
+    ``"sfu"``) as ``bound_by``."""
+    work = glmm_work(P, n, G, C)
+    sfu_rate = H100_SMS * H100_MUFU_PER_CLOCK_PER_SM * sm_clock_hz
+    out = {"memory_ms": 1e3 * work["bytes"] / H100_BYTES_PER_S,
+           "fp32_ms": 1e3 * work["flops"] / H100_FP32_FLOPS,
+           "sfu_ms": 1e3 * work["sfu"] / sfu_rate,
+           "poly_log_fp32_ms": 1e3 * work["poly_log_flops"] / H100_FP32_FLOPS,
+           "poly_log_sfu_ms": 1e3 * work["poly_log_sfu"] / sfu_rate}
+    forms = [max((out[f"{form}fp32_ms"], "fp32"), (out[f"{form}sfu_ms"], "sfu"))
+             for form in ("", "poly_log_")]
+    ms, by = max(min(forms), (out["memory_ms"], "memory"))
+    return {**out, "bound_ms": ms, "bound_by": by}
 
 
 def glmm_loglik_grads_plain(Xt, y, betas, bs):
@@ -105,7 +157,9 @@ def glmm_loglik_grads(Xt, y, betas, bs):
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     (float32, C-contiguous, one device), and anything else raises;
-    ``glmm_loglik_grads.launches`` counts the kernel launches."""
+    ``glmm_loglik_grads.launches`` counts the kernel launches.  The three
+    results are views of one allocation, which also holds the kernel's
+    scratch."""
     args = (Xt, y, betas, bs)
     if all(t.device.type == "cpu" for t in args):
         return glmm_loglik_grads_plain(*args)
@@ -131,11 +185,10 @@ def glmm_loglik_grads(Xt, y, betas, bs):
         raise ValueError(f"fused GLMM kernel takes 1..{MAX_P} fixed effects "
                          f"and at least one chain (got P={P}, C={C})")
     lib = _lib()
-    lp = torch.empty(C, dtype=torch.float32, device=dev)
-    gbeta = torch.empty(C, P, dtype=torch.float32, device=dev)
-    gb = torch.empty(C, G, dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.fused_glmm_scratch_floats(P, G, C),
-                          dtype=torch.float32, device=dev)
+    sizes = [C, C * P, C * G, lib.fused_glmm_scratch_floats(P, G, C)]
+    lp, gbeta, gb, scratch = torch.empty(
+        sum(sizes), dtype=torch.float32, device=dev).split(sizes)
+    gbeta, gb = gbeta.view(C, P), gb.view(C, G)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_glmm_loglik_grads(
@@ -149,6 +202,20 @@ def glmm_loglik_grads(Xt, y, betas, bs):
 
 
 glmm_loglik_grads.launches = 0
+
+
+def kernel_plan(P: int, n: int, G: int, C: int) -> dict:
+    """How the library would run a call of this shape on the current CUDA
+    device: which of its two kernels, chains per block, blocks in the grid
+    and the blocks the device holds at once."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().fused_glmm_plan(P, n, G, C, out)
+    if err != 0:
+        raise RuntimeError(f"fused GLMM kernel takes no such shape: "
+                           f"cudaError {err}")
+    return {"kernel": "glmm_reg_kernel" if out[0] else "glmm_generic_kernel",
+            "chains_per_block": out[1], "blocks": out[2],
+            "resident_blocks": out[3]}
 
 
 class bernoulli_logit_glmm_loglik(torch.autograd.Function):  # noqa: N801
