@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA device and the CUDA
-toolkit.  It drives every arm of the JAX package's ``bench.py`` through the
-port's public entry points (``mcmc``, ``advi``, ``summarystats``,
-``rhat_rank``, ``ess_bulk``), in these phases:
+toolkit.  It drives every arm of the JAX package's ``bench.py`` and four
+models of the zoo through the port's public entry points (``mcmc``,
+``advi``, ``summarystats``, ``rhat_rank``, ``ess_bulk``), in these phases:
 
 1. device: the card's name, power limit and SM clocks;
 2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` with nvcc (sm_90a);
@@ -17,20 +17,25 @@ port's public entry points (``mcmc``, ``advi``, ``summarystats``,
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
 6. rats NUTS, the bench's headline: ``rats.build("nuts")``, 1024 chains,
-   cut from 1500 to 100 iterations (50 burnin), gated on the golden
+   cut from 1500 to 50 iterations (25 burnin), gated on the golden
    mu_beta mean (rank R-hat and bulk ESS printed; they are gated only for
    runs of 500 kept draws or more);
 7. rats ChEES: ADVI warm start, then ChEES-HMC with the conjugate Gibbs
    block, 1024 chains x 1500 iterations (500 burnin), gated on the golden
    mu_beta mean, rank R-hat < 1.01 and bulk ESS > 400;
-8. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
+8. zoo: pumps, surgical, seeds (its reference scheme) and mice (NaN inits,
+   MISS) with the schemes their ``build()`` gives, 1024 chains each, gated
+   on the golden means of the JAX package's golden tests with those tests'
+   tolerances (``ZOO_RUNS``), on finite draws, and on no draw having come
+   from the global generator;
+9. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
    through the fused kernel, 1024 chains, a short run.
 
-The GLMM phases 5 and 8 each set the kernel's launch count to 0 just before
+The GLMM phases 5 and 9 each set the kernel's launch count to 0 just before
 they run and read it just after.  Every phase raises on failure.  The whole
-run takes 8 to 14 minutes on an H100, 5 to 9 of them in the rats NUTS phase
-and 1 to 2 in rats ChEES.  The paths are host-bound, so the time follows the
-host's CPU.  The last line of standard output is ``{"ok": true, "device": {...}}``;
+run takes 10 to 15 minutes on an H100, 3 to 5 of them in rats NUTS and 3.5
+to 5 in the zoo.  The paths are host-bound, so the time follows the host's
+CPU.  The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernel with its launches on the main paths, its
 error, its time, the plain version's, and the least time the card could take
 (``bound_ms``, from ``ops.fused_glmm.glmm_bound_ms``: the floors set by
@@ -71,13 +76,34 @@ CHAINS = 1024
 GLMM_NUTS_RUN = (10, 5)
 #: rats NUTS headline (phase 6), cut from bench.py's 1500/500
 #: (bench.py:39-46): at 1024 chains the warmup trees are 9-10 deep and each
-#: leapfrog costs 5 to 9 ms of host time, by the host's load, so these 100
-#: iterations (60,668 leapfrogs) take 5 to 9 minutes
-RATS_NUTS_RUN = (100, 50)
+#: leapfrog costs 5 to 9 ms of host time, by the host's load, so these 50
+#: iterations (31,662 leapfrogs) take 3 to 5 minutes
+RATS_NUTS_RUN = (50, 25)
 #: rats ChEES (phase 7), bench.py:63-98
 RATS_CHEES_RUN = (1500, 500)
-#: GLMM ChEES at full width (phase 8); depth cut from bench.py's 1300/300
+#: GLMM ChEES at full width (phase 9); depth cut from bench.py's 1300/300
 GLMM_CHEES_RUN = (20, 10)
+#: zoo (phase 8): model, scheme, iterations, burnin, and the gates of the JAX
+#: package's golden test of that model, {label: (golden mean, tolerance)}
+#: (tests/test_models_golden.py).  Those tests run 2 chains for 6,000-8,000
+#: iterations; with 1024 chains the kept draws can be few, and the depth is
+#: what the over-dispersed second init needs to reach the posterior under
+#: the reference's proposal widths.  No run keeps ``MIN_KEPT`` draws, so rank
+#: R-hat is printed and not gated: seeds' AMM + AMWG scheme is far from it at
+#: this depth in the JAX package too (its s2 collapses from b = 0 and takes
+#: about 8,000 iterations to come back).
+ZOO_RUNS = (
+    ("pumps", None, 300, 250, {"alpha": (0.6968, 0.08), "beta": (0.9304, 0.16),
+                               "theta[1]": (0.0599, 0.01)}),
+    ("surgical", None, 400, 350, {"mu": (-2.550, 0.12),
+                                  "pop_mean": (0.0731, 0.01),
+                                  "p[1]": (0.0536, 0.012)}),
+    ("seeds", "reference", 2000, 1600, {"alpha0": (-0.5562, 0.15),
+                                        "alpha12": (-0.7464, 0.3),
+                                        "s2": (0.0857, 0.07)}),
+    ("mice", None, 600, 500, {"r": (3.27, 0.45), "median[1]": (22.8, 1.5),
+                              "median[2]": (26.5, 1.8)}),
+)
 #: convergence gates of bench.py:48-52
 RHAT_MAX = 1.01
 ESS_MIN = 400.0
@@ -382,6 +408,67 @@ def phase_rats_chees(torch, mt, rats, chees):
     return res
 
 
+def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
+    """One zoo model at 1024 chains under its golden gates; raises on any
+    failure."""
+    import importlib
+    mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
+    model, inputs, inits = mod.build() if scheme is None else mod.build(scheme)
+    sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
+                  verbose=False, device=DEVICE)
+    v = sim.value
+    s = mt.summarystats(sim).to_dict()
+    kept = iters - burnin
+    converge = kept >= MIN_KEPT
+    res = {"model": name, "blocks": [repr(b) for b in model.samplers],
+           "iterations": iters, "burnin": burnin, **_timing(sim, CHAINS, iters),
+           "wall_ms_per_iteration": 1e3 * sim.timing["sample_s"] / iters,
+           "means": {k: s[k]["Mean"] for k in gates},
+           "golden": {k: g[0] for k, g in gates.items()},
+           "rhat_rank_max": float(np.max(mt.rhat_rank(v))),
+           "convergence_gated": converge,
+           "finite": bool(np.isfinite(v).all())}
+    # posterior-predictive draws of the data nodes on the card (Poisson,
+    # Binomial, truncated Weibull), from a generator of the script's own:
+    # finite and inside their support (outside it the density is -inf)
+    cm = sim.compiled
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    state = sim.states["state"]
+    sampled = {p for b in model.samplers if not isinstance(b, mt.MISS)
+               for p in b.params}
+    data = tuple(n for n in cm.stochastic if n not in sampled)
+    drawn = cm.forward_sample(gen, state, names=data)
+    res["predictive_nodes"] = list(data)
+    res["forward_sample_ok"] = bool(data) and all(
+        tuple(drawn[n].shape) == tuple(state[n].shape)
+        and bool(torch.isfinite(drawn[n]).all()) for n in data
+    ) and bool(torch.isfinite(torch.func.vmap(
+        lambda st: cm.logpdf(st, data))(drawn)).all())
+    log(f"zoo {name}: " + json.dumps(res))
+    failed = [k for k, (mean, tol) in gates.items()
+              if not abs(res["means"][k] - mean) < tol]
+    if v.shape != (kept, len(sim.names), CHAINS) or not res["finite"]:
+        failed.append("finite draws of the expected shape")
+    if converge and not res["rhat_rank_max"] < RHAT_MAX:
+        failed.append("rank R-hat")
+    if not res["forward_sample_ok"]:
+        failed.append("forward_sample")
+    if failed:
+        raise AssertionError(f"zoo {name}: gates failed: {failed}: {res}")
+    return res
+
+
+def phase_zoo(torch, mt):
+    # no draw may come from the global generators: their states must not move
+    before = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
+    out = [zoo_run(torch, mt, *run) for run in ZOO_RUNS]
+    after = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError("zoo: a draw came from a global generator")
+    return out
+
+
 def phase_glmm_chees(torch, mt, glmm, fg, chees):
     iters, burnin = GLMM_CHEES_RUN
     model, inputs, inits, _ = glmm.build(10_000, fused=True)
@@ -448,6 +535,7 @@ def main() -> int:
     glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts)
     timed("rats_nuts", phase_rats_nuts, torch, mt, rats, nuts)
     timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
+    timed("zoo", phase_zoo, torch, mt)
     glmm_chees = timed("glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
     log(f"fused kernel launches: GLMM NUTS {glmm_nuts['kernel_launches']}, "
         f"GLMM ChEES {glmm_chees['kernel_launches']}; wall ms per leapfrog: "

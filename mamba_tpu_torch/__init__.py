@@ -10,14 +10,14 @@ version that CPU tensors take.
 
 from .ops import bijectors
 from .ops import distributions as dists
-from .ops.distributions import Bernoulli, InverseGamma, Normal
+from .ops.distributions import *  # noqa: F401,F403
 from .model.nodes import Logical, Stochastic
 from .model.model import Model
 from .model.compile import CompiledModel, compile_model
 from .model.mcmc import mcmc
 from . import samplers
-from .samplers import (AMWG, HMC, MALA, NUTS, RWM, ChEESHMC, Gibbs, Slice,
-                       chees_init, chees_step)
+from .samplers import (AMM, AMWG, HMC, MALA, MISS, NUTS, RWM, ChEESHMC, Gibbs,
+                       Slice, chees_init, chees_step)
 from . import infer
 from .infer import ADVIResult, advi
 from . import models

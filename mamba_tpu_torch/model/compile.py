@@ -28,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.distributions.base import dist_flatten
 from ..utils.convert import to_tensor
 from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
 from .model import Model
@@ -86,6 +87,10 @@ class CompiledModel:
         #: concrete example distributions (bijector resolution, support
         #: metadata)
         self.example_dists = dists
+        #: every node's value at the example inits, as numpy (NaN entries of
+        #: an observed node mark its missing values)
+        self.example_values = {n: v.detach().cpu().numpy()
+                               for n, v in env.items()}
         self.sites: dict[str, SiteSpec] = {}
         for name in self.stochastic:
             shape = tuple(env[name].shape)
@@ -120,6 +125,31 @@ class CompiledModel:
 
     def _node_dist(self, name: str, env: dict):
         return self._call(self.model.nodes[name], env)
+
+    def node_dist(self, name: str, state: dict):
+        """Distribution of a stochastic node given ONE chain's state."""
+        return self._node_dist(name, self._eval_env(state))
+
+    def stacked_node_dist(self, name: str, state: dict):
+        """Distribution of a stochastic node given a chain-stacked state: the
+        node functions run under ``vmap`` and the distribution is rebuilt
+        from its chain-stacked parameters, chain axis first."""
+        rebuild = []
+
+        def leaves(st):
+            dist = self.node_dist(name, st)
+            flat, re = dist_flatten(dist)
+            rebuild.append(re)
+            if dist.event_ndim == 0:
+                # one rank for every parameter, so that they still broadcast
+                # against each other once each has the chain axis in front
+                rank = max((t.dim() for t in flat), default=0)
+                flat = [t.reshape((1,) * (rank - t.dim()) + tuple(t.shape))
+                        for t in flat]
+            return tuple(flat)
+
+        stacked = torch.func.vmap(leaves)(state)
+        return rebuild[0](stacked)
 
     # ---- full log density ---------------------------------------------
     def _site_lp(self, name: str, dist, value, *, support_mask=True) -> torch.Tensor:
@@ -252,6 +282,40 @@ class CompiledModel:
 
         out = (pack, unpack, spec, logf)
         self._block_cache[key] = out
+        return out
+
+    # ---- forward (generative) sampling --------------------------------
+    def forward_sample(self, gen, state: dict, names=None) -> dict:
+        """Draw the given stochastic nodes of a chain-stacked ``state`` from
+        their conditional priors in topo order (ancestral sampling), every
+        chain at once.  Powers prior init and MISS imputation (reference
+        miss.jl:54-59) and posterior-predictive draws (modelstats.jl:71-102).
+
+        A generator cannot be drawn from under ``vmap``: each node's
+        parameters are computed under it, and the draw is made once,
+        chain-stacked, outside."""
+        names = set(self.stochastic if names is None else names)
+        out = dict(state)
+        chains = next(iter(state.values())).shape[0]
+        for name in self.model.topo:
+            if name not in names:
+                continue
+            dist = self.stacked_node_dist(name, out)
+            target = tuple(self.sites[name].shape)
+            stacked = bool(dist_flatten(dist)[0])
+            per_chain = tuple(dist.batch_shape + dist.event_shape)[int(stacked):]
+            # distribution batch smaller than the node (parameter recycling,
+            # e.g. iid Normal(0, s) over an array node): the missing lead
+            # dims are drawn iid, never one draw copied.  A distribution of
+            # constants has no chain axis either, and gets one the same way.
+            lead = target[: len(target) - len(per_chain)]
+            if stacked:
+                val = dist.sample(gen, lead).movedim(len(lead), 0)
+            else:
+                val = dist.sample(gen, (chains,) + lead)
+            if tuple(val.shape[1:]) != target:      # trailing recycling
+                val = val.expand((chains,) + target)
+            out[name] = val.to(dtype=self.dtype, device=self.device)
         return out
 
     # ---- monitoring ----------------------------------------------------

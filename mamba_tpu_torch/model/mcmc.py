@@ -52,11 +52,19 @@ def _chain_inits(cm: CompiledModel, inits, chains: int):
             f"BernoulliLogitGLMM kernel) — per-chain MISS imputation would "
             f"silently evaluate every chain against chain 0's data. "
             f"Rebuild the model with the generic likelihood (fused=False).")
+    state = {n: cm.tensor(v) for n, v in stacked.items()}
     if nan_sites:
-        raise NotImplementedError(
-            f"sites {nan_sites} have missing (NaN) values: MISS imputation "
-            f"is not ported yet")
-    return {n: cm.tensor(v) for n, v in stacked.items()}
+        # prior-impute them before the first iteration so kernel
+        # initialization sees finite log-densities; the draws come from a
+        # generator of their own, so the run's stream does not depend on
+        # whether there were values to impute
+        gen = torch.Generator(device=cm.device)
+        gen.manual_seed(777)
+        filled = {n: torch.nan_to_num(v) for n, v in state.items()}
+        draws = cm.forward_sample(gen, filled, names=nan_sites)
+        for n in nan_sites:
+            state[n] = torch.where(torch.isnan(state[n]), draws[n], state[n])
+    return state
 
 
 def _build_kernels(cm: CompiledModel):

@@ -1,6 +1,14 @@
-"""Example models.  Each module exposes ``build() -> (model, inputs, inits,
-...)`` with its sampling scheme pre-assigned."""
+"""Example model zoo (reference doc/tutorial + doc/examples BUGS volumes):
+the models whose nodes are univariate, discrete or ``Mixed``.
 
-from . import glmm, line, rats
+Each module exposes ``build() -> (model, inputs, inits)`` with the
+reference's sampling scheme pre-assigned, and ``GOLDEN``, the published
+posterior means it reproduces."""
 
-__all__ = ["glmm", "line", "rats"]
+from . import (blocker, bones, dogs, dyes, epil, equiv, glmm, inhalers,
+               kidney, leuk, line, lsat, magnesium, mice, oxford, pumps, rats,
+               salm, seeds, stacks, surgical)
+
+__all__ = ["blocker", "bones", "dogs", "dyes", "epil", "equiv", "glmm",
+           "inhalers", "kidney", "leuk", "line", "lsat", "magnesium", "mice",
+           "oxford", "pumps", "rats", "salm", "seeds", "stacks", "surgical"]

@@ -120,6 +120,110 @@ class DiscreteUnivariateDistribution(UnivariateDistribution):
         raise NotImplementedError
 
 
+def _support(dist, x, cond):
+    """``cond`` (a mask computed from ``x`` alone) at the full batch shape."""
+    return cond.expand(torch.broadcast_shapes(x.shape, dist.batch_shape))
+
+
+def _is_int(x):
+    """Whole-number test for discrete values held in a float state."""
+    return torch.abs(x - torch.round(x)) < 1e-8
+
+
+# ---- random draws: every one takes the run's generator --------------------
+def _on(gen, *params):
+    """``_bc`` of the parameters, on the generator's device."""
+    return tuple(t.to(gen.device) for t in _bc(*params))
+
+
+def _rand(gen, shape, like):
+    """Uniform [0, 1) draws of shape ``shape + like.shape``."""
+    return torch.rand(tuple(shape) + tuple(like.shape), generator=gen,
+                      dtype=like.dtype, device=gen.device)
+
+
+def _randn(gen, shape, like):
+    return torch.randn(tuple(shape) + tuple(like.shape), generator=gen,
+                       dtype=like.dtype, device=gen.device)
+
+
+def _rexp(gen, shape, like):
+    """Standard exponential draws, strictly positive."""
+    return -torch.log1p(-_rand(gen, shape, like))
+
+
+def _rgamma(gen, shape, a):
+    """Gamma(a, 1) draws of shape ``shape + a.shape``."""
+    return torch._standard_gamma(
+        a.expand(tuple(shape) + tuple(a.shape)).contiguous(), generator=gen)
+
+
+def _rpoisson(gen, shape, lam):
+    return torch.poisson(
+        lam.expand(tuple(shape) + tuple(lam.shape)).contiguous(), generator=gen)
+
+
+def _rcategorical(gen, logits):
+    """One index per row of ``logits (..., K)`` (unnormalized log weights)."""
+    p = torch.softmax(logits, dim=-1)
+    idx = torch.multinomial(p.reshape(-1, p.shape[-1]), 1, replacement=True,
+                            generator=gen)
+    return idx.reshape(p.shape[:-1])
+
+
+# ---- distributions as trees of tensors ------------------------------------
+def dist_flatten(d):
+    """``(leaves, rebuild)``: the tensor parameters of a distribution, of a
+    distribution nested in it (``Truncated.base``) or of a tuple of them
+    (``Mixed.parts``), and a function that builds the same distribution from
+    new leaves.  It lets a distribution cross ``torch.func.vmap``, which
+    returns tensors only: the leaves come back chain-stacked and the rebuilt
+    distribution is drawn from once, outside ``vmap``."""
+    leaves = []
+
+    def walk(v):
+        if isinstance(v, torch.Tensor):
+            leaves.append(v)
+            return ("leaf", len(leaves) - 1)
+        if isinstance(v, Distribution) and dataclasses.is_dataclass(v):
+            return ("dist", type(v), [(f.name, walk(getattr(v, f.name)))
+                                      for f in dataclasses.fields(v)])
+        if isinstance(v, tuple) and any(isinstance(e, Distribution) for e in v):
+            return ("tuple", [walk(e) for e in v])
+        return ("static", v)
+
+    plan = walk(d)
+
+    def build(node, new):
+        kind = node[0]
+        if kind == "leaf":
+            return new[node[1]]
+        if kind == "static":
+            return node[1]
+        if kind == "tuple":
+            return tuple(build(e, new) for e in node[1])
+        obj = object.__new__(node[1])
+        for name, sub in node[2]:
+            object.__setattr__(obj, name, build(sub, new))
+        return obj
+
+    return leaves, lambda new: build(plan, list(new))
+
+
+def param_like(d, device=None):
+    """A 0-d tensor with the floating dtype that the distribution's tensor
+    parameters promote to (the default dtype when it has none): the ``like``
+    of a ``_bc`` call that has no value to take its dtype from."""
+    dtype = torch.get_default_dtype()
+    dev = device
+    for t in dist_flatten(d)[0]:
+        if t.is_floating_point():
+            dtype = torch.promote_types(dtype, t.dtype)
+        if dev is None:
+            dev = t.device
+    return torch.zeros((), dtype=dtype, device=dev)
+
+
 def _bc(*params, like=None):
     """Broadcast scalar-ish params to a common shape as float tensors.
 

@@ -5,20 +5,24 @@ model nodes."""
 
 from .base import BlockKernel, SamplerSpec, metropolis_accept
 from .custom import Gibbs
+from .amm import (AMM, AMMTune, amm_adapt, amm_init, amm_propose, amm_step)
 from .amwg import AMWG, AMWGTune, amwg_init, amwg_step
 from .chees import ChEESHMC, ChEESTune, chees_init, chees_step
 from .hmc import HMC, HMCTune, hmc_init, hmc_step
 from .mala import MALA, MALATune, mala_init, mala_step
+from .miss import MISS, missing_masks
 from .nuts import NUTS, NUTSTune, nuts_init, nuts_step, nutsepsilon
 from .rwm import RWM, RWMTune, rwm_init, rwm_step
 from .slice import (Slice, SliceTune, slice_init, slice_multivariate_step,
                     slice_univariate_step)
 
 __all__ = ["BlockKernel", "SamplerSpec", "metropolis_accept", "Gibbs",
+           "AMM", "AMMTune", "amm_adapt", "amm_init", "amm_propose", "amm_step",
            "AMWG", "AMWGTune", "amwg_init", "amwg_step",
            "ChEESHMC", "ChEESTune", "chees_init", "chees_step",
            "HMC", "HMCTune", "hmc_init", "hmc_step",
            "MALA", "MALATune", "mala_init", "mala_step",
+           "MISS", "missing_masks",
            "NUTS", "NUTSTune", "nuts_init", "nuts_step", "nutsepsilon",
            "RWM", "RWMTune", "rwm_init", "rwm_step",
            "Slice", "SliceTune", "slice_init", "slice_multivariate_step",

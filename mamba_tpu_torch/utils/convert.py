@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..samplers.amm import AMMTune
 from ..samplers.amwg import AMWGTune
 from ..samplers.chees import ChEESTune
 from ..samplers.nuts import NUTSTune
@@ -100,6 +101,27 @@ def amwg_tune(tune, device, dtype: torch.dtype) -> AMWGTune:
         m=int(_shared("m", f["m"], 0)),
         batchsize=int(_shared("batchsize", f["batchsize"], 0)),
         target=float(_shared("target", f["target"], 0)))
+
+
+def amm_tune(tune, device, dtype: torch.dtype) -> AMMTune:
+    """An AMM tune with per-chain fields (chain axis first: ``SigmaL``,
+    ``SigmaLm`` and ``Mvv`` ``(C, dim, dim)``, ``Mv`` ``(C, dim)``, ``m``
+    ``(C,)``) -> ``AMMTune``; ``beta`` and ``scale`` are shared."""
+    f = _fields(tune)
+    return AMMTune(
+        **{k: to_tensor(f[k], device, dtype)
+           for k in ("SigmaL", "SigmaLm", "Mv", "Mvv")},
+        m=torch.as_tensor(np.asarray(f["m"]), dtype=torch.int32, device=device),
+        beta=float(_shared("beta", f["beta"], 0)),
+        scale=float(_shared("scale", f["scale"], 0)))
+
+
+def tune_to_numpy(tune) -> dict:
+    """The way back: a tune of this package (a NamedTuple of tensors, ints
+    and floats) as ``{field: numpy value}``, to build the other
+    implementation's tune from."""
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in _fields(tune).items()}
 
 
 def advi_result(mu, log_sigma, model, inputs: dict, inits: dict, params=None,
