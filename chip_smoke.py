@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA device and the CUDA
-toolkit.  It drives every arm of the JAX package's ``bench.py`` and four
-models of the zoo through the port's public entry points (``mcmc``,
-``advi``, ``summarystats``, ``rhat_rank``, ``ess_bulk``), in these phases:
+toolkit.  It drives every arm of the JAX package's ``bench.py`` and fifteen
+runs of the model zoo through the port's public entry points (``mcmc``,
+``advi``, ``summarystats``, ``rhat_rank``, ``ess_bulk``,
+``forward_sample``), in these phases:
 
 1. device: the card's name, power limit and SM clocks;
 2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` with nvcc (sm_90a);
@@ -17,7 +18,7 @@ models of the zoo through the port's public entry points (``mcmc``,
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
 6. rats NUTS, the bench's headline: ``rats.build("nuts")``, 1024 chains,
-   cut from 1500 to 50 iterations (25 burnin), gated on the golden
+   cut from 1500 to 30 iterations (15 burnin), gated on the golden
    mu_beta mean (rank R-hat and bulk ESS printed; they are gated only for
    runs of 500 kept draws or more);
 7. rats ChEES: ADVI warm start, then ChEES-HMC with the conjugate Gibbs
@@ -28,14 +29,26 @@ models of the zoo through the port's public entry points (``mcmc``,
    on the golden means of the JAX package's golden tests with those tests'
    tolerances (``ZOO_RUNS``), on finite draws, and on no draw having come
    from the global generator;
-9. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
-   through the fused kernel, 1024 chains, a short run.
+9. zoo_mv, the multivariate half of the zoo (``ZOO_MV_RUNS``), 1024 chains
+   each: eyes (DGS on 48 indicators, its sweep replayed from a CUDA graph
+   and held equal to the eager sweep; SliceSimplex), jaws (BDiagNormal,
+   InverseWishart under AMWG) and line_abc (ABC) under the golden gates of
+   the JAX package's tests; pollution under each of its five binary
+   schemes (DGS gated on gamma[9] > 0.8 and gamma[2] < 0.6, BHMC's wall
+   hits per trajectory printed and held below ``max_hits``); short runs of
+   asthma (Multinomial, row simplexes), birats (MvNormal rows and an
+   InverseWishart under NUTS) and gk (a user distribution fit by ABC).
+   Every run is held to finite draws inside the support and draws
+   posterior-predictive data through ``forward_sample``; no draw may come
+   from a global generator;
+10. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
+    through the fused kernel, 1024 chains, a short run.
 
-The GLMM phases 5 and 9 each set the kernel's launch count to 0 just before
+The GLMM phases 5 and 10 each set the kernel's launch count to 0 just before
 they run and read it just after.  Every phase raises on failure.  The whole
-run takes 10 to 15 minutes on an H100, 3 to 5 of them in rats NUTS and 3.5
-to 5 in the zoo.  The paths are host-bound, so the time follows the host's
-CPU.  The last line of standard output is ``{"ok": true, "device": {...}}``;
+run takes 13 to 17 minutes on an H100, 2 to 3 of them in rats NUTS, 5 to
+6.5 in the zoo and 3 in zoo_mv.  The paths are host-bound, so the time follows the
+host's CPU.  The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernel with its launches on the main paths, its
 error, its time, the plain version's, and the least time the card could take
 (``bound_ms``, from ``ops.fused_glmm.glmm_bound_ms``: the floors set by
@@ -76,12 +89,13 @@ CHAINS = 1024
 GLMM_NUTS_RUN = (10, 5)
 #: rats NUTS headline (phase 6), cut from bench.py's 1500/500
 #: (bench.py:39-46): at 1024 chains the warmup trees are 9-10 deep and each
-#: leapfrog costs 5 to 9 ms of host time, by the host's load, so these 50
-#: iterations (31,662 leapfrogs) take 3 to 5 minutes
-RATS_NUTS_RUN = (50, 25)
+#: leapfrog costs 5 to 9 ms of host time, by the host's load, so these 30
+#: iterations take 2 to 3 minutes.  Cut from 50/25 when zoo_mv came in;
+#: the mean over 1024 chains still clears the mu_beta gate (PERF.md §4)
+RATS_NUTS_RUN = (30, 15)
 #: rats ChEES (phase 7), bench.py:63-98
 RATS_CHEES_RUN = (1500, 500)
-#: GLMM ChEES at full width (phase 9); depth cut from bench.py's 1300/300
+#: GLMM ChEES at full width (phase 10); depth cut from bench.py's 1300/300
 GLMM_CHEES_RUN = (20, 10)
 #: zoo (phase 8): model, scheme, iterations, burnin, and the gates of the JAX
 #: package's golden test of that model, {label: (golden mean, tolerance)}
@@ -103,6 +117,33 @@ ZOO_RUNS = (
                                         "s2": (0.0857, 0.07)}),
     ("mice", None, 600, 500, {"r": (3.27, 0.45), "median[1]": (22.8, 1.5),
                               "median[2]": (26.5, 1.8)}),
+)
+#: zoo_mv (phase 9): the models of the multivariate half of the zoo, each
+#: with its ``build()`` scheme and both inits, at 1024 chains: model, scheme,
+#: iterations, burnin, and the gates {label: (golden mean, tolerance)} of the
+#: JAX package's golden test of that model (tests/test_models_golden.py).
+#: Runs with no gates are short runs, held to finite draws inside their
+#: support, their means printed beside ``GOLDEN``; pollution's DGS run is held
+#: to gamma[9] > 0.8 and gamma[2] < 0.6 instead.  Depths are what the
+#: over-dispersed inits need (CPU runs at 64 chains in both packages): eyes'
+#: lam[2] clears its gate after ~1,000 iterations, jaws' Sigma[4,4] after
+#: ~250, line_abc's beta[1] after ~150.
+ZOO_MV_RUNS = (
+    ("eyes", None, 1100, 1050, {"P[1]": (0.6036, 0.08), "lam[1]": (536.753, 1.5),
+                                "lam[2]": (548.987, 1.5)}),
+    ("jaws", None, 400, 300, {"beta1": (1.8743, 0.1), "Sigma[1,1]": (6.7916, 1.5),
+                              "Sigma[4,4]": (8.0594, 1.8)}),
+    ("pollution", "dgs", 300, 200, {}),
+    ("pollution", "bhmc", 6, 3, {}),
+    ("pollution", "bmc3", 40, 20, {}),
+    ("pollution", "bmg", 40, 20, {}),
+    ("pollution", "bia", 40, 20, {}),
+    ("line_abc", None, 300, 200, {"beta[1]": (0.7235, 0.4),
+                                  "beta[2]": (0.7747, 0.15),
+                                  "s2": (1.3074, 0.9)}),
+    ("asthma", None, 40, 20, {}),
+    ("birats", None, 4, 2, {}),
+    ("gk", None, 60, 30, {}),
 )
 #: convergence gates of bench.py:48-52
 RHAT_MAX = 1.01
@@ -469,6 +510,165 @@ def phase_zoo(torch, mt):
     return out
 
 
+def _predictive(torch, mt, cm, model, state):
+    """Posterior-predictive draws of the data nodes through
+    ``forward_sample``, from a generator of the script's own: the names, and
+    whether every draw has its node's shape, is finite and (where the node
+    has a density) inside its support."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    sampled = {p for b in model.samplers if not isinstance(b, mt.MISS)
+               for p in b.params}
+    data = tuple(n for n in cm.stochastic if n not in sampled)
+    drawn = cm.forward_sample(gen, state, names=data)
+    ok = bool(data) and all(
+        tuple(drawn[n].shape) == tuple(state[n].shape)
+        and bool(torch.isfinite(drawn[n]).all()) for n in data)
+    try:
+        lp = torch.func.vmap(lambda st: cm.logpdf(st, data))(drawn)
+        ok = ok and bool(torch.isfinite(lp).all())
+    except NotImplementedError:     # gk's data node has no density
+        pass
+    return list(data), ok
+
+
+def _in_support(torch, name, sim):
+    """The support checks of the zoo_mv table: kept simplex rows inside the
+    simplex, final covariance matrices positive definite, binary draws in
+    {0, 1}; every draw finite."""
+    v, names = sim.value, sim.names
+    state = sim.states["state"]
+    ok = bool(np.isfinite(v).all())
+    if name == "eyes":
+        P = v[:, [names.index("P[1]"), names.index("P[2]")], :]
+        ok = ok and bool(((P > 0) & (P < 1)).all())
+        ok = ok and bool((torch.abs(state["P"].sum(-1) - 1) < 1e-5).all())
+    if name == "asthma":
+        q = state["q"]
+        ok = ok and bool(((q > 0) & (q < 1)).all()
+                         and (torch.abs(q.sum(-1) - 1) < 1e-5).all())
+    if name in ("jaws", "birats"):
+        ok = ok and bool((torch.linalg.eigvalsh(state["Sigma"].double()) > 0).all())
+    if name == "pollution":
+        ok = ok and set(np.unique(v).tolist()) <= {0.0, 1.0}
+    return ok
+
+
+def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
+    """One model of the multivariate half of the zoo at 1024 chains under
+    its gates; raises on any failure."""
+    import importlib
+    mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
+    model, inputs, inits = mod.build() if scheme is None else mod.build(scheme)
+    hits, restore = _recording(binary, "bhmc_step",
+                               lambda out: out[1].wallhits.detach().cpu())
+    try:
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE)
+    finally:
+        restore()
+    v = sim.value
+    means = v.mean(axis=(0, 2))
+    golden = getattr(mod, "GOLDEN", {})
+    label = name if scheme is None else f"{name}:{scheme}"
+    res = {"model": label, "blocks": [repr(b) for b in model.samplers],
+           "iterations": iters, "burnin": burnin, **_timing(sim, CHAINS, iters),
+           "wall_ms_per_iteration": 1e3 * sim.timing["sample_s"] / iters,
+           "means": {k: float(means[sim.names.index(k)]) for k in golden
+                     if k in sim.names},
+           "golden": {k: g["Mean"] for k, g in golden.items()},
+           "in_support": _in_support(torch, name, sim)}
+    if gates:
+        s = mt.summarystats(sim).to_dict()
+        res["gated_means"] = {k: s[k]["Mean"] for k in gates}
+    if hits:                                   # BHMC: hits per trajectory
+        per = torch.diff(torch.stack([torch.zeros_like(hits[0])] + hits), dim=0)
+        res["bhmc_wall_hits_per_trajectory"] = {
+            "mean": float(per.float().mean()), "max": int(per.max()),
+            "max_hits": 10000}
+    if name == "pollution" and scheme == "dgs":
+        res["alphabeta_float32_error_sd"] = _alphabeta_float32_error(
+            torch, sim.compiled, sim.states["state"])
+    if any(isinstance(b, mt.DGS) for b in model.samplers):
+        res["dgs_sweep"] = _dgs_graph_check(torch, mt, sim.compiled, model,
+                                            sim.states["state"])
+    res["predictive_nodes"], res["forward_sample_ok"] = _predictive(
+        torch, mt, sim.compiled, model, sim.states["state"])
+    log(f"zoo_mv {label}: " + json.dumps(res))
+    failed = [k for k, (mean, tol) in gates.items()
+              if not abs(res["gated_means"][k] - mean) < tol]
+    if v.shape != (iters - burnin, len(sim.names), CHAINS) or not res["in_support"]:
+        failed.append("finite draws of the expected shape inside the support")
+    if name == "pollution" and scheme == "dgs":
+        g = res["means"]
+        if not (g["gamma[9]"] > 0.8 and g["gamma[2]"] < 0.6):
+            failed.append("gamma[9] > 0.8 and gamma[2] < 0.6")
+    if "dgs_sweep" in res and not res["dgs_sweep"]["graph_equals_eager"]:
+        failed.append("the DGS sweep replayed from its CUDA graph")
+    if hits and not res["bhmc_wall_hits_per_trajectory"]["max"] < 10000:
+        failed.append("a BHMC trajectory reached max_hits")
+    if not res["forward_sample_ok"]:
+        failed.append("forward_sample")
+    if failed:
+        raise AssertionError(f"zoo_mv {label}: gates failed: {failed}: {res}")
+    return res
+
+
+def _dgs_graph_check(torch, mt, cm, model, state, reps=5):
+    """The model's DGS block at the run's final state, replayed from its
+    CUDA graph by the engine's kernel and run eagerly by the stand-alone
+    ``dgs_step`` from the same generator state: whether the draws are equal,
+    and the wall ms per sweep of each."""
+    from mamba_tpu_torch.samplers import dgs
+    from mamba_tpu_torch.samplers.base import candidate_logf
+    (name,) = next(b for b in model.samplers if isinstance(b, mt.DGS)).params
+    kern = mt.DGS(name).build(cm)
+    tune = kern.init(None, state)
+    pack, _, _, logf = cm.block_functions((name,), False)
+    x = torch.func.vmap(pack)(state)
+    f = candidate_logf(torch.func.vmap(logf), state)
+    runs = {"graph": lambda gen: kern.step(gen, state, tune, False)[0][name],
+            "eager": lambda gen: dgs.dgs_step(gen, x, tune[0], f)[0]}
+    out, ms = {}, {}
+    for which, run in runs.items():
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(3)
+        out[which] = run(gen).reshape(x.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run(gen)
+        torch.cuda.synchronize()
+        ms[which] = 1e3 * (time.perf_counter() - t0) / reps
+    return {"graph_equals_eager": bool(torch.equal(out["graph"], out["eager"])),
+            "graph_ms": ms["graph"], "eager_ms": ms["eager"]}
+
+
+def _alphabeta_float32_error(torch, cm, state):
+    """pollution's conjugate (alpha, beta) mean solved in float32 against the
+    float64 solve the model uses, at the run's final state: the largest
+    error over chains and coordinates, in posterior standard deviations."""
+    from mamba_tpu_torch.models import pollution
+    env = {**cm.inputs, **torch.func.vmap(cm.eval_logicals)(state)}
+    mu64, L64 = pollution.alphabeta_moments(env, torch.float64)
+    mu32, _ = pollution.alphabeta_moments(env, torch.float32)
+    eye = torch.eye(L64.shape[-1], dtype=torch.float64, device=L64.device)
+    sd = torch.sqrt(torch.diagonal(torch.cholesky_solve(eye.expand_as(L64), L64),
+                                   dim1=-2, dim2=-1))
+    return float(torch.nan_to_num((mu32.double() - mu64).abs() / sd,
+                                  nan=float("inf")).max())
+
+
+def phase_zoo_mv(torch, mt):
+    from mamba_tpu_torch.samplers import binary
+    before = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
+    out = [zoo_mv_run(torch, mt, binary, *run) for run in ZOO_MV_RUNS]
+    after = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError("zoo_mv: a draw came from a global generator")
+    return out
+
+
 def phase_glmm_chees(torch, mt, glmm, fg, chees):
     iters, burnin = GLMM_CHEES_RUN
     model, inputs, inits, _ = glmm.build(10_000, fused=True)
@@ -536,6 +736,7 @@ def main() -> int:
     timed("rats_nuts", phase_rats_nuts, torch, mt, rats, nuts)
     timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
     timed("zoo", phase_zoo, torch, mt)
+    timed("zoo_mv", phase_zoo_mv, torch, mt)
     glmm_chees = timed("glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
     log(f"fused kernel launches: GLMM NUTS {glmm_nuts['kernel_launches']}, "
         f"GLMM ChEES {glmm_chees['kernel_launches']}; wall ms per leapfrog: "

@@ -16,8 +16,9 @@ from .model.model import Model
 from .model.compile import CompiledModel, compile_model
 from .model.mcmc import mcmc
 from . import samplers
-from .samplers import (AMM, AMWG, HMC, MALA, MISS, NUTS, RWM, ChEESHMC, Gibbs,
-                       Slice, chees_init, chees_step)
+from .samplers import (ABC, AMM, AMWG, BHMC, BIA, BMC3, BMG, DGS, HMC, MALA,
+                       MISS, NUTS, RWM, ChEESHMC, Gibbs, Slice, SliceSimplex,
+                       chees_init, chees_step)
 from . import infer
 from .infer import ADVIResult, advi
 from . import models

@@ -203,7 +203,8 @@ class CompiledModel:
         example = {p: np.zeros(s) for p, s in shapes.items()}
         return make_ravel_spec(example, dtype=self.dtype)
 
-    def block_functions(self, params: tuple[str, ...], transform: bool):
+    def block_functions(self, params: tuple[str, ...], transform: bool,
+                        prior_only: bool = False):
         """Returns (pack, unpack, spec, logf), each on ONE chain's values:
 
         - ``pack(state) -> flat``          (reference unlist, simulation.jl:110-134)
@@ -211,13 +212,16 @@ class CompiledModel:
         - ``logf(flat, state) -> scalar``  (reference logpdf!, simulation.jl:77-90)
 
         With ``transform=True`` the flat vector is unconstrained and ``logf``
-        includes the log-Jacobian of the block's own sites.
+        includes the log-Jacobian of the block's own sites.  With
+        ``prior_only=True`` ``logf`` sums the params' own densities (and
+        Jacobians) only, not their targets': the ABC sampler's log prior
+        (reference abc.jl:46, 105-107).
         """
-        key = (tuple(params), bool(transform))
+        key = (tuple(params), bool(transform), bool(prior_only))
         if key in self._block_cache:
             return self._block_cache[key]
         params = tuple(params)
-        terms = self.block_terms(params)
+        terms = params if prior_only else self.block_terms(params)
         spec = self.block_ravel_spec(params, transform)
         pset = set(params)
 

@@ -1,5 +1,5 @@
-"""Distribution library (batched torch): the univariate, discrete and mixed
-families; the multivariate ones are still to be ported."""
+"""Distribution library (batched torch): the univariate, discrete, mixed,
+multivariate and matrix-variate families."""
 
 from .base import (Distribution, UnivariateDistribution,
                    DiscreteUnivariateDistribution, distribution)
@@ -19,6 +19,10 @@ from .discrete import (Bernoulli, Binomial, Poisson, Geometric,
                        Hypergeometric)
 from .discrete_extra import PoissonBinomial, Skellam, NoncentralHypergeometric
 from .mixed import Blockwise, Mixed
+from .multivariate import (MvNormal, MvNormalIso, MvNormalDiag, MvNormalFull,
+                           MvNormalCanon, MvTDist, Dirichlet, Multinomial,
+                           BDiagNormal, Wishart, InverseWishart)
+from .multivariate_extra import VonMisesFisher, log_bessel_i
 
 __all__ = [
     "Distribution", "UnivariateDistribution", "DiscreteUnivariateDistribution",
@@ -34,5 +38,8 @@ __all__ = [
     "Bernoulli", "Binomial", "Poisson", "Geometric", "NegativeBinomial",
     "Categorical", "DiscreteUniform", "Hypergeometric",
     "PoissonBinomial", "Skellam", "NoncentralHypergeometric",
+    "MvNormal", "MvNormalIso", "MvNormalDiag", "MvNormalFull", "MvNormalCanon",
     "Mixed", "Blockwise",
+    "MvTDist", "Dirichlet", "Multinomial", "BDiagNormal", "Wishart",
+    "InverseWishart", "VonMisesFisher", "log_bessel_i",
 ]

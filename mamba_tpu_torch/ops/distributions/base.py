@@ -136,6 +136,11 @@ def _on(gen, *params):
     return tuple(t.to(gen.device) for t in _bc(*params))
 
 
+def _cast_on(gen, *params):
+    """``_cast`` of the parameters, on the generator's device."""
+    return tuple(t.to(gen.device) for t in _cast(*params))
+
+
 def _rand(gen, shape, like):
     """Uniform [0, 1) draws of shape ``shape + like.shape``."""
     return torch.rand(tuple(shape) + tuple(like.shape), generator=gen,
@@ -231,6 +236,12 @@ def _bc(*params, like=None):
     promoted to its dtype and device, so a model lambda's ``torch.zeros(G)``
     (default dtype) meets a float64 state on the CPU without losing
     precision; Python numbers are converted straight to that dtype."""
+    return tuple(torch.broadcast_tensors(*_cast(*params, like=like)))
+
+
+def _cast(*params, like=None):
+    """``_bc`` without the broadcast: each parameter keeps its own shape (the
+    vector and matrix parameters of a multivariate distribution)."""
     tensors = [p for p in params if isinstance(p, torch.Tensor)]
     if like is not None and like.is_floating_point():
         dtype, device = like.dtype, like.device
@@ -240,6 +251,15 @@ def _bc(*params, like=None):
             if t.is_floating_point():
                 dtype = torch.promote_types(dtype, t.dtype)
         device = tensors[0].device if tensors else None
-    out = [p.to(dtype=dtype, device=device) if isinstance(p, torch.Tensor)
-           else torch.as_tensor(p, dtype=dtype, device=device) for p in params]
-    return tuple(torch.broadcast_tensors(*out))
+    # a parameter that already has the dtype and device is taken as it is:
+    # ``to`` would return it too, after a dispatch that costs host time.  A
+    # Python number becomes a tensor by a fill on the device, not by a copy
+    # from the host, which would wait for the device (and cannot be captured
+    # in a CUDA graph)
+    return tuple((p if p.dtype == dtype and (device is None or p.device == device)
+                  else p.to(dtype=dtype, device=device))
+                 if isinstance(p, torch.Tensor)
+                 else torch.full((), p, dtype=dtype, device=device)
+                 if isinstance(p, (int, float))
+                 else torch.as_tensor(p, dtype=dtype, device=device)
+                 for p in params)

@@ -7,6 +7,9 @@ SamplerVariate).  Two levels, as in the JAX package:
    ``<name>_init(gen, x0, ...) -> tune`` and ``<name>_step(gen, x, tune,
    logf, adapt) -> (x', tune')`` on chain-stacked flat vectors ``x (C,
    dim)`` with a user-supplied batched log-density — usable with no Model.
+   ``logf(x (C, dim)) -> (C,)``; the kernels that score several candidate
+   points per chain at once (DGS, BHMC, BIA, BMC3, BMG) also call it on
+   ``(C, m, dim)`` and take ``(C, m)`` back.
 
 2. **Engine specs**: ``SamplerSpec`` subclasses bind a kernel to a block of
    model nodes.  ``build(compiled_model)`` returns a ``BlockKernel`` whose
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -70,7 +74,7 @@ class SamplerSpec:
             vlogf = torch.func.vmap(logf)
 
             def make_f(state):
-                return lambda x: vlogf(x, state)
+                return candidate_logf(vlogf, state)
 
         def init(gen, state):
             return self.kernel_init(gen, vpack(state), make_f(state))
@@ -84,6 +88,58 @@ class SamplerSpec:
 
     def __repr__(self):
         return f"{type(self).__name__}({list(self.params)})"
+
+
+def candidate_logf(vlogf, state):
+    """``x -> vlogf(x, state)`` for chain-stacked points ``x (C, dim)``, and
+    for ``m`` candidate points per chain ``x (C, m, dim) -> (C, m)``: the
+    candidates are folded into the chain axis against the state repeated
+    ``m`` times (once per ``m``), which dispatches faster than a second
+    ``vmap``."""
+    repeated = {}
+
+    def f(x):
+        if x.dim() == 2:
+            return vlogf(x, state)
+        C, m = x.shape[:2]
+        if m not in repeated:
+            repeated[m] = {k: v[:, None].expand((C, m) + v.shape[1:]).reshape(
+                (C * m,) + v.shape[1:]) for k, v in state.items()}
+        return vlogf(x.reshape(C * m, -1), repeated[m]).reshape(C, m)
+    return f
+
+
+def validate(x):
+    """No-op validator: continuous-support kernels accept any vector
+    (reference sampler.jl:72)."""
+    return x
+
+
+def _host(x):
+    """``x`` as a numpy array on the host.  The validators run once, at
+    stand-alone kernel construction, so the copy is not on any loop."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def validatebinary(x):
+    """Require every element to be 0/1 (reference sampler.jl:75-79)."""
+    arr = _host(x)
+    if not np.all((arr == 0) | (arr == 1)):
+        raise ValueError("variate is not a binary vector")
+    return x
+
+
+def validatesimplex(x, atol: float = 1e-8):
+    """Require a probability vector (reference sampler.jl:81-83): entries at
+    least ``-atol`` and a sum within 1e-6 of 1.  Chain-stacked ``x (C, K)``
+    is checked row by row."""
+    arr = _host(x)
+    if not (np.all(arr >= -atol)
+            and np.all(np.abs(arr.sum(-1) - 1.0) < 1e-6)):
+        raise ValueError("variate is not a probability vector")
+    return x
 
 
 def metropolis_accept(gen, log_ratio, x_new, x_old):

@@ -10,14 +10,20 @@ chain row holds the same value before it keeps one."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..samplers.abc import ABCTune
 from ..samplers.amm import AMMTune
 from ..samplers.amwg import AMWGTune
+from ..samplers.binary import BHMCTune, BIATune, IndexSelect
 from ..samplers.chees import ChEESTune
+from ..samplers.dgs import DGSTune
 from ..samplers.nuts import NUTSTune
 from ..samplers.slice import SliceTune
+from ..samplers.slicesimplex import SliceSimplexTune
 
 
 def to_tensor(v, device, dtype: torch.dtype) -> torch.Tensor:
@@ -37,7 +43,11 @@ def to_tensors(tree: dict, device, dtype: torch.dtype) -> dict:
 
 
 def _fields(tune) -> dict:
-    return dict(tune._asdict() if hasattr(tune, "_asdict") else tune)
+    if hasattr(tune, "_asdict"):
+        return dict(tune._asdict())
+    if dataclasses.is_dataclass(tune):
+        return {f.name: getattr(tune, f.name) for f in dataclasses.fields(tune)}
+    return dict(tune)
 
 
 def _shared(name: str, v, ndim: int) -> np.ndarray:
@@ -116,12 +126,71 @@ def amm_tune(tune, device, dtype: torch.dtype) -> AMMTune:
         scale=float(_shared("scale", f["scale"], 0)))
 
 
+def slicesimplex_tune(tune, device, dtype: torch.dtype) -> SliceSimplexTune:
+    """A SliceSimplex tune (``scale`` per chain or shared) ->
+    ``SliceSimplexTune`` with one shared scale."""
+    return SliceSimplexTune(scale=to_tensor(
+        _shared("scale", _fields(tune)["scale"], 0), device, dtype))
+
+
+def dgs_tune(tune, device, dtype: torch.dtype) -> DGSTune:
+    """A DGS tune (the support grid and its mask, ``(n, K)`` each, per chain
+    or shared) -> ``DGSTune``."""
+    f = _fields(tune)
+    return DGSTune(support=to_tensor(_shared("support", f["support"], 2),
+                                     device, dtype),
+                   mask=torch.as_tensor(_shared("mask", f["mask"], 2),
+                                        dtype=torch.bool, device=device))
+
+
+def bhmc_tune(tune, device, dtype: torch.dtype) -> BHMCTune:
+    """A BHMC tune with per-chain ``position``, ``velocity`` ``(C, n)`` and
+    counters ``(C,)`` -> ``BHMCTune``; ``traveltime`` is shared."""
+    f = _fields(tune)
+    counts = {k: torch.as_tensor(np.asarray(f[k]), dtype=torch.int32,
+                                 device=device)
+              for k in ("wallhits", "wallcrosses")}
+    return BHMCTune(traveltime=float(_shared("traveltime", f["traveltime"], 0)),
+                    position=to_tensor(f["position"], device, dtype),
+                    velocity=to_tensor(f["velocity"], device, dtype), **counts)
+
+
+def bia_tune(tune, device, dtype: torch.dtype) -> BIATune:
+    """A BIA tune with per-chain ``A``, ``D`` ``(C, n)`` -> ``BIATune``;
+    ``epsilon``, ``decay``, ``target`` and the counter are shared."""
+    f = _fields(tune)
+    return BIATune(A=to_tensor(f["A"], device, dtype),
+                   D=to_tensor(f["D"], device, dtype),
+                   **{k: float(_shared(k, f[k], 0))
+                      for k in ("epsilon", "decay", "target")},
+                   iter=int(_shared("iter", f["iter"], 0)))
+
+
+def index_tune(tune, device, dtype: torch.dtype) -> IndexSelect:
+    """A BMC3 or BMG tune (``k``, or the group masks ``(G, n)``) ->
+    ``IndexSelect``."""
+    f = _fields(tune)
+    g = f["groups_mask"]
+    return IndexSelect(
+        groups_mask=None if g is None else torch.as_tensor(
+            _shared("groups_mask", g, 2), dtype=torch.bool, device=device),
+        k=int(_shared("k", f["k"], 0)))
+
+
+def abc_tune(tune, device, dtype: torch.dtype) -> ABCTune:
+    """An ABC tune, per chain (``Tsim (C, nsim, Tdim)``, tolerances
+    ``(C, nsim)``) -> ``ABCTune``."""
+    return ABCTune(**{k: to_tensor(v, device, dtype)
+                      for k, v in _fields(tune).items()})
+
+
 def tune_to_numpy(tune) -> dict:
-    """The way back: a tune of this package (a NamedTuple of tensors, ints
-    and floats) as ``{field: numpy value}``, to build the other
+    """The way back: a tune of this package (a NamedTuple of tensors, ints,
+    floats and None) as ``{field: numpy value}``, to build the other
     implementation's tune from."""
     return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v)) for k, v in _fields(tune).items()}
+                else None if v is None else np.asarray(v))
+            for k, v in _fields(tune).items()}
 
 
 def advi_result(mu, log_sigma, model, inputs: dict, inits: dict, params=None,

@@ -463,14 +463,10 @@ def test_mixed_sampling_in_distribution():
 # the protocol, the exports and the port's own special functions
 # ---------------------------------------------------------------------------
 
-MULTIVARIATE = {"MvNormal", "MvNormalIso", "MvNormalDiag", "MvNormalFull",
-                "MvNormalCanon", "MvTDist", "Dirichlet", "Multinomial",
-                "BDiagNormal", "Wishart", "InverseWishart", "VonMisesFisher",
-                "log_bessel_i"}
-
-
 def test_exports_are_the_jax_package_s_minus_the_multivariate_names():
-    assert set(td.__all__) == set(jd.__all__) - MULTIVARIATE
+    # the multivariate names were the last ones missing: the port now
+    # exports the JAX package's whole list
+    assert set(td.__all__) == set(jd.__all__)
     assert len(td.__all__) == len(set(td.__all__))
     for name in td.__all__:
         assert hasattr(td, name)
@@ -481,10 +477,12 @@ def test_exports_are_the_jax_package_s_minus_the_multivariate_names():
 
 def test_every_exported_class_has_a_parity_case():
     from test_torch_distributions_extra import EXTRA, DISCRETE_EXTRA
+    from test_torch_distributions_mv import CASES as MV
     covered = {c.name.split("-")[0] for c in
-               CASES + TRUNCATED + DISCRETE + EXTRA + DISCRETE_EXTRA}
+               CASES + TRUNCATED + DISCRETE + EXTRA + DISCRETE_EXTRA + MV}
     covered |= {"Mixed", "Blockwise", "Distribution", "UnivariateDistribution",
-                "DiscreteUnivariateDistribution", "distribution"}
+                "DiscreteUnivariateDistribution", "distribution",
+                "log_bessel_i"}
     assert covered == set(td.__all__)
 
 
