@@ -4,10 +4,13 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA device and the CUDA
-toolkit.  It drives every arm of the JAX package's ``bench.py`` and fifteen
-runs of the model zoo through the port's public entry points (``mcmc``,
-``advi``, ``summarystats``, ``rhat_rank``, ``ess_bulk``,
-``forward_sample``), in these phases:
+toolkit.  It drives every arm of the JAX package's ``bench.py``, fifteen
+runs of the model zoo, the output layer, MAP, SMC and the profiling tools
+through the port's public entry points (``mcmc``, ``advi``,
+``summarystats``, ``rhat_rank``, ``ess_bulk``, ``forward_sample``,
+``gelmandiag``, ``dic``, ``predict``, ``write_chains``/``read_chains``,
+``plot``/``draw``, ``optim_over``, ``smc``, ``utils.profiling``,
+``utils.roofline``), in these phases:
 
 1. device: the card's name, power limit and SM clocks;
 2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` with nvcc (sm_90a);
@@ -15,7 +18,8 @@ runs of the model zoo through the port's public entry points (``mcmc``,
    cases (``KERNEL_CASES``): full width, where both are timed; a ragged
    edge; one chain; a shape that takes the generic kernel; and full width
    near a posterior mode, where ``grad_beta`` cancels;
-4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains;
+4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains,
+   ``z`` monitored for the post phase;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
 6. rats NUTS, the bench's headline: ``rats.build("nuts")``, 1024 chains,
    cut from 1500 to 30 iterations (15 burnin), gated on the golden
@@ -42,13 +46,31 @@ runs of the model zoo through the port's public entry points (``mcmc``,
    posterior-predictive data through ``forward_sample``; no draw may come
    from a global generator;
 10. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
-    through the fused kernel, 1024 chains, a short run.
+    through the fused kernel, 1024 chains, a short run;
+11. post: the output layer on the 1024-chain pumps and jaws runs of phases
+    8 and 9 (``gelmandiag`` with MPSRF on the link scale, ``dic``,
+    ``logpdf_chains`` against ``compiled.logpdf``, ``predict`` inside the
+    data's support, a restart from a chain file bit-identical to the
+    restart from memory, SVG plots), the per-chain diagnostics on rats
+    ChEES's first 8 chains, and ``logpdf_chains``/``dic`` of the recovery
+    run through the kernel against the generic build;
+12. map: ``optim_over`` (L-BFGS) on the full-width GLMM through the kernel,
+    against the truth, the inits and the generic build; a MAP warm start
+    of line;
+13. smc: the conjugate model and line under the gates of
+    tests/test_infer.py, and the G = 64 GLMM through the kernel's ``vmap``
+    rule over 1024 particles;
+14. profile: a ``torch.profiler`` trace of full-width gradients that names
+    the kernel, ``time_compiled`` against phase 3's CUDA events, the card's
+    peaks and the kernel's bound from ``utils/roofline.py``, its
+    ``roofline`` reading and the elementwise ceiling.
 
-The GLMM phases 5 and 10 each set the kernel's launch count to 0 just before
-they run and read it just after.  Every phase raises on failure.  The whole
-run takes 13 to 17 minutes on an H100, 2 to 3 of them in rats NUTS, 5 to
-6.5 in the zoo and 3 in zoo_mv.  The paths are host-bound, so the time follows the
-host's CPU.  The last line of standard output is ``{"ok": true, "device": {...}}``;
+The kernel's paths (phases 5, 10, 12 and 13) each set its launch count to 0
+just before they run and read it just after.  Every phase raises on
+failure.  The whole run takes 15 to 18 minutes on an H100, 2 to 3 of them in
+rats NUTS, 5 to 6 in the zoo and 3 in zoo_mv; the paths are host-bound,
+so the time follows the host's CPU, and each phase's wall is printed.  The
+last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernel with its launches on the main paths, its
 error, its time, the plain version's, and the least time the card could take
 (``bound_ms``, from ``ops.fused_glmm.glmm_bound_ms``: the floors set by
@@ -61,6 +83,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -105,17 +128,20 @@ GLMM_CHEES_RUN = (20, 10)
 #: the reference's proposal widths.  No run keeps ``MIN_KEPT`` draws, so rank
 #: R-hat is printed and not gated: seeds' AMM + AMWG scheme is far from it at
 #: this depth in the JAX package too (its s2 collapses from b = 0 and takes
-#: about 8,000 iterations to come back).
+#: about 8,000 iterations to come back).  pumps was cut from 300/250,
+#: surgical from 400/350 and mice from 600/500, each where a CPU run at 64
+#: chains still cleared every gate (PERF.md §4); seeds and the zoo_mv runs
+#: keep their depths, their gates' margins being thin.
 ZOO_RUNS = (
-    ("pumps", None, 300, 250, {"alpha": (0.6968, 0.08), "beta": (0.9304, 0.16),
+    ("pumps", None, 280, 250, {"alpha": (0.6968, 0.08), "beta": (0.9304, 0.16),
                                "theta[1]": (0.0599, 0.01)}),
-    ("surgical", None, 400, 350, {"mu": (-2.550, 0.12),
+    ("surgical", None, 300, 250, {"mu": (-2.550, 0.12),
                                   "pop_mean": (0.0731, 0.01),
                                   "p[1]": (0.0536, 0.012)}),
     ("seeds", "reference", 2000, 1600, {"alpha0": (-0.5562, 0.15),
                                         "alpha12": (-0.7464, 0.3),
                                         "s2": (0.0857, 0.07)}),
-    ("mice", None, 600, 500, {"r": (3.27, 0.45), "median[1]": (22.8, 1.5),
+    ("mice", None, 450, 400, {"r": (3.27, 0.45), "median[1]": (22.8, 1.5),
                               "median[2]": (26.5, 1.8)}),
 )
 #: zoo_mv (phase 9): the models of the multivariate half of the zoo, each
@@ -145,6 +171,42 @@ ZOO_MV_RUNS = (
     ("birats", None, 4, 2, {}),
     ("gk", None, 60, 30, {}),
 )
+#: GLMM recovery (phase 4): iterations, burnin; cut from 400/150:
+#: the beta gate is 0.35, and the error was 0.194 at 200/100 on the card and
+#: 0.198 at 150/75 on the CPU (the posterior mean of this data lies ~0.17
+#: from the truth; PERF.md §4)
+RECOVERY_RUN = (150, 75)
+#: the post phase's runs, reused from the zoo and zoo_mv phases: models whose
+#: sampled nodes are all monitored (dic and predict need their draws)
+POST_ZOO = ("pumps", "jaws")
+#: iterations of each restart in the post phase (from the file, from memory)
+POST_RESTART = 20
+#: stored draws at which logpdf_chains is held against compiled.logpdf, and
+#: the relative tolerance (float32 sums of tens of terms)
+POST_DIRECT_DRAWS, POST_DIRECT_RTOL = 16, 1e-5
+#: fused against generic modelstats on the recovery run (float32 GLMM
+#: likelihoods over 640 observations, summed in another order)
+POST_FUSED_RTOL = 1e-4
+#: rats ChEES chains the per-chain diagnostics run on (host loops)
+POST_DIAG_CHAINS = 8
+#: the map phase: the largest error of the MAP beta at G = 10,000 against the
+#: truth, and of the fused build's (float32, through the kernel) against the
+#: generic build's in float64.  On the CPU both packages give a MAP beta
+#: 0.1304 from the truth at this G in float64 (the joint mode of a logistic
+#: model with 10 observations per group lies farther from zero than the
+#: truth), and the port's fused float32 MAP lies 5e-5 from the float64 one
+#: (PERF.md §6)
+MAP_BETA_TOL = 0.15
+MAP_FUSED_TOL = 1e-3
+#: the smc phase's particles; the GLMM's beta gate is the recovery gate, and
+#: its run takes 20 RWM steps per stage: with the default 10, four seeds
+#: gave beta 0.17-0.28 from the truth in float32 on the CPU (the posterior
+#: mean lies 0.17 from it), with 20 0.16-0.22 (PERF.md §6)
+SMC_PARTICLES, SMC_GLMM_PARTICLES, SMC_BETA_TOL = 4096, 1024, 0.35
+SMC_GLMM_STEPS = 20
+#: the profile phase: full-width gradients traced, and how far
+#: time_compiled's time may lie from phase 3's CUDA-event time
+PROFILE_GRADIENTS, PROFILE_TIME_RTOL = 5, 0.2
 #: convergence gates of bench.py:48-52
 RHAT_MAX = 1.01
 ESS_MIN = 400.0
@@ -297,19 +359,30 @@ def _timing(sim, chains, iters):
             "chain_iters_per_s": chains * iters / t["sample_s"]}
 
 
+def _monitor(model, name):
+    """``model`` with node ``name`` monitored (its draws stored)."""
+    import dataclasses
+    model.nodes[name] = dataclasses.replace(model.nodes[name], monitor=True)
+    return model
+
+
 def phase_recovery(mt, glmm):
+    iters, burnin = RECOVERY_RUN
     model, inputs, inits, truth = glmm.build(G=64, n=10, seed=2, fused=True,
                                              mass_window=50)
-    sim = mt.mcmc(model, inputs, inits, 400, burnin=150, chains=4,
+    # z stored too, so that the post phase can rebuild every draw's state
+    model = _monitor(model, "z")
+    sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
                   verbose=False, device=DEVICE)
     s = mt.summarystats(sim).to_dict()
     est = np.array([s[f"beta[{i + 1}]"]["Mean"] for i in range(4)])
     err = float(np.abs(est - truth["beta"]).max())
-    log(f"recovery (G=64, 4 chains, 400 iters): beta means {est.round(4).tolist()}"
-        f" vs truth {truth['beta'].tolist()}, max error {err:.4f}; "
-        f"sample_s {sim.timing['sample_s']:.2f}")
+    log(f"recovery (G=64, 4 chains, {iters} iters, {burnin} burnin): beta means "
+        f"{est.round(4).tolist()} vs truth {truth['beta'].tolist()}, max error "
+        f"{err:.4f}; sample_s {sim.timing['sample_s']:.2f}")
     if not err < 0.35:
         raise AssertionError(f"beta not recovered: max error {err}")
+    return sim
 
 
 def _check_glmm_draws(sim, iters, burnin, chains):
@@ -446,7 +519,7 @@ def phase_rats_chees(torch, mt, rats, chees):
     log(f"rats ChEES ({CHAINS} chains, {iters} iters, {burnin} burnin): "
         + json.dumps(res))
     res.update(_rats_gates(mt, rats, sim, "rats ChEES"))
-    return res
+    return res, sim
 
 
 def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
@@ -497,17 +570,24 @@ def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
         failed.append("forward_sample")
     if failed:
         raise AssertionError(f"zoo {name}: gates failed: {failed}: {res}")
-    return res
+    return res, sim
 
 
 def phase_zoo(torch, mt):
+    """The zoo's runs; returns their results and the chains of the runs the
+    post phase reuses (``POST_ZOO``)."""
     # no draw may come from the global generators: their states must not move
     before = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
-    out = [zoo_run(torch, mt, *run) for run in ZOO_RUNS]
+    out, sims = [], {}
+    for run in ZOO_RUNS:
+        res, sim = zoo_run(torch, mt, *run)
+        out.append(res)
+        if run[0] in POST_ZOO:
+            sims[run[0]] = sim
     after = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
     if not all(torch.equal(a, b) for a, b in zip(before, after)):
         raise AssertionError("zoo: a draw came from a global generator")
-    return out
+    return out, sims
 
 
 def _predictive(torch, mt, cm, model, state):
@@ -611,7 +691,7 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
         failed.append("forward_sample")
     if failed:
         raise AssertionError(f"zoo_mv {label}: gates failed: {failed}: {res}")
-    return res
+    return res, sim
 
 
 def _dgs_graph_check(torch, mt, cm, model, state, reps=5):
@@ -662,11 +742,16 @@ def _alphabeta_float32_error(torch, cm, state):
 def phase_zoo_mv(torch, mt):
     from mamba_tpu_torch.samplers import binary
     before = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
-    out = [zoo_mv_run(torch, mt, binary, *run) for run in ZOO_MV_RUNS]
+    out, sims = [], {}
+    for run in ZOO_MV_RUNS:
+        res, sim = zoo_mv_run(torch, mt, binary, *run)
+        out.append(res)
+        if run[0] in POST_ZOO and run[1] is None:
+            sims[run[0]] = sim
     after = (torch.random.get_rng_state(), torch.cuda.get_rng_state())
     if not all(torch.equal(a, b) for a, b in zip(before, after)):
         raise AssertionError("zoo_mv: a draw came from a global generator")
-    return out
+    return out, sims
 
 
 def phase_glmm_chees(torch, mt, glmm, fg, chees):
@@ -705,6 +790,332 @@ def phase_glmm_chees(torch, mt, glmm, fg, chees):
     return res
 
 
+def _direct_logpdf(sim, chain, draw):
+    """``compiled.logpdf`` at stored draw ``draw`` of chain ``chain``, the
+    state rebuilt by hand: the chain's final state with every stored
+    stochastic site's columns (column-major, Julia ``vec``) put back."""
+    cm = sim.compiled
+    state = {k: v[chain] for k, v in sim.states["state"].items()}
+    for n in cm.stochastic:
+        cols = [i for i, lbl in enumerate(sim.names)
+                if lbl == n or lbl.startswith(n + "[")]
+        if not cols:
+            continue
+        shape = cm.sites[n].shape
+        vals = sim.value[draw, cols, chain].reshape(shape, order="F")
+        state[n] = cm.tensor(np.ascontiguousarray(vals))
+    return float(cm.logpdf(state))
+
+
+def _restart_check(mt, sim, build, tmpdir, label):
+    """write_chains -> read_chains on the card -> ``POST_RESTART`` more
+    iterations, against the same restart from the chains in memory."""
+    path = os.path.join(tmpdir, f"{label}.pkl")
+    mt.write_chains(path, sim)
+    model, inputs, _ = build()
+    mc = mt.read_chains(path, model, inputs, device=DEVICE)
+    from_file = mt.mcmc(mc, POST_RESTART, verbose=False)
+    from_memory = mt.mcmc(sim, POST_RESTART, verbose=False)
+    rng = from_file.range
+    return {"bit_identical": bool(np.array_equal(from_file.value, from_memory.value)
+                                  and np.array_equal(rng, from_memory.range)),
+            "contiguous": bool(rng[sim.niter] == sim.iter + sim.thin
+                               and np.all(np.diff(rng) == sim.thin)
+                               and np.array_equal(from_file.value[:sim.niter],
+                                                  sim.value)),
+            "iter": from_file.iter}
+
+
+def post_run(torch, mt, name, sim, tmpdir):
+    """The output layer on one zoo run's 1024 chains; raises on failure."""
+    import importlib
+    mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
+    t0 = time.perf_counter()
+    g = mt.gelmandiag(sim, mpsrf=True, transform=True)
+    d = mt.dic(sim)
+    lp = mt.logpdf_chains(sim)
+    rng = np.random.default_rng(0)
+    picks = [(int(rng.integers(sim.nchains)), int(rng.integers(sim.niter)))
+             for _ in range(POST_DIRECT_DRAWS)]
+    direct = np.array([_direct_logpdf(sim, c, i) for c, i in picks])
+    stored = np.array([lp.value[i, 0, c] for c, i in picks])
+    pr = mt.predict(sim, seed=3)
+    cm = sim.compiled
+    (data,) = sim.model.keys("observed")
+    # the predictive draw of each chain's last stored draw, at that draw's
+    # own parameters (the chain's final state): finite density = support
+    last = {k: v.clone() for k, v in sim.states["state"].items()}
+    shape = cm.sites[data].shape
+    ys = np.stack([pr.value[-1, :, c].reshape(shape, order="F")
+                   for c in range(sim.nchains)])
+    last[data] = cm.tensor(ys)
+    lp_pred = torch.func.vmap(lambda st: cm.logpdf(st, (data,)))(last)
+    restart = _restart_check(mt, sim, mod.build, tmpdir, name)
+    files = mt.draw(mt.plot(sim[:, sim.names[:4], list(range(POST_DIAG_CHAINS))]),
+                    fmt="svg", filename=os.path.join(tmpdir, name), nrow=2, ncol=2)
+    res = {"model": name, "draws": list(sim.value.shape),
+           "psrf_max": float(np.nanmax(g.value[:-1, 0, 0])),
+           "mpsrf": float(g.value[-1, 0, 0]),
+           "dic": d.value[:, 0, 0].tolist(), "pD": float(d.value[0, 1, 0]),
+           "pV": float(d.value[1, 1, 0]),
+           "logpdf_direct_rel_err": float(np.max(np.abs(stored - direct)
+                                                 / np.abs(direct))),
+           "predict_shape": list(pr.value.shape),
+           "predict_finite": bool(np.isfinite(pr.value).all()),
+           "predict_in_support": bool(torch.isfinite(lp_pred).all()),
+           "restart": restart, "svg_files": len(files),
+           "svg_bytes": sum(os.path.getsize(f) for f in files),
+           "wall_s": time.perf_counter() - t0}
+    log(f"post {name}: " + json.dumps(res))
+    failed = []
+    if g.value.shape[0] != sim.nparams + 1 or not np.isfinite(g.value[:-1, 0, 0]).all():
+        failed.append("gelmandiag")
+    if not (np.isfinite(d.value).all() and res["pD"] > 0):
+        failed.append("dic finite with pD > 0")
+    if not res["logpdf_direct_rel_err"] <= POST_DIRECT_RTOL:
+        failed.append("logpdf_chains against compiled.logpdf")
+    if not (res["predict_finite"] and res["predict_in_support"]):
+        failed.append("predict inside the support")
+    if not (restart["bit_identical"] and restart["contiguous"]):
+        failed.append("restart from the file")
+    if not (files and all(os.path.getsize(f) > 0 for f in files)):
+        failed.append("plot and draw")
+    if failed:
+        raise AssertionError(f"post {name}: gates failed: {failed}: {res}")
+    return res
+
+
+def _post_fused(torch, mt, glmm, fg, sim):
+    """logpdf_chains and dic of the fused recovery run, through the kernel's
+    vmap rule over chains x draws, against the same draws on the generic
+    build."""
+    from mamba_tpu_torch.utils import convert
+    fg.glmm_loglik_grads.launches = 0
+    lp, d = mt.logpdf_chains(sim), mt.dic(sim)
+    launches = fg.glmm_loglik_grads.launches
+    model, inputs, _, _ = glmm.build(G=64, n=10, seed=2, fused=False,
+                                     mass_window=50)
+    model = _monitor(model, "z")
+    state = {k: v.cpu().numpy() for k, v in sim.states["state"].items()}
+    state["y"] = np.swapaxes(state["y"], 1, 2)      # (n, G) -> (G, n)
+    plain = convert.model_chains(sim.value, model, inputs, state,
+                                 start=sim.start, thin=sim.thin, names=sim.names,
+                                 chains=sim.chains, iter=sim.iter, device=DEVICE)
+    lp_g, d_g = mt.logpdf_chains(plain), mt.dic(plain)
+    res = {"kernel_launches": launches,
+           "logpdf_rel_err": float(np.max(np.abs(lp.value - lp_g.value)
+                                          / np.abs(lp_g.value))),
+           "dic_rel_err": float(np.max(np.abs(d.value - d_g.value)
+                                       / np.abs(d_g.value))),
+           "dic": d.value[:, :, 0].tolist()}
+    log("post GLMM recovery run, fused against generic: " + json.dumps(res))
+    if launches < 1 or not (res["logpdf_rel_err"] <= POST_FUSED_RTOL
+                            and res["dic_rel_err"] <= POST_FUSED_RTOL):
+        raise AssertionError(f"post: fused modelstats disagree: {res}")
+    return res
+
+
+def phase_post(torch, mt, glmm, fg, zoo_sims, rats_chees_sim, recovery_sim):
+    """The output layer on chains the earlier phases made: ``POST_ZOO``'s
+    1024-chain runs, the rats ChEES chains and the GLMM recovery run."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out = {name: post_run(torch, mt, name, zoo_sims[name], tmpdir)
+               for name in POST_ZOO}
+    c = rats_chees_sim[:, :, list(range(POST_DIAG_CHAINS))]
+    tables = {"geweke": mt.gewekediag(c), "heidel": mt.heideldiag(c),
+              # the default q = 0.025, r = 0.005 need 3,746 draws
+              "raftery": mt.rafterydiag(c, q=0.5, r=0.05)}
+    out["rats_chees"] = {k: {"shape": list(t.value.shape),
+                             "finite": bool(np.isfinite(t.value[:, :2, :]).all())}
+                         for k, t in tables.items()}
+    log("post rats ChEES diagnostics (first 8 chains): "
+        + json.dumps(out["rats_chees"]))
+    if not all(v["finite"] and v["shape"][2] == POST_DIAG_CHAINS
+               for v in out["rats_chees"].values()):
+        raise AssertionError(f"post: rats ChEES diagnostics: {out['rats_chees']}")
+    out["glmm_fused"] = _post_fused(torch, mt, glmm, fg, recovery_sim)
+    return out
+
+
+def _logpdf_at_inits(mt, model, inputs, init):
+    cm = mt.compile_model(model, inputs, init, device=DEVICE)
+    state = {n: cm.tensor(np.broadcast_to(np.asarray(init[n], dtype=np.float64),
+                                          cm.sites[n].shape))
+             for n in cm.stochastic}
+    return float(cm.logpdf(state))
+
+
+def phase_map(torch, mt, glmm, fg):
+    """MAP by L-BFGS on the full-width GLMM through the kernel, against the
+    truth and the generic build; a warm start of line from its MAP."""
+    from mamba_tpu_torch.models import line
+    t0 = time.perf_counter()
+    model, inputs, inits, truth = glmm.build(G=10_000, fused=True)
+    lp0 = _logpdf_at_inits(mt, model, inputs, inits[0])
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fg.glmm_loglik_grads.launches = 0          # count this path only
+    r = mt.optim_over(model, inputs, inits[0], device=DEVICE)
+    torch.cuda.synchronize()
+    launches = fg.glmm_loglik_grads.launches
+    map_s = time.perf_counter() - t0
+    model_g, inputs_g, inits_g, _ = glmm.build(G=10_000, fused=False)
+    t0 = time.perf_counter()
+    r_g = mt.optim_over(model_g, inputs_g, inits_g[0], device=DEVICE,
+                        dtype=torch.float64)
+    generic_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lmodel, linputs, linits = line.build()
+    r_line = mt.optim_over(lmodel, linputs, linits[0], device=DEVICE)
+    warm = mt.mcmc(lmodel, linputs, [r_line.as_inits({"y": linits[0]["y"]})], 20,
+                   chains=4, verbose=False, device=DEVICE)
+    res = {"beta": r.params["beta"].tolist(), "truth": truth["beta"].tolist(),
+           "beta_err": float(np.abs(r.params["beta"] - truth["beta"]).max()),
+           "s2": float(r.params["s2"]), "logpdf": r.logpdf,
+           "logpdf_inits": lp0, "converged": r.converged, "niter": r.niter,
+           "map_s": map_s, "kernel_launches": launches,
+           "generic_beta": r_g.params["beta"].tolist(),
+           "fused_vs_generic": float(np.abs(r.params["beta"]
+                                            - r_g.params["beta"]).max()),
+           "generic_niter": r_g.niter, "generic_s": generic_s,
+           "line_beta": r_line.params["beta"].tolist(),
+           "warm_start_finite": bool(np.isfinite(warm.value).all()),
+           "setup_s": setup_s, "line_s": time.perf_counter() - t0}
+    log("map (G=10000, fused float32 against generic float64, lbfgs): "
+        + json.dumps(res))
+    failed = []
+    if launches < 1:
+        failed.append("the kernel ran")
+    if not res["beta_err"] < MAP_BETA_TOL:
+        failed.append("beta against the truth")
+    if not r.logpdf >= lp0:
+        failed.append("logpdf at the optimum >= at the inits")
+    if not res["fused_vs_generic"] < MAP_FUSED_TOL:
+        failed.append("fused against generic")
+    if not res["warm_start_finite"]:
+        failed.append("warm start")
+    if failed:
+        raise AssertionError(f"map: gates failed: {failed}: {res}")
+    return res
+
+
+def _conjugate_model(mt):
+    """tests/test_infer.py's conjugate normal model: (model, y, exact
+    posterior mean, sd, log-evidence)."""
+    from scipy import stats
+    y = np.array([1.1, 0.7, 1.4, 0.9, 1.2, 1.0, 0.8, 1.3])
+    model = mt.Model(
+        y=mt.Stochastic(1, lambda mu: mt.Normal(mu.expand(8), 1.0),
+                        monitor=False),
+        mu=mt.Stochastic(lambda: mt.Normal(0.0, np.sqrt(2.0))))
+    model.set_samplers([mt.NUTS("mu")])
+    v = 1 / (8 + 0.5)
+    S = np.eye(8) + 2.0 * np.ones((8, 8))
+    return (model, y, v * y.sum(), np.sqrt(v),
+            float(stats.multivariate_normal(np.zeros(8), S).logpdf(y)))
+
+
+def phase_smc(torch, mt, glmm, fg):
+    """SMC under the gates of tests/test_infer.py, and on the G = 64 GLMM
+    through the kernel's vmap rule over the particles."""
+    from mamba_tpu_torch.models import line
+    model, y, m_exact, sd_exact, logz = _conjugate_model(mt)
+    r = mt.smc(model, {}, {"y": y, "mu": 0.0}, n_particles=SMC_PARTICLES,
+               seed=2, device=DEVICE)
+    mu = r.particles["mu"]
+    conj = {"mean_err": float(abs(mu.mean() - m_exact)),
+            "sd_err": float(abs(mu.std() - sd_exact)),
+            "log_evidence_err": abs(r.log_evidence - logz), "stages": r.n_stages}
+    lmodel, linputs, linits = line.build()
+    r = mt.smc(lmodel, linputs, linits[0], n_particles=SMC_PARTICLES,
+               rejuvenation_steps=50, seed=3, device=DEVICE)
+    b = r.particles["beta"].mean(0)
+    line_res = {"beta": b.tolist(), "stages": r.n_stages}
+    gmodel, ginputs, ginits, truth = glmm.build(G=64, n=10, seed=2, fused=True,
+                                                mass_window=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fg.glmm_loglik_grads.launches = 0          # count this path only
+    r = mt.smc(gmodel, ginputs, ginits[0], n_particles=SMC_GLMM_PARTICLES,
+               rejuvenation_steps=SMC_GLMM_STEPS, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = fg.glmm_loglik_grads.launches
+    gb = r.particles["beta"].mean(0)
+    glmm_res = {"beta": gb.tolist(), "beta_err": float(np.abs(gb - truth["beta"]).max()),
+                "log_evidence": r.log_evidence, "stages": r.n_stages,
+                "kernel_launches": launches, "smc_s": time.perf_counter() - t0}
+    res = {"conjugate": conj, "line": line_res, "glmm": glmm_res}
+    log(f"smc ({SMC_PARTICLES} particles; GLMM G=64, {SMC_GLMM_PARTICLES}): "
+        + json.dumps(res))
+    failed = []
+    if not (conj["mean_err"] < 0.03 and conj["sd_err"] < 0.04
+            and conj["log_evidence_err"] < 0.3 and conj["stages"] <= 5):
+        failed.append("conjugate")
+    if not (abs(b[0] - 0.60) < 0.35 and abs(b[1] - 0.80) < 0.12
+            and 1 <= line_res["stages"] <= 30):
+        failed.append("line")
+    if launches < 1:
+        failed.append("the kernel ran")
+    if not (glmm_res["beta_err"] < SMC_BETA_TOL and np.isfinite(r.log_evidence)):
+        failed.append("GLMM beta")
+    if failed:
+        raise AssertionError(f"smc: gates failed: {failed}: {res}")
+    return res
+
+
+def phase_profile(torch, fg, glmm_cases, kernel_ms):
+    """A torch.profiler trace of full-width gradients that names the kernel;
+    time_compiled against phase 3's CUDA events; the card's peaks and the
+    kernel's bound read from utils/roofline.py."""
+    import tempfile
+    from mamba_tpu_torch.utils import profiling, roofline
+    args = tuple(torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
+                 for a in glmm_cases.random_inputs(4, 10, 10_000, 1024, 0))
+    fg.glmm_loglik_grads(*args)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        with profiling.trace(tmpdir) as path:
+            for _ in range(PROFILE_GRADIENTS):
+                with profiling.annotate("glmm_gradient"):
+                    fg.glmm_loglik_grads(*args)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    s = profiling.time_compiled(fg.glmm_loglik_grads, *args, iters=20)
+    work = fg.glmm_work(4, 10, 10_000, 1024)
+    roof = roofline.roofline(fg.glmm_loglik_grads, *args, flops=work["flops"],
+                             bytes=work["bytes"])
+    ceiling = roofline.elementwise_ceiling()
+    _, clock_max = sm_clocks_mhz()
+    name = torch.cuda.get_device_name(0)
+    peaks = roofline.device_peaks()
+    want = roofline.peaks_for(name)
+    bound = fg.glmm_bound_ms(4, 10, 10_000, 1024, 1e6 * clock_max)
+    res = {"trace_kernels": kernels,
+           "trace_spans": sum(e.get("name") == "glmm_gradient" for e in events),
+           "time_compiled_ms": 1e3 * s, "phase3_ms": kernel_ms,
+           "roofline": roof, "elementwise_ceiling": ceiling,
+           "device_peaks": list(peaks), "bound_ms": bound["bound_ms"],
+           "sm_clock_max_mhz": clock_max}
+    log("profile: " + json.dumps(res))
+    failed = []
+    if not any("glmm_reg_kernel" in k for k in kernels):
+        failed.append("the trace names glmm_reg_kernel")
+    if not abs(1e3 * s - kernel_ms) <= PROFILE_TIME_RTOL * kernel_ms:
+        failed.append("time_compiled against phase 3")
+    if "H100" not in name or want is None or peaks != (want.fp32_flops,
+                                                       want.bytes_per_s):
+        failed.append("device_peaks")
+    if round(bound["bound_ms"], 4) != 0.0642:
+        failed.append("glmm_bound_ms")
+    if roof["bound"] == "unknown" or not ceiling["gbytes_s"] > 0:
+        failed.append("roofline and the elementwise ceiling")
+    if failed:
+        raise AssertionError(f"profile: gates failed: {failed}: {res}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -731,17 +1142,28 @@ def main() -> int:
     card = phase_device(torch)
     timed("build", phase_build, fg)
     cases = timed("kernel", phase_kernels, torch, fg, glmm_cases)
-    timed("glmm_recovery", phase_recovery, mt, glmm)
+    recovery_sim = timed("glmm_recovery", phase_recovery, mt, glmm)
     glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts)
     timed("rats_nuts", phase_rats_nuts, torch, mt, rats, nuts)
-    timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
-    timed("zoo", phase_zoo, torch, mt)
-    timed("zoo_mv", phase_zoo_mv, torch, mt)
+    _, rats_chees_sim = timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
+    _, zoo_sims = timed("zoo", phase_zoo, torch, mt)
+    _, zoo_mv_sims = timed("zoo_mv", phase_zoo_mv, torch, mt)
     glmm_chees = timed("glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
-    log(f"fused kernel launches: GLMM NUTS {glmm_nuts['kernel_launches']}, "
-        f"GLMM ChEES {glmm_chees['kernel_launches']}; wall ms per leapfrog: "
-        f"NUTS {glmm_nuts['wall_ms_per_leapfrog']:.3f}, "
+    timed("post", phase_post, torch, mt, glmm, fg, {**zoo_sims, **zoo_mv_sims},
+          rats_chees_sim, recovery_sim)
+    del zoo_sims, zoo_mv_sims, rats_chees_sim, recovery_sim
+    map_res = timed("map", phase_map, torch, mt, glmm, fg)
+    smc_res = timed("smc", phase_smc, torch, mt, glmm, fg)
+    timed("profile", phase_profile, torch, fg, glmm_cases, cases[0]["ms"])
+    launches = {"glmm_nuts": glmm_nuts["kernel_launches"],
+                "glmm_chees": glmm_chees["kernel_launches"],
+                "map": map_res["kernel_launches"],
+                "smc": smc_res["glmm"]["kernel_launches"]}
+    log(f"fused kernel launches on the main paths: {json.dumps(launches)}; "
+        f"wall ms per leapfrog: NUTS {glmm_nuts['wall_ms_per_leapfrog']:.3f}, "
         f"ChEES {glmm_chees['wall_ms_per_leapfrog']:.3f}")
+    log(f"new phases (post, map, smc, profile): "
+        f"{sum(walls[k] for k in ('post', 'map', 'smc', 'profile')):.1f} s")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     slice_case = cases[0]
@@ -754,7 +1176,7 @@ def main() -> int:
         "name": "fused_glmm_loglik_grads", "route": "cuda",
         "source": "mamba_tpu_torch/csrc/fused_glmm.cu",
         "replaces": "mamba_tpu/ops/fused_glmm.py:59",
-        "launches": glmm_nuts["kernel_launches"] + glmm_chees["kernel_launches"],
+        "launches": sum(launches.values()),
         "max_abs_err": slice_case["grad_max_abs_err"],
         "lp_rel_err": slice_case["lp_rel_err"],
         "grad_rel_err": slice_case["grad_rel_err"],

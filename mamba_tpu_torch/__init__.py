@@ -20,11 +20,17 @@ from .samplers import (ABC, AMM, AMWG, BHMC, BIA, BMC3, BMG, DGS, HMC, MALA,
                        MISS, NUTS, RWM, ChEESHMC, Gibbs, Slice, SliceSimplex,
                        chees_init, chees_step)
 from . import infer
-from .infer import ADVIResult, advi
+from .infer import ADVIResult, SMCResult, advi, smc
 from . import models
 from .utils.math import cummean, invlogit, logit
+from . import maxpost
+from .maxpost import MAPResult, optim_over
 from . import output
-from .output import (Chains, ModelChains, ChainSummary, ess_bulk, ess_rhat,
-                     ess_tail, rhat_rank, summarystats)
+from .output import (Chains, ModelChains, ChainSummary, autocor, changerate,
+                     cor, describe, dic, ess_bulk, ess_rhat, ess_tail,
+                     gelmandiag, gewekediag, heideldiag,
+                     hpd, logpdf_chains, mcse, predict, quantile, rafterydiag,
+                     rhat_rank, plot, draw, read_chains, readcoda,
+                     summarystats, write_chains)
 
 __version__ = "0.1.0"

@@ -282,9 +282,14 @@ class MvNormalCanon(_MvBase):
     def log_prob(self, x):
         h, J = _cast(self.h, self.J, like=x)
         d = J.shape[-1]
-        diff = x - _solve(J, h)
+        # J^-1 h through J's factor: a J off the cone gives NaN, where the
+        # gradient of a general solve would raise
+        L = _chol(J)
+        mu = _tri_solve(L.transpose(-1, -2), _tri_solve_vec(L, h)[..., None],
+                        upper=True)[..., 0]
+        diff = x - mu
         q = torch.sum(diff * _matvec(J, diff), -1)
-        return -0.5 * q + torch.sum(_logdiag(_chol(J)), -1) - 0.5 * d * _LOG_2PI
+        return -0.5 * q + torch.sum(_logdiag(L), -1) - 0.5 * d * _LOG_2PI
 
     def sample(self, gen, shape=()):
         h, J = _cast_on(gen, self.h, self.J)

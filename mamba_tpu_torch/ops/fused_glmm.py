@@ -34,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils.roofline import H100_SXM
 from . import bijectors as bij
 from .distributions.base import Distribution, distribution
 
@@ -49,12 +50,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: fixed effects the kernel takes (MAX_P in the source)
 MAX_P = 8
 
-#: published peaks of one NVIDIA H100 SXM: device memory, float32 outside the
-#: tensor cores, and special-function (MUFU) results per clock
-H100_BYTES_PER_S = 3.35e12
-H100_FP32_FLOPS = 67e12
-H100_SMS = 132
-H100_MUFU_PER_CLOCK_PER_SM = 16
 
 
 def _nvcc() -> str:
@@ -126,11 +121,12 @@ def glmm_bound_ms(P: int, n: int, G: int, C: int, sm_clock_hz: float) -> dict:
     ``bound_ms``, with the floor that sets it (``"memory"``, ``"fp32"`` or
     ``"sfu"``) as ``bound_by``."""
     work = glmm_work(P, n, G, C)
-    sfu_rate = H100_SMS * H100_MUFU_PER_CLOCK_PER_SM * sm_clock_hz
-    out = {"memory_ms": 1e3 * work["bytes"] / H100_BYTES_PER_S,
-           "fp32_ms": 1e3 * work["flops"] / H100_FP32_FLOPS,
+    h100 = H100_SXM                  # peaks from utils/roofline.py
+    sfu_rate = h100.sms * h100.sfu_per_clock_per_sm * sm_clock_hz
+    out = {"memory_ms": 1e3 * work["bytes"] / h100.bytes_per_s,
+           "fp32_ms": 1e3 * work["flops"] / h100.fp32_flops,
            "sfu_ms": 1e3 * work["sfu"] / sfu_rate,
-           "poly_log_fp32_ms": 1e3 * work["poly_log_flops"] / H100_FP32_FLOPS,
+           "poly_log_fp32_ms": 1e3 * work["poly_log_flops"] / h100.fp32_flops,
            "poly_log_sfu_ms": 1e3 * work["poly_log_sfu"] / sfu_rate}
     forms = [max((out[f"{form}fp32_ms"], "fp32"), (out[f"{form}sfu_ms"], "sfu"))
              for form in ("", "poly_log_")]

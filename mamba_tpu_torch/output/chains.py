@@ -173,6 +173,14 @@ class Chains:
             out = fold(out, o)
         return out
 
+    def link(self) -> np.ndarray:
+        """Heuristic unconstraining transform of the stored draws
+        (reference chains.jl:237-246): positive columns -> log,
+        unit-interval columns -> logit, others untouched.  ModelChains
+        overrides this with each node's actual transform."""
+        from .diagnostics import link_values
+        return link_values(self)
+
     def combine(self) -> np.ndarray:
         """Stack all chains into one (niter*nchains, nparams) matrix
         (reference chains.jl:190-201)."""
@@ -189,7 +197,7 @@ class ModelChains(Chains):
     """Chains + the model/compiled-model/per-chain final states that produced
     them (reference modelchains.jl:5-16 plus the ModelState snapshots the
     reference keeps on Model, src/Mamba.jl:152-165).  Enables restart
-    ``mcmc(mc, iters)``."""
+    ``mcmc(mc, iters)`` and model-based stats (dic/predict/logpdf)."""
 
     def __init__(self, value, start=1, thin=1, names=None, chains=None,
                  model=None, compiled=None, states=None, iter=None,
@@ -218,3 +226,56 @@ class ModelChains(Chains):
         stored columns."""
         stored = {lbl.split("[")[0] for lbl in self.names}
         return [n for n in self.model.keys(ntype) if n in stored]
+
+    def link(self) -> np.ndarray:
+        """Model-aware unconstraining transform of the stored draws
+        (reference modelchains.jl:55-73): each fully-stored stochastic
+        site's own bijector maps its columns to unconstrained space (where
+        the transform is elementwise); discrete sites get identity; only
+        leftover columns (logical nodes, partially-monitored sites,
+        shape-changing transforms like simplex/Cholesky) fall back to the
+        ``Chains.link`` positive/unit heuristic.  The bijectors run in
+        float64 on the model's device."""
+        if self.compiled is None:
+            return super().link()
+        import torch
+
+        from .modelstats import _site_columns, _unpack_site
+
+        cm = self.compiled
+        cc = np.array(self.value, dtype=float, copy=True)
+        handled = np.zeros(cc.shape[1], dtype=bool)
+        try:
+            cols = _site_columns(self)
+        except ValueError:
+            cols = {}
+        for n, (off, shape) in cols.items():
+            if n not in cm.sites:
+                continue          # logical node -> heuristic fallback
+            size = int(np.prod(shape)) if shape else 1
+            span = slice(off, off + size)
+            if getattr(cm.example_dists[n], "is_discrete", False):
+                handled[span] = True       # identity (reference link_sub)
+                continue
+            bij = cm.example_dists[n].bijector()
+            if tuple(bij.unconstrained_shape(shape)) != tuple(shape):
+                continue          # shape-changing transform: not columnwise
+            # (niter, size, nchains) -> (niter, nchains, *shape), inverse
+            # elementwise (bounds broadcast in site shape), re-flatten
+            # column-major
+            block = torch.as_tensor(np.moveaxis(cc[:, span, :], 2, 1),
+                                    dtype=torch.float64, device=cm.device)
+            u = bij.inverse(_unpack_site(block, shape))
+            flat = (u.permute(0, 1, *reversed(range(2, u.dim())))
+                    .reshape(u.shape[0], u.shape[1], -1) if shape
+                    else u[..., None])
+            cc[:, span, :] = np.moveaxis(
+                flat.to(torch.float64).cpu().numpy(), 1, 2)
+            handled[span] = True
+        # heuristic for whatever the model could not claim
+        for j in np.nonzero(~handled)[0]:
+            x = cc[:, j, :]
+            if x.min() > 0.0:
+                cc[:, j, :] = (np.log(x / (1.0 - x)) if x.max() < 1.0
+                               else np.log(x))
+        return cc

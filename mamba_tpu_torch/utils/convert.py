@@ -205,3 +205,59 @@ def advi_result(mu, log_sigma, model, inputs: dict, inits: dict, params=None,
                       log_sigma=cm.tensor(np.asarray(log_sigma)),
                       elbo_trace=np.zeros(0), params=params, _cm=cm,
                       _unpack=unpack, _spec=spec, _state0=state0)
+
+
+#: the converter of each sampler block's tune, by the block's class name
+_TUNE_CONVERTERS = {
+    "NUTS": nuts_tune, "ChEESHMC": chees_tune, "Slice": slice_tune,
+    "AMWG": amwg_tune, "AMM": amm_tune, "SliceSimplex": slicesimplex_tune,
+    "BHMC": bhmc_tune, "BIA": bia_tune, "BMC3": index_tune, "BMG": index_tune,
+    "ABC": abc_tune,
+}
+
+
+def block_tune(spec, tune, device, dtype: torch.dtype):
+    """One sampler block's tune with numpy fields -> this package's tune for
+    the block ``spec``: a DGS block holds one tune per node (a sequence),
+    a Gibbs or MISS block none."""
+    kind = type(spec).__name__
+    if kind in ("Gibbs", "MISS"):
+        return ()
+    if kind == "DGS":
+        return tuple(dgs_tune(t, device, dtype) for t in tune)
+    if kind not in _TUNE_CONVERTERS:
+        raise ValueError(f"no tune converter for a {kind} block")
+    return _TUNE_CONVERTERS[kind](tune, device, dtype)
+
+
+def model_chains(value, model, inputs: dict, state: dict, tunes=None, *,
+                 start: int = 1, thin: int = 1, names=None, chains=None,
+                 iter=None, burnin: int = 0, seed: int = 0, device,
+                 dtype=None):
+    """Another implementation's run of ``model`` — its kept draws ``value``
+    ``(iterations, params, chains)``, its final chain-stacked ``state``
+    ``{site: (chains, ...)}`` and, optionally, its blocks' ``tunes`` (one
+    per sampler block, numpy fields, as the block converters take them) —
+    as this package's ``ModelChains`` on ``device``, to compute model-based
+    statistics over the same draws or to continue the run.  Without
+    ``tunes`` each block's tune is its ``init`` at ``state``; the random
+    generator is seeded with ``seed``."""
+    from ..model.compile import compile_model
+    from ..output.chains import ModelChains
+    cm = compile_model(model, inputs, {k: np.asarray(v)[0] for k, v in state.items()},
+                       device=device, dtype=dtype)
+    st = {k: cm.tensor(np.asarray(v)) for k, v in state.items()}
+    gen = torch.Generator(device=cm.device)
+    gen.manual_seed(seed)
+    if tunes is None:
+        tunes = tuple(s.build(cm).init(gen, st) for s in model.samplers)
+    else:
+        tunes = tuple(block_tune(s, t, cm.device, cm.dtype)
+                      for s, t in zip(model.samplers, tunes, strict=True))
+    value = np.asarray(value)
+    return ModelChains(
+        value, start=start, thin=thin, names=names, chains=chains,
+        model=model, compiled=cm,
+        states={"rng": gen.get_state(), "state": st, "tunes": tunes,
+                "burnin": burnin},
+        iter=iter)
