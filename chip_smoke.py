@@ -63,10 +63,26 @@ through the port's public entry points (``mcmc``, ``advi``,
 14. profile: a ``torch.profiler`` trace of full-width gradients that names
     the kernel, ``time_compiled`` against phase 3's CUDA events, the card's
     peaks and the kernel's bound from ``utils/roofline.py``, its
-    ``roofline`` reading and the elementwise ceiling.
+    ``roofline`` reading and the elementwise ceiling;
+15. mesh (``parallel/``, after phase 10): (a) ``graft_entry.dryrun_multichip(1)``;
+    (b) phase 10's GLMM ChEES run through ``mcmc(mesh=)`` on a one-rank NCCL
+    mesh in this process; (c) the same run in two processes over gloo on
+    this one card, 512 chains each, their draws gathered on both and their
+    step size and trajectory equal after every iteration; (d) in the same
+    two processes, a (1, 2) data mesh: the GLMM's block density and
+    gradient at 1024 chains from the kernel over each rank's 5,000 groups,
+    summed over the data group, against one launch over all groups, under
+    phase 3's gates; the kernel at a rank's shares (C = 512; G = 5,000;
+    C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
+    plain version, the first two timed with their bounds.  Both ranks share
+    the one card: no number of (c) or (d) is a scaling figure.
 
-The kernel's paths (phases 5, 10, 12 and 13) each set its launch count to 0
-just before they run and read it just after.  Every phase raises on
+    python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
+
+runs one rank of (c) and (d).
+
+The kernel's paths (phases 5, 10, 12, 13 and 15's runs) each set its launch
+count to 0 just before they run and read it just after.  Every phase raises on
 failure.  The whole run takes 15 to 18 minutes on an H100, 2 to 3 of them in
 rats NUTS, 5 to 6 in the zoo and 3 in zoo_mv; the paths are host-bound,
 so the time follows the host's CPU, and each phase's wall is printed.  The
@@ -87,6 +103,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -207,6 +224,11 @@ SMC_GLMM_STEPS = 20
 #: the profile phase: full-width gradients traced, and how far
 #: time_compiled's time may lie from phase 3's CUDA-event time
 PROFILE_GRADIENTS, PROFILE_TIME_RTOL = 5, 0.2
+#: the mesh phase: the two processes of (c) and (d) must end within this
+#: many seconds, and a collective may wait this many
+MESH_RANKS_TIMEOUT, MESH_GROUP_TIMEOUT = 300, 120
+#: the mesh phase's model width (phase 10's)
+MESH_G = 10_000
 #: convergence gates of bench.py:48-52
 RHAT_MAX = 1.01
 ESS_MIN = 400.0
@@ -754,39 +776,199 @@ def phase_zoo_mv(torch, mt):
     return out, sims
 
 
-def phase_glmm_chees(torch, mt, glmm, fg, chees):
+def _glmm_chees_run(torch, mt, glmm, fg, chees, warm, label, **mesh_kw):
+    """Phase 10's run: the GLMM at full width under ChEES-HMC from the ADVI
+    draws ``warm``, on ``mesh_kw``'s mesh if given.  Gated on finite draws
+    of the run's shape and on kernel launches >= gradient evaluations;
+    returns its numbers, the draws and (epsilon, traj) after every
+    iteration."""
     iters, burnin = GLMM_CHEES_RUN
-    model, inputs, inits, _ = glmm.build(10_000, fused=True)
-    model_g, inputs_g, inits_g, _ = glmm.build(10_000, fused=False)
-    # ADVI on the generic build (same posterior, same sites), as bench.py
-    warm, advi_s = _advi_warm_inits(torch, mt, model_g, inputs_g, inits_g[0],
-                                    1000, CHAINS)
-    warm = [dict(inits[0], **{k: w[k] for k in ("beta", "z", "s2")})
-            for w in warm]
+    model, inputs, _, _ = glmm.build(MESH_G, fused=True)
     model = _chees_block(mt, model, max_steps=256, mass_window=40)
-    steps, restore = _recording(chees, "_steps", lambda L: L)
+    steps, restore_steps = _recording(chees, "_steps", lambda L: L)
+    tunes, restore_tunes = _recording(
+        chees, "chees_step",
+        lambda out: [float(out[1].epsilon), float(out[1].traj)])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fg.glmm_loglik_grads.launches = 0          # count this path only
     try:
         sim = mt.mcmc(model, inputs, warm, iters, burnin=burnin,
-                      chains=CHAINS, verbose=False, device=DEVICE)
+                      chains=CHAINS, verbose=False, device=DEVICE, **mesh_kw)
     finally:
-        restore()
+        restore_steps()
+        restore_tunes()
     launches = fg.glmm_loglik_grads.launches
     need = sum(L + 1 for L in steps)           # logfgrad at x, then L steps
-    res = {**_timing(sim, CHAINS, iters), "advi_s": advi_s,
+    res = {**_timing(sim, CHAINS, iters),
            "steps_per_iteration": steps, "leapfrog_steps": sum(steps),
            "kernel_launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
     res["wall_ms_per_gradient"] = 1e3 * res["sample_s"] / need
-    log(f"GLMM ChEES at full width (G=10000, {CHAINS} chains, {iters} iters, "
-        f"{burnin} burnin): " + json.dumps(res))
+    log(f"{label} (G={MESH_G}, {CHAINS} chains, {iters} iters, {burnin} "
+        f"burnin): " + json.dumps(res))
     _check_glmm_draws(sim, iters, burnin, CHAINS)
     if launches < need or launches == 0:
-        raise AssertionError(f"the fused kernel ran {launches} times for "
-                             f"{need} gradient evaluations")
+        raise AssertionError(f"{label}: the fused kernel ran {launches} times "
+                             f"for {need} gradient evaluations")
+    return res, sim, tunes
+
+
+def _glmm_warm_inits(torch, mt, glmm):
+    """bench.py's warm start of the GLMM: ADVI on the generic build (the
+    same posterior and sites), one draw per chain, y from the fused build."""
+    _, _, inits, _ = glmm.build(MESH_G, fused=True)
+    model_g, inputs_g, inits_g, _ = glmm.build(MESH_G, fused=False)
+    warm, advi_s = _advi_warm_inits(torch, mt, model_g, inputs_g, inits_g[0],
+                                    1000, CHAINS)
+    return [dict(inits[0], **{k: w[k] for k in ("beta", "z", "s2")})
+            for w in warm], advi_s
+
+
+def phase_glmm_chees(torch, mt, glmm, fg, chees):
+    warm, advi_s = _glmm_warm_inits(torch, mt, glmm)
+    res, _, tunes = _glmm_chees_run(torch, mt, glmm, fg, chees, warm,
+                                    "GLMM ChEES at full width")
+    return {**res, "advi_s": advi_s}, warm, tunes
+
+
+def _split_density_check(torch, mt, glmm, fg, mesh, warm):
+    """(d): the GLMM's (beta, z, s2) block density and gradient at every
+    warm start, from the kernel over this rank's range of groups summed
+    over the data group, against one launch over all groups."""
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
+    whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                             comm=MeshComm(mesh), site_specs={"y": (None, "data")})
+    state = _chain_inits(whole, warm, CHAINS)
+    params = ("beta", "z", "s2")
+    out = {}
+    for name, cm in (("whole", whole), ("split", split)):
+        pack, _, _, logf = cm.block_functions(params, True)
+        x = torch.func.vmap(pack)(state)
+        fg.glmm_loglik_grads.launches = 0
+        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, state)
+        launches = fg.glmm_loglik_grads.launches
+        v, g = cm.block_sum(params)(v, g)
+        out[name] = (v.double(), g.double(), launches)
+    (v, g, n_split), (vw, gw, n_whole) = out["split"], out["whole"]
+    res = {"lp_rel_err": float(((v - vw).abs() / vw.abs()).max()),
+           "grad_rel_err": float((g - gw).abs().max() / gw.abs().max()),
+           "launches_split": n_split, "launches_whole": n_whole,
+           "groups": [split._local_plans["y"][1], split._local_plans["y"][2]]}
+    if not (res["lp_rel_err"] <= LP_RTOL and res["grad_rel_err"] <= GRAD_RTOL
+            and n_split == 1 and n_whole == 1):
+        raise AssertionError(f"(d) the group split disagrees: {res}")
+    return res
+
+
+def mesh_rank(init, rank, outdir):
+    """One rank of the mesh phase's (c) and (d): two processes over gloo,
+    both on this process's card."""
+    import torch
+    import torch.distributed as dist
+    import mamba_tpu_torch as mt
+    from mamba_tpu_torch.models import glmm
+    from mamba_tpu_torch.ops import fused_glmm as fg
+    from mamba_tpu_torch.parallel import distributed_init, make_mesh
+    from mamba_tpu_torch.samplers import chees
+    outdir = Path(outdir)
+    with np.load(outdir / "warm.npz") as f:
+        warm_arrays = {k: f[k] for k in f.files}
+    _, _, inits, _ = glmm.build(MESH_G, fused=True)
+    warm = [dict(inits[0], **{k: v[i] for k, v in warm_arrays.items()})
+            for i in range(CHAINS)]
+    distributed_init(init, 2, rank, device_type="cpu",
+                     timeout=MESH_GROUP_TIMEOUT)
+    try:
+        mesh = make_mesh({"chains": 2}, "cpu")
+        res, sim, tunes = _glmm_chees_run(
+            torch, mt, glmm, fg, chees, warm,
+            f"(c) rank {rank} of a 2-rank gloo chain mesh", mesh=mesh)
+        res["tunes"] = tunes
+        res["draws_shape"] = list(sim.value.shape)
+        res["split"] = _split_density_check(
+            torch, mt, glmm, fg, make_mesh({"chains": 1, "data": 2}, "cpu"),
+            warm)
+        np.save(outdir / f"draws{rank}.npy", sim.value)
+        (outdir / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
+    """(a)-(d) of the mesh phase, then the kernel at a rank's shares."""
+    import tempfile
+    import torch.distributed as dist
+    from mamba_tpu_torch.graft_entry import dryrun_multichip
+    from mamba_tpu_torch.parallel import make_mesh
+    from mamba_tpu_torch.parallel.launch import run_ranks
+    res = {}
+    t0 = time.perf_counter()
+    dryrun_multichip(1, device=DEVICE)                            # (a)
+    res["dryrun_s"] = time.perf_counter() - t0
+    mesh = make_mesh({"chains": 1})                               # (b)
+    probe = torch.full((4,), 2.0, device=DEVICE)
+    dist.all_reduce(probe)
+    res["backend"] = dist.get_backend()
+    want = "nccl" if DEVICE == "cuda" else "gloo"
+    if res["backend"] != want or not bool((probe == 2.0).all()):
+        raise AssertionError(f"(b) the one-rank mesh: backend "
+                             f"{res['backend']}, all_reduce {probe.tolist()}")
+    one, _, tunes_b = _glmm_chees_run(torch, mt, glmm, fg, chees, warm,
+                                      "(b) one-rank NCCL mesh", mesh=mesh)
+    dist.destroy_process_group()
+    res["one_rank"] = {k: one[k] for k in ("sample_s", "kernel_launches",
+                                           "leapfrog_steps")}
+    # a one-rank mesh replays the run without one: chain rank 0 takes the
+    # run's seed and an axis of size one takes no collective
+    res["one_rank"]["tunes_equal_phase_10"] = tunes_b == tunes_10
+    if tunes_b != tunes_10:
+        raise AssertionError("(b) the one-rank mesh's (eps, traj) path "
+                             "differs from phase 10's")
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:      # (c), (d)
+        keys = ("beta", "z", "s2")
+        np.savez(Path(tmp) / "warm.npz",
+                 **{k: np.stack([np.asarray(w[k], np.float64) for w in warm])
+                    for k in keys})
+        t0 = time.perf_counter()
+        run_ranks(lambda r, init: [sys.executable, str(Path(__file__).resolve()),
+                                   "--mesh-rank", init, r, tmp],
+                  2, timeout=MESH_RANKS_TIMEOUT)
+        res["two_ranks_s"] = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        draws = [np.load(Path(tmp) / f"draws{r}.npy") for r in range(2)]
+    iters, burnin = GLMM_CHEES_RUN
+    failed = []
+    if not np.array_equal(draws[0], draws[1]) or draws[0].shape != (
+            iters - burnin, 5, CHAINS):
+        failed.append("(c) both ranks hold every chain's draws")
+    if ranks[0]["tunes"] != ranks[1]["tunes"] or len(ranks[0]["tunes"]) != iters:
+        failed.append("(c) (epsilon, traj) equal on both ranks")
+    res["two_ranks"] = [{k: r[k] for k in ("sample_s", "kernel_launches",
+                                            "leapfrog_steps", "draws_shape",
+                                            "split")} for r in ranks]
+    res["tunes_first_last"] = [ranks[0]["tunes"][0], ranks[0]["tunes"][-1]]
+    res["launches"] = one["kernel_launches"] + sum(r["kernel_launches"]
+                                                   for r in ranks)
+    # the kernel at a rank's shares: C = 512 and G = 5,000 timed with their
+    # bounds; 513 chains (1026 over two ranks), not a multiple of 4
+    res["kernel"] = [kernel_case(torch, fg, glmm_cases, C=C, G=G,
+                                 time_reps=20 if timed else 0)
+                     for C, G, timed in ((512, 10_000, True),
+                                         (1024, 5_000, True),
+                                         (513, 5_000, False))]
+    log("mesh: " + json.dumps({k: v for k, v in res.items() if k != "kernel"}))
+    for case in res["kernel"][:2]:
+        log(f"mesh: kernel at C={case['C']}, G={case['G']}: {case['ms']:.4f} ms, "
+            f"bound {case['bound']['bound_ms']:.4f} ms "
+            f"({case['pct_of_bound']:.1f}%), plain {case['plain_ms']:.3f} ms")
+    if failed:
+        raise AssertionError(f"mesh: gates failed: {failed}")
     return res
 
 
@@ -1148,7 +1330,11 @@ def main() -> int:
     _, rats_chees_sim = timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
     _, zoo_sims = timed("zoo", phase_zoo, torch, mt)
     _, zoo_mv_sims = timed("zoo_mv", phase_zoo_mv, torch, mt)
-    glmm_chees = timed("glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
+    glmm_chees, glmm_warm, glmm_tunes = timed(
+        "glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
+    mesh_res = timed("mesh", phase_mesh, torch, mt, glmm, fg, chees,
+                     glmm_cases, glmm_warm, glmm_tunes)
+    del glmm_warm
     timed("post", phase_post, torch, mt, glmm, fg, {**zoo_sims, **zoo_mv_sims},
           rats_chees_sim, recovery_sim)
     del zoo_sims, zoo_mv_sims, rats_chees_sim, recovery_sim
@@ -1158,7 +1344,8 @@ def main() -> int:
     launches = {"glmm_nuts": glmm_nuts["kernel_launches"],
                 "glmm_chees": glmm_chees["kernel_launches"],
                 "map": map_res["kernel_launches"],
-                "smc": smc_res["glmm"]["kernel_launches"]}
+                "smc": smc_res["glmm"]["kernel_launches"],
+                "mesh": mesh_res["launches"]}
     log(f"fused kernel launches on the main paths: {json.dumps(launches)}; "
         f"wall ms per leapfrog: NUTS {glmm_nuts['wall_ms_per_leapfrog']:.3f}, "
         f"ChEES {glmm_chees['wall_ms_per_leapfrog']:.3f}")
@@ -1195,4 +1382,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
     sys.exit(main())

@@ -26,6 +26,7 @@ from .utils.math import cummean, invlogit, logit
 from . import maxpost
 from .maxpost import MAPResult, optim_over
 from . import output
+from . import parallel
 from .output import (Chains, ModelChains, ChainSummary, autocor, changerate,
                      cor, describe, dic, ess_bulk, ess_rhat, ess_tail,
                      gelmandiag, gewekediag, heideldiag,

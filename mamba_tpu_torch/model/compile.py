@@ -18,6 +18,13 @@ masking to -inf (reference distributionstruct.jl:138-140).
 
 Node functions run under ``with torch.device(cm.device)``, so a model
 lambda's fresh tensors (``torch.zeros(G)``) land beside the state.
+
+Under a mesh with a data axis (``comm.data_size > 1``) every array stays
+whole on every rank, and each data rank's block densities sum only its
+slice of the observed sites named in ``site_specs`` (the pad mask and its
+own slice), plus, on data rank 0 alone, every other term: the parts sum to
+the density over the data group (``block_sum``).  ``logpdf`` stays the
+whole density on every rank.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.distributions.base import dist_flatten
+from ..parallel.mesh import MeshComm, _spec_names
 from ..utils.convert import to_tensor
 from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
 from .model import Model
@@ -57,14 +65,16 @@ class CompiledModel:
 
     def __init__(self, model: Model, inputs: dict[str, Any],
                  example_inits: dict[str, Any], *, device, dtype=None,
-                 masks: dict[str, Any] | None = None):
+                 masks: dict[str, Any] | None = None,
+                 comm: MeshComm | None = None, site_specs: dict | None = None):
         self.model = model
         self.device = torch.device(device)
         self.dtype = dtype or default_dtype(self.device)
+        #: this rank's collectives over the run's mesh (none: the identity)
+        self.comm = comm or MeshComm()
         #: per-site likelihood masks (True = real observation); masked-out
         #: entries contribute exactly 0 to every log density
-        self.masks = {k: torch.as_tensor(np.asarray(v, dtype=bool),
-                                         device=self.device)
+        self.masks = {k: np.asarray(v, dtype=bool)
                       for k, v in (masks or {}).items()}
         missing = model.input_names - set(inputs)
         if missing:
@@ -101,6 +111,11 @@ class CompiledModel:
         # logical node shapes (for monitors)
         self.logical_shapes = {n: tuple(env[n].shape) for n in self.logical}
         self._block_cache: dict = {}
+        #: how ``_site_lp`` applies each mask (``_mask_plan``): the whole
+        #: density's, and this data rank's part of a split site
+        self._plans = {n: self._mask_plan(n, m) for n, m in self.masks.items()}
+        self._local_plans = {n: self._mask_plan(n, m) for n, m in
+                             self._local_masks(site_specs or {}).items()}
 
     def tensor(self, v) -> torch.Tensor:
         """A value as a tensor on this model's device: floating values in
@@ -151,21 +166,114 @@ class CompiledModel:
         stacked = torch.func.vmap(leaves)(state)
         return rebuild[0](stacked)
 
+    # ---- masks and the data axis ---------------------------------------
+    def _local_masks(self, site_specs: dict) -> dict[str, np.ndarray]:
+        """This data rank's entries of each observed site that ``site_specs``
+        shards over the data axis: its pad mask and its own slice of every
+        sharded dim (the padded length divides by the data axis).  Sampled
+        sites named there are replicated, a layout hint only."""
+        comm = self.comm
+        if comm.data_size == 1:
+            return {}
+        observed = set(self.model.keys("observed"))
+        out = {}
+        for name, spec in site_specs.items():
+            if name not in observed:
+                continue
+            shape = self.sites[name].shape
+            mask = self.masks.get(name, np.ones(shape, dtype=bool)).copy()
+            split = False
+            for dim, entry in enumerate(tuple(spec)):
+                names = _spec_names(entry)
+                if comm.chain_axis in names:
+                    raise ValueError(f"site spec {spec} of {name!r} names the "
+                                     f"chain axis {comm.chain_axis!r}")
+                if comm.data_axis not in names:
+                    continue
+                per, rem = divmod(shape[dim], comm.data_size)
+                if rem:
+                    raise ValueError(f"dim {dim} of {name!r} ({shape[dim]}) "
+                                     f"does not divide over the data axis")
+                idx = [slice(None)] * len(shape)
+                idx[dim] = np.r_[0:comm.data_rank * per,
+                                 (comm.data_rank + 1) * per:shape[dim]]
+                mask[tuple(idx)] = False
+                split = True
+            if split:
+                out[name] = mask
+        return out
+
+    def _mask_plan(self, name: str, mask: np.ndarray):
+        """How ``_site_lp`` applies ``mask`` to site ``name``:
+
+        - ``("entries", m)``: ``m`` over the entries of ``log_prob``;
+        - ``("events", m)``: the mask covers event dims and takes each event
+          whole or not at all; ``m`` over the events;
+        - ``("range", lo, hi, consts)``: it takes the events' entries
+          lo..hi-1 along the dim that the distribution can split its event
+          on (``event_split_dim``, e.g. the fused GLMM's groups), whole
+          along the others; ``consts`` is the example distribution's
+          ``split_constants(lo, hi)``, cut once here.
+
+        Any other mask over event dims raises: summing part of an event is
+        not that event's density, and an event is not dropped silently."""
+        dist = self.example_dists[name]
+        lp_ndim = len(self.sites[name].shape) - dist.event_ndim
+        if mask.ndim <= lp_ndim:
+            return ("entries", torch.as_tensor(mask, device=self.device))
+        ev = mask.reshape(mask.shape[:lp_ndim] + (-1,))
+        if np.all(ev.all(-1) | ~ev.any(-1)):
+            return ("events", torch.as_tensor(ev.all(-1), device=self.device))
+        split = getattr(dist, "event_split_dim", None)
+        if split is not None and lp_ndim == 0:
+            other = tuple(d for d in range(mask.ndim) if d != split)
+            whole, some = mask.all(axis=other), mask.any(axis=other)
+            idx = np.flatnonzero(whole)
+            if (np.array_equal(whole, some) and idx.size
+                    and idx[-1] - idx[0] + 1 == idx.size):
+                lo, hi = int(idx[0]), int(idx[-1]) + 1
+                return ("range", lo, hi, dist.split_constants(lo, hi))
+        raise ValueError(
+            f"the mask of site {name!r} takes part of an event of its "
+            f"{type(dist).__name__} (event dims {dist.event_ndim}); a mask "
+            f"must take each event whole or not at all"
+            + ("" if split is None else
+               f", or a contiguous range along event dim {split}"))
+
+    def block_split(self, params: tuple[str, ...], prior_only: bool = False) -> bool:
+        """Whether the block's density is split over the data axis: its
+        ``logf`` on this rank is a part, and the data group's parts sum to
+        the density."""
+        terms = tuple(params) if prior_only else self.block_terms(tuple(params))
+        return any(n in self._local_plans for n in terms)
+
+    def block_sum(self, params: tuple[str, ...], prior_only: bool = False):
+        """``f(*tensors) -> tuple`` that completes the block's vmapped
+        ``logf`` values and gradients on this rank: their sum over the data
+        group (one all-reduce) for a split block, else the identity.  It is
+        called on the outputs of ``torch.func.vmap``, never inside it."""
+        if self.block_split(params, prior_only):
+            return self.comm.data_sum
+        return _identity
+
     # ---- full log density ---------------------------------------------
-    def _site_lp(self, name: str, dist, value, *, support_mask=True) -> torch.Tensor:
+    def _site_lp(self, name: str, dist, value, *, support_mask=True,
+                 local=False) -> torch.Tensor:
         """Total log density of one site, honoring an optional observation
         mask (masked entries contribute exactly 0, even if their values
-        would be NaN/-inf)."""
-        mask = self.masks.get(name)
-        if mask is None:
+        would be NaN/-inf); ``local`` takes this data rank's part of a
+        split site."""
+        plan = (self._local_plans if local else self._plans).get(name)
+        if plan is None:
             if support_mask:
                 return dist.total_log_prob(value)
             return torch.sum(dist.log_prob(value))
+        if plan[0] == "range":
+            return dist.log_prob_range(value, *plan[1:])
+        mask = plan[1]
         lp = dist.log_prob(value)
         if support_mask:
             lp = torch.where(dist.in_support(value), lp, -torch.inf)
-        if mask.dim() > lp.dim():  # mask covers event dims: reduce with AND
-            mask = torch.all(mask.reshape(mask.shape[:lp.dim()] + (-1,)), dim=-1)
         return torch.sum(torch.where(mask, lp, torch.zeros_like(lp)))
 
     def logpdf(self, state: dict, terms: tuple[str, ...] | None = None) -> torch.Tensor:
@@ -224,6 +332,10 @@ class CompiledModel:
         terms = params if prior_only else self.block_terms(params)
         spec = self.block_ravel_spec(params, transform)
         pset = set(params)
+        # split over the data axis: this rank sums its slice of the split
+        # sites, and data rank 0 alone every other term and the Jacobian
+        split = self.block_split(params, prior_only)
+        lead = not split or self.comm.data_rank == 0
 
         def pack(state):
             if not transform:
@@ -268,10 +380,14 @@ class CompiledModel:
 
         def logf(flat, state):
             env, dists, logdet = _decode(flat, state)
-            lp = logdet
+            lp = logdet if lead else torch.zeros_like(logdet)
             for n in terms:
                 dist = dists[n]
-                if transform and n in pset:
+                if split and n in self._local_plans:
+                    lp = lp + self._site_lp(n, dist, env[n], local=True)
+                elif not lead:
+                    continue
+                elif transform and n in pset:
                     # in-support by construction; no masking (keeps autodiff clean)
                     lp = lp + self._site_lp(n, dist, env[n], support_mask=False)
                 else:
@@ -363,9 +479,17 @@ class CompiledModel:
         return tuple(monitored), labels, pack_monitored
 
 
+def _identity(*tensors):
+    return tensors
+
+
 def compile_model(model: Model, inputs: dict, inits: dict, *, device,
-                  dtype=None, masks: dict | None = None) -> CompiledModel:
+                  dtype=None, masks: dict | None = None,
+                  comm: MeshComm | None = None,
+                  site_specs: dict | None = None) -> CompiledModel:
     """Compile ``model`` for ``device`` (required: nothing defaults to the
-    CPU).  ``dtype`` defaults to float64 on the CPU and float32 elsewhere."""
+    CPU).  ``dtype`` defaults to float64 on the CPU and float32 elsewhere.
+    ``comm`` and ``site_specs`` place it on a rank of a mesh (``mcmc``
+    passes them)."""
     return CompiledModel(model, inputs, inits, device=device, dtype=dtype,
-                         masks=masks)
+                         masks=masks, comm=comm, site_specs=site_specs)

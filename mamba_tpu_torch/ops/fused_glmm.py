@@ -21,6 +21,12 @@ the root of the checkout and loaded with ``ctypes``.
 whose forward already holds the gradients, so ``grad_and_value`` costs one
 kernel launch, and whose ``vmap`` rule turns ``torch.func.vmap`` over chains
 into one chain-batched launch.
+
+Under a mesh's data axis each data rank launches the kernel on its own
+contiguous range of groups (``BernoulliLogitGLMM.log_prob_range``): the
+covariates' slice is cut once where the compiled model plans the split,
+``y``'s and ``b``'s are made contiguous per call, and the engine sums ``lp`` and ``grad_beta`` over the
+data group while autograd places ``grad_b`` at the range's groups.
 """
 
 from __future__ import annotations
@@ -231,7 +237,8 @@ class bernoulli_logit_glmm_loglik(torch.autograd.Function):  # noqa: N801
 
     @staticmethod
     def forward(Xt, y, beta, b):
-        lp, gbeta, gb = glmm_loglik_grads(Xt, y, beta[None].contiguous(),
+        lp, gbeta, gb = glmm_loglik_grads(Xt.contiguous(), y.contiguous(),
+                                          beta[None].contiguous(),
                                           b[None].contiguous())
         return lp[0], gbeta[0], gb[0]
 
@@ -278,6 +285,9 @@ class BernoulliLogitGLMM(Distribution):
     b: torch.Tensor      # (G,)
 
     event_ndim = 2
+    #: the event splits along its groups (dim 1 of y): a part of the
+    #: likelihood is the kernel over a range of groups (``log_prob_range``)
+    event_split_dim = 1
     is_discrete = True
     #: the fused kernel shares one y across the chain batch — MISS
     #: imputation (per-chain y values) would silently evaluate every chain
@@ -307,6 +317,21 @@ class BernoulliLogitGLMM(Distribution):
 
     def in_support(self, x):
         return torch.all((x == 0.0) | (x == 1.0))
+
+    def split_constants(self, lo: int, hi: int):
+        """The covariates of groups ``lo..hi-1``, contiguous.  The compiled
+        model cuts them once, from its example distribution, where it plans
+        the split: the covariates are data, the same on every call."""
+        return self.Xt[:, :, lo:hi].contiguous()
+
+    def log_prob_range(self, x, lo: int, hi: int, Xt):
+        """The log-likelihood of groups ``lo..hi-1`` alone, -inf if their
+        ``y`` leave {0, 1}: one launch over the range, on ``Xt``, the
+        covariates' slice from ``split_constants(lo, hi)``."""
+        y = x[:, lo:hi]
+        lp = bernoulli_logit_glmm_loglik.apply(Xt, y, self.beta,
+                                               self.b[lo:hi])[0]
+        return torch.where(self.in_support(y), lp, -torch.inf)
 
     def sample(self, gen, shape=()):
         p = torch.sigmoid(self._logits())

@@ -8,6 +8,10 @@ tunes and the random generator's state, every tensor moved to the CPU), and
 ``read_chains`` re-binds a user-reconstructed Model on a device the caller
 names to restore restartability — the same information the reference's
 ModelState snapshots carry (src/Mamba.jl:152-155).
+
+A run sharded over a mesh writes every chain's draws but only its own
+rank's resume state; its file reads back as draws, and restarting it
+raises: such a run restarts in memory, on its mesh.
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ def write_chains(path: str, c: Chains) -> None:
             payload["states"] = _tree_map(lambda t: t.detach().cpu(), c.states)
             payload["device"] = c.compiled.device.type
             payload["dtype"] = str(c.compiled.dtype).removeprefix("torch.")
+            if c.compiled.comm.sharded:
+                payload["shard"] = c.compiled.comm.shard_state()
     with open(path, "wb") as f:
         pickle.dump(payload, f)
 
@@ -69,6 +75,12 @@ def read_chains(path: str, model=None, inputs=None, *, device=None,
     from ..model.compile import compile_model
     states = p.get("states")
     cm = None
+    if states is not None and "shard" in p:
+        raise ValueError(
+            f"{path} was written by one rank of a sharded run ({p['shard']}): "
+            f"its resume state holds that rank's chains only.  Restart the "
+            f"run in memory on its mesh (mcmc(mc, iters)), or read the file "
+            f"without a model for its draws")
     if states is not None:
         device = torch.device(device)
         if device.type != p["device"]:

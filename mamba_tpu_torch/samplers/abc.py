@@ -32,7 +32,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .base import BlockKernel, SamplerSpec
+from .base import BlockKernel, SamplerSpec, summed
 
 #: draws of the ``maxdraw`` loop scored together, per chain
 DRAWS_PER_CALL = 25
@@ -101,7 +101,8 @@ class ABC(SamplerSpec):
         pack, unpack, _, logf_prior = cm.block_functions(
             self.params, True, prior_only=True)
         vpack, vunpack = torch.func.vmap(pack), torch.func.vmap(unpack)
-        vprior = torch.func.vmap(logf_prior)
+        vprior = summed(torch.func.vmap(logf_prior),
+                        cm.block_sum(self.params, prior_only=True))
         # data nodes: the block's stochastic targets, minus the block
         targets = cm.model.keys("target", list(self.params))
         stoch = set(cm.stochastic)

@@ -20,6 +20,10 @@ SamplerVariate).  Two levels, as in the JAX package:
 
 ``adapt`` is a Python bool (``iter <= burnin`` in the reference, e.g.
 nuts.jl:52): the engine's loop runs on the host.
+
+Under a mesh's data axis a block's ``logf`` on one rank is a part of its
+density; every vmapped value and gradient is summed over the data group
+(``cm.block_sum``) right after the vmapped call, outside it.
 """
 
 from __future__ import annotations
@@ -58,9 +62,16 @@ class SamplerSpec:
 
     # -- engine wiring ---------------------------------------------------
     def build(self, cm) -> BlockKernel:
+        return self.bind(cm, self.kernel_init, self.kernel_step)
+
+    def bind(self, cm, kernel_init, kernel_step) -> BlockKernel:
+        """The block kernel that runs ``kernel_init(gen, x0, f)`` and
+        ``kernel_step(gen, x, tune, f, adapt)`` on the block's flat vectors,
+        ``f`` being the batched density (and gradient)."""
         pack, unpack, spec, logf = cm.block_functions(self.params, self.transform)
         vpack = torch.func.vmap(pack)
         vunpack = torch.func.vmap(unpack)
+        total = cm.block_sum(self.params)
 
         if self.needs_grad:
             grad_value = torch.func.vmap(torch.func.grad_and_value(logf))
@@ -68,26 +79,33 @@ class SamplerSpec:
             def make_f(state):
                 def f(x):
                     g, v = grad_value(x, state)
-                    return v, g
+                    return total(v, g)
                 return f
         else:
-            vlogf = torch.func.vmap(logf)
+            vlogf = summed(torch.func.vmap(logf), total)
 
             def make_f(state):
                 return candidate_logf(vlogf, state)
 
         def init(gen, state):
-            return self.kernel_init(gen, vpack(state), make_f(state))
+            return kernel_init(gen, vpack(state), make_f(state))
 
         def step(gen, state, tune, adapt):
             x = vpack(state)
-            x2, tune2 = self.kernel_step(gen, x, tune, make_f(state), adapt)
+            x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt)
             return {**state, **vunpack(x2, state)}, tune2
 
         return BlockKernel(init, step)
 
     def __repr__(self):
         return f"{type(self).__name__}({list(self.params)})"
+
+
+def summed(vlogf, total):
+    """``vlogf`` followed by ``total`` (``cm.block_sum``) on its value."""
+    def f(x, state):
+        return total(vlogf(x, state))[0]
+    return f
 
 
 def candidate_logf(vlogf, state):

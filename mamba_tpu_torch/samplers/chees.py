@@ -14,7 +14,9 @@ Change-in-Estimator-of-Expected-Square criterion), so:
 - the trajectory jitter ``h`` is a base-2 Halton value of the iteration
   counter ``it``, shared across chains and advancing after warmup too;
 - the cross-chain means the JAX package takes with ``lax.pmean`` over its
-  chain axis are means over dim 0 here.
+  chain axis are means over dim 0 here, and over every rank's chains under
+  a mesh (``MeshComm.chain_mean``, weighted by each rank's chain count), so
+  every rank holds the same step size, trajectory and mass.
 
 Adapted quantities are shared by construction and stored once: the step
 sizes, the dual-averaging and Adam state and the trajectory length as 0-d
@@ -36,8 +38,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import MeshComm
 from .base import SamplerSpec
 from .nuts import nutsepsilon
+
+#: the collectives of a run without a mesh: means over dim 0
+_ONE_RANK = MeshComm()
 
 
 class ChEESTune(NamedTuple):
@@ -78,17 +84,20 @@ def _halton2(m: int) -> float:
 def chees_init(gen, x0, logfgrad, epsilon: float | None = None,
                traj: float | None = None, target: float = 0.75,
                max_steps: int = 1024, minv0=None,
-               mass_window: int = 0) -> ChEESTune:
+               mass_window: int = 0, comm: MeshComm | None = None) -> ChEESTune:
     """Tune for chains ``x0 (C, dim)``.  ``epsilon`` defaults to the
     geometric mean of the per-chain NUTS doubling searches, ``traj`` to one
     step.  ``minv0`` seeds the diagonal inverse mass; ``mass_window > 0``
     refreshes it every that many warmup iterations from pooled cross-chain
-    statistics (the recommended mode above ~1k dimensions)."""
+    statistics (the recommended mode above ~1k dimensions).  ``comm`` pools
+    the chains of every rank of a mesh."""
     f = dict(dtype=x0.dtype, device=x0.device)
+    comm = comm or _ONE_RANK
     if epsilon is None:
         # per-chain doubling searches agree only in order of magnitude;
         # every chain starts (and stays) on their geometric mean
-        eps = torch.exp(torch.mean(torch.log(nutsepsilon(gen, x0, logfgrad))))
+        eps = torch.exp(comm.chain_mean(torch.log(
+            nutsepsilon(gen, x0, logfgrad))))
     else:
         eps = torch.as_tensor(float(epsilon), **f)
     dim = x0.shape[1:]
@@ -113,13 +122,15 @@ def _steps(h: float, traj, eps, max_steps: int) -> int:
     return int(min(max(v, 1.0), float(max_steps)))
 
 
-def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool):
+def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
+               comm: MeshComm | None = None):
     """One ChEES-HMC iteration for chains ``x (C, dim)``: jittered
     fixed-length leapfrog + MH, then (when ``adapt``) the cross-chain
-    dual-averaging, Adam and mass-window updates.  Returns the new
-    positions and tune."""
+    dual-averaging, Adam and mass-window updates, pooled over every rank's
+    chains by ``comm``.  Returns the new positions and tune."""
     dt = x.dtype
     C = x.shape[0]
+    comm = comm or _ONE_RANK
     eps = tune.epsilon if adapt else tune.epsilonbar
     h = _halton2(tune.it)
     L = _steps(h, tune.traj, eps, tune.max_steps)
@@ -148,7 +159,7 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool):
         return x2, tune._replace(it=tune.it + 1)
 
     # ---- cross-chain adaptation ----------------------------------------
-    abar = torch.mean(alpha)
+    abar = comm.chain_mean(alpha)
     # dual averaging (Hoffman-Gelman) on the cross-chain accept rate
     mh = float(tune.m + 1)
     Hbar = (1.0 - 1.0 / (mh + 10.0)) * tune.Hbar + (tune.target - abar) / (mh + 10.0)
@@ -157,7 +168,7 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool):
     log_epsbar = w * log_eps + (1.0 - w) * torch.log(tune.epsilonbar)
 
     # ChEES gradient for the trajectory length (accept-weighted mean)
-    xbar = torch.mean(x, dim=0)
+    xbar = comm.chain_mean(x)
     d_prop = x1 - xbar
     d_cur = x - xbar
     dsq = torch.sum(d_prop * d_prop, dim=-1) - torch.sum(d_cur * d_cur, dim=-1)
@@ -165,7 +176,7 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool):
     # a divergent trajectory has zero accept probability, but 0 * nan would
     # still poison the mean
     g_chain = torch.where(torch.isfinite(g_chain), g_chain, 0.0)
-    g = torch.mean(alpha * g_chain) / torch.clamp(torch.mean(alpha), min=1e-6)
+    g = comm.chain_mean(alpha * g_chain) / torch.clamp(abar, min=1e-6)
     g = g / torch.clamp(torch.abs(g), min=1e-12)   # dimensionless Adam step
 
     b1, b2, lr = 0.9, 0.95, 0.025
@@ -185,8 +196,8 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool):
     minv_new, w_n, w_mean, w_m2, w_sw = (tune.minv, tune.w_n, tune.w_mean,
                                          tune.w_m2, tune.w_sw)
     if tune.window > 0:
-        mc = torch.mean(x2, dim=0)
-        vc = torch.mean((x2 - mc) ** 2, dim=0)
+        mc = comm.chain_mean(x2)
+        vc = comm.chain_mean((x2 - mc) ** 2)
         w_n += 1
         delta = mc - w_mean
         w_mean = w_mean + delta / w_n
@@ -198,7 +209,7 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool):
             # Stan-style shrinkage toward 1e-3, weighted by the effective
             # count (iterations x chains: cross-chain pooling is why a short
             # window suffices)
-            ne = nf * C
+            ne = nf * C * comm.chain_size
             minv_new = (ne / (ne + 5.0)) * var + 1e-3 * (5.0 / (ne + 5.0))
             w_n = 0
             w_mean, w_m2, w_sw = (torch.zeros_like(w_mean),
@@ -245,10 +256,17 @@ class ChEESHMC(SamplerSpec):
         self.minv0 = minv0
         self.mass_window = int(mass_window)
 
-    def kernel_init(self, gen, x0, logfgrad):
+    def build(self, cm):
+        # the cross-chain statistics pool every rank's chains
+        return self.bind(
+            cm, lambda gen, x0, f: self.kernel_init(gen, x0, f, cm.comm),
+            lambda gen, x, tune, f, adapt: self.kernel_step(
+                gen, x, tune, f, adapt, cm.comm))
+
+    def kernel_init(self, gen, x0, logfgrad, comm=None):
         return chees_init(gen, x0, logfgrad, self.epsilon, self.traj,
                           self.target, self.max_steps, minv0=self.minv0,
-                          mass_window=self.mass_window)
+                          mass_window=self.mass_window, comm=comm)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt):
-        return chees_step(gen, x, tune, logfgrad, adapt)
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, comm=None):
+        return chees_step(gen, x, tune, logfgrad, adapt, comm=comm)

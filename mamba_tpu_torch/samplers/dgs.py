@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .base import BlockKernel, SamplerSpec, candidate_logf
+from .base import BlockKernel, SamplerSpec, candidate_logf, summed
 
 
 class DGSTune(NamedTuple):
@@ -131,12 +131,12 @@ class DGS(SamplerSpec):
     support (reference DGS ctor, dgs.jl:56-84).  Support bounds are frozen
     when the block is built.  On a CUDA device the sweep is replayed from a
     CUDA graph (``GraphedSweep``), so the block density must not copy from
-    the host."""
+    the host; a sweep whose density is split over a mesh's data axis runs
+    eagerly, its sum over the data group outside any graph."""
 
     transform = False
 
     def build(self, cm) -> BlockKernel:
-        graphed = cm.device.type == "cuda"
         kernels = []
         for name in self.params:
             dist = cm.example_dists[name]
@@ -144,7 +144,10 @@ class DGS(SamplerSpec):
                 raise ValueError(f"DGS needs a discrete node, got {name!r}")
             tune0 = dgs_support(dist, cm.sites[name].shape, cm.dtype, cm.device)
             pack, unpack, _, logf = cm.block_functions((name,), False)
-            vlogf = torch.func.vmap(logf)
+            vlogf = summed(torch.func.vmap(logf), cm.block_sum((name,)))
+            # a sweep whose density is summed over a data group runs its
+            # collectives eagerly: they are not captured in a CUDA graph
+            graphed = cm.device.type == "cuda" and not cm.block_split((name,))
 
             def sweep(x, noise, state, tune0=tune0, vlogf=vlogf):
                 return _sweep(x, noise, tune0, candidate_logf(vlogf, state))

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from .base import BlockKernel, SamplerSpec, validatesimplex
+from .base import BlockKernel, SamplerSpec, summed, validatesimplex
 
 
 class SliceSimplexTune(NamedTuple):
@@ -130,7 +130,9 @@ class SliceSimplex(SamplerSpec):
             K = shape[-1] if shape else 1
             pack, unpack, _, logf = cm.block_functions((name,), False)
             per_site.append((name, K, torch.func.vmap(pack),
-                             torch.func.vmap(unpack), torch.func.vmap(logf)))
+                             torch.func.vmap(unpack),
+                             summed(torch.func.vmap(logf),
+                                    cm.block_sum((name,)))))
 
         def init(gen, state):
             return SliceSimplexTune(scale=torch.tensor(self.scale, dtype=cm.dtype,

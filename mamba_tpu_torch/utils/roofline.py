@@ -76,6 +76,18 @@ def elementwise_ceiling(n_elems: int = 64 * 1024 * 1024, iters: int = 20,
             "gelems_s": n_elems / s / 1e9, "gbytes_s": 8 * n_elems / s / 1e9}
 
 
+def _tensors(tree):
+    """The tensors of a tree of dicts, tuples and lists."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _tensors(v)
+
+
 def roofline(fn, *args, flops: float, bytes: float, iters: int = 20,
              warmup: int = 3, **kwargs) -> dict:
     """Time ``fn(*args, **kwargs)`` warm and report the achieved rates
@@ -88,7 +100,7 @@ def roofline(fn, *args, flops: float, bytes: float, iters: int = 20,
     pct_of_bound."""
     from .profiling import time_compiled
     s = time_compiled(fn, *args, iters=iters, warmup=warmup, **kwargs)
-    on_cuda = any(isinstance(a, torch.Tensor) and a.is_cuda for a in args)
+    on_cuda = any(t.is_cuda for t in _tensors(args))
     peak_f, peak_b = device_peaks() if on_cuda else (None, None)
     res = {"s_per_call": s, "flops": float(flops), "bytes": float(bytes),
            "gflops_s": flops / s / 1e9, "gbytes_s": bytes / s / 1e9,

@@ -196,10 +196,12 @@ def test_smc_glmm_recovers_beta_in_both_packages():
 
 
 def test_smc_needs_a_device_and_no_mesh():
+    """A device is required; a mesh must be a torch DeviceMesh (particles
+    sharded over one: tests/test_torch_multiproc.py)."""
     model, y, _, _ = conjugate_model()
     with pytest.raises(ValueError, match="explicit device"):
         tmt.smc(model, {}, {"y": y, "mu": 0.0})
-    with pytest.raises(NotImplementedError, match="Queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmt.smc(model, {}, {"y": y, "mu": 0.0}, mesh=object(), device="cpu")
 
 

@@ -90,3 +90,54 @@ def test_glmm_bound_reads_the_roofline_peaks():
     assert abs(b["sfu_ms"] - 1e3 * 3 * n_obs / (132 * 16 * 1.98e9)) < 1e-12
     assert round(b["bound_ms"], 4) == 0.0642
     assert roofline.H100_SXM.fp32_flops == 67e12
+
+
+def test_perf_profile_counts_the_work_of_a_call():
+    """scripts/perf_profile.py's count: 2mnk for a matrix product, one per
+    output element of a pointwise op, one per input element of a
+    reduction, none for a view; bytes of the inputs and outputs once."""
+    from mamba_tpu_torch.scripts.perf_profile import count_work
+    a, b = torch.ones(3, 4), torch.ones(4, 5)
+    flops, nbytes = count_work(lambda a, b: torch.exp(a @ b).T.sum(), a, b)
+    assert flops == 2 * 3 * 4 * 5 + 15 + 15
+    assert nbytes == 4 * (12 + 20 + 1)
+    # under torch.func's transforms too (the engine's vmap over chains)
+    x = torch.ones(8, 6)
+    flops, _ = count_work(torch.func.vmap(lambda v: (v * v).sum()), x)
+    assert flops == 48 + 48
+
+
+def test_bench_scaling_sweep_goes_on_past_a_failed_first_row(monkeypatch,
+                                                             capsys):
+    """A row that runs out of time is recorded and the sweep goes on; the
+    speed-up is over the first row that succeeded (the JAX package's sweep
+    keeps no base when its first row fails: ROADMAP Queue 3)."""
+    import subprocess
+    from types import SimpleNamespace
+    from mamba_tpu_torch.scripts import bench_scaling
+
+    def fake_run(cmd, **kw):
+        chains = int(cmd[cmd.index("--chains") + 1])
+        if chains == 1:
+            raise subprocess.TimeoutExpired(cmd, kw["timeout"])
+        if chains == 8:
+            return SimpleNamespace(stdout="", stderr="Traceback\nboom",
+                                   returncode=1)
+        row = {"sampler": "nuts", "chains": chains, "samples_s": 10.0 * chains}
+        return SimpleNamespace(stdout="RESULT " + json.dumps(row), stderr="",
+                               returncode=0)
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    rows = bench_scaling.mode_chip(["nuts"], [1, 8, 64, 256], iters=4,
+                                   burnin=2, device="cpu", row_timeout=5.0)
+    assert rows[0]["error"] == "timed out after 5.0 s"
+    assert rows[1]["error"] == "boom"
+    assert rows[2]["speedup"] == 1.0 and rows[3]["speedup"] == 4.0
+    assert rows[3]["speedup_base_chains"] == 64
+    assert len(capsys.readouterr().out.splitlines()) == 4
+
+
+def test_bench_scaling_row_runs_rats_on_the_cpu():
+    from mamba_tpu_torch.scripts.bench_scaling import run_row
+    row = run_row("chees", 2, 4, 2, "cpu")
+    assert row["chains"] == 2 and row["samples_s"] > 0 and row["traj"] > 0
