@@ -18,13 +18,21 @@ through the port's public entry points (``mcmc``, ``advi``,
    cases (``KERNEL_CASES``): full width, where both are timed; a ragged
    edge; one chain; a shape that takes the generic kernel; and full width
    near a posterior mode, where ``grad_beta`` cancels;
+3b. graphs: the engine replays NUTS's leaves and ChEES's leapfrogs from
+   CUDA graphs (``utils/graphs.py``); rats NUTS and GLMM ChEES at full
+   width, 3 iterations (2 burnin) each, run through those graphs and
+   through the samplers' plain loops (the stand-alone ``nuts_step`` and
+   ``chees_step``) from one seed, held bit-identical (draws, tunes, final
+   state, NUTS's tree depths), with the fused kernel's launches counted
+   through the replays at least the gradient evaluations;
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains,
    ``z`` monitored for the post phase;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
 6. rats NUTS, the bench's headline: ``rats.build("nuts")``, 1024 chains,
    cut from 1500 to 30 iterations (15 burnin), gated on the golden
    mu_beta mean (rank R-hat and bulk ESS printed; they are gated only for
-   runs of 500 kept draws or more);
+   runs of 500 kept draws or more, and ``scripts/rats_headline.py`` runs
+   the full 1500/500 under them);
 7. rats ChEES: ADVI warm start, then ChEES-HMC with the conjugate Gibbs
    block, 1024 chains x 1500 iterations (500 burnin), gated on the golden
    mu_beta mean, rank R-hat < 1.01 and bulk ESS > 400;
@@ -60,10 +68,12 @@ through the port's public entry points (``mcmc``, ``advi``,
 13. smc: the conjugate model and line under the gates of
     tests/test_infer.py, and the G = 64 GLMM through the kernel's ``vmap``
     rule over 1024 particles;
-14. profile: a ``torch.profiler`` trace of full-width gradients that names
-    the kernel, ``time_compiled`` against phase 3's CUDA events, the card's
-    peaks and the kernel's bound from ``utils/roofline.py``, its
-    ``roofline`` reading and the elementwise ceiling;
+14. profile: one ``torch.profiler`` trace of full-width gradients, which
+    must name the kernel, and of two more iterations of phase 6's rats
+    NUTS run, the device's busy share over them; ``time_compiled``
+    against phase 3's CUDA events, the card's peaks and the kernel's bound
+    from ``utils/roofline.py``, its ``roofline`` reading and the
+    elementwise ceiling;
 15. mesh (``parallel/``, after phase 10): (a) ``graft_entry.dryrun_multichip(1)``;
     (b) phase 10's GLMM ChEES run through ``mcmc(mesh=)`` on a one-rank NCCL
     mesh in this process; (c) the same run in two processes over gloo on
@@ -81,11 +91,13 @@ through the port's public entry points (``mcmc``, ``advi``,
 
 runs one rank of (c) and (d).
 
-The kernel's paths (phases 5, 10, 12, 13 and 15's runs) each set its launch
-count to 0 just before they run and read it just after.  Every phase raises on
-failure.  The whole run takes 15 to 18 minutes on an H100, 2 to 3 of them in
-rats NUTS, 5 to 6 in the zoo and 3 in zoo_mv; the paths are host-bound,
-so the time follows the host's CPU, and each phase's wall is printed.  The
+The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
+count to 0 just before they run and read it just after; a launch captured
+in a CUDA graph counts once per replay.  Every phase raises on
+failure.  The whole run takes 8 to 12 minutes on an H100, 3.5 to 4 in the
+zoo and 2 to 4 in zoo_mv, whose samplers still run eagerly: those paths
+are host-bound, so the time follows the host's CPU, and each phase's wall
+is printed.  The
 last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernel with its launches on the main paths, its
 error, its time, the plain version's, and the least time the card could take
@@ -128,11 +140,22 @@ CHAINS = 1024
 #: GLMM NUTS at full width (phase 5): iterations, burnin
 GLMM_NUTS_RUN = (10, 5)
 #: rats NUTS headline (phase 6), cut from bench.py's 1500/500
-#: (bench.py:39-46): at 1024 chains the warmup trees are 9-10 deep and each
-#: leapfrog costs 5 to 9 ms of host time, by the host's load, so these 30
-#: iterations take 2 to 3 minutes.  Cut from 50/25 when zoo_mv came in;
-#: the mean over 1024 chains still clears the mu_beta gate (PERF.md §4)
+#: (bench.py:39-46) and gated on the golden mu_beta mean.  The engine now
+#: runs the full 1500/500 in about two minutes, but there bench.py's rank
+#: R-hat gate fails at the default seed: one of the 1024 chains from the
+#: over-dispersed second init is still far from the posterior when warmup
+#: ends (R-hat 1.0108 on an H100; the JAX package on the CPU at the same
+#: seed: 1.0156, five such chains).  ``python3 -m mamba_tpu_torch.scripts.rats_headline``
+#: runs the full headline under its three gates (PERF.md §6)
 RATS_NUTS_RUN = (30, 15)
+#: the graphs phase: iterations and burnin of the rats NUTS and GLMM ChEES
+#: runs made with the engine's captured steps and with the plain loops
+GRAPH_CHECK_RUN = (3, 2)
+#: the graphs phase's initial ChEES trajectory length
+GRAPH_CHEES_TRAJ = 0.2
+#: iterations that continue phase 6's run inside the profile phase's trace,
+#: over which the device's busy share is read
+BUSY_ITERS = 2
 #: rats ChEES (phase 7), bench.py:63-98
 RATS_CHEES_RUN = (1500, 500)
 #: GLMM ChEES at full width (phase 10); depth cut from bench.py's 1300/300
@@ -378,7 +401,10 @@ def _timing(sim, chains, iters):
     t = sim.timing
     return {"setup_s": t["setup_s"], "sample_s": t["sample_s"],
             "fetch_s": t["fetch_s"],
-            "chain_iters_per_s": chains * iters / t["sample_s"]}
+            "chain_iters_per_s": chains * iters / t["sample_s"],
+            # graphs captured in the run, and their capture time (inside
+            # sample_s); reported on a CUDA device
+            "graphs": t.get("graphs", 0), "capture_s": t.get("capture_s", 0.0)}
 
 
 def _monitor(model, name):
@@ -386,6 +412,118 @@ def _monitor(model, name):
     import dataclasses
     model.nodes[name] = dataclasses.replace(model.nodes[name], monitor=True)
     return model
+
+
+def _tunes_equal(torch, ta, tb):
+    """Every block's tune equal, field by field."""
+    def same(u, v):
+        if isinstance(u, torch.Tensor):
+            return isinstance(v, torch.Tensor) and torch.equal(u, v)
+        if isinstance(u, tuple):
+            return (isinstance(v, tuple) and len(u) == len(v)
+                    and all(same(a, b) for a, b in zip(u, v)))
+        return u == v
+    return same(tuple(ta), tuple(tb))
+
+
+def _graph_pair(torch, mt, graphs, run):
+    """``run()`` twice from one seed: through the engine's captured steps
+    and under ``graphs.disabled()``, the samplers' plain loops as the
+    stand-alone ``nuts_step`` and ``chees_step`` run them.  Returns both
+    results and walls."""
+    out = {}
+    for way in ("graphed", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if way == "plain":
+            with graphs.disabled():
+                res = run()
+        else:
+            res = run()
+        torch.cuda.synchronize()
+        out[way] = (res, time.perf_counter() - t0)
+    return out
+
+
+def _same_run(torch, a, b):
+    return bool(np.array_equal(a.value, b.value)
+                and _tunes_equal(torch, a.states["tunes"], b.states["tunes"])
+                and all(torch.equal(a.states["state"][k], b.states["state"][k])
+                        for k in a.states["state"]))
+
+
+def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
+    """The engine's captured steps against the samplers' plain loops, from
+    one seed at full width: rats NUTS (draws, tunes, final state and every
+    transition's tree depths) and GLMM ChEES through the fused kernel
+    (draws, tunes, final state; the kernel's launches counted through the
+    graph's replays at least the gradient evaluations, and at least the
+    plain loop's, which launches once per evaluation).  Bit-identical, or
+    the phase fails."""
+    from mamba_tpu_torch.utils import graphs
+    iters, burnin = GRAPH_CHECK_RUN
+    res = {}
+
+    model, inputs, inits = rats.build("nuts")
+
+    def rats_run():
+        depths, restore = _record_depths(nuts)
+        try:
+            sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                          chains=CHAINS, verbose=False, device=DEVICE)
+        finally:
+            restore()
+        return sim, depths
+
+    pair = _graph_pair(torch, mt, graphs, rats_run)
+    (g_sim, g_d), g_s = pair["graphed"]
+    (p_sim, p_d), p_s = pair["plain"]
+    work = _nuts_work(torch, g_d)
+    res["rats_nuts"] = {
+        "equal": _same_run(torch, g_sim, p_sim) and len(g_d) == len(p_d)
+        and all(torch.equal(a, b) for a, b in zip(g_d, p_d)),
+        **work, "graphed_s": g_s, "plain_s": p_s,
+        "graphed_ms_per_leapfrog": 1e3 * g_s / work["leapfrog_steps"],
+        "plain_ms_per_leapfrog": 1e3 * p_s / work["leapfrog_steps"],
+        **{k: g_sim.timing.get(k, 0) for k in ("graphs", "capture_s", "replays")}}
+    log("graphs: rats NUTS, captured against plain: "
+        + json.dumps(res["rats_nuts"]))
+
+    model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
+    # a trajectory of 0.2 from the start (phase 10's grows from one step),
+    # so that an iteration replays the leapfrog several times
+    model = _chees_block(mt, model, max_steps=256, mass_window=40,
+                         traj=GRAPH_CHEES_TRAJ)
+
+    def glmm_run():
+        steps, restore = _recording(chees, "_steps", lambda L: L)
+        fg.glmm_loglik_grads.launches = 0          # count this path only
+        try:
+            sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                          chains=CHAINS, verbose=False, device=DEVICE)
+        finally:
+            restore()
+        return sim, steps, fg.glmm_loglik_grads.launches
+
+    pair = _graph_pair(torch, mt, graphs, glmm_run)
+    (g_sim, g_steps, g_launch), g_s = pair["graphed"]
+    (p_sim, p_steps, p_launch), p_s = pair["plain"]
+    need = sum(L + 1 for L in g_steps)     # logfgrad at x, then L steps
+    res["glmm_chees"] = {
+        "equal": _same_run(torch, g_sim, p_sim) and g_steps == p_steps,
+        "steps_per_iteration": g_steps, "gradient_evaluations": need,
+        "launches_graphed": g_launch, "launches_plain": p_launch,
+        "graphed_s": g_s, "plain_s": p_s,
+        **{k: g_sim.timing.get(k, 0) for k in ("graphs", "capture_s", "replays")}}
+    log("graphs: GLMM ChEES at full width, captured against plain: "
+        + json.dumps(res["glmm_chees"]))
+    failed = [k for k, v in res.items() if not v["equal"]]
+    if not (g_launch >= need and g_launch >= p_launch and g_launch > 0):
+        failed.append("GLMM ChEES: fused kernel launches through replays")
+    if failed:
+        raise AssertionError(f"graphs: captured steps against plain loops "
+                             f"failed: {failed}: {res}")
+    return res
 
 
 def phase_recovery(mt, glmm):
@@ -493,7 +631,46 @@ def phase_rats_nuts(torch, mt, rats, nuts):
     log(f"rats NUTS ({CHAINS} chains, {iters} iters, {burnin} burnin): "
         + json.dumps(res))
     res.update(_rats_gates(mt, rats, sim, "rats NUTS"))
-    return res
+    return res, sim
+
+
+def _continuation(torch, sim):
+    """A function that runs ``n`` more iterations of ``sim`` with one set of
+    built kernels (a restart would build them again and capture its graphs
+    inside the window), after one iteration that captures them."""
+    from mamba_tpu_torch.model.mcmc import _build_kernels, _run
+    cm, st = sim.compiled, sim.states
+    kernels = _build_kernels(cm)
+    gen = torch.Generator(device=cm.device)
+    gen.set_state(st["rng"])
+    carry = [st["state"], st["tunes"]]
+
+    def run(n):
+        carry[:] = _run(cm, kernels, gen, *carry, 0, n, 1, None)[:2]
+
+    run(1)
+    return run
+
+
+def _busy_share(events, span):
+    """The device's busy share inside the host span named ``span`` of a
+    Chrome trace (its ``user_annotation``; the trace also draws the span on
+    the device's timeline): the union of the kernel, copy and fill
+    intervals over the span's length (graph replays' kernels included)."""
+    (lo, hi), = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("name") == span and e.get("ph") == "X"
+                 and e.get("cat") == "user_annotation"]
+    spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                   and e["ts"] < hi and e["ts"] + e["dur"] > lo)
+    busy, end = 0.0, lo
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"span_ms": 1e-3 * (hi - lo), "device_busy_ms": 1e-3 * busy,
+            "device_events": len(spans), "device_busy_share": busy / (hi - lo)}
 
 
 def _advi_warm_inits(torch, mt, model, inputs, init, steps, chains):
@@ -1247,23 +1424,36 @@ def phase_smc(torch, mt, glmm, fg):
     return res
 
 
-def phase_profile(torch, fg, glmm_cases, kernel_ms):
-    """A torch.profiler trace of full-width gradients that names the kernel;
-    time_compiled against phase 3's CUDA events; the card's peaks and the
-    kernel's bound read from utils/roofline.py."""
+def phase_profile(torch, fg, glmm_cases, kernel_ms, rats_sim):
+    """One torch.profiler trace (a process's later traces may see no device
+    activity once CUDA graphs have been replayed under an earlier one): of
+    full-width gradients, which must name the kernel, and of
+    ``BUSY_ITERS`` iterations that continue phase 6's rats NUTS run, whose
+    device busy share it reports; time_compiled against phase 3's CUDA
+    events; the card's peaks and the kernel's bound read from
+    utils/roofline.py."""
     import tempfile
     from mamba_tpu_torch.utils import profiling, roofline
     args = tuple(torch.as_tensor(a, dtype=torch.float32, device=DEVICE)
                  for a in glmm_cases.random_inputs(4, 10, 10_000, 1024, 0))
     fg.glmm_loglik_grads(*args)
+    rats_iterations = _continuation(torch, rats_sim)
     with tempfile.TemporaryDirectory() as tmpdir:
         with profiling.trace(tmpdir) as path:
             for _ in range(PROFILE_GRADIENTS):
                 with profiling.annotate("glmm_gradient"):
                     fg.glmm_loglik_grads(*args)
+            torch.cuda.synchronize()
+            with profiling.annotate("rats_nuts_iterations"):
+                rats_iterations(BUSY_ITERS)
+                torch.cuda.synchronize()
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     kernels = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    busy = {"iterations": BUSY_ITERS,
+            **_busy_share(events, "rats_nuts_iterations")}
+    log("rats NUTS, device busy share over traced iterations: "
+        + json.dumps(busy))
     s = profiling.time_compiled(fg.glmm_loglik_grads, *args, iters=20)
     work = fg.glmm_work(4, 10, 10_000, 1024)
     roof = roofline.roofline(fg.glmm_loglik_grads, *args, flops=work["flops"],
@@ -1274,7 +1464,7 @@ def phase_profile(torch, fg, glmm_cases, kernel_ms):
     peaks = roofline.device_peaks()
     want = roofline.peaks_for(name)
     bound = fg.glmm_bound_ms(4, 10, 10_000, 1024, 1e6 * clock_max)
-    res = {"trace_kernels": kernels,
+    res = {"trace_kernels": kernels, "rats_busy": busy,
            "trace_spans": sum(e.get("name") == "glmm_gradient" for e in events),
            "time_compiled_ms": 1e3 * s, "phase3_ms": kernel_ms,
            "roofline": roof, "elementwise_ceiling": ceiling,
@@ -1284,6 +1474,8 @@ def phase_profile(torch, fg, glmm_cases, kernel_ms):
     failed = []
     if not any("glmm_reg_kernel" in k for k in kernels):
         failed.append("the trace names glmm_reg_kernel")
+    if not busy["device_events"] > 0:
+        failed.append("the trace holds the rats iterations' device work")
     if not abs(1e3 * s - kernel_ms) <= PROFILE_TIME_RTOL * kernel_ms:
         failed.append("time_compiled against phase 3")
     if "H100" not in name or want is None or peaks != (want.fp32_flops,
@@ -1308,6 +1500,7 @@ def main() -> int:
     from mamba_tpu_torch.ops import fused_glmm as fg
     from mamba_tpu_torch.samplers import chees, nuts
     from mamba_tpu_torch.scripts import glmm_cases
+    from mamba_tpu_torch.utils import graphs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1324,10 +1517,14 @@ def main() -> int:
     card = phase_device(torch)
     timed("build", phase_build, fg)
     cases = timed("kernel", phase_kernels, torch, fg, glmm_cases)
+    graph_res = timed("graphs", phase_graphs, torch, mt, rats, glmm, fg,
+                      nuts, chees)
     recovery_sim = timed("glmm_recovery", phase_recovery, mt, glmm)
     glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts)
-    timed("rats_nuts", phase_rats_nuts, torch, mt, rats, nuts)
-    _, rats_chees_sim = timed("rats_chees", phase_rats_chees, torch, mt, rats, chees)
+    rats_nuts, rats_nuts_sim = timed("rats_nuts", phase_rats_nuts, torch, mt,
+                                     rats, nuts)
+    rats_chees, rats_chees_sim = timed("rats_chees", phase_rats_chees, torch,
+                                       mt, rats, chees)
     _, zoo_sims = timed("zoo", phase_zoo, torch, mt)
     _, zoo_mv_sims = timed("zoo_mv", phase_zoo_mv, torch, mt)
     glmm_chees, glmm_warm, glmm_tunes = timed(
@@ -1340,15 +1537,29 @@ def main() -> int:
     del zoo_sims, zoo_mv_sims, rats_chees_sim, recovery_sim
     map_res = timed("map", phase_map, torch, mt, glmm, fg)
     smc_res = timed("smc", phase_smc, torch, mt, glmm, fg)
-    timed("profile", phase_profile, torch, fg, glmm_cases, cases[0]["ms"])
-    launches = {"glmm_nuts": glmm_nuts["kernel_launches"],
+    profile = timed("profile", phase_profile, torch, fg, glmm_cases,
+                    cases[0]["ms"], rats_nuts_sim)
+    launches = {"graphs": graph_res["glmm_chees"]["launches_graphed"],
+                "glmm_nuts": glmm_nuts["kernel_launches"],
                 "glmm_chees": glmm_chees["kernel_launches"],
                 "map": map_res["kernel_launches"],
                 "smc": smc_res["glmm"]["kernel_launches"],
                 "mesh": mesh_res["launches"]}
-    log(f"fused kernel launches on the main paths: {json.dumps(launches)}; "
-        f"wall ms per leapfrog: NUTS {glmm_nuts['wall_ms_per_leapfrog']:.3f}, "
-        f"ChEES {glmm_chees['wall_ms_per_leapfrog']:.3f}")
+    arms = {"glmm_nuts": glmm_nuts, "rats_nuts": rats_nuts,
+            "rats_chees": rats_chees, "glmm_chees": glmm_chees}
+    log(f"fused kernel launches on the main paths (graph replays counted): "
+        f"{json.dumps(launches)}")
+    log("gradient arms, wall ms per leapfrog: " + json.dumps(
+        {k: v["wall_ms_per_leapfrog"] for k, v in arms.items()}))
+    log("CUDA graphs: " + json.dumps(
+        {**{k: {"graphs": v["graphs"], "capture_s": v["capture_s"]}
+            for k, v in arms.items()}, "process": graphs.STATS}))
+    log("rats NUTS (cut): " + json.dumps(
+        {k: rats_nuts[k] for k in ("sample_s", "leapfrog_steps",
+                                   "wall_ms_per_leapfrog", "ess_per_s_total",
+                                   "ess_per_s_min", "rhat_rank_max",
+                                   "ess_bulk_min", "mu_beta_mean")}
+        | {"device_busy_share": profile["rats_busy"]["device_busy_share"]}))
     log(f"new phases (post, map, smc, profile): "
         f"{sum(walls[k] for k in ('post', 'map', 'smc', 'profile')):.1f} s")
     log(f"phase walls (s): {json.dumps(walls)}; total "

@@ -5,7 +5,13 @@ chains out to OS processes (mcmc.jl:36-59), here every chain-stacked state
 tensor has the chain axis first and each sampler block updates all chains
 at once.  The iteration loop runs on the host (the reference's loop,
 mcmc.jl:62-83): burnin iterations adapt, then each kept row is written into
-a preallocated device tensor that is fetched once at the end.
+a preallocated device tensor that is fetched once at the end.  The JAX
+engine compiles each phase into one program; here the loop stays on the
+host, and the gradient samplers' inner loops (NUTS's leaves, ChEES's
+leapfrogs) and DGS's sweeps are replayed from CUDA graphs
+(``utils/graphs.py``), captured at their first step: on a CUDA device
+``timing`` reports the graphs a run captured (``graphs``), the seconds
+their captures took (``capture_s``, part of ``sample_s``) and the replays.
 
 Restart matches the reference contract (mcmc.jl:3-16): the returned
 ModelChains carries the chain-stacked values, the tunes and the random
@@ -29,6 +35,7 @@ import torch
 
 from ..output.chains import ModelChains
 from ..parallel.mesh import MeshComm, pad_axes, pad_mask, rank_seed
+from ..utils import graphs
 from .compile import CompiledModel, compile_model
 from .model import Model
 
@@ -108,6 +115,7 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
         return state, tuple(new_tunes)
 
     _sync(cm.device)
+    graphs0 = dict(graphs.STATS)
     t0 = time.perf_counter()
     for _ in range(burnin):
         state, tunes = gibbs_iter(state, tunes, True)
@@ -121,8 +129,13 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
     t0 = time.perf_counter()
     value = cm.comm.gather_chains(rows, dim=2).cpu().numpy()
     fetch_s = time.perf_counter() - t0
-    return state, tunes, labels, value, {"sample_s": sample_s,
-                                         "fetch_s": fetch_s}
+    timing = {"sample_s": sample_s, "fetch_s": fetch_s}
+    if cm.device.type == "cuda":
+        # graphs captured in this run (at a sampler's first step, inside
+        # sample_s), the seconds their captures took, warm-ups included,
+        # and the replays
+        timing.update({k: graphs.STATS[k] - graphs0[k] for k in graphs0})
+    return state, tunes, labels, value, timing
 
 
 def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,

@@ -124,8 +124,12 @@ class Sigmoid(Bijector):
 
     def forward_log_det(self, u):
         # log((hi-lo) * sigmoid(u) * (1-sigmoid(u)))
-        ld = (torch.log(torch.as_tensor(self.hi - self.lo, dtype=u.dtype,
-                                    device=u.device))
+        width = self.hi - self.lo
+        # a Python number becomes a tensor by a fill on the device: a copy
+        # from the host cannot be captured in a CUDA graph
+        ld = (torch.log(torch.full((), width, dtype=u.dtype, device=u.device)
+                        if isinstance(width, (int, float)) else
+                        torch.as_tensor(width, dtype=u.dtype, device=u.device))
               - softplus(u) - softplus(-u))
         return _bcast(ld, self.lo, self.hi)
 
@@ -192,12 +196,13 @@ class CholeskyPD(Bijector):
 
     def _to_L(self, u):
         # scatter the packed lower triangle with a 0/1 placement matrix
-        # (a product, not an indexed write, so it batches and differentiates)
+        # (a product, not an indexed write, so it batches and differentiates),
+        # built by a comparison on the device: no value comes from the host,
+        # so the map can be captured in a CUDA graph
         d = self.dim
         rows, cols = torch.tril_indices(d, d, device=u.device)
-        place = torch.zeros(rows.shape[0], d * d, dtype=u.dtype,
-                            device=u.device)
-        place[torch.arange(rows.shape[0], device=u.device), rows * d + cols] = 1.0
+        place = (torch.arange(d * d, device=u.device)[None, :]
+                 == (rows * d + cols)[:, None]).to(u.dtype)
         L = (u @ place).reshape(u.shape[:-1] + (d, d))
         eye = torch.eye(d, dtype=torch.bool, device=u.device)
         return torch.where(eye, torch.exp(torch.where(eye, L, 0.0)), L)
@@ -221,7 +226,7 @@ class CholeskyPD(Bijector):
         diag_pos = torch.cumsum(torch.arange(d, device=u.device) + 1, 0) - 1
         udiag = u[..., diag_pos]
         i = torch.arange(1, d + 1, dtype=u.dtype, device=u.device)
-        ld = (d * torch.log(torch.tensor(2.0, dtype=u.dtype, device=u.device))
+        ld = (d * torch.log(torch.full((), 2.0, dtype=u.dtype, device=u.device))
               + torch.sum((d - i + 2.0) * udiag, dim=-1))
         if event_ndim > 2:
             ld = torch.sum(ld, dim=tuple(range(-(event_ndim - 2), 0)))

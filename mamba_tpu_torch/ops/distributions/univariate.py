@@ -625,10 +625,16 @@ class Truncated(UnivariateDistribution):
         if lo_f and hi_f:
             return bij.Sigmoid(*_bc(self.lo, self.hi))
         if lo_f:
-            return bij.LowerBounded(torch.as_tensor(self.lo))
+            return bij.LowerBounded(_bound(self.lo))
         if hi_f:
-            return bij.UpperBounded(torch.as_tensor(self.hi))
+            return bij.UpperBounded(_bound(self.hi))
         return self.base.bijector()
+
+
+def _bound(v):
+    """A truncation bound as a tensor; a Python number by a fill, not by a
+    copy of host data (which a CUDA graph cannot capture)."""
+    return torch.full((), v) if isinstance(v, (int, float)) else torch.as_tensor(v)
 
 
 def _bisect_icdf(base, q, lo, hi, iters=60):

@@ -15,7 +15,12 @@ torch ops (``glmm_loglik_grads_plain``), which is also the kernel's reference.
 H100 could take for it.
 
 The kernel's library is built with ``nvcc`` at first use into ``build/`` at
-the root of the checkout and loaded with ``ctypes``.
+the root of the checkout and loaded with ``ctypes``.  The launch goes to
+the current stream and its outputs and scratch come from ``torch.empty``,
+so inside a CUDA graph capture both are the graph's (its side stream and
+memory pool), and the engine's captured leapfrogs replay the kernel.  The
+launch count goes through ``utils.graphs.count_launch``: a launch captured
+in a graph counts once per replay.
 
 ``bernoulli_logit_glmm_loglik`` wraps the call in a ``torch.autograd.Function``
 whose forward already holds the gradients, so ``grad_and_value`` costs one
@@ -40,6 +45,7 @@ from pathlib import Path
 
 import torch
 
+from ..utils import graphs
 from ..utils.roofline import H100_SXM
 from . import bijectors as bij
 from .distributions.base import Distribution, distribution
@@ -76,6 +82,10 @@ def build_library() -> Path:
     memory report included) is kept beside the library as ``BUILD_LOG``."""
     if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SRC.stat().st_mtime:
         return _LIB_PATH
+    if graphs.capturing():
+        raise RuntimeError("the fused GLMM library is built at first use, "
+                           "which must come before a CUDA graph capture "
+                           "(in its warm-up), not inside it")
     _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)
     tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
@@ -199,7 +209,7 @@ def glmm_loglik_grads(Xt, y, betas, bs):
             P, n, G, C, stream)
     if err != 0:
         raise RuntimeError(f"fused GLMM kernel launch failed: cudaError {err}")
-    glmm_loglik_grads.launches += 1
+    graphs.count_launch(glmm_loglik_grads)
     return lp, gbeta, gb
 
 

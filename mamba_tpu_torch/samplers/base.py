@@ -19,7 +19,11 @@ SamplerVariate).  Two levels, as in the JAX package:
    outside it.
 
 ``adapt`` is a Python bool (``iter <= burnin`` in the reference, e.g.
-nuts.jl:52): the engine's loop runs on the host.
+nuts.jl:52): the engine's loop runs on the host.  The inner loops of the
+gradient samplers the engine runs (NUTS's leaves, ChEES's leapfrogs) are
+replayed from CUDA graphs (``SamplerSpec.bind``'s ``graphed``,
+``utils/graphs.py``); the stand-alone kernels run their plain loops, so
+they take any ``logf``, capturable or not.
 
 Under a mesh's data axis a block's ``logf`` on one rank is a part of its
 density; every vmapped value and gradient is summed over the data group
@@ -32,6 +36,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from ..utils import graphs
 
 
 class BlockKernel(NamedTuple):
@@ -64,10 +70,24 @@ class SamplerSpec:
     def build(self, cm) -> BlockKernel:
         return self.bind(cm, self.kernel_init, self.kernel_step)
 
-    def bind(self, cm, kernel_init, kernel_step) -> BlockKernel:
+    def bind(self, cm, kernel_init, kernel_step, graphed=None) -> BlockKernel:
         """The block kernel that runs ``kernel_init(gen, x0, f)`` and
         ``kernel_step(gen, x, tune, f, adapt)`` on the block's flat vectors,
-        ``f`` being the batched density (and gradient)."""
+        ``f`` being the batched density (and gradient).
+
+        ``graphed(density)``, given the block's density and gradient on
+        one state, ``density(x, state) -> (logf, grad)``, returns the
+        sampler's captured inner loop (NUTS's ``GraphedSubtree``, ChEES's
+        ``GraphedTrajectory``), which ``kernel_step`` then takes as
+        ``graphed=``.  ``f`` closes over the other blocks' state (rats'
+        variances, which its Gibbs block redraws every iteration); the
+        captured loop reads them from static copies, which the block step
+        loads once (``load_state``), not once per leapfrog.  A block whose
+        density is summed over a mesh's data group (``cm.block_split``)
+        takes the plain loop: that sum is an all-reduce, which a CUDA graph
+        does not capture (DGS's rule).  So does every block built under
+        ``utils.graphs.disabled()``.  A chain-axis-only mesh has no
+        collective inside a leapfrog, and replays."""
         pack, unpack, spec, logf = cm.block_functions(self.params, self.transform)
         vpack = torch.func.vmap(pack)
         vunpack = torch.func.vmap(unpack)
@@ -76,23 +96,34 @@ class SamplerSpec:
         if self.needs_grad:
             grad_value = torch.func.vmap(torch.func.grad_and_value(logf))
 
+            def density(x, state):
+                g, v = grad_value(x, state)
+                return total(v, g)
+
             def make_f(state):
-                def f(x):
-                    g, v = grad_value(x, state)
-                    return total(v, g)
-                return f
+                return lambda x: density(x, state)
         else:
             vlogf = summed(torch.func.vmap(logf), total)
 
             def make_f(state):
                 return candidate_logf(vlogf, state)
 
+        captured = None
+        if (graphed is not None and graphs.enabled()
+                and not cm.block_split(self.params)):
+            captured = graphed(density)
+
         def init(gen, state):
             return kernel_init(gen, vpack(state), make_f(state))
 
         def step(gen, state, tune, adapt):
             x = vpack(state)
-            x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt)
+            if captured is None:
+                x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt)
+            else:
+                captured.load_state(state)
+                x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt,
+                                        graphed=captured)
             return {**state, **vunpack(x2, state)}, tune2
 
         return BlockKernel(init, step)

@@ -29,16 +29,24 @@ ChEES gradient estimate  E_accept[ (|x'-x̄|^2 - |x-x̄|^2) (x'-x̄)·p' ].
 
 Random draws per step, in order: the momentum noise ``(C, dim)`` and one
 acceptance uniform per chain.
+
+The stand-alone ``chees_step`` runs the ``L`` leapfrogs as a plain loop
+(``_trajectory``); the engine replays one captured leapfrog ``L`` times
+(``GraphedTrajectory``), with the step size a tensor on the device, as the
+JAX engine runs the trajectory as a ``lax.while_loop``.  Momentum, the MH
+test and the adaptation, with its collectives, stay outside the graph.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from ..parallel.mesh import MeshComm
+from ..utils.graphs import Captured
 from .base import SamplerSpec
 from .nuts import nutsepsilon
 
@@ -122,12 +130,68 @@ def _steps(h: float, traj, eps, max_steps: int) -> int:
     return int(min(max(v, 1.0), float(max_steps)))
 
 
+def _trajectory(x, p, logf, grad, eps, minv, L: int, logfgrad):
+    """``L`` leapfrog steps of every chain from ``(x, p)`` with the 0-d step
+    ``eps`` and the diagonal inverse mass ``minv``: the plain loop.
+    Returns the end's position, momentum, log-density and gradient."""
+    for _ in range(L):
+        p = p + 0.5 * eps * grad
+        x = x + eps * (minv * p)
+        logf, grad = logfgrad(x)
+        p = p + 0.5 * eps * grad
+    return x, p, logf, grad
+
+
+def _leapfrog_step(b, logfgrad):
+    """One step of ``_trajectory``'s loop on the tensors ``b``, updated in
+    place (``eps`` a 0-d tensor on the device)."""
+    eps, minv = b["eps"], b["minv"]
+    p = b["p"] + 0.5 * eps * b["grad"]
+    x = b["x"] + eps * (minv * p)
+    logf, grad = logfgrad(x)
+    b["p"].copy_(p + 0.5 * eps * grad)
+    b["x"].copy_(x)
+    b["logf"].copy_(logf)
+    b["grad"].copy_(grad)
+
+
+def _leapfrog_on(density, b, state):
+    """``_leapfrog_step`` with the density ``density(x, state) -> (logf,
+    grad)`` on the model state ``state``."""
+    _leapfrog_step(b, lambda x: density(x, state))
+
+
+class GraphedTrajectory:
+    """``_trajectory`` for the engine: one leapfrog step captured once per
+    run (``utils.graphs.Captured``) and replayed ``L`` times.  The density
+    ``density(x, state) -> (logf, grad)`` reads the model state loaded by
+    ``load_state`` once per block step.  Takes the arguments of
+    ``_trajectory`` (its ``logfgrad`` is not used) and returns the same
+    values."""
+
+    def __init__(self, density):
+        # the body holds the density, not this object: no reference cycle,
+        # so the graph goes when the kernel does
+        self.cap = Captured(functools.partial(_leapfrog_on, density))
+
+    def load_state(self, state):
+        self.cap.load_state(state)
+
+    def __call__(self, x, p, logf, grad, eps, minv, L: int, logfgrad):
+        cap = self.cap
+        cap.load(x=x, p=p, logf=logf, grad=grad, eps=eps, minv=minv)
+        cap.run(L)
+        return tuple(cap.bufs[k].clone() for k in ("x", "p", "logf", "grad"))
+
+
 def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
-               comm: MeshComm | None = None):
+               comm: MeshComm | None = None, trajectory=None):
     """One ChEES-HMC iteration for chains ``x (C, dim)``: jittered
     fixed-length leapfrog + MH, then (when ``adapt``) the cross-chain
     dual-averaging, Adam and mass-window updates, pooled over every rank's
-    chains by ``comm``.  Returns the new positions and tune."""
+    chains by ``comm``.  ``trajectory`` runs the ``L`` leapfrogs
+    (``_trajectory``'s contract; by default that plain loop).  Returns the
+    new positions and tune."""
     dt = x.dtype
     C = x.shape[0]
     comm = comm or _ONE_RANK
@@ -141,13 +205,8 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
     p0 = torch.randn(x.shape, generator=gen, dtype=dt, device=x.device) \
         * torch.rsqrt(minv)
     logf0, grad0 = logfgrad(x)
-    x1, p1, grad1 = x, p0, grad0
-    logf1 = logf0
-    for _ in range(L):
-        p1 = p1 + 0.5 * eps * grad1
-        x1 = x1 + eps * (minv * p1)
-        logf1, grad1 = logfgrad(x1)
-        p1 = p1 + 0.5 * eps * grad1
+    x1, p1, logf1, grad1 = (trajectory or _trajectory)(
+        x, p0, logf0, grad0, eps, minv, L, logfgrad)
 
     dH = (logf1 - 0.5 * torch.sum(p1 * (minv * p1), dim=-1)) \
         - (logf0 - 0.5 * torch.sum(p0 * (minv * p0), dim=-1))
@@ -260,13 +319,16 @@ class ChEESHMC(SamplerSpec):
         # the cross-chain statistics pool every rank's chains
         return self.bind(
             cm, lambda gen, x0, f: self.kernel_init(gen, x0, f, cm.comm),
-            lambda gen, x, tune, f, adapt: self.kernel_step(
-                gen, x, tune, f, adapt, cm.comm))
+            lambda gen, x, tune, f, adapt, graphed=None: self.kernel_step(
+                gen, x, tune, f, adapt, cm.comm, graphed),
+            graphed=GraphedTrajectory)
 
     def kernel_init(self, gen, x0, logfgrad, comm=None):
         return chees_init(gen, x0, logfgrad, self.epsilon, self.traj,
                           self.target, self.max_steps, minv0=self.minv0,
                           mass_window=self.mass_window, comm=comm)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, comm=None):
-        return chees_step(gen, x, tune, logfgrad, adapt, comm=comm)
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, comm=None,
+                    graphed=None):
+        return chees_step(gen, x, tune, logfgrad, adapt, comm=comm,
+                          trajectory=graphed)

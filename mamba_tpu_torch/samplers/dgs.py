@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import graphs
 from .base import BlockKernel, SamplerSpec, candidate_logf, summed
 
 
@@ -78,42 +79,23 @@ def _sweep(x, noise, tune: DGSTune, logf):
 
 
 class GraphedSweep:
-    """One DGS block's sweep, captured once as a CUDA graph and replayed:
-    the n density calls of a sweep are thousands of small launches, and the
-    replay issues them without the host.  The inputs are copied into the
-    graph's own tensors before each replay; a change of their shapes
-    captures again.  The kernels and their order are those of the sweep
-    run eagerly, so the two give the same draws."""
+    """One DGS block's sweep, captured once as a CUDA graph and replayed
+    (``utils.graphs.Captured``): the n density calls of a sweep are
+    thousands of small launches, and the replay issues them without the
+    host.  The inputs are copied into the graph's own tensors before each
+    replay; a change of their shapes captures again.  The kernels and their
+    order are those of the sweep run eagerly, so the two give the same
+    draws."""
 
     def __init__(self, sweep):
-        self.sweep = sweep          # (x, noise, state) -> x'
-        self.key = None
+        # sweep(x, noise, state) -> x'
+        self.cap = graphs.Captured(
+            lambda b, state: sweep(b["x"], b["noise"], state))
 
     def __call__(self, x, noise, state):
-        key = (tuple(x.shape), tuple(noise.shape),
-               tuple((k, tuple(v.shape)) for k, v in state.items()))
-        if key != self.key:
-            self._capture(x, noise, state)
-            self.key = key
-        self.x.copy_(x)
-        self.noise.copy_(noise)
-        for k, v in state.items():
-            self.state[k].copy_(v)
-        self.graph.replay()
-        return self.out.clone()
-
-    def _capture(self, x, noise, state):
-        self.x, self.noise = x.clone(), noise.clone()
-        self.state = {k: v.clone() for k, v in state.items()}
-        side = torch.cuda.Stream(device=x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):       # warm up before the capture
-            for _ in range(2):
-                self.sweep(self.x, self.noise, self.state)
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = self.sweep(self.x, self.noise, self.state)
+        self.cap.load(x=x, noise=noise)
+        self.cap.load_state(state)
+        return self.cap.run().clone()
 
 
 def discrete_step(gen, support, mass):
@@ -147,7 +129,8 @@ class DGS(SamplerSpec):
             vlogf = summed(torch.func.vmap(logf), cm.block_sum((name,)))
             # a sweep whose density is summed over a data group runs its
             # collectives eagerly: they are not captured in a CUDA graph
-            graphed = cm.device.type == "cuda" and not cm.block_split((name,))
+            graphed = (cm.device.type == "cuda" and graphs.enabled()
+                       and not cm.block_split((name,)))
 
             def sweep(x, noise, state, tune0=tune0, vlogf=vlogf):
                 return _sweep(x, noise, tune0, candidate_logf(vlogf, state))

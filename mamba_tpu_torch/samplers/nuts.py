@@ -16,6 +16,18 @@ The host synchronizes once per doubling level (to stop when no chain is
 still building), never once per leapfrog step; a level's ``2**j`` leaves
 always all run, which costs only masked-out leapfrogs.
 
+Random draws per transition, in order: the momentum ``(C, dim)``, the slice
+uniform ``(C,)``, then per doubling level the direction ``(C,)``, the
+acceptance uniform ``(C,)`` and the level's leaf uniforms ``(2**j, C)``,
+row ``i`` for leaf ``i``'s proposal choice.  Drawn before the level runs,
+they let the leaf run without the generator: the stand-alone
+``nuts_step`` builds a level with the plain loop ``_build_subtree`` (one
+Python pass per leaf, host slot indices), and the engine with
+``GraphedSubtree``, which replays one captured leaf step ``_leaf`` whose
+leaf index and checkpoint slots live on the device (the JAX package's
+traced ``_ckpt_idxs`` and slot loop), as the JAX engine runs the subtree as
+a ``lax.while_loop``.  The two give the same draws.
+
 The slice-variable formulation, uniform proposal selection within the
 candidate set, divergence cutoff (+1000), U-turn criterion (nuts.jl:183-187)
 and dual-averaging schedule (nuts.jl:63-92) match the reference; the tree
@@ -24,10 +36,12 @@ depth is capped at ``max_depth`` (default 10, as in Stan).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
+from ..utils.graphs import Captured
 from .base import SamplerSpec
 
 
@@ -153,6 +167,26 @@ def _ckpt_idxs(leaf: int):
     return idx_max - trailing_ones + 1, idx_max
 
 
+def _popcount_t(v):
+    """Bits set in each element of a non-negative int32 tensor, by bit
+    operations (no multiply, so nothing overflows)."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return v & 0x3F
+
+
+def _ckpt_idxs_t(leaf):
+    """``_ckpt_idxs`` of each element of an int32 tensor of leaf indices:
+    the JAX package's traced form, for a leaf index that lives on the
+    device."""
+    idx_max = _popcount_t(leaf >> 1)
+    trailing_ones = _popcount_t(leaf) - _popcount_t(leaf & (leaf + 1))
+    return idx_max - trailing_ones + 1, idx_max
+
+
 def _subtree_turned(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
     """Per chain: U-turn between the current (odd) leaf and every buffered
     subtree start it closes, slots ``idx_min..idx_max`` of the ``(C,
@@ -169,14 +203,32 @@ def _subtree_turned(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
     return turned.any(dim=-1)
 
 
-def _build_subtree(gen, x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
-                   x_ck, r_ck, minv, active):
+def _subtree_turned_slots(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
+    """``_subtree_turned`` with the slot range as int tensors, ``(1,)`` for
+    every chain or ``(C, 1)`` per chain: the check runs over all
+    ``max_depth`` slots and masks out those outside the range, as the JAX
+    package's loop over traced slots does (nuts.py:155-182)."""
+    slots = torch.arange(x_ck.shape[1], dtype=idx_max.dtype, device=x.device)
+    inrange = (slots >= idx_min) & (slots <= idx_max)
+    dx = pm[:, None, None] * (x[:, None, :] - x_ck)
+    v_ck = r_ck if minv is None else minv[:, None, :] * r_ck
+    v = r if minv is None else minv * r
+    turned = ((torch.sum(dx * v_ck, dim=-1) < 0)
+              | (torch.sum(dx * v[:, None, :], dim=-1) < 0))
+    return (turned & inrange).any(dim=-1)
+
+
+def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
+                   x_ck, r_ck, minv, active, us):
     """Build ``2**j`` leapfrog steps in direction ``pm (C,)`` from end states
-    (x0, r0, grad0), for the chains in ``active``.  Returns the new end
+    (x0, r0, grad0), for the chains in ``active``; leaf ``i`` takes its
+    uniform proposal draw from row ``i`` of ``us``.  Returns the new end
     states, each subtree's uniform proposal, candidate count n', validity
     s' and accept stats — the contract of the reference's recursive
     buildtree (nuts.jl:139-180).  A chain stops at the leaf that diverges
-    or turns; later leaves leave it as it was."""
+    or turns; later leaves leave it as it was.  This is the plain loop,
+    one Python pass per leaf with host slot indices; the engine replays
+    ``_leaf`` instead (``GraphedSubtree``), with the same results."""
     dt = x0.dtype
     x, r, grad, xprop = x0, r0, grad0, x0
     nprime = torch.zeros_like(active, dtype=torch.int32)
@@ -205,8 +257,7 @@ def _build_subtree(gen, x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
 
         # reservoir selection = uniform draw over valid leaves (equivalent
         # to the recursion's pairwise n'2/(n'1+n'2) combines)
-        u = torch.rand(act.shape, generator=gen, dtype=dt, device=x.device)
-        take = valid & (u * nprime.to(dt) < 1.0)
+        take = valid & (us[leaf] * nprime.to(dt) < 1.0)
         xprop = torch.where(_col(take), xn, xprop)
 
         idx_min, idx_max = _ckpt_idxs(leaf)
@@ -221,13 +272,119 @@ def _build_subtree(gen, x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
     return x, r, grad, xprop, nprime, sprime, alpha, nalpha
 
 
-def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None):
+#: names of the leaf step's tensors that a level returns, in
+#: ``_build_subtree``'s order
+_LEAF_OUT = ("x", "r", "grad", "xprop", "nprime", "sprime", "alpha", "nalpha")
+
+
+def _leaf(b, logfgrad):
+    """One leaf of ``_build_subtree`` for every chain, on the leaf step's
+    tensors ``b``, which it updates in place: the leaf index ``b["leaf"]``
+    ``(1,)`` lives on the device and advances by one, the leaf's uniform is
+    row ``leaf`` of ``b["us"]``, its checkpoint slots are entry ``leaf`` of
+    the tables ``b["ck_min"]``, ``b["ck_max"]`` (``_ckpt_idxs_t`` of every
+    leaf), the checkpoint write is masked to the even leaves' active
+    chains, and the U-turn check runs over every slot, masked to the range.
+    No host integer and no host sync, so a CUDA graph of it serves every
+    leaf of every level."""
+    x, r, grad, minv, act = b["x"], b["r"], b["grad"], b["minv"], b["sprime"]
+    leaf = b["leaf"]
+    xn, rn, logf, gn = _leapfrog(x, r, grad, b["step"], logfgrad, minv)
+    a2 = _col(act)
+    logp = logf - _kinetic(rn, minv)
+    logp = torch.where(torch.isnan(logp), -torch.inf, logp)
+    valid = act & (b["logu0"] < logp)
+    diverged = ~(b["logu0"] < logp + 1000.0)
+    nprime = b["nprime"] + valid.to(torch.int32)
+    take = valid & (b["us"].index_select(0, leaf)[0] * nprime.to(x.dtype) < 1.0)
+
+    idx_min = b["ck_min"].index_select(0, leaf)
+    idx_max = b["ck_max"].index_select(0, leaf)
+    even = (leaf & 1) == 0
+    turned = ~even & _subtree_turned_slots(b["x_ck"], b["r_ck"], xn, rn,
+                                           b["pm"], idx_min, idx_max, minv)
+    sprime = act & ~diverged & ~turned
+
+    b["alpha"].add_(torch.where(
+        act, torch.clamp(torch.exp(logp - b["logp0"]), max=1.0), 0.0))
+    b["nalpha"].add_(act.to(torch.int32))
+    b["nprime"].copy_(nprime)
+    b["xprop"].copy_(torch.where(_col(take), xn, b["xprop"]))
+    # the write touches slot idx_max alone: a where over every slot would
+    # move max_depth times the bytes, which a wide model (the GLMM's 10,005
+    # coordinates x 1024 chains) pays on every leaf
+    write = (act & even)[:, None, None]
+    for ck, new in ((b["x_ck"], xn), (b["r_ck"], rn)):
+        ck.index_copy_(1, idx_max, torch.where(write, new[:, None, :],
+                                               ck.index_select(1, idx_max)))
+    x.copy_(torch.where(a2, xn, x))
+    r.copy_(torch.where(a2, rn, r))
+    grad.copy_(torch.where(a2, gn, grad))
+    act.copy_(sprime)
+    leaf.add_(1)
+
+
+def _leaf_on(density, b, state):
+    """``_leaf`` with the density ``density(x, state) -> (logf, grad)`` on
+    the model state ``state``."""
+    _leaf(b, lambda x: density(x, state))
+
+
+class GraphedSubtree:
+    """``_build_subtree`` for the engine: ``_leaf`` captured once per run
+    (``utils.graphs.Captured``) and replayed ``2**j`` times per level.  The
+    density ``density(x, state) -> (logf, grad)`` reads the model state
+    loaded by ``load_state`` once per block step; the level's uniforms go
+    into the first ``2**j`` rows of one ``(2**max_depth, C)`` tensor, so no
+    level changes a shape.  Takes the arguments of ``_build_subtree`` and
+    returns the same values; it does not use ``logfgrad``, ``x_ck`` or
+    ``r_ck``: the leaf step keeps its own checkpoint slots, which every
+    level writes before it reads them."""
+
+    def __init__(self, density, max_depth: int):
+        self.max_depth = max_depth
+        # the body holds the density, not this object: no reference cycle,
+        # so the graph goes when the kernel does
+        self.cap = Captured(functools.partial(_leaf_on, density))
+
+    def load_state(self, state):
+        self.cap.load_state(state)
+
+    def __call__(self, x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
+                 x_ck, r_ck, minv, active, us):
+        cap = self.cap
+        C, dim = x0.shape
+        held = cap.bufs.get("x_ck")
+        if (held is None or held.shape != (C, self.max_depth, dim)
+                or held.dtype != x0.dtype or held.device != x0.device):
+            leaves = torch.arange(2 ** self.max_depth, dtype=torch.int32,
+                                  device=x0.device)
+            ck_min, ck_max = _ckpt_idxs_t(leaves)
+            ck = x0.new_zeros(C, self.max_depth, dim)
+            cap.load(us=us.new_zeros(2 ** self.max_depth, C),
+                     ck_min=ck_min.long(), ck_max=ck_max.long(), x_ck=ck,
+                     r_ck=ck)
+        cap.bufs["us"][: us.shape[0]].copy_(us)
+        zeros = torch.zeros_like(active, dtype=torch.int32)
+        cap.load(x=x0, r=r0, grad=grad0, xprop=x0, nprime=zeros,
+                 sprime=active, alpha=torch.zeros_like(logp0), nalpha=zeros,
+                 step=pm * eps, pm=pm, logp0=logp0, logu0=logu0, minv=minv,
+                 leaf=torch.zeros(1, dtype=torch.int32, device=x0.device))
+        cap.run(2 ** j)
+        return tuple(cap.bufs[k].clone() for k in _LEAF_OUT)
+
+
+def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
+             subtree=None):
     """One NUTS transition per chain at fixed step sizes ``epsilon (C,)``
     (reference nuts_sub!, nuts.jl:95-126).  With ``minv``, momenta are drawn
-    from N(0, M) and the dynamics use the diagonal metric.  Returns the new
-    positions and each chain's accept stats and tree depth."""
+    from N(0, M) and the dynamics use the diagonal metric.  ``subtree``
+    builds each level (``_build_subtree``'s contract; by default that plain
+    loop).  Returns the new positions and each chain's accept stats and
+    tree depth."""
     C, dim = x.shape
     f = dict(dtype=x.dtype, device=x.device)
+    build = subtree or _build_subtree
     if minv is None:
         minv = torch.ones_like(x)
     r0 = torch.randn(C, dim, generator=gen, **f) / torch.sqrt(minv)
@@ -250,12 +407,12 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None):
             break
         pm = torch.where(torch.rand(C, generator=gen, **f) > 0.5, 1.0, -1.0).to(x.dtype)
         u_acc = torch.rand(C, generator=gen, **f)
+        us = torch.rand(2 ** j, C, generator=gen, **f)
         left = _col(pm < 0)
         (x_new, r_new, g_new, xprop, nprime, sprime, alpha2, nalpha2
-         ) = _build_subtree(gen, torch.where(left, xm, xp),
-                            torch.where(left, rm, rp),
-                            torch.where(left, gm, gp), pm, j, epsilon,
-                            logfgrad, logp0, logu0, x_ck, r_ck, minv, s)
+         ) = build(torch.where(left, xm, xp), torch.where(left, rm, rp),
+                   torch.where(left, gm, gp), pm, j, epsilon, logfgrad, logp0,
+                   logu0, x_ck, r_ck, minv, s, us)
         upd_m = _col(s) & left
         upd_p = _col(s) & ~left
         xm, rm, gm = (torch.where(upd_m, new, old) for new, old in
@@ -276,9 +433,11 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None):
     return xcur, alpha, nalpha, depth
 
 
-def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10):
+def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10,
+              subtree=None):
     """NUTS transition + dual-averaging update for every chain (reference
-    sample!, nuts.jl:63-92).  ``adapt`` is the warmup flag."""
+    sample!, nuts.jl:63-92).  ``adapt`` is the warmup flag; ``subtree``
+    builds each doubling level (``nuts_sub``)."""
     dt = x.dtype
     if adapt:
         # setadapt!: entering adaptation at m == 0 fixes mu = log(10 eps)
@@ -293,7 +452,7 @@ def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10):
     use_mass = tune.window > 0
     minv = torch.where(_col(use_mass), tune.minv, torch.ones_like(tune.minv))
     x2, alpha, nalpha, depth = nuts_sub(gen, x, eps_used, logfgrad,
-                                        max_depth, minv=minv)
+                                        max_depth, minv=minv, subtree=subtree)
     if not adapt:
         return x2, tune._replace(epsilon=eps_used, alpha=alpha,
                                  nalpha=nalpha, depth=depth)
@@ -371,5 +530,11 @@ class NUTS(SamplerSpec):
                          target=self.target, mass_window=self.mass_window,
                          minv0=self.minv0)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt):
-        return nuts_step(gen, x, tune, logfgrad, adapt, self.max_depth)
+    def build(self, cm):
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: GraphedSubtree(
+                             density, self.max_depth))
+
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None):
+        return nuts_step(gen, x, tune, logfgrad, adapt, self.max_depth,
+                         subtree=graphed)

@@ -1,0 +1,205 @@
+"""Captured steps: a sampler's inner loop body recorded once as a CUDA graph
+and replayed.
+
+Counterpart of the JAX engine's compiled programs: there the warm-up and
+kept-draw scans are jitted, and NUTS's subtree and ChEES's trajectory are
+``lax.while_loop``s inside them (``mamba_tpu/model/mcmc.py``,
+``samplers/nuts.py``, ``samplers/chees.py``).  Here the host keeps the
+loops, and the body a loop repeats (a NUTS leaf, a ChEES leapfrog, a DGS
+sweep) is captured with ``torch.cuda.CUDAGraph``: one replay issues the
+tens of kernels of the body without going through Python.
+
+A ``Captured`` owns the body's tensors, ``bufs`` (its inputs and the state
+it carries) and ``state`` (the chain-stacked state of the model that the
+block's density closes over).  ``load`` and ``load_state`` copy values in;
+``run(n)`` runs the body ``n`` times.  The body reads its tensors and
+writes the new values of the carried ones back into them in place, so that
+chained replays advance the same tensors with no copy between them: the
+port updates in place where the JAX package is pure.  A graph records
+addresses, so the tensors are allocated once and a change of shape, dtype
+or device drops the graph, which is captured again at the next ``run``.
+
+The capture copies the tensors aside, runs the body twice on a side stream
+(first-use work, such as building a kernel's library or functorch's
+caches, happens there, never inside the capture), puts the tensors back,
+and captures one body in one graph, which ``run(n)`` replays ``n`` times.
+A failed capture raises; there is no eager fallback on a CUDA device.  On
+the CPU nothing is captured: ``run`` calls the body eagerly on the same
+tensors.
+
+A kernel wrapper counts its launches with ``count_launch``: a launch made
+while a graph is being captured goes to that graph's tally, and every
+replay adds its tally to the counts, so a count read after a run holds
+every launch the device made, replays included.  ``disabled()`` makes the
+engine build its samplers without captured steps (their plain loops), for
+a density that cannot be captured and for the graph-against-plain checks.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import gc
+import time
+
+import torch
+
+__all__ = ["Captured", "count_launch", "capturing", "disabled", "enabled",
+           "STATS"]
+
+#: graphs captured, seconds spent capturing them (warm-ups included) and
+#: graph replays, since the process started; ``model/mcmc.py`` reports what
+#: each run added
+STATS = {"graphs": 0, "capture_s": 0.0, "replays": 0}
+
+#: launch tallies of the captures in progress (one per nesting level)
+_CAPTURING: list[dict] = []
+_DISABLED = [False]
+
+
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s kernel: ``fn.launches += 1``, or, inside a
+    capture, one more launch of every replay of the graph."""
+    if _CAPTURING:
+        tally = _CAPTURING[-1]
+        tally[fn] = tally.get(fn, 0) + 1
+    else:
+        fn.launches += 1
+
+
+def capturing() -> bool:
+    """Whether a graph is being captured in this process."""
+    return bool(_CAPTURING)
+
+
+def enabled() -> bool:
+    """Whether the engine builds captured steps (``disabled`` not active)."""
+    return not _DISABLED[0]
+
+
+@contextlib.contextmanager
+def disabled():
+    """Within the block, block kernels are built with the samplers' plain
+    loops and capture nothing (kernels built before keep what they have)."""
+    before = _DISABLED[0]
+    _DISABLED[0] = True
+    try:
+        yield
+    finally:
+        _DISABLED[0] = before
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off for the block (after one
+    collection): an object it frees inside a capture may destroy a CUDA
+    graph or event, which a capturing stream does not permit, and the
+    capture fails."""
+    was_enabled = gc.isenabled()
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
+def _same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+
+
+class Captured:
+    """``body(bufs, state)`` run on tensors of its own, from a CUDA graph on
+    a CUDA device.  ``body`` updates ``bufs`` in place and may return
+    tensors: ``run`` returns what the last body of the run returned, on a
+    CUDA device the graph's own tensors, which the next replay
+    overwrites."""
+
+    def __init__(self, body):
+        self.body = body
+        self.bufs: dict[str, torch.Tensor] = {}
+        self.state: dict[str, torch.Tensor] = {}
+        self._loaded: dict[str, torch.Tensor] = {}
+        self.graph = None                   # (graph, out, tally) once captured
+        self.replays = 0
+
+    def _put(self, store: dict, name: str, value: torch.Tensor) -> None:
+        held = store.get(name)
+        if held is None or not _same_layout(held, value):
+            store[name] = value.detach().clone(memory_format=torch.contiguous_format)
+            self.graph = None
+        else:
+            held.copy_(value)
+
+    def load(self, **values) -> None:
+        """Copy each value into the buffer of its name (allocated at first
+        use or when the layout changes)."""
+        for name, value in values.items():
+            self._put(self.bufs, name, value)
+
+    def load_state(self, state: dict) -> None:
+        """Copy the model state into ``state``, skipping a tensor that is
+        the very one loaded last under its name: the engine never writes a
+        state tensor in place, so only the blocks that moved are copied."""
+        for name, value in state.items():
+            if self._loaded.get(name) is value and name in self.state:
+                continue
+            self._put(self.state, name, value)
+            self._loaded[name] = value
+
+    @property
+    def device(self) -> torch.device:
+        return next(iter(self.bufs.values())).device
+
+    def run(self, n: int = 1):
+        out = None
+        if self.device.type != "cuda":
+            for _ in range(n):
+                out = self.body(self.bufs, self.state)
+            return out
+        if self.graph is None:
+            self._capture()
+        graph, out, tally = self.graph
+        for _ in range(n):
+            graph.replay()
+        self.replays += n
+        STATS["replays"] += n
+        for fn, launches in tally.items():
+            fn.launches += launches * n
+        return out
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        dev = self.device
+        saved = {k: v.clone() for k, v in self.bufs.items()}
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):       # warm up before the capture
+            for _ in range(2):
+                self.body(self.bufs, self.state)
+        main.wait_stream(side)
+        for k, v in saved.items():
+            self.bufs[k].copy_(v)
+        del saved
+        graph = torch.cuda.CUDAGraph()
+        tally: dict = {}
+        with _collector_paused():
+            _CAPTURING.append(tally)
+            try:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    out = self.body(self.bufs, self.state)
+            except Exception as e:
+                body = getattr(self.body, "func", self.body)
+                raise RuntimeError(
+                    f"capturing {getattr(body, '__qualname__', body)} "
+                    f"as a CUDA graph failed: a body must not wait for the "
+                    f"device or copy from the host (run the sampler under "
+                    f"mamba_tpu_torch.utils.graphs.disabled() to take its "
+                    f"plain loop): {e}") from e
+            finally:
+                _CAPTURING.pop()
+        torch.cuda.synchronize(dev)
+        self.graph = (graph, out, tally)
+        STATS["graphs"] += 1
+        STATS["capture_s"] += time.perf_counter() - t0

@@ -311,6 +311,20 @@ def test_cat_chains_params_iterations():
     assert x.names == ["u", "v"]
 
 
+def test_summarystats_of_float32_draws_are_float64_sums():
+    # a million float32 draws of three nodes (the rats NUTS headline keeps
+    # 1024 chains x 1000): numpy sums a column of the pooled (draws, 3)
+    # matrix term by term in float32, which lands more than 1e-3 from the
+    # float64 mean; the port's mean is the float64 one
+    rng = np.random.default_rng(0)
+    v = (6.18 + 0.1 * rng.standard_normal((1000, 3, 1024))).astype(np.float32)
+    names = ["a", "mu", "b"]
+    exact = v[:, 1].astype(np.float64)
+    got = tmt.summarystats(tmt.Chains(v, names=names)).to_dict()["mu"]
+    assert abs(got["Mean"] - exact.mean()) < 1e-12
+    np.testing.assert_allclose(got["SD"], exact.std(ddof=1), rtol=1e-12)
+
+
 def test_top_level_names_are_the_reference_s_but_parallel():
     import mamba_tpu.parallel as jpar
 
