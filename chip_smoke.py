@@ -18,13 +18,17 @@ through the port's public entry points (``mcmc``, ``advi``,
    cases (``KERNEL_CASES``): full width, where both are timed; a ragged
    edge; one chain; a shape that takes the generic kernel; and full width
    near a posterior mode, where ``grad_beta`` cancels;
-3b. graphs: the engine replays NUTS's leaves and ChEES's leapfrogs from
-   CUDA graphs (``utils/graphs.py``); rats NUTS and GLMM ChEES at full
-   width, 3 iterations (2 burnin) each, run through those graphs and
-   through the samplers' plain loops (the stand-alone ``nuts_step`` and
-   ``chees_step``) from one seed, held bit-identical (draws, tunes, final
-   state, NUTS's tree depths), with the fused kernel's launches counted
-   through the replays at least the gradient evaluations;
+3b. graphs: the engine replays its samplers' steps from CUDA graphs
+   (``utils/graphs.py``); rats NUTS and GLMM ChEES at full width, and the
+   zoo's samplers at 1024 chains (``GRAPH_ZOO_ARMS``: univariate Slice on
+   pumps, AMWG with both forms of Slice on inhalers, AMWG with univariate
+   Slice on magnesium, SliceSimplex on asthma, BHMC on pollution, AMM on
+   seeds, HMC, MALA and RWM on line), 3 iterations (2 burnin) each, run
+   through those graphs and through the samplers' plain loops
+   (``graphs.disabled()``) from one seed, held bit-identical (draws, tunes,
+   final state and generator state, NUTS's tree depths), with the fused
+   kernel's launches counted through the replays at least the gradient
+   evaluations;
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains,
    ``z`` monitored for the post phase;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
@@ -40,7 +44,8 @@ through the port's public entry points (``mcmc``, ``advi``,
    MISS) with the schemes their ``build()`` gives, 1024 chains each, gated
    on the golden means of the JAX package's golden tests with those tests'
    tolerances (``ZOO_RUNS``), on finite draws, and on no draw having come
-   from the global generator;
+   from the global generator; each run prints its CUDA graphs, their
+   capture seconds, replays, host tests and peak device memory;
 9. zoo_mv, the multivariate half of the zoo (``ZOO_MV_RUNS``), 1024 chains
    each: eyes (DGS on 48 indicators, its sweep replayed from a CUDA graph
    and held equal to the eager sweep; SliceSimplex), jaws (BDiagNormal,
@@ -52,7 +57,7 @@ through the port's public entry points (``mcmc``, ``advi``,
    InverseWishart under NUTS) and gk (a user distribution fit by ABC).
    Every run is held to finite draws inside the support and draws
    posterior-predictive data through ``forward_sample``; no draw may come
-   from a global generator;
+   from a global generator; each run prints what zoo's runs print;
 10. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
     through the fused kernel, 1024 chains, a short run;
 11. post: the output layer on the 1024-chain pumps and jaws runs of phases
@@ -94,10 +99,8 @@ runs one rank of (c) and (d).
 The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
 in a CUDA graph counts once per replay.  Every phase raises on
-failure.  The whole run takes 8 to 12 minutes on an H100, 3.5 to 4 in the
-zoo and 2 to 4 in zoo_mv, whose samplers still run eagerly: those paths
-are host-bound, so the time follows the host's CPU, and each phase's wall
-is printed.  The
+failure.  The engine's loop runs on the host, so the time follows the
+host's CPU, and each phase's wall is printed.  The
 last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists the kernel with its launches on the main paths, its
 error, its time, the plain version's, and the least time the card could take
@@ -153,6 +156,12 @@ RATS_NUTS_RUN = (30, 15)
 GRAPH_CHECK_RUN = (3, 2)
 #: the graphs phase's initial ChEES trajectory length
 GRAPH_CHEES_TRAJ = 0.2
+#: the graphs phase's zoo arms: model, scheme (for line, the samplers of
+#: tests/test_torch_samplers_extra.py's schemes), each run captured and plain
+GRAPH_ZOO_ARMS = (("pumps", None), ("inhalers", None), ("magnesium", None),
+                  ("asthma", None), ("pollution", "bhmc"),
+                  ("seeds", "reference"), ("line", "hmc_slice"),
+                  ("line", "mala_slice"), ("line", "rwm_slice_uni"))
 #: iterations that continue phase 6's run inside the profile phase's trace,
 #: over which the device's busy share is read
 BUSY_ITERS = 2
@@ -402,9 +411,11 @@ def _timing(sim, chains, iters):
     return {"setup_s": t["setup_s"], "sample_s": t["sample_s"],
             "fetch_s": t["fetch_s"],
             "chain_iters_per_s": chains * iters / t["sample_s"],
-            # graphs captured in the run, and their capture time (inside
-            # sample_s); reported on a CUDA device
-            "graphs": t.get("graphs", 0), "capture_s": t.get("capture_s", 0.0)}
+            # graphs captured in the run, their capture time (inside
+            # sample_s), graph replays and host tests of a device flag;
+            # reported on a CUDA device
+            "graphs": t.get("graphs", 0), "capture_s": t.get("capture_s", 0.0),
+            "replays": t.get("replays", 0), "host_tests": t.get("host_tests", 0)}
 
 
 def _monitor(model, name):
@@ -449,7 +460,50 @@ def _same_run(torch, a, b):
     return bool(np.array_equal(a.value, b.value)
                 and _tunes_equal(torch, a.states["tunes"], b.states["tunes"])
                 and all(torch.equal(a.states["state"][k], b.states["state"][k])
-                        for k in a.states["state"]))
+                        for k in a.states["state"])
+                and torch.equal(a.states["rng"], b.states["rng"]))
+
+
+def _zoo_build(mt, name, scheme):
+    """A zoo model with its scheme; for line, one of the schemes of
+    tests/test_torch_samplers_extra.py."""
+    import importlib
+    if name == "line":
+        from mamba_tpu_torch.models import line
+        model, inputs, inits = line.build()
+        model.set_samplers({
+            "hmc_slice": [mt.HMC("beta", 0.2, 4), mt.Slice("s2", 1.0, transform=True)],
+            "mala_slice": [mt.MALA("beta", 0.05), mt.Slice("s2", 3.0)],
+            "rwm_slice_uni": [mt.RWM("beta", np.array([1.0, 0.3])),
+                              mt.Slice("s2", 3.0, form="univariate")]}[scheme])
+        return model, inputs, inits
+    mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
+    return mod.build() if scheme is None else mod.build(scheme)
+
+
+def _graph_zoo(torch, mt, graphs):
+    """``GRAPH_ZOO_ARMS``, each captured and plain from one seed at 1024
+    chains: whether the two runs are equal, their walls and the captured
+    run's graphs, capture seconds, replays and host tests."""
+    iters, burnin = GRAPH_CHECK_RUN
+    out = {}
+    for name, scheme in GRAPH_ZOO_ARMS:
+        def run(name=name, scheme=scheme):
+            model, inputs, inits = _zoo_build(mt, name, scheme)
+            return mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                           chains=CHAINS, verbose=False, device=DEVICE)
+        pair = _graph_pair(torch, mt, graphs, run)
+        (g_sim, g_s), (p_sim, p_s) = pair["graphed"], pair["plain"]
+        label = name if scheme is None else f"{name}:{scheme}"
+        out[label] = {
+            "equal": _same_run(torch, g_sim, p_sim),
+            "graphed_s": g_s, "plain_s": p_s,
+            **{k: g_sim.timing.get(k, 0)
+               for k in ("graphs", "capture_s", "replays", "host_tests")},
+            "plain_host_tests": p_sim.timing.get("host_tests", 0)}
+        log(f"graphs: zoo {label}, captured against plain: "
+            + json.dumps(out[label]))
+    return out
 
 
 def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
@@ -458,8 +512,10 @@ def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
     transition's tree depths) and GLMM ChEES through the fused kernel
     (draws, tunes, final state; the kernel's launches counted through the
     graph's replays at least the gradient evaluations, and at least the
-    plain loop's, which launches once per evaluation).  Bit-identical, or
-    the phase fails."""
+    plain loop's, which launches once per evaluation), and the zoo's
+    samplers (``GRAPH_ZOO_ARMS``: draws, tunes, final state and generator
+    state).  Bit-identical, and every zoo arm replayed, or the phase
+    fails."""
     from mamba_tpu_torch.utils import graphs
     iters, burnin = GRAPH_CHECK_RUN
     res = {}
@@ -517,7 +573,10 @@ def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
         **{k: g_sim.timing.get(k, 0) for k in ("graphs", "capture_s", "replays")}}
     log("graphs: GLMM ChEES at full width, captured against plain: "
         + json.dumps(res["glmm_chees"]))
-    failed = [k for k, v in res.items() if not v["equal"]]
+    zoo = _graph_zoo(torch, mt, graphs)
+    failed = [k for k, v in {**res, **zoo}.items() if not v["equal"]]
+    failed += [f"{k}: no replay" for k, v in zoo.items() if not v["replays"] > 0]
+    res["zoo"] = zoo
     if not (g_launch >= need and g_launch >= p_launch and g_launch > 0):
         failed.append("GLMM ChEES: fused kernel launches through replays")
     if failed:
@@ -727,8 +786,10 @@ def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
     import importlib
     mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
     model, inputs, inits = mod.build() if scheme is None else mod.build(scheme)
+    torch.cuda.reset_peak_memory_stats()
     sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
                   verbose=False, device=DEVICE)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     v = sim.value
     s = mt.summarystats(sim).to_dict()
     kept = iters - burnin
@@ -736,6 +797,7 @@ def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
     res = {"model": name, "blocks": [repr(b) for b in model.samplers],
            "iterations": iters, "burnin": burnin, **_timing(sim, CHAINS, iters),
            "wall_ms_per_iteration": 1e3 * sim.timing["sample_s"] / iters,
+           "peak_allocated_gib": peak,
            "means": {k: s[k]["Mean"] for k in gates},
            "golden": {k: g[0] for k, g in gates.items()},
            "rhat_rank_max": float(np.max(mt.rhat_rank(v))),
@@ -841,11 +903,13 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
     model, inputs, inits = mod.build() if scheme is None else mod.build(scheme)
     hits, restore = _recording(binary, "bhmc_step",
                                lambda out: out[1].wallhits.detach().cpu())
+    torch.cuda.reset_peak_memory_stats()
     try:
         sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
                       chains=CHAINS, verbose=False, device=DEVICE)
     finally:
         restore()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     v = sim.value
     means = v.mean(axis=(0, 2))
     golden = getattr(mod, "GOLDEN", {})
@@ -853,6 +917,7 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
     res = {"model": label, "blocks": [repr(b) for b in model.samplers],
            "iterations": iters, "burnin": burnin, **_timing(sim, CHAINS, iters),
            "wall_ms_per_iteration": 1e3 * sim.timing["sample_s"] / iters,
+           "peak_allocated_gib": peak,
            "means": {k: float(means[sim.names.index(k)]) for k in golden
                      if k in sim.names},
            "golden": {k: g["Mean"] for k, g in golden.items()},
@@ -864,7 +929,7 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
         per = torch.diff(torch.stack([torch.zeros_like(hits[0])] + hits), dim=0)
         res["bhmc_wall_hits_per_trajectory"] = {
             "mean": float(per.float().mean()), "max": int(per.max()),
-            "max_hits": 10000}
+            "max_hits": binary.MAX_HITS}
     if name == "pollution" and scheme == "dgs":
         res["alphabeta_float32_error_sd"] = _alphabeta_float32_error(
             torch, sim.compiled, sim.states["state"])
@@ -884,7 +949,7 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
             failed.append("gamma[9] > 0.8 and gamma[2] < 0.6")
     if "dgs_sweep" in res and not res["dgs_sweep"]["graph_equals_eager"]:
         failed.append("the DGS sweep replayed from its CUDA graph")
-    if hits and not res["bhmc_wall_hits_per_trajectory"]["max"] < 10000:
+    if hits and not res["bhmc_wall_hits_per_trajectory"]["max"] < binary.MAX_HITS:
         failed.append("a BHMC trajectory reached max_hits")
     if not res["forward_sample_ok"]:
         failed.append("forward_sample")

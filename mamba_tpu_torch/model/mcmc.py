@@ -7,11 +7,17 @@ at once.  The iteration loop runs on the host (the reference's loop,
 mcmc.jl:62-83): burnin iterations adapt, then each kept row is written into
 a preallocated device tensor that is fetched once at the end.  The JAX
 engine compiles each phase into one program; here the loop stays on the
-host, and the gradient samplers' inner loops (NUTS's leaves, ChEES's
-leapfrogs) and DGS's sweeps are replayed from CUDA graphs
-(``utils/graphs.py``), captured at their first step: on a CUDA device
-``timing`` reports the graphs a run captured (``graphs``), the seconds
-their captures took (``capture_s``, part of ``sample_s``) and the replays.
+host, and the samplers' steps are replayed from CUDA graphs
+(``utils/graphs.py``), captured at their first step: NUTS's leaves, the
+leapfrogs of ChEES and HMC, DGS's sweeps, the shrink trips of Slice (both
+forms) and SliceSimplex, AMWG's sweeps, BHMC's wall hits and the whole MH
+step of RWM, AMM and MALA.  A loop that runs until no chain is left (a
+slice sampler's shrink trips, BHMC's wall hits) tests a device flag on the
+host once per batch of trips.  MISS, ABC, BIA, BMC3, BMG and the Gibbs
+and custom blocks run eagerly.  On a CUDA device ``timing`` reports the
+graphs a run captured (``graphs``), the seconds their captures took
+(``capture_s``, part of ``sample_s``), the replays and the host tests
+(``host_tests``).
 
 Restart matches the reference contract (mcmc.jl:3-16): the returned
 ModelChains carries the chain-stacked values, the tunes and the random
@@ -133,7 +139,7 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
     if cm.device.type == "cuda":
         # graphs captured in this run (at a sampler's first step, inside
         # sample_s), the seconds their captures took, warm-ups included,
-        # and the replays
+        # the replays and the host tests of a device flag
         timing.update({k: graphs.STATS[k] - graphs0[k] for k in graphs0})
     return state, tunes, labels, value, timing
 

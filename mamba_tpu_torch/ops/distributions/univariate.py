@@ -429,6 +429,15 @@ class Weibull(UnivariateDistribution):
         a, t = _bc(self.alpha, self.theta, like=s)
         return t * (-torch.log(s)) ** (1.0 / a)
 
+    def logsf(self, x):
+        a, t = _bc(self.alpha, self.theta, like=x)
+        return -((x / t) ** a)
+
+    def isf_log(self, log_s):
+        """``isf(exp(log_s))``, finite where ``exp(log_s)`` underflows."""
+        a, t = _bc(self.alpha, self.theta, like=log_s)
+        return t * (-log_s) ** (1.0 / a)
+
 
 @distribution
 class Pareto(UnivariateDistribution):
@@ -596,17 +605,20 @@ class Truncated(UnivariateDistribution):
             hi_only = torch.where(~lo_f & hi_f, hi - e, zero)
             neither = torch.where(~lo_f & ~hi_f, z, zero)
             return both + low_only + hi_only + neither
-        if hasattr(self.base, "sf") and hasattr(self.base, "isf"):
+        if hasattr(self.base, "logsf") and hasattr(self.base, "isf_log"):
             # survival-space sampling: numerically exact deep in the right
             # tail (cdf_lo -> 1 rounds q to 1.0 in f32 and yields inf draws;
-            # e.g. mice.jl censoring at 40 with scale ~3)
-            sf_lo = torch.where(torch.isfinite(lo), self.base.sf(lo),
-                                torch.ones_like(lo))
-            sf_hi = torch.where(torch.isfinite(hi), self.base.sf(hi),
-                                torch.zeros_like(lo))
-            u = _rand(gen, shape, sf_lo)
-            s = sf_hi + (1.0 - u) * (sf_lo - sf_hi)
-            return self.base.isf(s)
+            # e.g. mice.jl censoring at 40 with scale ~3), in logs: a bound
+            # hundreds of scales deep (kidney's censoring times under a
+            # small Weibull scale) underflows sf(lo) to 0, whose isf is inf.
+            # s = (1 - u) sf(lo) + u sf(hi) = sf(lo) ((1 - u) + u sf(hi) / sf(lo))
+            lsf_lo = torch.where(torch.isfinite(lo), self.base.logsf(lo),
+                                 torch.zeros_like(lo))
+            lsf_hi = torch.where(torch.isfinite(hi), self.base.logsf(hi),
+                                 torch.full_like(lo, -math.inf))
+            u = _rand(gen, shape, lsf_lo)
+            return self.base.isf_log(
+                lsf_lo + torch.log((1.0 - u) + u * torch.exp(lsf_hi - lsf_lo)))
         _, cdf_lo, cdf_hi = self._log_mass(like)
         cdf_lo, cdf_hi = cdf_lo.to(gen.device), cdf_hi.to(gen.device)
         u = _rand(gen, shape, cdf_lo)

@@ -10,16 +10,19 @@ definite, and a chain whose covariance was not keeps its previous factor.
 
 Random draws per step, in order: the fixed proposal's normals ``(C, dim)``,
 the adaptive proposal's normals ``(C, dim)``, the acceptance uniforms
-``(C,)``.
+``(C,)``, all drawn before the proposal and MH test, which are one body
+(``utils.graphs.Captured``): replayed from a CUDA graph in the engine, run
+eagerly by the stand-alone step.  The adaptation runs eagerly after it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
-from .base import SamplerSpec, metropolis_accept
+from .base import SamplerSpec, captured, mh_select, plain
 
 
 class AMMTune(NamedTuple):
@@ -72,12 +75,33 @@ def amm_adapt(x2, tune: AMMTune) -> AMMTune:
     return tune._replace(SigmaLm=SigmaLm, Mv=Mv, Mvv=Mvv, m=tune.m + 1)
 
 
-def amm_step(gen, x, tune: AMMTune, logf, adapt: bool):
+def _step(b, logf, beta):
+    """Proposal and MH test on the draws ``b["z"]``, ``b["z_m"]`` and
+    ``b["u"]``, from the factors and counts in ``b``."""
+    x = b["x"]
+    tune = AMMTune(SigmaL=b["SigmaL"], SigmaLm=b["SigmaLm"], Mv=None, Mvv=None,
+                   m=b["m"], beta=beta, scale=None)
+    y = amm_propose(x, tune, b["z"], b["z_m"])
+    x2, _ = mh_select(b["u"], logf(y) - logf(x), y, x)
+    b["x"].copy_(x2)
+
+
+def step_bodies(logf_of, beta):
+    """The step's body on the density ``logf_of(state)``."""
+    return {"body": lambda b, s: _step(b, logf_of(s), beta)}
+
+
+def amm_step(gen, x, tune: AMMTune, logf, adapt: bool, graphed=None):
+    """One AMM step; ``graphed``: the captured proposal and MH test
+    (``step_bodies``), by default the plain one."""
     f = dict(dtype=x.dtype, device=x.device)
-    z = torch.randn(x.shape, generator=gen, **f)
-    z_m = torch.randn(x.shape, generator=gen, **f)
-    y = amm_propose(x, tune, z, z_m)
-    x2, _ = metropolis_accept(gen, logf(y) - logf(x), y, x)
+    cap = graphed or plain(functools.partial(step_bodies, beta=tune.beta), logf)
+    cap.load(x=x, SigmaL=tune.SigmaL, SigmaLm=tune.SigmaLm, m=tune.m,
+             z=torch.randn(x.shape, generator=gen, **f),
+             z_m=torch.randn(x.shape, generator=gen, **f),
+             u=torch.rand(x.shape[:1], generator=gen, **f))
+    cap.run()
+    x2 = cap.bufs["x"].clone()
     return x2, (amm_adapt(x2, tune) if adapt else tune)
 
 
@@ -97,9 +121,14 @@ class AMM(SamplerSpec):
         self.scale = scale
         self.adapt_mode = adapt
 
+    def build(self, cm):
+        bodies = functools.partial(step_bodies, beta=float(self.beta))
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return amm_init(x0, self.Sigma, self.beta, self.scale)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
         isadapt = {"all": True, "none": False, "burnin": adapt}[self.adapt_mode]
-        return amm_step(gen, x, tune, logf, isadapt)
+        return amm_step(gen, x, tune, logf, isadapt, graphed=graphed)

@@ -1,9 +1,11 @@
 """Adaptive Metropolis-within-Gibbs, batched over chains (reference
 src/samplers/amwg.jl).
 
-A per-coordinate random-walk sweep over chain-stacked ``x (C, dim)``: the
-host loops over coordinates, and each coordinate's proposal is accepted or
-rejected for every chain at once.  Proposal scales adapt per chain and per
+A per-coordinate random-walk sweep over chain-stacked ``x (C, dim)``: each
+coordinate's proposal is accepted or rejected for every chain at once.  The
+sweep, its ``dim`` density calls included, is one body
+(``utils.graphs.Captured``), replayed from a CUDA graph in the engine and
+run eagerly by the stand-alone step; the adaptation after it runs eagerly.  Proposal scales adapt per chain and per
 coordinate in batches toward a 0.44 acceptance target, as each of the
 reference's per-process chains does.  The iteration counter is the same for
 every chain, so it is a host integer.
@@ -18,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from .base import SamplerSpec
+from .base import SamplerSpec, captured, plain
 
 
 class AMWGTune(NamedTuple):
@@ -37,12 +39,13 @@ def amwg_init(x0, sigma, batchsize: int = 50, target: float = 0.44) -> AMWGTune:
                     m=0, batchsize=int(batchsize), target=float(target))
 
 
-def amwg_step(gen, x, tune: AMWGTune, logf, adapt: bool):
-    """One coordinate sweep and, on adaptation steps, the batch scale update
-    (reference amwg.jl:68-115)."""
-    f = dict(dtype=x.dtype, device=x.device)
-    z = tune.sigma * torch.randn(x.shape, generator=gen, **f)
-    logu = torch.log(torch.rand(x.shape, generator=gen, **f))
+def _sweep(b, logf):
+    """The coordinate sweep on the draws ``b["noise"]`` (normal) and
+    ``b["u"]`` (uniform), both ``(C, dim)``: the new ``b["x"]`` and which
+    proposals were taken, ``b["accepted"]``."""
+    x = b["x"]
+    z = b["sigma"] * b["noise"]
+    logu = torch.log(b["u"])
     logf0 = logf(x)
     accepted = []
     for i in range(x.shape[1]):
@@ -53,9 +56,31 @@ def amwg_step(gen, x, tune: AMWGTune, logf, adapt: bool):
         x = torch.where(acc[:, None], y, x)
         logf0 = torch.where(acc, logf1, logf0)
         accepted.append(acc)
+    b["x"].copy_(x)
+    b["accepted"].copy_(torch.stack(accepted, dim=1))
+
+
+def sweep_bodies(logf_of):
+    """The sweep's body on the density ``logf_of(state)``."""
+    return {"body": lambda b, s: _sweep(b, logf_of(s))}
+
+
+def amwg_step(gen, x, tune: AMWGTune, logf, adapt: bool, graphed=None):
+    """One coordinate sweep and, on adaptation steps, the batch scale update
+    (reference amwg.jl:68-115).  ``graphed``: the captured sweep
+    (``sweep_bodies``), by default the plain loop."""
+    f = dict(dtype=x.dtype, device=x.device)
+    cap = graphed or plain(sweep_bodies, logf)
+    if not cap.holds("x", x):
+        cap.load(accepted=torch.zeros(x.shape, dtype=torch.bool, device=x.device))
+    cap.load(x=x, sigma=tune.sigma,
+             noise=torch.randn(x.shape, generator=gen, **f),
+             u=torch.rand(x.shape, generator=gen, **f))
+    cap.run()
+    x = cap.bufs["x"].clone()
     if not adapt:
         return x, tune
-    accept = tune.accept + torch.stack(accepted, dim=1).to(torch.int32)
+    accept = tune.accept + cap.bufs["accepted"].to(torch.int32)
     m = tune.m + 1
     sigma = tune.sigma
     if m % tune.batchsize == 0:
@@ -82,9 +107,13 @@ class AMWG(SamplerSpec):
         self.target = target
         self.adapt_mode = adapt
 
+    def build(self, cm):
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(sweep_bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return amwg_init(x0, self.sigma, self.batchsize, self.target)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
         isadapt = {"all": True, "none": False, "burnin": adapt}[self.adapt_mode]
-        return amwg_step(gen, x, tune, logf, isadapt)
+        return amwg_step(gen, x, tune, logf, isadapt, graphed=graphed)

@@ -19,11 +19,14 @@ SamplerVariate).  Two levels, as in the JAX package:
    outside it.
 
 ``adapt`` is a Python bool (``iter <= burnin`` in the reference, e.g.
-nuts.jl:52): the engine's loop runs on the host.  The inner loops of the
-gradient samplers the engine runs (NUTS's leaves, ChEES's leapfrogs) are
-replayed from CUDA graphs (``SamplerSpec.bind``'s ``graphed``,
-``utils/graphs.py``); the stand-alone kernels run their plain loops, so
-they take any ``logf``, capturable or not.
+nuts.jl:52): the engine's loop runs on the host.  The samplers' inner
+loops (NUTS's leaves, ChEES's and HMC's leapfrogs, the slice samplers'
+shrink trips, AMWG's sweep, BHMC's wall hits, the whole MH step of RWM,
+AMM and MALA) are replayed from CUDA graphs in the engine
+(``SamplerSpec.bind``'s ``graphed``, ``utils/graphs.py``); the
+stand-alone kernels run their plain loops, so they take any ``logf``,
+capturable or not.  Where a sampler's loop is a batch of trips, both
+forms run the same bodies and draw the same numbers in the same layout.
 
 Under a mesh's data axis a block's ``logf`` on one rank is a part of its
 density; every vmapped value and gradient is summed over the data group
@@ -75,17 +78,20 @@ class SamplerSpec:
         ``kernel_step(gen, x, tune, f, adapt)`` on the block's flat vectors,
         ``f`` being the batched density (and gradient).
 
-        ``graphed(density)``, given the block's density and gradient on
-        one state, ``density(x, state) -> (logf, grad)``, returns the
-        sampler's captured inner loop (NUTS's ``GraphedSubtree``, ChEES's
-        ``GraphedTrajectory``), which ``kernel_step`` then takes as
-        ``graphed=``.  ``f`` closes over the other blocks' state (rats'
-        variances, which its Gibbs block redraws every iteration); the
-        captured loop reads them from static copies, which the block step
-        loads once (``load_state``), not once per leapfrog.  A block whose
-        density is summed over a mesh's data group (``cm.block_split``)
-        takes the plain loop: that sum is an all-reduce, which a CUDA graph
-        does not capture (DGS's rule).  So does every block built under
+        ``graphed(density)``, given the block's density on one state,
+        returns the sampler's captured inner loop (NUTS's
+        ``GraphedSubtree``, ChEES's ``GraphedTrajectory``, a slice
+        sampler's trip batches), which ``kernel_step`` then takes as
+        ``graphed=``.  The density is ``density(x, state) -> (logf, grad)``
+        for a sampler that needs gradients, else ``density(x, state) ->
+        logf (C,)`` (``candidate_logf(density, state)`` is its candidate
+        form).  ``f`` closes over the other blocks' state (rats' variances,
+        which its Gibbs block redraws every iteration); the captured loop
+        reads them from static copies, which the block step loads once
+        (``load_state``), not once per leapfrog.  A block whose density is
+        summed over a mesh's data group (``cm.block_split``) takes the
+        plain loop: that sum is an all-reduce, which a CUDA graph does not
+        capture (DGS's rule).  So does every block built under
         ``utils.graphs.disabled()``.  A chain-axis-only mesh has no
         collective inside a leapfrog, and replays."""
         pack, unpack, spec, logf = cm.block_functions(self.params, self.transform)
@@ -103,14 +109,13 @@ class SamplerSpec:
             def make_f(state):
                 return lambda x: density(x, state)
         else:
-            vlogf = summed(torch.func.vmap(logf), total)
+            density = summed(torch.func.vmap(logf), total)
 
             def make_f(state):
-                return candidate_logf(vlogf, state)
+                return candidate_logf(density, state)
 
         captured = None
-        if (graphed is not None and graphs.enabled()
-                and not cm.block_split(self.params)):
+        if graphed is not None and replays(cm, self.params):
             captured = graphed(density)
 
         def init(gen, state):
@@ -130,6 +135,14 @@ class SamplerSpec:
 
     def __repr__(self):
         return f"{type(self).__name__}({list(self.params)})"
+
+
+def replays(cm, params) -> bool:
+    """Whether the block of ``params`` takes its captured step: not built
+    under ``utils.graphs.disabled()``, and its density not summed over a
+    mesh's data group (``cm.block_split``), an all-reduce that a CUDA
+    graph does not capture."""
+    return graphs.enabled() and not cm.block_split(params)
 
 
 def summed(vlogf, total):
@@ -196,5 +209,27 @@ def metropolis_accept(gen, log_ratio, x_new, x_old):
     probability ``exp(log_ratio[c])``; one uniform per chain."""
     u = torch.rand(log_ratio.shape, generator=gen, dtype=log_ratio.dtype,
                    device=log_ratio.device)
+    return mh_select(u, log_ratio, x_new, x_old)
+
+
+def mh_select(u, log_ratio, x_new, x_old):
+    """``metropolis_accept`` given its uniforms ``u (C,)``, drawn before a
+    captured step."""
     accept = torch.log(u) < log_ratio
     return torch.where(accept[:, None], x_new, x_old), accept
+
+
+def captured(bodies, density, grad: bool = False):
+    """A sampler's captured step for the engine: ``bodies(logf_of)``, where
+    ``logf_of(state)`` is the block's density on the model state the
+    ``Captured`` holds (``x -> (logf, grad)`` with ``grad``, else the
+    candidate form of ``candidate_logf``)."""
+    if grad:
+        return graphs.Captured(bodies(lambda state: lambda x: density(x, state)))
+    return graphs.Captured(bodies(lambda state: candidate_logf(density, state)))
+
+
+def plain(bodies, logf):
+    """The same bodies as the sampler's plain loop on ``logf``, run eagerly
+    on every device."""
+    return graphs.Captured(bodies(lambda state: logf), eager=True)

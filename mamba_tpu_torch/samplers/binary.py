@@ -9,8 +9,12 @@ step needs the density at several points per chain, they go in one call on
   walls of the orthants, Pakman and Paninski 2013).  Every chain moves from
   wall hit to wall hit in lockstep; a trip is one hit for every chain still
   travelling (two densities, scored in one call), and a chain that has
-  travelled ``traveltime`` is left as it is.  The host tests whether any
-  chain still travels every ``CHECK_EVERY`` trips.  A coordinate sitting
+  travelled ``traveltime`` is left as it is.  Trips run in batches of
+  ``CHECK_EVERY``, and the host tests after each batch whether any chain
+  still travels (``graphs.until_done``).  The set-up with the first batch,
+  and a batch, are two bodies on tensors of their own
+  (``utils.graphs.Captured``): the engine replays them from CUDA graphs,
+  the stand-alone step runs them eagerly.  A coordinate sitting
   on the wall it has just been taken through (or bounced off) reads a wall
   time of 0 and must not be hit again.  The JAX package guards the last wall
   hit only, by ``1e4`` float64 epsilons: when two walls are hit at the same
@@ -35,17 +39,21 @@ draw, the proposals ``(C, n)``, the acceptance ``(C,)`` (uniform).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .base import SamplerSpec, validatebinary
+from ..utils import graphs
+from .base import SamplerSpec, captured, plain, validatebinary
 
 #: BHMC trips between two host tests of whether any chain still travels; a
 #: trip of a chain that has stopped changes nothing, so it only costs time
 CHECK_EVERY = 8
+#: wall hits after which a chain stops where it is
+MAX_HITS = 10000
 
 
 def _rand(gen, shape, like):
@@ -84,69 +92,116 @@ def bhmc_init(gen, x0, traveltime) -> BHMCTune:
                     wallhits=zeros, wallcrosses=zeros.clone())
 
 
-def bhmc_step(gen, x, tune: BHMCTune, logf, max_hits: int = 10000):
+def _wall_hit(b, logf, T, max_hits):
+    """One wall hit (or the end of the trajectory) for every chain still
+    travelling, on the trajectory's tensors ``b``; a chain stops at
+    ``max_hits`` trips."""
+    a, pos0, S, since, total = b["a"], b["b"], b["S"], b["since"], b["total"]
+    nearzero = 1e4 * torch.finfo(a.dtype).eps
+    done = b["done"] | (b["it"] >= max_hits)
+    phi = torch.atan2(pos0, a)
+    walltime = torch.where(phi > 0.0, math.pi - phi, -phi)
+    # a wall just hit is found again at time ~0 (or ~2 pi): skip it
+    guard = ((torch.abs(walltime) < nearzero)
+             | (torch.abs(walltime - 2.0 * math.pi) < nearzero))
+    walltime = torch.where((since < nearzero) & guard, torch.inf, walltime)
+    j = torch.argmin(walltime, -1)
+    onehot = b["cols"] == j[:, None]
+    movetime = torch.gather(walltime, 1, j[:, None])[:, 0]
+    movetime = torch.where(torch.isinf(movetime), math.pi, movetime)
+    total_new = total + movetime
+    fin = total_new >= T
+    movetime = torch.where(fin, movetime - (total_new - T), movetime)
+    c, s = torch.cos(movetime)[:, None], torch.sin(movetime)[:, None]
+    vel, pos = a * c - pos0 * s, a * s + pos0 * c
+
+    # the wall: cross it if the kinetic energy pays the density's change
+    half = (S + 1.0) / 2.0
+    lf1, lf0 = _pair(logf, torch.where(onehot, 1.0, half),
+                     torch.where(onehot, 0.0, half))
+    vj = torch.gather(vel, 1, j[:, None])[:, 0]
+    v2 = vj * vj + torch.sign(vj) * 2.0 * (lf1 - lf0)
+    cross = v2 > 0.0
+    vel_j = torch.where(cross, torch.sqrt(torch.abs(v2)) * torch.sign(vj), -vj)
+
+    live = ~done
+    wall = live & ~fin
+    w, lv = wall[:, None], live[:, None]
+    b["hits"].add_(wall.to(torch.int32))
+    b["crosses"].add_((wall & cross).to(torch.int32))
+    b["a"].copy_(torch.where(w, torch.where(onehot, vel_j[:, None], vel),
+                             torch.where(lv, vel, a)))
+    b["b"].copy_(torch.where(w, torch.where(onehot, 0.0, pos),
+                             torch.where(lv, pos, pos0)))
+    b["S"].copy_(torch.where(w & onehot & cross[:, None], -S, S))
+    b["since"].copy_(torch.where(w & onehot, 0.0,
+                                 torch.where(lv, since + movetime[:, None], since)))
+    b["total"].copy_(torch.where(live, total_new, total))
+    b["done"].copy_(done | fin)
+    b["it"].add_(1)
+
+
+def _hits(b, logf, T, max_hits):
+    for _ in range(CHECK_EVERY):
+        _wall_hit(b, logf, T, max_hits)
+    b["more"].copy_(~(b["done"] | (b["it"] >= max_hits)).all())
+
+
+def _trajectory(b, logf, T, max_hits):
+    """The trajectory's start from the drawn position and velocity
+    normals, and its first batch of wall hits."""
+    S = 2.0 * b["x"] - 1.0
+    b["S"].copy_(S)
+    b["b"].copy_(torch.abs(b["pos_noise"]) * S)
+    b["a"].copy_(b["vel_noise"])
+    b["since"].fill_(torch.inf)
+    b["total"].zero_()
+    b["hits"].copy_(b["hits0"])
+    b["crosses"].copy_(b["crosses0"])
+    b["done"].zero_()
+    b["it"].zero_()
+    _hits(b, logf, T, max_hits)
+
+
+def hit_bodies(logf_of, traveltime, max_hits=MAX_HITS):
+    """The trajectory's bodies on the density ``logf_of(state)`` (its
+    candidate form scores two points per chain)."""
+    return {"start": lambda b, s: _trajectory(b, logf_of(s), traveltime, max_hits),
+            "more": lambda b, s: _hits(b, logf_of(s), traveltime, max_hits)}
+
+
+def bhmc_step(gen, x, tune: BHMCTune, logf, max_hits: int = MAX_HITS,
+              graphed=None):
     """One particle trajectory of length ``traveltime`` per chain (reference
     sample!, bhmc.jl:50-122).  As in the JAX package, and unlike the
     reference (whose fixed momentum makes the chain non-ergodic), position
     and velocity are drawn afresh for every trajectory, the position on the
     current state's side of each wall.  A chain that reaches ``max_hits``
-    wall hits stops where it is."""
-    C, n = x.shape
-    T = tune.traveltime
-    nearzero = 1e4 * torch.finfo(x.dtype).eps
-    S = 2.0 * x - 1.0
-    b = torch.abs(_randn(gen, x.shape, x)) * S         # position
-    a = _randn(gen, x.shape, x)                         # velocity
-    cols = torch.arange(n, device=x.device)
-    # time since each coordinate's last wall hit
-    since = torch.full(x.shape, torch.inf, dtype=x.dtype, device=x.device)
-    total = torch.zeros(C, dtype=x.dtype, device=x.device)
-    hits, crosses = tune.wallhits.clone(), tune.wallcrosses.clone()
-    done = torch.zeros(C, dtype=torch.bool, device=x.device)
-    for it in range(max_hits):
-        if it % CHECK_EVERY == 0 and bool(done.all()):
-            break
-        phi = torch.atan2(b, a)
-        walltime = torch.where(phi > 0.0, math.pi - phi, -phi)
-        # a wall just hit is found again at time ~0 (or ~2 pi): skip it
-        guard = ((torch.abs(walltime) < nearzero)
-                 | (torch.abs(walltime - 2.0 * math.pi) < nearzero))
-        walltime = torch.where((since < nearzero) & guard, torch.inf, walltime)
-        j = torch.argmin(walltime, -1)
-        onehot = cols == j[:, None]
-        movetime = torch.gather(walltime, 1, j[:, None])[:, 0]
-        movetime = torch.where(torch.isinf(movetime), math.pi, movetime)
-        total_new = total + movetime
-        fin = total_new >= T
-        movetime = torch.where(fin, movetime - (total_new - T), movetime)
-        c, s = torch.cos(movetime)[:, None], torch.sin(movetime)[:, None]
-        vel, pos = a * c - b * s, a * s + b * c
-
-        # the wall: cross it if the kinetic energy pays the density's change
-        half = (S + 1.0) / 2.0
-        lf1, lf0 = _pair(logf, torch.where(onehot, 1.0, half),
-                         torch.where(onehot, 0.0, half))
-        vj = torch.gather(vel, 1, j[:, None])[:, 0]
-        v2 = vj * vj + torch.sign(vj) * 2.0 * (lf1 - lf0)
-        cross = v2 > 0.0
-        vel_j = torch.where(cross, torch.sqrt(torch.abs(v2)) * torch.sign(vj), -vj)
-
-        live = ~done
-        wall = live & ~fin
-        hits = hits + wall.to(torch.int32)
-        crosses = crosses + (wall & cross).to(torch.int32)
-        w, lv = wall[:, None], live[:, None]
-        a = torch.where(w, torch.where(onehot, vel_j[:, None], vel),
-                        torch.where(lv, vel, a))
-        b = torch.where(w, torch.where(onehot, 0.0, pos), torch.where(lv, pos, b))
-        S = torch.where(w & onehot & cross[:, None], -S, S)
-        since = torch.where(w & onehot, 0.0,
-                            torch.where(lv, since + movetime[:, None], since))
-        total = torch.where(live, total_new, total)
-        done = done | fin
-    x2 = (torch.sign(b) + 1.0) / 2.0
-    return x2, tune._replace(position=b, velocity=a, wallhits=hits,
-                             wallcrosses=crosses)
+    wall hits stops where it is.  ``graphed``: the captured bodies
+    (``hit_bodies`` of this ``traveltime`` and ``max_hits``), by default the
+    plain loop."""
+    cap = graphed or plain(functools.partial(
+        hit_bodies, traveltime=tune.traveltime, max_hits=max_hits), logf)
+    pos_noise = _randn(gen, x.shape, x)
+    vel_noise = _randn(gen, x.shape, x)
+    if not cap.holds("x", x):
+        C, n = x.shape
+        f = dict(dtype=x.dtype, device=x.device)
+        counts = torch.zeros(C, dtype=torch.int32, device=x.device)
+        cap.load(S=x, a=x, b=x, since=x, total=torch.zeros(C, **f),
+                 hits=counts, crosses=counts,
+                 done=torch.zeros(C, dtype=torch.bool, device=x.device),
+                 it=torch.zeros((), dtype=torch.long, device=x.device),
+                 more=torch.zeros((), dtype=torch.bool, device=x.device),
+                 cols=torch.arange(n, device=x.device))
+    cap.load(x=x, pos_noise=pos_noise, vel_noise=vel_noise,
+             hits0=tune.wallhits, crosses0=tune.wallcrosses)
+    graphs.until_done(cap, "start", "more", math.ceil(max_hits / CHECK_EVERY))
+    b = cap.bufs
+    x2 = (torch.sign(b["b"]) + 1.0) / 2.0
+    return x2, tune._replace(position=b["b"].clone(), velocity=b["a"].clone(),
+                             wallhits=b["hits"].clone(),
+                             wallcrosses=b["crosses"].clone())
 
 
 class BHMC(SamplerSpec):
@@ -156,11 +211,16 @@ class BHMC(SamplerSpec):
         super().__init__(params)
         self.traveltime = float(traveltime)
 
+    def build(self, cm):
+        bodies = functools.partial(hit_bodies, traveltime=self.traveltime)
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return bhmc_init(gen, x0, self.traveltime)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
-        return bhmc_step(gen, x, tune, logf)
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+        return bhmc_step(gen, x, tune, logf, graphed=graphed)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils import graphs
-from .base import BlockKernel, SamplerSpec, candidate_logf, summed
+from .base import BlockKernel, SamplerSpec, candidate_logf, replays, summed
 
 
 class DGSTune(NamedTuple):
@@ -127,10 +127,7 @@ class DGS(SamplerSpec):
             tune0 = dgs_support(dist, cm.sites[name].shape, cm.dtype, cm.device)
             pack, unpack, _, logf = cm.block_functions((name,), False)
             vlogf = summed(torch.func.vmap(logf), cm.block_sum((name,)))
-            # a sweep whose density is summed over a data group runs its
-            # collectives eagerly: they are not captured in a CUDA graph
-            graphed = (cm.device.type == "cuda" and graphs.enabled()
-                       and not cm.block_split((name,)))
+            graphed = cm.device.type == "cuda" and replays(cm, (name,))
 
             def sweep(x, noise, state, tune0=tune0, vlogf=vlogf):
                 return _sweep(x, noise, tune0, candidate_logf(vlogf, state))

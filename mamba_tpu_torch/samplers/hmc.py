@@ -2,8 +2,13 @@
 (reference src/samplers/hmc.jl).
 
 Every chain runs the same ``L`` leapfrog steps, so the trajectory is ``L``
-batched gradient evaluations with no masking.  Random draws per step, in
-order: the momentum noise ``(C, dim)`` and one acceptance uniform per chain.
+batched gradient evaluations with no masking.  The step is three bodies on
+tensors of their own (``utils.graphs.Captured``): the start (momentum,
+gradient, first half step), one leapfrog, run ``L`` times, and the end (the
+last half step undone and the MH test); the engine replays each from a
+CUDA graph, the stand-alone step runs them eagerly.  Random draws per step,
+in order, both before the start: the momentum noise ``(C, dim)`` and one
+acceptance uniform per chain.
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .base import SamplerSpec, metropolis_accept
+from .base import SamplerSpec, captured, mh_select, plain
 
 
 class HMCTune(NamedTuple):
@@ -41,24 +46,68 @@ def _sqnorm_Linv(SigmaL, v):
     return torch.sum(w * w, dim=0)
 
 
-def hmc_step(gen, x, tune: HMCTune, logfgrad):
-    """Fixed-length leapfrog + MH accept (reference hmc.jl:72-111): momentum
-    p = SigmaL z, z ~ N(0, I); kinetic energy 0.5 |SigmaL^-1 p|^2."""
-    eps = tune.epsilon
-    z = torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
-    p0 = z if tune.SigmaL is None else z @ tune.SigmaL.T
+def _start(b, logfgrad):
+    """Momentum p0 = SigmaL z, the gradient at x and the first half step."""
+    x, z, L = b["x"], b["z"], b.get("SigmaL")
+    p0 = z if L is None else z @ L.T
     logf0, grad0 = logfgrad(x)
-    p = p0 + 0.5 * eps * grad0
-    x1, logf1, grad1 = x, logf0, grad0
-    for _ in range(tune.L):
-        x1 = x1 + eps * p
-        logf1, grad1 = logfgrad(x1)
-        p = p + eps * grad1
-    p1 = p - 0.5 * eps * grad1     # undo the extra half-step (hmc.jl:96)
-    K0 = 0.5 * _sqnorm_Linv(tune.SigmaL, p0)
-    K1 = 0.5 * _sqnorm_Linv(tune.SigmaL, p1)
-    x2, _ = metropolis_accept(gen, (logf1 - K1) - (logf0 - K0), x1, x)
-    return x2, tune
+    b["p0"].copy_(p0)
+    b["logf0"].copy_(logf0)
+    b["p"].copy_(p0 + 0.5 * b["eps"] * grad0)
+    b["x1"].copy_(x)
+    b["logf1"].copy_(logf0)
+    b["grad1"].copy_(grad0)
+
+
+def _leapfrog(b, logfgrad):
+    """One leapfrog step (position first, then a full momentum step)."""
+    eps = b["eps"]
+    x1 = b["x1"] + eps * b["p"]
+    logf1, grad1 = logfgrad(x1)
+    b["p"].copy_(b["p"] + eps * grad1)
+    b["x1"].copy_(x1)
+    b["logf1"].copy_(logf1)
+    b["grad1"].copy_(grad1)
+
+
+def _end(b):
+    """The extra half step undone (hmc.jl:96) and the MH test on
+    ``b["u"]``: the new positions in ``b["out"]``."""
+    L = b.get("SigmaL")
+    p1 = b["p"] - 0.5 * b["eps"] * b["grad1"]
+    K0 = 0.5 * _sqnorm_Linv(L, b["p0"])
+    K1 = 0.5 * _sqnorm_Linv(L, p1)
+    x2, _ = mh_select(b["u"], (b["logf1"] - K1) - (b["logf0"] - K0), b["x1"],
+                      b["x"])
+    b["out"].copy_(x2)
+
+
+def trajectory_bodies(logfgrad_of):
+    """The step's bodies on the density and gradient ``logfgrad_of(state)``."""
+    return {"start": lambda b, s: _start(b, logfgrad_of(s)),
+            "leapfrog": lambda b, s: _leapfrog(b, logfgrad_of(s)),
+            "end": lambda b, s: _end(b)}
+
+
+def hmc_step(gen, x, tune: HMCTune, logfgrad, graphed=None):
+    """Fixed-length leapfrog + MH accept (reference hmc.jl:72-111): momentum
+    p = SigmaL z, z ~ N(0, I); kinetic energy 0.5 |SigmaL^-1 p|^2.
+    ``graphed``: the captured bodies (``trajectory_bodies``), by default the
+    plain loop."""
+    f = dict(dtype=x.dtype, device=x.device)
+    cap = graphed or plain(trajectory_bodies, logfgrad)
+    z = torch.randn(x.shape, generator=gen, **f)
+    u = torch.rand(x.shape[:1], generator=gen, **f)
+    if not cap.holds("x", x):
+        zeros = torch.zeros(x.shape[:1], **f)
+        cap.load(p0=x, p=x, x1=x, grad1=x, out=x, logf0=zeros, logf1=zeros)
+    cap.load(x=x, z=z, u=u, eps=tune.epsilon)
+    if tune.SigmaL is not None:
+        cap.load(SigmaL=tune.SigmaL)
+    cap.run(1, "start")
+    cap.run(tune.L, "leapfrog")
+    cap.run(1, "end")
+    return cap.bufs["out"].clone(), tune
 
 
 class HMC(SamplerSpec):
@@ -73,8 +122,13 @@ class HMC(SamplerSpec):
         self.L = L
         self.Sigma = Sigma
 
+    def build(self, cm):
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(
+                             trajectory_bodies, density, grad=True))
+
     def kernel_init(self, gen, x0, logfgrad):
         return hmc_init(x0, self.epsilon, self.L, self.Sigma)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt):
-        return hmc_step(gen, x, tune, logfgrad)
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None):
+        return hmc_step(gen, x, tune, logfgrad, graphed=graphed)

@@ -2,16 +2,19 @@
 src/samplers/rwm.jl).
 
 Random draws per step, in order: the proposal noise ``(C, dim)`` (normal,
-or uniform on [-1, 1)) and one acceptance uniform per chain.
+or uniform on [-1, 1)) and one acceptance uniform per chain, both drawn
+before the step's body (``utils.graphs.Captured``), which the engine
+replays from a CUDA graph and the stand-alone step runs eagerly.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
-from .base import SamplerSpec, metropolis_accept
+from .base import SamplerSpec, captured, mh_select, plain
 
 
 class RWMTune(NamedTuple):
@@ -22,18 +25,35 @@ def rwm_init(x0, scale) -> RWMTune:
     return RWMTune(scale=torch.as_tensor(scale, dtype=x0.dtype, device=x0.device))
 
 
-def rwm_step(gen, x, tune: RWMTune, logf, proposal: str = "normal"):
+def _step(b, logf, proposal):
+    """Proposal and MH test on the draws ``b["noise"]`` and ``b["u"]``."""
+    x = b["x"]
+    z = 2.0 * b["noise"] - 1.0 if proposal == "uniform" else b["noise"]
+    y = x + b["scale"] * z
+    x2, _ = mh_select(b["u"], logf(y) - logf(x), y, x)
+    b["x"].copy_(x2)
+
+
+def step_bodies(logf_of, proposal="normal"):
+    """The step's body on the density ``logf_of(state)``."""
+    return {"body": lambda b, s: _step(b, logf_of(s), proposal)}
+
+
+def rwm_step(gen, x, tune: RWMTune, logf, proposal: str = "normal",
+             graphed=None):
     """One MH step with a symmetric proposal for chains ``x (C, dim)``
     (reference rwm.jl:65-71).  ``proposal``: 'normal' or 'uniform'
-    (SymUniform), the reference's SymDistributionType argument."""
+    (SymUniform), the reference's SymDistributionType argument.
+    ``graphed``: the captured step (``step_bodies``), by default the plain
+    one."""
     f = dict(dtype=x.dtype, device=x.device)
-    if proposal == "uniform":
-        z = 2.0 * torch.rand(x.shape, generator=gen, **f) - 1.0
-    else:
-        z = torch.randn(x.shape, generator=gen, **f)
-    y = x + tune.scale * z
-    x2, _ = metropolis_accept(gen, logf(y) - logf(x), y, x)
-    return x2, tune
+    cap = graphed or plain(functools.partial(step_bodies, proposal=proposal), logf)
+    noise = (torch.rand(x.shape, generator=gen, **f) if proposal == "uniform"
+             else torch.randn(x.shape, generator=gen, **f))
+    cap.load(x=x, scale=tune.scale, noise=noise,
+             u=torch.rand(x.shape[:1], generator=gen, **f))
+    cap.run()
+    return cap.bufs["x"].clone(), tune
 
 
 class RWM(SamplerSpec):
@@ -49,8 +69,14 @@ class RWM(SamplerSpec):
         self.scale = scale
         self.proposal = proposal
 
+    def build(self, cm):
+        bodies = functools.partial(step_bodies, proposal=self.proposal)
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return rwm_init(x0, self.scale)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
-        return rwm_step(gen, x, tune, logf, proposal=self.proposal)
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+        return rwm_step(gen, x, tune, logf, proposal=self.proposal,
+                        graphed=graphed)

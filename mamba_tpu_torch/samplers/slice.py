@@ -3,26 +3,40 @@ forms, batched over chains (reference src/samplers/slice.jl).
 
 Every chain shrinks its bracket in lockstep: one shrink trip draws a new
 candidate for every chain still rejecting, evaluates the batched density
-once, and leaves the chains that already accepted as they are.  The host
-syncs once per trip (to stop when no chain is still shrinking), never once
-per chain.  By default the kernel works on *constrained* values with -inf
-support masking, like the reference (Slice(..., transform=false),
-slice.jl:50).
+once, and leaves the chains that already accepted as they are.  Trips run
+in batches of ``TRIPS``: the host tests once per batch (``graphs.until_done``)
+whether any chain is still shrinking, never once per chain, and the trips
+of a batch after every chain has accepted change nothing.  Run eagerly, a
+batch also tests before each trip and ends at the first of those
+(``graphs.idle``).  By
+default the kernel works on *constrained* values with -inf support
+masking, like the reference (Slice(..., transform=false), slice.jl:50).
 
-Random draws per step, in order (all from ``gen``): univariate — the
-bracket offsets ``(C, dim)``, then per coordinate the slice level ``(C,)``,
-the first candidate ``(C,)`` and one ``(C,)`` per shrink trip;
-multivariate — the slice level ``(C,)``, the bracket offsets ``(C, dim)``,
-the first candidate ``(C, dim)`` and one ``(C, dim)`` per shrink trip.
+The step is a few bodies on tensors of their own (``utils.graphs.Captured``):
+the first batch of a coordinate (or of the multivariate step) together with
+its set-up (slice level, first candidate, first density call), and a batch
+of trips after it.  In the engine they are replayed from CUDA graphs, the
+coordinate index living on the device so that one graph serves every
+coordinate; the stand-alone steps run the same bodies eagerly.
+
+Random draws per step, in order (all uniform, from ``gen``): univariate —
+the bracket offsets ``(C, dim)``, then every coordinate's first batch
+``(dim, TRIPS + 2, C)`` (row 0 the slice level, row 1 the first candidate,
+then one row per trip), then for each coordinate in turn one ``(TRIPS, C)``
+per further batch; multivariate — the slice level ``(C,)``, the first batch
+``(TRIPS + 2, C, dim)`` (the bracket offsets, the first candidate, one row
+per trip), then one ``(TRIPS, C, dim)`` per further batch.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
-from .base import SamplerSpec
+from ..utils import graphs
+from .base import SamplerSpec, captured, plain
 
 #: hard cap on shrink trips per chain.  Shrinkage halves the bracket per
 #: rejection, so ~60 trips exhaust float64 resolution and a legitimate step
@@ -32,6 +46,14 @@ from .base import SamplerSpec
 #: that reaches the cap rejects the move and keeps its entry value and
 #: entry log-density (the log-density is restored, not evaluated again).
 MAX_SHRINK = 1000
+
+#: shrink trips per batch of a captured step, between two host tests.  On
+#: the card the device is busy most of a captured step, so a trip that no
+#: chain needs costs more than the host test a longer batch saves: of the
+#: lengths 8, 12, 16 and 24, 8 gave the shortest wall on every zoo model
+#: measured, though the deepest of 1024 chains often needs a second batch
+#: (PERF.md §6, ``scripts/trips_sweep.py``)
+TRIPS = 8
 
 
 class SliceTune(NamedTuple):
@@ -49,76 +71,216 @@ def _rand(gen, shape, like):
     return torch.rand(shape, generator=gen, dtype=like.dtype, device=like.device)
 
 
-def _with_column(x, i, v):
-    x = x.clone()
-    x[:, i] = v
-    return x
+def _batches():
+    """Bodies a coordinate (or step) runs at most: enough batches to reach
+    ``MAX_SHRINK`` trips, where every chain has stopped."""
+    return math.ceil(MAX_SHRINK / TRIPS)
 
 
-def slice_univariate_step(gen, x, tune: SliceTune, logf):
-    """Coordinate-wise shrinkage sweep for chains ``x (C, dim)`` (reference
-    slice.jl:66-92); ``logf(x) -> (C,)``."""
-    C, n = x.shape
-    lower = x - tune.width * _rand(gen, x.shape, x)
-    upper = lower + tune.width
-    logf0 = logf(x)
-    for i in range(n):
-        p0 = logf0 + torch.log(_rand(gen, (C,), x))
-        xi_old = x[:, i]
-        lo, hi = lower[:, i], upper[:, i]
-        xi = lo + (hi - lo) * _rand(gen, (C,), x)
-        x = _with_column(x, i, xi)
-        lf = logf(x)
-        active = lf < p0
-        trips = torch.zeros(C, dtype=torch.int32, device=x.device)
-        for _ in range(MAX_SHRINK):
-            if not bool(active.any()):      # the one host sync of a trip
-                break
-            left = xi < xi_old
-            lo = torch.where(active & left, xi, lo)
-            hi = torch.where(active & ~left, xi, hi)
-            xi = torch.where(active, lo + (hi - lo) * _rand(gen, (C,), x), xi)
-            x = _with_column(x, i, xi)
-            lf = torch.where(active, logf(x), lf)
-            trips = trips + active.to(torch.int32)
-            active = active & (lf < p0)
-        # a chain at the cap (degenerate slice level) rejects the
-        # coordinate move and keeps its entry log-density
-        hit = trips >= MAX_SHRINK
-        x = _with_column(x, i, torch.where(hit, xi_old, xi))
-        logf0 = torch.where(hit, logf0, lf)
-    return x, None
+# ---------------------------------------------------------------------------
+# univariate
+# ---------------------------------------------------------------------------
+
+def _uni_trip(b, logf, u):
+    """One shrink trip of coordinate ``b["col"]`` for every chain still
+    shrinking, on the uniforms ``u (C,)``.  A chain that reaches
+    ``MAX_SHRINK`` trips takes its entry value and log-density back and
+    stops."""
+    active, xi, xi_old, col = b["active"], b["xi"], b["xi_old"], b["col"]
+    left = xi < xi_old
+    lo = torch.where(active & left, xi, b["lo"])
+    hi = torch.where(active & ~left, xi, b["hi"])
+    xi2 = torch.where(active, lo + (hi - lo) * u, xi)
+    lf = torch.where(active, logf(torch.where(col, xi2[:, None], b["x"])), b["lf"])
+    trips = b["trips"] + active.to(torch.int32)
+    hit = trips >= MAX_SHRINK
+    xi2 = torch.where(hit, xi_old, xi2)
+    b["lf"].copy_(torch.where(hit, b["logf0"], lf))
+    b["active"].copy_(active & (lf < b["p0"]) & ~hit)
+    b["lo"].copy_(lo)
+    b["hi"].copy_(hi)
+    b["xi"].copy_(xi2)
+    b["trips"].copy_(trips)
+    b["x"].copy_(torch.where(col, xi2[:, None], b["x"]))
 
 
-def slice_multivariate_step(gen, x, tune: SliceTune, logf):
-    """Joint shrinkage step for chains ``x (C, dim)`` (reference
-    slice.jl:95-117)."""
-    C = x.shape[0]
-    p0 = logf(x) + torch.log(_rand(gen, (C,), x))
-    lo = x - tune.width * _rand(gen, x.shape, x)
-    hi = lo + tune.width
-    y = lo + tune.width * _rand(gen, x.shape, x)
-    lf = logf(y)
-    active = lf < p0
-    trips = torch.zeros(C, dtype=torch.int32, device=x.device)
-    for _ in range(MAX_SHRINK):
-        if not bool(active.any()):          # the one host sync of a trip
+def _uni_batch(b, logf, us):
+    for k in range(us.shape[0]):
+        if graphs.idle(b["active"]):
             break
-        a = active[:, None]
-        left = y < x
-        lo = torch.where(a & left, y, lo)
-        hi = torch.where(a & ~left, y, hi)
-        y = torch.where(a, lo + (hi - lo) * _rand(gen, x.shape, x), y)
-        lf = torch.where(active, logf(y), lf)
-        trips = trips + active.to(torch.int32)
-        active = active & (lf < p0)
-    # a chain at the cap found no acceptable candidate: reject the move
-    return torch.where((trips >= MAX_SHRINK)[:, None], x, y), None
+        _uni_trip(b, logf, us[k])
+    b["more"].copy_(b["active"].any())
+
+
+def _uni_coordinate(b, logf):
+    """Set-up of coordinate ``b["i"]`` (its slice level, first candidate
+    and density there) and its first batch of trips."""
+    i, x = b["i"], b["x"]
+    u = b["u"].index_select(0, i)[0]            # (TRIPS + 2, C)
+    col = b["cols"] == i
+    xi_old = x.index_select(1, i)[:, 0]
+    lo = b["lower"].index_select(1, i)[:, 0]
+    hi = b["upper"].index_select(1, i)[:, 0]
+    p0 = b["logf0"] + torch.log(u[0])
+    xi = lo + (hi - lo) * u[1]
+    x2 = torch.where(col, xi[:, None], x)
+    lf = logf(x2)
+    b["col"].copy_(col)
+    b["xi_old"].copy_(xi_old)
+    b["lo"].copy_(lo)
+    b["hi"].copy_(hi)
+    b["p0"].copy_(p0)
+    b["xi"].copy_(xi)
+    b["lf"].copy_(lf)
+    b["active"].copy_(lf < p0)
+    b["trips"].zero_()
+    x.copy_(x2)
+    _uni_batch(b, logf, u[2:])
+
+
+def _uni_start(b, logf):
+    """The step's set-up (brackets, entry log-density, coordinate 0) and
+    coordinate 0's first batch."""
+    x, width = b["x"], b["width"]
+    b["lower"].copy_(x - width * b["offsets"])
+    b["upper"].copy_(b["lower"] + width)
+    b["logf0"].copy_(logf(x))
+    b["i"].zero_()
+    _uni_coordinate(b, logf)
+
+
+def _uni_next(b, logf):
+    """The next coordinate, from the log-density where the last one
+    ended."""
+    b["logf0"].copy_(b["lf"])
+    b["i"].add_(1)
+    _uni_coordinate(b, logf)
+
+
+def univariate_bodies(logf_of):
+    """The univariate step's bodies on the density ``logf_of(state)``."""
+    return {"start": lambda b, s: _uni_start(b, logf_of(s)),
+            "next": lambda b, s: _uni_next(b, logf_of(s)),
+            "more": lambda b, s: _uni_batch(b, logf_of(s), b["ut"])}
+
+
+def slice_univariate_step(gen, x, tune: SliceTune, logf, graphed=None):
+    """Coordinate-wise shrinkage sweep for chains ``x (C, dim)`` (reference
+    slice.jl:66-92); ``logf(x) -> (C,)``.  ``graphed``: the captured
+    bodies (``univariate_bodies``) to run, by default the plain loop."""
+    cap = graphed or plain(univariate_bodies, logf)
+    C, n = x.shape
+    f = dict(dtype=x.dtype, device=x.device)
+    offsets = _rand(gen, x.shape, x)
+    u = _rand(gen, (n, TRIPS + 2, C), x)
+    if not cap.holds("x", x):
+        zeros = torch.zeros(C, **f)
+        flags = torch.zeros(C, dtype=torch.bool, device=x.device)
+        cap.load(lower=x, upper=x, logf0=zeros, lf=zeros, p0=zeros, xi=zeros,
+                 xi_old=zeros, lo=zeros, hi=zeros, active=flags,
+                 trips=torch.zeros(C, dtype=torch.int32, device=x.device),
+                 more=torch.zeros((), dtype=torch.bool, device=x.device),
+                 i=torch.zeros(1, dtype=torch.long, device=x.device),
+                 cols=torch.arange(n, device=x.device),
+                 col=torch.zeros(n, dtype=torch.bool, device=x.device),
+                 ut=torch.zeros(TRIPS, C, **f))
+    cap.load(x=x, width=tune.width, offsets=offsets, u=u)
+
+    def draw():
+        cap.bufs["ut"].copy_(_rand(gen, (TRIPS, C), x))
+
+    for i in range(n):
+        graphs.until_done(cap, "start" if i == 0 else "next", "more",
+                          _batches(), draw)
+    return cap.bufs["x"].clone(), None
+
+
+# ---------------------------------------------------------------------------
+# multivariate
+# ---------------------------------------------------------------------------
+
+def _multi_trip(b, logf, u):
+    """One joint shrink trip for every chain still shrinking, on the
+    uniforms ``u (C, dim)``; a chain at ``MAX_SHRINK`` trips goes back to
+    its entry point and stops."""
+    active, y, x = b["active"], b["y"], b["x"]
+    a = active[:, None]
+    left = y < x
+    lo = torch.where(a & left, y, b["lo"])
+    hi = torch.where(a & ~left, y, b["hi"])
+    y2 = torch.where(a, lo + (hi - lo) * u, y)
+    lf = torch.where(active, logf(y2), b["lf"])
+    trips = b["trips"] + active.to(torch.int32)
+    hit = trips >= MAX_SHRINK
+    b["active"].copy_(active & (lf < b["p0"]) & ~hit)
+    b["lo"].copy_(lo)
+    b["hi"].copy_(hi)
+    b["y"].copy_(torch.where(hit[:, None], x, y2))
+    b["lf"].copy_(lf)
+    b["trips"].copy_(trips)
+
+
+def _multi_batch(b, logf, us):
+    for k in range(us.shape[0]):
+        if graphs.idle(b["active"]):
+            break
+        _multi_trip(b, logf, us[k])
+    b["more"].copy_(b["active"].any())
+
+
+def _multi_start(b, logf):
+    """The slice level, bracket, first candidate and its density, then the
+    first batch of trips."""
+    x, width, u = b["x"], b["width"], b["u"]
+    p0 = logf(x) + torch.log(b["level"])
+    lo = x - width * u[0]
+    y = lo + width * u[1]
+    lf = logf(y)
+    b["p0"].copy_(p0)
+    b["lo"].copy_(lo)
+    b["hi"].copy_(lo + width)
+    b["y"].copy_(y)
+    b["lf"].copy_(lf)
+    b["active"].copy_(lf < p0)
+    b["trips"].zero_()
+    _multi_batch(b, logf, u[2:])
+
+
+def multivariate_bodies(logf_of):
+    """The multivariate step's bodies on the density ``logf_of(state)``."""
+    return {"start": lambda b, s: _multi_start(b, logf_of(s)),
+            "more": lambda b, s: _multi_batch(b, logf_of(s), b["ut"])}
+
+
+def slice_multivariate_step(gen, x, tune: SliceTune, logf, graphed=None):
+    """Joint shrinkage step for chains ``x (C, dim)`` (reference
+    slice.jl:95-117).  ``graphed``: the captured bodies
+    (``multivariate_bodies``) to run, by default the plain loop."""
+    cap = graphed or plain(multivariate_bodies, logf)
+    C = x.shape[0]
+    f = dict(dtype=x.dtype, device=x.device)
+    level = _rand(gen, (C,), x)
+    u = _rand(gen, (TRIPS + 2,) + x.shape, x)
+    if not cap.holds("x", x):
+        zeros = torch.zeros(C, **f)
+        cap.load(lo=x, hi=x, y=x, p0=zeros, lf=zeros,
+                 active=torch.zeros(C, dtype=torch.bool, device=x.device),
+                 trips=torch.zeros(C, dtype=torch.int32, device=x.device),
+                 more=torch.zeros((), dtype=torch.bool, device=x.device),
+                 ut=torch.zeros((TRIPS,) + x.shape, **f))
+    cap.load(x=x, width=tune.width, level=level, u=u)
+
+    def draw():
+        cap.bufs["ut"].copy_(_rand(gen, (TRIPS,) + x.shape, x))
+
+    graphs.until_done(cap, "start", "more", _batches(), draw)
+    return cap.bufs["y"].clone(), None
 
 
 class Slice(SamplerSpec):
     """Slice(params, width, form='multivariate'|'univariate',
-    transform=False) — reference slice.jl:47-58."""
+    transform=False) — reference slice.jl:47-58.  In the engine its
+    bodies are replayed from CUDA graphs."""
 
     def __init__(self, params, width, form: str = "multivariate",
                  transform: bool = False):
@@ -129,10 +291,18 @@ class Slice(SamplerSpec):
         self.form = form
         self.transform = bool(transform)
 
+    def _bodies(self):
+        return (univariate_bodies if self.form == "univariate"
+                else multivariate_bodies)
+
+    def build(self, cm):
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(self._bodies(), density))
+
     def kernel_init(self, gen, x0, logf):
         return slice_init(x0, self.width)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
         step = (slice_univariate_step if self.form == "univariate"
                 else slice_multivariate_step)
-        return step(gen, x, tune, logf)[0], tune
+        return step(gen, x, tune, logf, graphed=graphed)[0], tune

@@ -2,10 +2,10 @@
 """What the engine's captured NUTS leaf costs on the card, against the plain
 loop, for the rats NUTS headline at 1024 chains.
 
-    python3 -m mamba_tpu_torch.scripts.graph_probe
+    python3 -m mamba_tpu_torch.scripts.graph_probe [--device cuda]
 
-Run from the root of a checkout, on the card when one is present (else on
-the CPU).  It runs ``rats.build("nuts")`` for ``WARM`` iterations, then
+Run from the root of a checkout on a machine with a CUDA device; without
+one it exits with status 2 and samples nothing.  It runs ``rats.build("nuts")`` for ``WARM`` iterations, then
 times ``ITERS`` iterations from the run's end (its state, tunes and
 generator state) two ways, in the turns plain, graphed, graphed, plain:
 the plain loop (``utils.graphs.disabled()``) and the engine's captured
@@ -23,9 +23,9 @@ power limit are printed first; results also go to
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -75,22 +75,22 @@ def _busy_share(torch, run, iters):
             "device_busy_share": device_s / wall}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
     import torch
     from .. import mcmc
     from ..models import rats
     from ..samplers import nuts
-    report = {}
-    cuda = torch.cuda.is_available()
-    if cuda:
-        report["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True
-        ).stdout.strip().splitlines()[0]
-        print(report["card"], flush=True)
+    from .zoo_probe import card
+    report = {"card": card(torch, a.device, "graph_probe")}
+    if report["card"] is None:
+        return 2
+    print(report["card"], flush=True)
     model, inputs, inits = rats.build("nuts")
     sim = mcmc(model, inputs, inits, WARM, burnin=WARM_BURNIN, chains=CHAINS,
-               verbose=False, device="cuda" if cuda else "cpu")
+               verbose=False, device=a.device)
     report["warm"] = {"iters": WARM, "burnin": WARM_BURNIN, **sim.timing}
     depths = []
     inner = nuts.nuts_sub
@@ -120,8 +120,7 @@ def main() -> int:
         nuts.nuts_sub = inner
     report["ways"] = rows
     report["draws_equal"] = np.array_equal(draws["plain"], draws["graphed"])
-    if cuda:
-        report["busy_graphed"] = _busy_share(torch, runs["graphed"], 2)
+    report["busy_graphed"] = _busy_share(torch, runs["graphed"], 2)
     print(json.dumps({k: report[k] for k in report if k != "ways"}), flush=True)
     out = Path("build") / "lab"
     out.mkdir(parents=True, exist_ok=True)

@@ -6,10 +6,10 @@ of which 500 warm up, held to bench.py's three gates (bench.py:46-52,
 271-272): the golden mean of mu_beta within 0.1 of 6.1831, rank R-hat
 < 1.01 and bulk ESS > 400.
 
-    python3 -m mamba_tpu_torch.scripts.rats_headline [--seed 123]
+    python3 -m mamba_tpu_torch.scripts.rats_headline [--seed 123] [--device cuda]
 
-Run from the root of a checkout, on the card when one is present (else on
-the CPU).  ``--seed`` is ``mcmc``'s seed, 123 by default; PERF.md reports
+Run from the root of a checkout on a machine with a CUDA device; without
+one it exits with status 2 and samples nothing.  ``--seed`` is ``mcmc``'s seed, 123 by default; PERF.md reports
 the gates at seeds 123, 1 and 2.  It prints the card's name and power
 limit, then one JSON line: ``sample_s``, the leapfrogs (the deepest
 chain's ``2**depth - 1`` per iteration, what the lockstep chains pay),
@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
@@ -64,19 +63,19 @@ def transit(value, names, eps):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=123)
-    seed = ap.parse_args(argv).seed
+    ap.add_argument("--device", default="cuda")
+    a = ap.parse_args(argv)
+    seed = a.seed
 
     import torch
     from .. import ess_bulk, mcmc, rhat_rank, summarystats
     from ..models import rats
     from ..samplers import nuts
-    from .zoo_probe import _device_ms
-    cuda = torch.cuda.is_available()
-    if cuda:
-        print(subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True
-        ).stdout.strip().splitlines()[0], flush=True)
+    from .zoo_probe import _device_ms, card
+    name = card(torch, a.device, "rats_headline")
+    if name is None:
+        return 2
+    print(name, flush=True)
     model, inputs, inits = rats.build("nuts")
     depths = []
     inner = nuts.nuts_sub
@@ -89,7 +88,7 @@ def main(argv=None) -> int:
     nuts.nuts_sub = recording
     try:
         sim = mcmc(model, inputs, inits, ITERS, burnin=BURNIN, chains=CHAINS,
-                   seed=seed, verbose=False, device="cuda" if cuda else "cpu")
+                   seed=seed, verbose=False, device=a.device)
     finally:
         nuts.nuts_sub = inner
     v = sim.value
@@ -116,12 +115,11 @@ def main(argv=None) -> int:
            "ess_bulk": np.asarray(ess_bulk(v)).tolist(),
            "gates": gates,
            **transit(v, sim.names, sim.states["tunes"][0].epsilon.cpu().numpy())}
-    if cuda:
-        wall_ms, device_ms, events = _device_ms(torch, sim, 2)
-        res["busy"] = {"wall_ms_per_iteration": wall_ms,
-                       "device_ms_per_iteration": device_ms,
-                       "device_events_per_iteration": events,
-                       "device_busy_share": device_ms / wall_ms}
+    wall_ms, device_ms, events, _ = _device_ms(torch, sim, 2)
+    res["busy"] = {"wall_ms_per_iteration": wall_ms,
+                   "device_ms_per_iteration": device_ms,
+                   "device_events_per_iteration": events,
+                   "device_busy_share": device_ms / wall_ms}
     print(json.dumps(res), flush=True)
     out = Path("build") / "lab"
     out.mkdir(parents=True, exist_ok=True)

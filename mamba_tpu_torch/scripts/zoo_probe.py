@@ -13,12 +13,18 @@ own sampling scheme through ``mcmc`` and prints one JSON line: set-up and
 sampling seconds, wall ms per iteration, chain-iterations per second, the
 posterior means of the model's ``GOLDEN`` entries beside the golden values,
 and the largest rank R-hat.  With ``--profile-iters`` it then continues the
-run (one iteration first, to absorb first-use work such as a DGS block's
-CUDA graph capture) by that many iterations unprofiled and as many under
-``torch.profiler``: the device time summed over CUDA events per iteration,
-the events (kernels, graph nodes included) per iteration, and the device's
-idle share (one minus that over the unprofiled wall per iteration; the
-profiler slows the host, so the wall is taken from the other window).  On a CUDA
+run twice, with the engine's captured steps and with the samplers' plain
+loops (``utils.graphs.disabled()``), each with kernels of its own: three
+iterations first (to absorb first-use work such as the captures), that many
+iterations unprofiled and as many under ``torch.profiler``.  Per way it
+reports the wall ms per iteration (unprofiled), the device time summed
+over CUDA events per iteration, the events (kernels, graph nodes
+included) per iteration, the device's busy share (device time over the
+unprofiled wall; the profiler slows the host, so the wall is taken from
+the other window), and the graphs, replays and host tests per iteration.
+A last window of the captured way records every loop of trip batches
+(``graphs.until_done``): per sampler form, the deepest chain's trips per
+coordinate (or row, or trajectory) and the batches each took.  On a CUDA
 device the card's name and power limit are printed first.  Results also go
 to ``zoo_probe.json`` in the ``--out`` directory.
 """
@@ -40,19 +46,41 @@ from ..models import __all__ as ALL_MODELS
 
 #: models that take arguments of their own and are probed by chip_smoke.py
 SKIP = ("glmm", "line", "rats")
+#: iterations that continue a run before its timed windows
+WARM = 3
 #: every scheme of the models that offer several, probed one by one
 SCHEMES = {"pollution": ("bhmc", "bmc3", "bmg", "dgs", "bia")}
 
 
-def _device_ms(torch, sim, iters):
+def card(torch, device, prog):
+    """The card's name and power limit (``nvidia-smi``) for a run on the
+    CUDA device ``device``, or None, with a message on standard error, when
+    ``device`` is not one or no CUDA device is present."""
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
+        print(f"{prog}: needs a CUDA device (asked for {device!r}; CUDA "
+              f"available: {torch.cuda.is_available()})", file=sys.stderr)
+        return None
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0]
+
+
+def _device_ms(torch, sim, iters, plain=False, trips=False):
     """Unprofiled wall ms and profiled device ms and launches per iteration,
     over two windows of ``iters`` iterations that continue ``sim`` with one
-    set of built kernels (a restart would build them again, and a DGS block
-    would capture its CUDA graph again inside the window)."""
+    set of built kernels (a restart would build them again, and every
+    captured step would be captured again inside the window): the captured
+    steps, or with ``plain`` the plain loops.  Also returns the graph
+    counters per iteration over the unprofiled window, and with ``trips``
+    the trip batches of one more window (``_trip_window``)."""
+    import contextlib
     from torch.profiler import ProfilerActivity, profile
     from ..model.mcmc import _build_kernels, _run
+    from ..utils import graphs
     cm, st = sim.compiled, sim.states
-    kernels = _build_kernels(cm)
+    with graphs.disabled() if plain else contextlib.nullcontext():
+        kernels = _build_kernels(cm)
     gen = torch.Generator(device=cm.device)
     gen.set_state(st["rng"])
     state, tunes = st["state"], st["tunes"]
@@ -61,12 +89,17 @@ def _device_ms(torch, sim, iters):
         nonlocal state, tunes
         state, tunes, *_ = _run(cm, kernels, gen, state, tunes, 0, n, 1, None)
 
-    window(1)                       # builds what the kernels build at first use
+    # builds what the kernels build at first use, and captures the bodies a
+    # loop of trips needs only now and then (a second batch)
+    window(WARM)
     torch.cuda.synchronize()
+    stats0 = dict(graphs.STATS)
     t0 = time.perf_counter()
     window(iters)
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+    counts = {k: (graphs.STATS[k] - stats0[k]) / iters
+              for k in ("graphs", "replays", "host_tests")}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         window(iters)
         torch.cuda.synchronize()
@@ -74,7 +107,54 @@ def _device_ms(torch, sim, iters):
                     if e.device_type == torch.autograd.DeviceType.CUDA)
     launches = sum(1 for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    return wall_ms, 1e-3 * device_us / iters, launches / iters
+    out = (wall_ms, 1e-3 * device_us / iters, launches / iters, counts)
+    if trips:
+        out += (_trip_window(graphs, lambda: window(iters)),)
+    return out
+
+
+def _form(bufs):
+    """The sampler form whose trip batches ``bufs`` hold."""
+    if "hits" in bufs:
+        return "BHMC"
+    if "row" in bufs:
+        return "SliceSimplex"
+    return "Slice univariate" if "i" in bufs else "Slice multivariate"
+
+
+def _trip_window(graphs, run):
+    """``run()`` with every ``graphs.until_done`` recorded: per sampler form,
+    the deepest chain's trips in each loop (a coordinate, a row, a
+    trajectory: a host read after the loop, outside any timing) and the
+    batches it took, summarized."""
+    seen = {}
+    inner = graphs.until_done
+
+    def recording(cap, *args, **kwargs):
+        runs = inner(cap, *args, **kwargs)
+        b = cap.bufs
+        deepest = (int((b["hits"] - b["hits0"]).max()) if "hits" in b
+                   else int(b["trips"].max()))
+        seen.setdefault(_form(b), []).append((deepest, runs))
+        return runs
+
+    graphs.until_done = recording
+    try:
+        run()
+    finally:
+        graphs.until_done = inner
+    out = {}
+    for form, rows in seen.items():
+        deep = np.array([r[0] for r in rows])
+        runs = np.array([r[1] for r in rows])
+        out[form] = {"loops": len(rows),
+                     "deepest_trips": dict(zip(
+                         ("50%", "90%", "99%", "max"),
+                         np.quantile(deep, [.5, .9, .99, 1.0]).tolist())),
+                     "batches_mean": float(runs.mean()),
+                     "batches_max": int(runs.max()),
+                     "one_batch_share": float((runs == 1).mean())}
+    return out
 
 
 def probe(torch, spec, chains, iters, burnin, profile_iters, device, seed=123):
@@ -95,10 +175,16 @@ def probe(torch, spec, chains, iters, burnin, profile_iters, device, seed=123):
            "finite": bool(np.isfinite(sim.value).all()),
            "rhat_rank_max": float(np.max(rhat_rank(sim.value)))}
     if profile_iters and torch.device(device).type == "cuda":
-        wall_ms, dev_ms, launches = _device_ms(torch, sim, profile_iters)
-        out.update(steady_wall_ms_per_iter=wall_ms, device_ms_per_iter=dev_ms,
-                   device_launches_per_iter=launches,
-                   device_idle_share=1 - dev_ms / wall_ms)
+        for way in ("captured", "plain"):
+            got = _device_ms(torch, sim, profile_iters, plain=way == "plain",
+                             trips=way == "captured")
+            wall_ms, dev_ms, launches, counts = got[:4]
+            out[way] = {"wall_ms_per_iter": wall_ms, "device_ms_per_iter": dev_ms,
+                        "device_launches_per_iter": launches,
+                        "device_busy_share": dev_ms / wall_ms,
+                        **{f"{k}_per_iter": v for k, v in counts.items()}}
+            if way == "captured":
+                out["trips"] = got[4]
     print(json.dumps(out), flush=True)
     return out
 
@@ -117,14 +203,10 @@ def main(argv=None) -> int:
     import torch
     report = {}
     if torch.device(a.device).type == "cuda":
-        if not torch.cuda.is_available():
-            print("zoo_probe: no CUDA device", file=sys.stderr)
+        report["card"] = card(torch, a.device, "zoo_probe")
+        if report["card"] is None:
             return 2
         torch.backends.cuda.matmul.allow_tf32 = False
-        report["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60, check=True
-        ).stdout.strip().splitlines()[0]
         print(report["card"], flush=True)
     specs = ([m for m in a.models.split(",") if m] or
              [f"{m}:{sc}" if sc else m for m in ALL_MODELS if m not in SKIP

@@ -19,13 +19,26 @@ port updates in place where the JAX package is pure.  A graph records
 addresses, so the tensors are allocated once and a change of shape, dtype
 or device drops the graph, which is captured again at the next ``run``.
 
-The capture copies the tensors aside, runs the body twice on a side stream
-(first-use work, such as building a kernel's library or functorch's
-caches, happens there, never inside the capture), puts the tensors back,
-and captures one body in one graph, which ``run(n)`` replays ``n`` times.
+The capture runs the body twice on a side stream, each time from the
+tensors as they stand (first-use work, such as building a kernel's library
+or functorch's caches, happens there, never inside the capture), puts the
+tensors back, and captures the body in one graph, which ``run(n)`` replays
+``n`` times.
 A failed capture raises; there is no eager fallback on a CUDA device.  On
 the CPU nothing is captured: ``run`` calls the body eagerly on the same
 tensors.
+
+A loop that repeats a body until no chain is left (a slice sampler's
+shrink trips, BHMC's wall hits) runs it in batches of trips: ``until_done``
+runs one body, then another while a flag the bodies write on the device
+says a chain is still at work, reading the flag once per batch (a host
+test, counted in ``STATS["host_tests"]``).  The trips of a batch after
+every chain has stopped are masked no-ops, so a body run eagerly ends its
+batch at the first trip that finds no chain at work (``idle``), with the
+same result and no device time spent on the rest.  A ``Captured`` built
+with ``eager=True`` runs its bodies eagerly on every device: the samplers'
+plain loops run the same bodies that way, so the two give the same
+numbers.
 
 A kernel wrapper counts its launches with ``count_launch``: a launch made
 while a graph is being captured goes to that graph's tally, and every
@@ -44,16 +57,18 @@ import time
 import torch
 
 __all__ = ["Captured", "count_launch", "capturing", "disabled", "enabled",
-           "STATS"]
+           "idle", "until_done", "STATS"]
 
-#: graphs captured, seconds spent capturing them (warm-ups included) and
-#: graph replays, since the process started; ``model/mcmc.py`` reports what
-#: each run added
-STATS = {"graphs": 0, "capture_s": 0.0, "replays": 0}
+#: graphs captured, seconds spent capturing them (warm-ups included), graph
+#: replays and host tests of a device flag (``until_done``), since the
+#: process started; ``model/mcmc.py`` reports what each run added
+STATS = {"graphs": 0, "capture_s": 0.0, "replays": 0, "host_tests": 0}
 
 #: launch tallies of the captures in progress (one per nesting level)
 _CAPTURING: list[dict] = []
 _DISABLED = [False]
+#: bodies being run eagerly by ``Captured.run`` (nesting depth)
+_EAGER = [0]
 
 
 def count_launch(fn) -> None:
@@ -69,6 +84,15 @@ def count_launch(fn) -> None:
 def capturing() -> bool:
     """Whether a graph is being captured in this process."""
     return bool(_CAPTURING)
+
+
+def idle(flags: torch.Tensor) -> bool:
+    """Whether a body that ``Captured.run`` runs eagerly may end its batch
+    of trips here: no element of ``flags`` (the chains still at work) is
+    set, so the trips left would be masked no-ops.  Reads ``flags`` on the
+    host; False, with no read, in a warm-up or a capture, which record the
+    whole batch."""
+    return _EAGER[0] > 0 and not bool(flags.any())
 
 
 def enabled() -> bool:
@@ -109,25 +133,29 @@ def _same_layout(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 class Captured:
-    """``body(bufs, state)`` run on tensors of its own, from a CUDA graph on
-    a CUDA device.  ``body`` updates ``bufs`` in place and may return
+    """Bodies ``body(bufs, state)`` run on tensors of their own, each from a
+    CUDA graph of its own on a CUDA device.  ``bodies`` is one body or a
+    dict of named bodies that share the tensors (a first trip batch and the
+    batches after it); ``run(n, name)`` runs the body of that name (the one
+    body: ``"body"``).  A body updates ``bufs`` in place and may return
     tensors: ``run`` returns what the last body of the run returned, on a
-    CUDA device the graph's own tensors, which the next replay
-    overwrites."""
+    CUDA device the graph's own tensors, which the next replay overwrites.
+    With ``eager=True`` nothing is captured on any device."""
 
-    def __init__(self, body):
-        self.body = body
+    def __init__(self, bodies, eager: bool = False):
+        self.bodies = bodies if isinstance(bodies, dict) else {"body": bodies}
+        self.eager = eager
         self.bufs: dict[str, torch.Tensor] = {}
         self.state: dict[str, torch.Tensor] = {}
         self._loaded: dict[str, torch.Tensor] = {}
-        self.graph = None                   # (graph, out, tally) once captured
+        self.graphs: dict = {}              # name -> (graph, out, tally)
         self.replays = 0
 
     def _put(self, store: dict, name: str, value: torch.Tensor) -> None:
         held = store.get(name)
         if held is None or not _same_layout(held, value):
             store[name] = value.detach().clone(memory_format=torch.contiguous_format)
-            self.graph = None
+            self.graphs.clear()
         else:
             held.copy_(value)
 
@@ -136,6 +164,12 @@ class Captured:
         use or when the layout changes)."""
         for name, value in values.items():
             self._put(self.bufs, name, value)
+
+    def holds(self, name: str, like: torch.Tensor) -> bool:
+        """Whether the buffer ``name`` exists with ``like``'s shape, dtype
+        and device (else a step allocates its buffers anew)."""
+        held = self.bufs.get(name)
+        return held is not None and _same_layout(held, like)
 
     def load_state(self, state: dict) -> None:
         """Copy the model state into ``state``, skipping a tensor that is
@@ -151,15 +185,20 @@ class Captured:
     def device(self) -> torch.device:
         return next(iter(self.bufs.values())).device
 
-    def run(self, n: int = 1):
+    def run(self, n: int = 1, name: str = "body"):
         out = None
-        if self.device.type != "cuda":
-            for _ in range(n):
-                out = self.body(self.bufs, self.state)
+        if self.eager or self.device.type != "cuda":
+            body = self.bodies[name]
+            _EAGER[0] += 1
+            try:
+                for _ in range(n):
+                    out = body(self.bufs, self.state)
+            finally:
+                _EAGER[0] -= 1
             return out
-        if self.graph is None:
-            self._capture()
-        graph, out, tally = self.graph
+        if name not in self.graphs:
+            self._capture(name)
+        graph, out, tally = self.graphs[name]
         for _ in range(n):
             graph.replay()
         self.replays += n
@@ -168,31 +207,39 @@ class Captured:
             fn.launches += launches * n
         return out
 
-    def _capture(self) -> None:
-        t0 = time.perf_counter()
-        dev = self.device
+    def warm_up(self, body) -> None:
+        """Run ``body`` twice, each time from the tensors as they stand (as
+        its replay will: a body that advances an index on the device must
+        not run past its range), then put the tensors back."""
         saved = {k: v.clone() for k, v in self.bufs.items()}
+        for _ in range(2):
+            for k, v in saved.items():
+                self.bufs[k].copy_(v)
+            body(self.bufs, self.state)
+        for k, v in saved.items():
+            self.bufs[k].copy_(v)
+
+    def _capture(self, name: str) -> None:
+        t0 = time.perf_counter()
+        body = self.bodies[name]
+        dev = self.device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):       # warm up before the capture
-            for _ in range(2):
-                self.body(self.bufs, self.state)
+            self.warm_up(body)
         main.wait_stream(side)
-        for k, v in saved.items():
-            self.bufs[k].copy_(v)
-        del saved
         graph = torch.cuda.CUDAGraph()
         tally: dict = {}
         with _collector_paused():
             _CAPTURING.append(tally)
             try:
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    out = self.body(self.bufs, self.state)
+                    out = body(self.bufs, self.state)
             except Exception as e:
-                body = getattr(self.body, "func", self.body)
+                fn = getattr(body, "func", body)
                 raise RuntimeError(
-                    f"capturing {getattr(body, '__qualname__', body)} "
+                    f"capturing {getattr(fn, '__qualname__', fn)} "
                     f"as a CUDA graph failed: a body must not wait for the "
                     f"device or copy from the host (run the sampler under "
                     f"mamba_tpu_torch.utils.graphs.disabled() to take its "
@@ -200,6 +247,25 @@ class Captured:
             finally:
                 _CAPTURING.pop()
         torch.cuda.synchronize(dev)
-        self.graph = (graph, out, tally)
+        self.graphs[name] = (graph, out, tally)
         STATS["graphs"] += 1
         STATS["capture_s"] += time.perf_counter() - t0
+
+
+def until_done(cap: Captured, first: str, more: str, limit: int,
+               draw=None) -> int:
+    """Run ``cap``'s body ``first`` once, then, while the device flag
+    ``cap.bufs["more"]`` is set, ``draw()`` (which loads the next batch's
+    random numbers) and the body ``more``, at most ``limit`` bodies in all.
+    Each read of the flag is one host test.  Returns the bodies run."""
+    cap.run(1, first)
+    runs = 1
+    while runs < limit:
+        STATS["host_tests"] += 1
+        if not bool(cap.bufs["more"]):
+            break
+        if draw is not None:
+            draw()
+        cap.run(1, more)
+        runs += 1
+    return runs

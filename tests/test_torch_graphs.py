@@ -135,7 +135,7 @@ def test_leaf_step_replayed_equals_the_plain_subtree_loop(case):
         stopped_mid_level += int(((nalpha > 0) & (nalpha < 2 ** j) & ~sprime).sum())
     if case == "diverge_or_turn":
         assert stopped_mid_level > 0
-    assert graphed.cap.graph is None        # nothing is captured on the CPU
+    assert graphed.cap.graphs == {}         # nothing is captured on the CPU
 
 
 def test_leaf_step_cases_diverge_and_turn():
@@ -167,7 +167,7 @@ def test_chees_leapfrog_replayed_equals_the_loop(L):
     got = traj(x, p, logf, grad, eps, minv, L, None)
     for a, b in zip(plain, got):
         assert torch.equal(a, b)
-    assert traj.cap.replays == 0 and traj.cap.graph is None
+    assert traj.cap.replays == 0 and traj.cap.graphs == {}
 
 
 def _rats_run(iters, burnin, chains=6, **kw):
@@ -341,11 +341,11 @@ def test_captured_buffers_keep_their_tensors_until_a_layout_changes():
     k.fill_(2.0)                      # the same tensor again is not copied
     cap.load_state({"k": k})
     assert torch.equal(cap.state["k"], torch.ones(3, **F64))
-    cap.graph = (None, None, {})      # as if captured
+    cap.graphs["body"] = (None, None, {})      # as if captured
     cap.load(x=torch.zeros(3, **F64))
-    assert cap.bufs["x"] is held and cap.graph is not None
+    assert cap.bufs["x"] is held and cap.graphs
     cap.load(x=torch.zeros(4, **F64))
-    assert cap.bufs["x"] is not held and cap.graph is None
+    assert cap.bufs["x"] is not held and cap.graphs == {}
 
 
 def test_captured_steps_go_with_their_kernel_without_the_collector():

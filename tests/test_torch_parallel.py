@@ -326,17 +326,31 @@ def test_sharded_padding_refuses_monitored_and_sampled_sites():
 
 
 def test_mesh_run_matches_the_reference_mesh_run():
-    """tests/test_parallel_engine.py:28-38 at its gates: line under NUTS +
-    Slice, 8 chains, on the JAX package's 8-device mesh and on the port's
-    mesh."""
+    """tests/test_parallel_engine.py:28-38's run, line under NUTS + Slice,
+    8 chains, on the JAX package's 8-device mesh and on the port's mesh,
+    at its gates for beta.  s2's posterior is near an inverse gamma of
+    shape 3/2, whose variance is infinite, so its mean and standard
+    deviation over 8 chains are no measure of agreement between two
+    unrelated random streams; s2 is held at the same gates by its median
+    and interquartile range (its quantiles over many chains:
+    ``test_slice_s2_posterior_matches_the_reference`` in
+    tests/test_torch_samplers_extra.py)."""
     kw = dict(iters=400, burnin=150, chains=8, seed=3, verbose=False)
     jm, jin, jinits = jline.build()
     ref = jmt.mcmc(jm, jin, jinits, mesh=jmake_mesh({"chains": 8}), **kw)
     tm, tin, tinits = tline.build()
     sim = tmt.mcmc(tm, tin, tinits, mesh=_mesh(), device="cpu", **kw)
     a, b = np.asarray(ref.value), sim.value
-    np.testing.assert_allclose(a.mean((0, 2)), b.mean((0, 2)), rtol=0, atol=0.3)
-    np.testing.assert_allclose(a.std((0, 2)), b.std((0, 2)), rtol=0.5, atol=0.1)
+    beta = [ref.names.index("beta[1]"), ref.names.index("beta[2]")]
+    assert list(sim.names) == list(ref.names)
+    np.testing.assert_allclose(a[:, beta].mean((0, 2)), b[:, beta].mean((0, 2)),
+                               rtol=0, atol=0.3)
+    np.testing.assert_allclose(a[:, beta].std((0, 2)), b[:, beta].std((0, 2)),
+                               rtol=0.5, atol=0.1)
+    s2 = ref.names.index("s2")
+    qa, qb = (np.quantile(v[:, s2], [0.25, 0.5, 0.75]) for v in (a, b))
+    np.testing.assert_allclose(qa[1], qb[1], rtol=0, atol=0.3)
+    np.testing.assert_allclose(qa[2] - qa[0], qb[2] - qb[0], rtol=0.5, atol=0.1)
 
 
 # ---- the graft entry ----------------------------------------------------

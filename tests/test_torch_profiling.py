@@ -141,3 +141,23 @@ def test_bench_scaling_row_runs_rats_on_the_cpu():
     from mamba_tpu_torch.scripts.bench_scaling import run_row
     row = run_row("chees", 2, 4, 2, "cpu")
     assert row["chains"] == 2 and row["samples_s"] > 0 and row["traj"] > 0
+
+
+@pytest.mark.parametrize("script, argv", [
+    ("rats_headline", []), ("rats_headline", ["--device", "cpu"]),
+    ("graph_probe", []), ("graph_probe", ["--device", "cpu"]),
+    ("trips_sweep", []), ("zoo_probe", [])])
+def test_card_scripts_refuse_to_run_without_a_cuda_device(script, argv,
+                                                          monkeypatch, capsys):
+    # a measurement that finds no card fails: it never samples on the CPU
+    import importlib
+    import mamba_tpu_torch
+    mod = importlib.import_module(f"mamba_tpu_torch.scripts.{script}")
+    sampled = []
+    for owner in (mamba_tpu_torch, mod):
+        if hasattr(owner, "mcmc"):
+            monkeypatch.setattr(owner, "mcmc", lambda *a, **k: sampled.append(1))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main(argv) == 2
+    assert sampled == []
+    assert "needs a CUDA device" in capsys.readouterr().err

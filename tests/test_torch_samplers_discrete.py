@@ -93,19 +93,31 @@ def t_dirichlet_logf(x):
         torch.clamp(x, min=1e-12)), -1)
 
 
-def _simplex_feed(per_chain, K):
-    """JAX's draws per chain -> the port's order: level (C,), first simplex
-    weights (C, K), first point (C, K), then one (C, K) per lockstep trip
-    (chains already accepted get filler)."""
+def _simplex_row(per_chain, K):
+    """JAX's draws per chain for one row -> the port's batched layout: the
+    levels (C,); the first batch (TRIPS + 2, C, K): first simplex weights,
+    first point, the first ``TRIPS`` trips; then one (TRIPS, C, K) per
+    further batch.  A chain with fewer trips, and a trip past the deepest
+    chain's last, gets filler (its draw is spent)."""
     levels = [ev[0][1] for ev in per_chain]
     dirs = [[v for k, v in ev if k == "dirichlet"] for ev in per_chain]
     assert all(ev[0][0] == "uniform" for ev in per_chain)
-    feed = [np.array(levels)]
-    trips = max(len(d) for d in dirs)
-    for t in range(trips):
-        w = np.stack([d[t] if t < len(d) else np.full(K, 1.0 / K) for d in dirs])
-        feed.append(1.0 - np.exp(-w))
-    return feed
+    T = tss.TRIPS
+    trips = max(len(d) for d in dirs) - 2
+    slots = 2 + max(1, -(-trips // T)) * T
+    rows = [1.0 - np.exp(-np.stack([d[t] if t < len(d) else np.full(K, 1.0 / K)
+                                    for d in dirs])) for t in range(slots)]
+    return (np.array(levels), np.stack(rows[:T + 2]),
+            [np.stack(rows[a:a + T]) for a in range(T + 2, slots, T)])
+
+
+def _simplex_feed(rows_per_chain, K):
+    """The draws of a node's rows, one list of per-chain events per row, in
+    the port's order: levels (R, C), first batches (R, TRIPS + 2, C, K),
+    then each row's further batches."""
+    rows = [_simplex_row(per_chain, K) for per_chain in rows_per_chain]
+    return ([np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])]
+            + [b for r in rows for b in r[2]])
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.3])
@@ -124,8 +136,39 @@ def test_slicesimplex_step_matches_given_the_same_draws(scale, monkeypatch):
     assert max(trips) >= 1, trips              # the shrink loop ran
     ttune = convert.slicesimplex_tune({"scale": np.full(C, scale)}, "cpu",
                                       torch.float64)
-    with fed(monkeypatch, _simplex_feed(events, K)):
+    with fed(monkeypatch, _simplex_feed([events], K)):
         x2, _ = tss.slicesimplex_step(None, _t(x0), ttune, t_dirichlet_logf)
+    np.testing.assert_allclose(x2.numpy(), np.stack(j_out), rtol=RTOL, atol=1e-15)
+
+
+def test_slicesimplex_step_matches_over_several_batches(monkeypatch):
+    # a peaked target, every chain started near its mode: the first points
+    # are rejected for more than one batch of trips, so the feed holds
+    # further batches with filler
+    alpha = np.array([300.0, 2.0, 2.0, 200.0])
+    K = len(alpha)
+    mode = (alpha - 1) / (alpha - 1).sum()
+    x0 = 0.98 * mode + 0.02 * np.random.default_rng(5).dirichlet(np.ones(K), C)
+    jtune = jss.SliceSimplexTune(scale=jnp.asarray(1.0))
+    j_out, events = [], []
+    for c in range(C):
+        (x2, _), ev = _recorded(monkeypatch, lambda: jss.slicesimplex_step(
+            jax.random.key(60 + c), jnp.asarray(x0[c]), jtune,
+            lambda x: jnp.sum((alpha - 1) * jnp.log(jnp.clip(x, 1e-12)))),
+            kinds=("uniform", "dirichlet"))
+        j_out.append(np.asarray(x2))
+        events.append(ev)
+    feed = _simplex_feed([events], K)
+    assert len(feed) > 2, len(feed)
+    ttune = convert.slicesimplex_tune({"scale": np.full(C, 1.0)}, "cpu",
+                                      torch.float64)
+
+    def t_logf(x):
+        return torch.sum(torch.as_tensor(alpha - 1) * torch.log(
+            torch.clamp(x, min=1e-12)), -1)
+
+    with fed(monkeypatch, feed):
+        x2, _ = tss.slicesimplex_step(None, _t(x0), ttune, t_logf)
     np.testing.assert_allclose(x2.numpy(), np.stack(j_out), rtol=RTOL, atol=1e-15)
 
 
@@ -189,9 +232,7 @@ def test_slicesimplex_row_sweep_matches_the_jax_block(monkeypatch):
         starts = [i for i, (k, _) in enumerate(ev) if k == "uniform"] + [len(ev)]
         rows.append([ev[a:b] for a, b in zip(starts, starts[1:])])
     assert all(len(r) == 3 for r in rows)
-    feed = []
-    for r in range(3):
-        feed += _simplex_feed([rows[c][r] for c in range(C)], 5)
+    feed = _simplex_feed([[rows[c][r] for c in range(C)] for r in range(3)], 5)
     tblock = tm.samplers[0].build(tcm)
     tstate = convert.to_tensors(state, "cpu", torch.float64)
     with fed(monkeypatch, feed):
