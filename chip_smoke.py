@@ -87,14 +87,24 @@ through the port's public entry points (``mcmc``, ``advi``,
     two processes, a (1, 2) data mesh: the GLMM's block density and
     gradient at 1024 chains from the kernel over each rank's 5,000 groups,
     summed over the data group, against one launch over all groups, under
-    phase 3's gates; the kernel at a rank's shares (C = 512; G = 5,000;
+    phase 3's gates; (e) in the same two processes, local views: y, the
+    covariates xt and z named on the data axis (``LOCAL_SPECS``), so each
+    rank holds y (1024, 10, 5,000) and xt (4, 10, 5,000); phase 10's run
+    on that mesh (finite draws, equal on both ranks), its peak memory rise
+    against the same steps without a mesh (at least
+    ``LOCAL_MEM_SAVED_MIN`` lower), the block density and gradient at the
+    warm starts summed over the ranks against the whole under phase 3's
+    gates with one launch per call over the rank's 5,000 groups, the gloo
+    ``data_sum`` of one call timed; in this process, the device ms of a
+    density and gradient whole and as a rank holds it, fused and generic;
+    then the kernel at a rank's shares (C = 512; G = 5,000;
     C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
     plain version, the first two timed with their bounds.  Both ranks share
-    the one card: no number of (c) or (d) is a scaling figure.
+    the one card: no number of (c), (d) or (e) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
-runs one rank of (c) and (d).
+runs one rank of (c), (d) and (e).
 
 The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
@@ -617,8 +627,6 @@ def phase_glmm_nuts(torch, mt, glmm, fg, nuts):
     iters, burnin = GLMM_NUTS_RUN
     model, inputs, inits, _ = glmm.build(G=10_000, n=10, seed=0, fused=True)
     depths, restore = _record_depths(nuts)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     fg.glmm_loglik_grads.launches = 0          # count this path only
     try:
         sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
@@ -628,6 +636,7 @@ def phase_glmm_nuts(torch, mt, glmm, fg, nuts):
     launches = fg.glmm_loglik_grads.launches
     res = {**_timing(sim, CHAINS, iters), **_nuts_work(torch, depths),
            "kernel_launches": launches,
+           # the run's peak: mcmc resets the peak statistics at its start
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
     log(f"GLMM NUTS at full width (G=10000, n=10, P=4, {CHAINS} chains, "
@@ -786,10 +795,9 @@ def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
     import importlib
     mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
     model, inputs, inits = mod.build() if scheme is None else mod.build(scheme)
-    torch.cuda.reset_peak_memory_stats()
     sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
                   verbose=False, device=DEVICE)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30    # since mcmc's start
     v = sim.value
     s = mt.summarystats(sim).to_dict()
     kept = iters - burnin
@@ -903,13 +911,12 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
     model, inputs, inits = mod.build() if scheme is None else mod.build(scheme)
     hits, restore = _recording(binary, "bhmc_step",
                                lambda out: out[1].wallhits.detach().cpu())
-    torch.cuda.reset_peak_memory_stats()
     try:
         sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
                       chains=CHAINS, verbose=False, device=DEVICE)
     finally:
         restore()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30    # since mcmc's start
     v = sim.value
     means = v.mean(axis=(0, 2))
     golden = getattr(mod, "GOLDEN", {})
@@ -1031,8 +1038,6 @@ def _glmm_chees_run(torch, mt, glmm, fg, chees, warm, label, **mesh_kw):
     tunes, restore_tunes = _recording(
         chees, "chees_step",
         lambda out: [float(out[1].epsilon), float(out[1].traj)])
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     fg.glmm_loglik_grads.launches = 0          # count this path only
     try:
         sim = mt.mcmc(model, inputs, warm, iters, burnin=burnin,
@@ -1045,7 +1050,7 @@ def _glmm_chees_run(torch, mt, glmm, fg, chees, warm, label, **mesh_kw):
     res = {**_timing(sim, CHAINS, iters),
            "steps_per_iteration": steps, "leapfrog_steps": sum(steps),
            "kernel_launches": launches,
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "peak_rise_bytes": sim.timing["peak_rise_bytes"]}
     res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
     res["wall_ms_per_gradient"] = 1e3 * res["sample_s"] / need
     log(f"{label} (G={MESH_G}, {CHAINS} chains, {iters} iters, {burnin} "
@@ -1086,30 +1091,105 @@ def _split_density_check(torch, mt, glmm, fg, mesh, warm):
     split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
                              comm=MeshComm(mesh), site_specs={"y": (None, "data")})
     state = _chain_inits(whole, warm, CHAINS)
-    params = ("beta", "z", "s2")
-    out = {}
-    for name, cm in (("whole", whole), ("split", split)):
-        pack, _, _, logf = cm.block_functions(params, True)
-        x = torch.func.vmap(pack)(state)
-        fg.glmm_loglik_grads.launches = 0
-        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, state)
-        launches = fg.glmm_loglik_grads.launches
-        v, g = cm.block_sum(params)(v, g)
-        out[name] = (v.double(), g.double(), launches)
-    (v, g, n_split), (vw, gw, n_whole) = out["split"], out["whole"]
-    res = {"lp_rel_err": float(((v - vw).abs() / vw.abs()).max()),
-           "grad_rel_err": float((g - gw).abs().max() / gw.abs().max()),
-           "launches_split": n_split, "launches_whole": n_whole,
-           "groups": [split._local_plans["y"][1], split._local_plans["y"][2]]}
+    res = _split_against_whole(torch, fg, whole, split, state)
+    res["groups"] = [split._local_plans["y"][1], split._local_plans["y"][2]]
     if not (res["lp_rel_err"] <= LP_RTOL and res["grad_rel_err"] <= GRAD_RTOL
-            and n_split == 1 and n_whole == 1):
+            and res["launches_split"] == 1 and res["launches_whole"] == 1):
         raise AssertionError(f"(d) the group split disagrees: {res}")
     return res
 
 
+def _split_against_whole(torch, fg, whole, split, state):
+    """The (beta, z, s2) block density and gradient of ``split`` (a data
+    rank's compiled GLMM) from the rank's local view of the whole state
+    ``state``, summed over the data group, against ``whole``'s: their
+    errors and each one's kernel launches."""
+    params = ("beta", "z", "s2")
+    out = {}
+    for name, cm in (("whole", whole), ("split", split)):
+        local = cm.cut_state(state)
+        pack, _, _, logf = cm.block_functions(params, True)
+        x = torch.func.vmap(pack)(local)
+        fg.glmm_loglik_grads.launches = 0
+        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, local)
+        launches = fg.glmm_loglik_grads.launches
+        v, g = cm.block_sum(params)(v, g)
+        out[name] = (v.double(), g.double(), launches)
+    (v, g, n_split), (vw, gw, n_whole) = out["split"], out["whole"]
+    return {"lp_rel_err": float(((v - vw).abs() / vw.abs()).max()),
+            "grad_rel_err": float((g - gw).abs().max() / gw.abs().max()),
+            "launches_split": n_split, "launches_whole": n_whole}
+
+
+#: (e)'s layout: y, the covariates and the random effects' z split by
+#: groups (a spec indexes the site's own dims: y (n, G), xt (P, n, G), z (G,))
+LOCAL_SPECS = {"y": (None, "data"), "xt": (None, None, "data"), "z": ("data",)}
+#: the generic GLMM's sites for the same split: y (G, n), x (G, n, P), z (G,)
+LOCAL_SPECS_GENERIC = {"y": ("data", None), "x": ("data", None, None),
+                       "z": ("data",)}
+#: (e) gates: a rank's peak memory rise at least this many bytes below the
+#: same steps without a mesh (most of the half of y a rank does not hold)
+LOCAL_MEM_SAVED_MIN = 180e6
+#: all-reduces timed for (e)'s data_sum figure
+DATA_SUM_REPS = 5
+
+
+def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
+    """(e): the GLMM at full width on a (1, 2) data mesh with local views
+    (``LOCAL_SPECS``): each rank holds its half of y's and the covariates'
+    groups.  Phase 10's run on the mesh, then (rank 0) the same steps
+    without one under the plain loops the mesh run takes, each's peak
+    memory rise; the block density and gradient at the warm starts against
+    the whole, with the kernel's launches and groups per call; the gloo
+    all-reduce of a density's value and gradient, timed."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    from mamba_tpu_torch.utils import graphs
+    res, sim, tunes = _glmm_chees_run(
+        torch, mt, glmm, fg, chees, warm,
+        f"(e) rank {rank}, local views on a (1, 2) data mesh", mesh=mesh,
+        site_specs=LOCAL_SPECS)
+    state = sim.states["state"]
+    res["shapes"] = {"y": list(state["y"].shape),
+                     "xt": list(sim.compiled.inputs["xt"].shape),
+                     "z": list(state["z"].shape)}
+    res["tunes"] = tunes
+    np.save(Path(outdir) / f"local_draws{rank}.npy", sim.value)
+    del sim, state
+    if rank == 0:
+        with graphs.disabled():
+            whole, _, _ = _glmm_chees_run(
+                torch, mt, glmm, fg, chees, warm,
+                "(e) the same steps without a mesh (plain loops)")
+        res["whole_peak_rise_bytes"] = whole["peak_rise_bytes"]
+    model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
+    whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                             comm=MeshComm(mesh), site_specs=LOCAL_SPECS)
+    res["density"] = _split_against_whole(
+        torch, fg, whole, split, _chain_inits(whole, warm, CHAINS))
+    # the split's launch runs over the arrays the rank holds
+    res["density"]["groups_split"] = split.inputs["xt"].shape[-1]
+    # the all-reduce of one density call's value and gradient, staged
+    # through the host under gloo
+    comm = MeshComm(mesh)
+    dim = whole.block_ravel_spec(("beta", "z", "s2"), True).total
+    v = torch.zeros(CHAINS, device=DEVICE)
+    g = torch.zeros(CHAINS, dim, device=DEVICE)
+    comm.data_sum(v, g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DATA_SUM_REPS):
+        comm.data_sum(v, g)
+    torch.cuda.synchronize()
+    res["data_sum_ms"] = 1e3 * (time.perf_counter() - t0) / DATA_SUM_REPS
+    res["data_sum_shape"] = [CHAINS, dim]
+    return res
+
+
 def mesh_rank(init, rank, outdir):
-    """One rank of the mesh phase's (c) and (d): two processes over gloo,
-    both on this process's card."""
+    """One rank of the mesh phase's (c), (d) and (e): two processes over
+    gloo, both on this process's card."""
     import torch
     import torch.distributed as dist
     import mamba_tpu_torch as mt
@@ -1132,17 +1212,110 @@ def mesh_rank(init, rank, outdir):
             f"(c) rank {rank} of a 2-rank gloo chain mesh", mesh=mesh)
         res["tunes"] = tunes
         res["draws_shape"] = list(sim.value.shape)
-        res["split"] = _split_density_check(
-            torch, mt, glmm, fg, make_mesh({"chains": 1, "data": 2}, "cpu"),
-            warm)
         np.save(outdir / f"draws{rank}.npy", sim.value)
+        del sim
+        data_mesh = make_mesh({"chains": 1, "data": 2}, "cpu")
+        res["split"] = _split_density_check(torch, mt, glmm, fg, data_mesh,
+                                            warm)
+        res["local"] = _local_views(torch, mt, glmm, fg, chees, warm,
+                                    data_mesh, rank, outdir)
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
 
 
+def _local_views_gates(local, draws, failed):
+    """(e)'s gates on both ranks' results (``_local_views``): finite draws
+    equal on both ranks, each rank's density and gradient against the
+    whole, one launch per call over its G/2 groups, the shapes it holds,
+    and its peak memory rise at least ``LOCAL_MEM_SAVED_MIN`` below the
+    same steps without a mesh.  Appends what fails to ``failed``."""
+    iters, burnin = GLMM_CHEES_RUN
+    half = MESH_G // 2
+    if not (np.array_equal(draws[0], draws[1]) and np.isfinite(draws[0]).all()
+            and draws[0].shape == (iters - burnin, 5, CHAINS)):
+        failed.append("(e) finite draws, equal on both ranks")
+    if local[0]["tunes"] != local[1]["tunes"]:
+        failed.append("(e) (epsilon, traj) equal on both ranks")
+    for r, res in enumerate(local):
+        d = res["density"]
+        if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL):
+            failed.append(f"(e) rank {r}: the density against the whole")
+        if d["launches_split"] != 1 or d["groups_split"] != half:
+            failed.append(f"(e) rank {r}: one launch per call over {half} groups")
+        if (res["shapes"]["y"] != [CHAINS, 10, half]
+                or res["shapes"]["xt"] != [4, 10, half]
+                or res["shapes"]["z"] != [CHAINS, MESH_G]):
+            failed.append(f"(e) rank {r}: the shapes it holds {res['shapes']}")
+    whole = local[0]["whole_peak_rise_bytes"]
+    saved = [whole - res["peak_rise_bytes"] for res in local]
+    if min(saved) < LOCAL_MEM_SAVED_MIN:
+        failed.append(f"(e) peak memory saved per rank {saved} bytes, "
+                      f"< {LOCAL_MEM_SAVED_MIN:.0f}")
+    return {"peak_rise_bytes": [res["peak_rise_bytes"] for res in local],
+            "whole_peak_rise_bytes": whole, "saved_bytes": saved,
+            "shapes": local[0]["shapes"],
+            "density": [res["density"] for res in local],
+            "data_sum_ms": [res["data_sum_ms"] for res in local],
+            "data_sum_shape": local[0]["data_sum_shape"],
+            "sample_s": [res["sample_s"] for res in local],
+            "leapfrog_steps": local[0]["leapfrog_steps"],
+            "wall_ms_per_gradient": [res["wall_ms_per_gradient"]
+                                     for res in local]}
+
+
+class _RankView:
+    """Data rank ``rank`` of a (1, 2) chains x data mesh as one process
+    holds it, for timing its part of a density (no collective is called)."""
+    chain_axis, data_axis = "chains", "data"
+    chain_rank, chain_size, data_size = 0, 1, 2
+
+    def __init__(self, rank):
+        self.data_rank = rank
+
+
+#: density calls timed per figure of ``_rank_density_ms``
+DENSITY_REPS = 10
+
+
+def _rank_density_ms(torch, mt, glmm, warm):
+    """Ms per (beta, z, s2) block density and gradient of 1024 chains at
+    the warm starts, whole and as data rank 0 of two holds it under local
+    views, on the fused and the generic GLMM: CUDA events around eager
+    calls (``eager``: the host's dispatch, where it is the slower) and
+    around replays of the call captured in a CUDA graph (``device``)."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.utils.graphs import Captured
+    params = ("beta", "z", "s2")
+    out = {}
+    for fused, specs in ((True, LOCAL_SPECS), (False, LOCAL_SPECS_GENERIC)):
+        model, inputs, inits, _ = glmm.build(MESH_G, fused=fused)
+        starts = [dict(w, y=inits[0]["y"]) for w in warm]
+        whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+        state = _chain_inits(whole, starts, CHAINS)
+        for name, cm in (("whole", whole), ("rank", mt.compile_model(
+                model, inputs, inits[0], device=DEVICE, comm=_RankView(0),
+                site_specs=specs))):
+            local = cm.cut_state(state)
+            pack, _, _, logf = cm.block_functions(params, True)
+            f = torch.func.vmap(torch.func.grad_and_value(logf))
+            cap = Captured(lambda bufs, st: f(bufs["x"], st))
+            cap.load(x=torch.func.vmap(pack)(local))
+            cap.load_state(local)
+            cap.run()                                   # captured here
+            torch.cuda.synchronize()
+            key = f"{'fused' if fused else 'generic'}_{name}"
+            out[key] = {
+                "eager": _event_ms(torch, lambda: f(cap.bufs["x"], local),
+                                   DENSITY_REPS),
+                "device": _event_ms(torch, cap.run, DENSITY_REPS)}
+            del cap
+        del whole, state
+    return out
+
+
 def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
-    """(a)-(d) of the mesh phase, then the kernel at a rank's shares."""
+    """(a)-(e) of the mesh phase, then the kernel at a rank's shares."""
     import tempfile
     import torch.distributed as dist
     from mamba_tpu_torch.graft_entry import dryrun_multichip
@@ -1171,7 +1344,7 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
     if tunes_b != tunes_10:
         raise AssertionError("(b) the one-rank mesh's (eps, traj) path "
                              "differs from phase 10's")
-    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:      # (c), (d)
+    with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:      # (c)-(e)
         keys = ("beta", "z", "s2")
         np.savez(Path(tmp) / "warm.npz",
                  **{k: np.stack([np.asarray(w[k], np.float64) for w in warm])
@@ -1184,6 +1357,8 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
         ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
                  for r in range(2)]
         draws = [np.load(Path(tmp) / f"draws{r}.npy") for r in range(2)]
+        local_draws = [np.load(Path(tmp) / f"local_draws{r}.npy")
+                       for r in range(2)]
     iters, burnin = GLMM_CHEES_RUN
     failed = []
     if not np.array_equal(draws[0], draws[1]) or draws[0].shape != (
@@ -1195,8 +1370,12 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
                                             "leapfrog_steps", "draws_shape",
                                             "split")} for r in ranks]
     res["tunes_first_last"] = [ranks[0]["tunes"][0], ranks[0]["tunes"][-1]]
-    res["launches"] = one["kernel_launches"] + sum(r["kernel_launches"]
-                                                   for r in ranks)
+    local = [r["local"] for r in ranks]
+    res["launches"] = one["kernel_launches"] + sum(
+        r["kernel_launches"] + r["local"]["kernel_launches"] for r in ranks)
+    res["local_views"] = _local_views_gates(local, local_draws, failed)
+    res["local_views"]["density_ms"] = _rank_density_ms(torch, mt, glmm, warm)
+    log("mesh (e): " + json.dumps(res["local_views"]))
     # the kernel at a rank's shares: C = 512 and G = 5,000 timed with their
     # bounds; 513 chains (1026 over two ranks), not a multiple of 4
     res["kernel"] = [kernel_case(torch, fg, glmm_cases, C=C, G=G,
@@ -1629,6 +1808,7 @@ def main() -> int:
         f"{sum(walls[k] for k in ('post', 'map', 'smc', 'profile')):.1f} s")
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
+    log("mesh (e), local views: " + json.dumps(mesh_res["local_views"]))
     slice_case = cases[0]
     bound = slice_case["bound"]
     log(f"card: {card}")

@@ -19,12 +19,37 @@ masking to -inf (reference distributionstruct.jl:138-140).
 Node functions run under ``with torch.device(cm.device)``, so a model
 lambda's fresh tensors (``torch.zeros(G)``) land beside the state.
 
-Under a mesh with a data axis (``comm.data_size > 1``) every array stays
-whole on every rank, and each data rank's block densities sum only its
-slice of the observed sites named in ``site_specs`` (the pad mask and its
-own slice), plus, on data rank 0 alone, every other term: the parts sum to
-the density over the data group (``block_sum``).  ``logpdf`` stays the
-whole density on every rank.
+Under a mesh with a data axis (``comm.data_size > 1``) each data rank holds
+and evaluates only its slice (``parallel.mesh.data_block``) of the arrays
+that ``site_specs`` names on the data axis, as GSPMD does in the JAX
+package:
+
+- ``inputs`` hold the rank's slice of every named input;
+- the chain-stacked state holds the slice of every named observed site
+  (``local_state``).  A named *sampled* site stays whole in the state: the
+  samplers' momentum, U-turn and acceptance read the whole flat vector.
+  The density's env holds its slice;
+- logical nodes are computed from the slices: a node that reads only
+  slices and whole values may come out a slice (line's ``mu = xmat @
+  beta``); which nodes do, and along which dim, is found at compile time.
+
+A rank's block density sums its part of every named term (the slice's
+terms, padding masked out) and, on data rank 0 alone, every other term and
+the block's Jacobian, computed once from the whole flat vector: the parts
+sum to the density over the data group (``block_sum``, ``logpdf``).  To
+know the parts are right, the compiler evaluates the graph at a probe
+state once whole and once on every slice, all on this host (every rank is
+given whole inputs), and refuses, naming the node, a model whose named
+terms' parts do not sum to the term or whose unnamed terms change on a
+slice (a prior that reads ``mean(y)``).  The probe state draws every
+sampled site and every missing data entry from a fixed generator, so its
+values are distinct and finite where the example inits may be symmetric
+(rats' ``alpha`` all 250) or NaN, and a node that reads a slice where it
+needs the whole cannot agree by chance.  Only then does the rank drop the
+slices it does not hold.  Whatever reads a whole value that a rank holds
+in part gathers it over the data group (``whole``), and ``forward_sample``
+draws a named site at its whole shape, from the unsharded run's stream,
+and keeps the slice.
 """
 
 from __future__ import annotations
@@ -36,11 +61,15 @@ import numpy as np
 import torch
 
 from ..ops.distributions.base import dist_flatten
-from ..parallel.mesh import MeshComm, _spec_names
+from ..parallel.mesh import MeshComm, data_block, data_dim
 from ..utils.convert import to_tensor
 from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
 from .model import Model
 from .nodes import LogicalNode, StochasticNode
+
+
+#: the seed of the generator that draws ``_plan_views``' probe state
+PROBE_SEED = 0
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -85,6 +114,23 @@ class CompiledModel:
         self.stochastic = model.keys("stochastic")
         self.logical = model.keys("logical")
 
+        # ---- the data axis (``_plan_views``); empty without one ---------
+        #: every array named on the data axis: the dim its spec shards
+        self._data_dims: dict[str, int] = {}
+        #: nodes this rank holds in part (named inputs, named observed
+        #: sites, logicals that come out a slice): the dim of the slice
+        self.local_dims: dict[str, int] = {}
+        #: named sampled sites, whole in the state: the dim the density's
+        #: env cuts
+        self._env_dims: dict[str, int] = {}
+        #: logical nodes that are neither whole nor a slice on a data rank
+        self.mixed: frozenset = frozenset()
+        #: this data rank's part of every named stochastic term
+        #: (``_part_plan``)
+        self._local_plans: dict[str, tuple] = {}
+        #: per data site held in part whose distribution reads slices: each
+        #: parameter's sliced dim (None: whole, -1: neither) and its ndim
+        self._leaf_dims: dict[str, list] = {}
         # --- resolve shapes / bijectors with one eager forward pass -------
         state = {}
         for name in self.stochastic:
@@ -111,11 +157,11 @@ class CompiledModel:
         # logical node shapes (for monitors)
         self.logical_shapes = {n: tuple(env[n].shape) for n in self.logical}
         self._block_cache: dict = {}
-        #: how ``_site_lp`` applies each mask (``_mask_plan``): the whole
-        #: density's, and this data rank's part of a split site
-        self._plans = {n: self._mask_plan(n, m) for n, m in self.masks.items()}
-        self._local_plans = {n: self._mask_plan(n, m) for n, m in
-                             self._local_masks(site_specs or {}).items()}
+        #: how ``_site_lp`` applies each mask (``_mask_plan``)
+        self._plans = {n: self._mask_plan(n, dists[n], m)
+                       for n, m in self.masks.items()}
+        if self.comm.data_size > 1 and site_specs:
+            self._plan_views(site_specs, state)
 
     def tensor(self, v) -> torch.Tensor:
         """A value as a tensor on this model's device: floating values in
@@ -129,9 +175,9 @@ class CompiledModel:
 
     def _eval_env(self, state: dict) -> dict:
         """All node values: inputs + stochastic state + logicals in topo
-        order."""
+        order (on a data axis, this rank's env: module docstring)."""
         env = dict(self.inputs)
-        env.update(state)
+        env.update({n: self._env_value(n, v) for n, v in state.items()})
         for name in self.model.topo:
             node = self.model.nodes[name]
             if isinstance(node, LogicalNode):
@@ -167,59 +213,26 @@ class CompiledModel:
         return rebuild[0](stacked)
 
     # ---- masks and the data axis ---------------------------------------
-    def _local_masks(self, site_specs: dict) -> dict[str, np.ndarray]:
-        """This data rank's entries of each observed site that ``site_specs``
-        shards over the data axis: its pad mask and its own slice of every
-        sharded dim (the padded length divides by the data axis).  Sampled
-        sites named there are replicated, a layout hint only."""
-        comm = self.comm
-        if comm.data_size == 1:
-            return {}
-        observed = set(self.model.keys("observed"))
-        out = {}
-        for name, spec in site_specs.items():
-            if name not in observed:
-                continue
-            shape = self.sites[name].shape
-            mask = self.masks.get(name, np.ones(shape, dtype=bool)).copy()
-            split = False
-            for dim, entry in enumerate(tuple(spec)):
-                names = _spec_names(entry)
-                if comm.chain_axis in names:
-                    raise ValueError(f"site spec {spec} of {name!r} names the "
-                                     f"chain axis {comm.chain_axis!r}")
-                if comm.data_axis not in names:
-                    continue
-                per, rem = divmod(shape[dim], comm.data_size)
-                if rem:
-                    raise ValueError(f"dim {dim} of {name!r} ({shape[dim]}) "
-                                     f"does not divide over the data axis")
-                idx = [slice(None)] * len(shape)
-                idx[dim] = np.r_[0:comm.data_rank * per,
-                                 (comm.data_rank + 1) * per:shape[dim]]
-                mask[tuple(idx)] = False
-                split = True
-            if split:
-                out[name] = mask
-        return out
-
-    def _mask_plan(self, name: str, mask: np.ndarray):
-        """How ``_site_lp`` applies ``mask`` to site ``name``:
+    def _mask_plan(self, name: str, dist, mask):
+        """How ``_apply`` applies ``mask`` (None: no mask) to the values of
+        site ``name`` under ``dist``:
 
         - ``("entries", m)``: ``m`` over the entries of ``log_prob``;
         - ``("events", m)``: the mask covers event dims and takes each event
           whole or not at all; ``m`` over the events;
-        - ``("range", lo, hi, consts)``: it takes the events' entries
+        - ``("range", lo, hi, consts, vlo)``: it takes the events' entries
           lo..hi-1 along the dim that the distribution can split its event
           on (``event_split_dim``, e.g. the fused GLMM's groups), whole
-          along the others; ``consts`` is the example distribution's
-          ``split_constants(lo, hi)``, cut once here.
+          along the others; ``consts`` is ``dist.split_constants(lo, hi)``,
+          cut once here, and the range's values start at ``vlo`` of the
+          value's split dim.
 
         Any other mask over event dims raises: summing part of an event is
         not that event's density, and an event is not dropped silently."""
-        dist = self.example_dists[name]
-        lp_ndim = len(self.sites[name].shape) - dist.event_ndim
-        if mask.ndim <= lp_ndim:
+        if mask is None:
+            return None
+        lp_ndim = mask.ndim - dist.event_ndim
+        if dist.event_ndim <= 0:
             return ("entries", torch.as_tensor(mask, device=self.device))
         ev = mask.reshape(mask.shape[:lp_ndim] + (-1,))
         if np.all(ev.all(-1) | ~ev.any(-1)):
@@ -232,13 +245,234 @@ class CompiledModel:
             if (np.array_equal(whole, some) and idx.size
                     and idx[-1] - idx[0] + 1 == idx.size):
                 lo, hi = int(idx[0]), int(idx[-1]) + 1
-                return ("range", lo, hi, dist.split_constants(lo, hi))
+                return ("range", lo, hi, dist.split_constants(lo, hi), lo)
         raise ValueError(
             f"the mask of site {name!r} takes part of an event of its "
             f"{type(dist).__name__} (event dims {dist.event_ndim}); a mask "
             f"must take each event whole or not at all"
             + ("" if split is None else
                f", or a contiguous range along event dim {split}"))
+
+    def _plan_views(self, site_specs: dict, example: dict) -> None:
+        """Find what each data rank holds and sums (module docstring), check
+        the parts against the whole at the probe state (``_probe_state``
+        of the ``example`` state), keep this rank's slices and drop the
+        rest."""
+        comm = self.comm
+        size, nodes = comm.data_size, self.model.nodes
+        dims = {}
+        for name, spec in site_specs.items():
+            if name not in self.inputs and name not in example:
+                continue
+            dim = data_dim(spec, comm.data_axis, comm.chain_axis)
+            if dim is None:
+                continue
+            shape = tuple((self.inputs.get(name, example.get(name))).shape)
+            if dim >= len(shape):
+                raise ValueError(f"site spec {spec} of {name!r} names dim "
+                                 f"{dim}, but its value has shape {shape}")
+            if shape[dim] % size:
+                raise ValueError(f"dim {dim} of {name!r} ({shape[dim]}) "
+                                 f"does not divide over the data axis")
+            dims[name] = dim
+        if not dims:
+            return
+        self._data_dims = dims
+        tol = torch.finfo(self.dtype).eps ** 0.5
+        state = self._probe_state(example)
+        env = self._eval_env(state)
+        dists = {n: self._node_dist(n, env) for n in self.stochastic}
+        arrays = {**self.inputs, **state}
+
+        def cut(name, x, k):
+            return data_block(x, dims[name], k, size)
+
+        # the graph on every slice, on this host
+        envs, part_dists = [], []
+        for k in range(size):
+            e = {n: cut(n, v, k) if n in dims else v for n, v in arrays.items()}
+            for name in self.model.topo:
+                if isinstance(nodes[name], LogicalNode):
+                    e[name] = self._call_on_slice(name, e)
+            envs.append(e)
+            part_dists.append({n: self._call_on_slice(n, e)
+                               for n in self.stochastic})
+        sliced = dict(dims)
+        mixed = set()
+        for name in self.logical:
+            how = _classify(env[name], [e[name] for e in envs], tol)
+            if how == "mixed":
+                mixed.add(name)
+            elif how is not None:
+                sliced[name] = how
+        observed = self._data_sites()
+        reads = {n: sorted(d for d in nodes[n].deps if d in sliced or d in mixed)
+                 for n in self.stochastic}
+
+        # every term's parts against the whole, at the probe state
+        for name in self.stochastic:
+            whole_lp = self._site_lp(name, dists[name], state[name])
+            if not torch.isfinite(whole_lp):
+                raise ValueError(
+                    f"the density of {name!r} is {float(whole_lp)} at the "
+                    f"probe state (module docstring), so the data ranks' "
+                    f"parts of the model cannot be checked there")
+            if name not in dims:
+                for k in range(size):
+                    lp = self._site_lp(name, part_dists[k][name], state[name])
+                    if not _lp_close([lp], whole_lp, tol):
+                        raise ValueError(
+                            f"the density of {name!r}, which site_specs does "
+                            f"not name, changes on a data slice: it reads "
+                            f"{reads[name]}, which a data rank holds in part "
+                            f"(or computes from a part).  Name {name!r} in "
+                            f"site_specs, or compute what it reads from "
+                            f"whole values")
+                continue
+            parts = [self._part_lp(self._part_plan(name, k, part_dists[k][name],
+                                                   dists[name], reads[name],
+                                                   observed),
+                                   part_dists[k][name], cut(name, state[name], k))
+                     for k in range(size)]
+            if not _lp_close(parts, whole_lp, tol):
+                raise ValueError(
+                    f"the parts of {name!r}'s density on the data slices do "
+                    f"not sum to its density: its distribution reads "
+                    f"{reads[name]}, which a data rank holds in part (or "
+                    f"computes from a part)")
+        bad = sorted(mixed & set(self.model.keys("monitor")))
+        if bad:
+            raise ValueError(
+                f"monitored nodes {bad} are neither whole nor a slice of the "
+                f"whole on a data rank, so their rows cannot be gathered; set "
+                f"monitor=False")
+
+        # keep this rank's slices, as copies that own their memory
+        r = comm.data_rank
+        self.inputs = {n: cut(n, v, r).clone(memory_format=torch.contiguous_format)
+                       if n in dims else v for n, v in self.inputs.items()}
+        self.local_dims = {n: d for n, d in sliced.items()
+                           if n not in self.sites or n in observed}
+        self._env_dims = {n: d for n, d in sliced.items()
+                          if n in self.sites and n not in self.local_dims}
+        self.mixed = frozenset(mixed)
+        local_env = self._eval_env(self.cut_state(example, lead=0))
+        self.example_dists = {n: self._node_dist(n, local_env)
+                              for n in self.stochastic}
+        self._local_plans = {n: self._part_plan(n, r, self.example_dists[n],
+                                                dists[n], reads[n], observed)
+                             for n in dims if n in self.sites}
+        self._leaf_dims = {
+            n: _leaf_dims(dists[n], [d[n] for d in part_dists], tol)
+            for n in self.local_state if reads[n]}
+        # the whole-mask plans of named sites hold whole constants
+        self._plans = {n: p for n, p in self._plans.items() if n not in dims}
+
+    def _probe_state(self, example: dict) -> dict:
+        """The state at which ``_plan_views`` checks the parts: every
+        sampled site drawn in unconstrained space (a standard normal
+        mapped by its bijector; a discrete site from its distribution),
+        and the missing (NaN) entries of a data site drawn from its
+        distribution, in topo order from one generator seeded with
+        ``PROBE_SEED``; data entries as ``example`` holds them.  Every rank
+        draws the same values."""
+        gen = torch.Generator(device=self.device).manual_seed(PROBE_SEED)
+        data = self._data_sites()
+        env, out = dict(self.inputs), {}
+        for name in self.model.topo:
+            node = self.model.nodes[name]
+            if isinstance(node, LogicalNode):
+                env[name] = self._call(node, env)
+            elif name in self.sites:
+                x = example[name]
+                missing = torch.isnan(x)
+                if name not in data or bool(missing.any()):
+                    draw = self._probe_draw(name, self._call(node, env), gen,
+                                            name in data)
+                    x = torch.where(missing, draw, x) if name in data else draw
+                out[name] = env[name] = x
+        return out
+
+    def _probe_draw(self, name: str, dist, gen, data: bool) -> torch.Tensor:
+        """One probe value of site ``name`` under ``dist``: a draw from
+        ``dist`` for data and discrete sites, else a standard normal in
+        unconstrained space mapped by the bijector (a vague prior's own
+        draws can overflow: InverseGamma(0.001, 0.001))."""
+        site = self.sites[name]
+        if data or dist.is_discrete:
+            per = tuple(dist.batch_shape + dist.event_shape)
+            value = dist.sample(gen, site.shape[:len(site.shape) - len(per)])
+            return value.expand(site.shape).to(self.dtype)
+        u = torch.randn(site.unconstrained_shape, generator=gen,
+                        dtype=self.dtype, device=self.device)
+        return dist.bijector().forward(u)
+
+    def _data_sites(self) -> set:
+        """The stochastic sites that hold data: the observed ones, and
+        those whose sampler only imputes their missing entries (MISS).  On
+        a data axis a rank holds these in part, in the state too."""
+        data = set(self.model.keys("observed"))
+        for s in self.model.samplers:
+            if getattr(s, "imputes_data", False):
+                data.update(s.params)
+        return data
+
+    def _call_on_slice(self, name: str, env: dict):
+        try:
+            return self._call(self.model.nodes[name], env)
+        except (RuntimeError, ValueError, IndexError, TypeError) as e:
+            raise ValueError(
+                f"node {name!r} cannot be evaluated on a data slice of the "
+                f"arrays that site_specs names: {e}") from e
+
+    def _part_plan(self, name: str, k: int, part, whole, reads, observed):
+        """Data rank ``k``'s part of the named term ``name``, given its
+        distribution on the slice (``part``) and whole (``whole``):
+
+        - ``("local", mask_plan)``: the distribution reads sliced values,
+          so it is the slice's own; ``log_prob`` of the slice;
+        - ``("cut", from_right, lo, hi, length, mask_plan)``: an elementwise
+          distribution with whole parameters, each parameter cut to entries
+          lo..hi-1 of the site's data dim (``from_right`` dims from its
+          last) where it has the dim's whole ``length``;
+        - ``("range", lo, hi, consts, 0)``: a whole distribution whose one
+          event splits along the data dim (``_mask_plan``'s range, the
+          slice's values starting at 0);
+        - ``("zero",)``: the slice is all padding.
+
+        ``mask_plan`` is ``_mask_plan`` of the slice's pad mask."""
+        shape = self.sites[name].shape
+        dim, size = self._data_dims[name], self.comm.data_size
+        per = shape[dim] // size
+        lo, hi = k * per, (k + 1) * per
+        mask = self.masks.get(name)
+        part_mask = None if mask is None else data_block(mask, dim, k, size)
+        if part_mask is not None and not part_mask.any():
+            return ("zero",)
+        if reads:
+            if name not in observed:
+                raise ValueError(
+                    f"sampled site {name!r} is named on the data axis, but "
+                    f"its distribution reads {reads}, which a data rank "
+                    f"holds in part: a sampled site on the data axis needs "
+                    f"a prior that reads whole values")
+            return ("local", self._mask_plan(name, part, part_mask))
+        if whole.event_ndim <= 0:
+            return ("cut", len(shape) - dim, lo, hi, shape[dim],
+                    self._mask_plan(name, whole, part_mask))
+        if (len(shape) == whole.event_ndim
+                and getattr(whole, "event_split_dim", None) == dim):
+            take = np.zeros(shape, dtype=bool)
+            take[(slice(None),) * dim + (slice(lo, hi),)] = True
+            if mask is not None:
+                take &= mask
+            plan = self._mask_plan(name, whole, take)
+            return plan[:4] + (plan[1] - lo,)
+        raise ValueError(
+            f"site {name!r} is named on the data axis at dim {dim}, but its "
+            f"{type(whole).__name__} reads only whole values and cannot be "
+            f"cut there: name the arrays its parameters come from on the "
+            f"data axis too, so that it is the slice's own")
 
     def block_split(self, params: tuple[str, ...], prior_only: bool = False) -> bool:
         """Whether the block's density is split over the data axis: its
@@ -257,41 +491,139 @@ class CompiledModel:
         return _identity
 
     # ---- full log density ---------------------------------------------
-    def _site_lp(self, name: str, dist, value, *, support_mask=True,
-                 local=False) -> torch.Tensor:
-        """Total log density of one site, honoring an optional observation
-        mask (masked entries contribute exactly 0, even if their values
-        would be NaN/-inf); ``local`` takes this data rank's part of a
-        split site."""
-        plan = (self._local_plans if local else self._plans).get(name)
+    def _apply(self, plan, dist, value, support_mask=True) -> torch.Tensor:
+        """Total log density of ``value`` under ``dist``, honoring a mask
+        plan (``_mask_plan``; masked entries contribute exactly 0, even if
+        their values would be NaN/-inf)."""
         if plan is None:
             if support_mask:
                 return dist.total_log_prob(value)
             return torch.sum(dist.log_prob(value))
+        if plan[0] == "zero":
+            return torch.zeros((), dtype=self.dtype, device=self.device)
         if plan[0] == "range":
-            return dist.log_prob_range(value, *plan[1:])
+            _, lo, hi, consts, vlo = plan
+            at = (slice(None),) * dist.event_split_dim + (slice(vlo, vlo + hi - lo),)
+            return dist.log_prob_range(value[at], lo, hi, consts)
         mask = plan[1]
         lp = dist.log_prob(value)
         if support_mask:
             lp = torch.where(dist.in_support(value), lp, -torch.inf)
         return torch.sum(torch.where(mask, lp, torch.zeros_like(lp)))
 
-    def logpdf(self, state: dict, terms: tuple[str, ...] | None = None) -> torch.Tensor:
-        """Sum of stochastic log-densities (constrained space, no Jacobian).
-        ``terms`` restricts to a subset (reference block logpdf,
-        simulation.jl:54-58)."""
+    def _site_lp(self, name: str, dist, value, support_mask=True) -> torch.Tensor:
+        """Total log density of one whole site under its mask."""
+        return self._apply(self._plans.get(name), dist, value, support_mask)
+
+    @staticmethod
+    def _cut_dist(dist, from_right: int, lo: int, hi: int, length: int):
+        """An elementwise distribution cut to entries lo..hi-1 of a dim
+        ``from_right`` dims from the value's last: every parameter that
+        has the dim's whole ``length`` there (by broadcasting) is cut."""
+        leaves, rebuild = dist_flatten(dist)
+        out = []
+        for t in leaves:
+            ax = t.dim() - from_right
+            if ax >= 0 and t.shape[ax] == length:
+                t = t.narrow(ax, lo, hi - lo)
+            out.append(t)
+        return rebuild(out)
+
+    def _part_lp(self, plan, dist, value, support_mask=True) -> torch.Tensor:
+        """A data rank's part of a named term (``_part_plan``), from its
+        distribution in the rank's env and its slice ``value``."""
+        if plan[0] == "local":
+            return self._apply(plan[1], dist, value, support_mask)
+        if plan[0] == "cut":
+            return self._apply(plan[5], self._cut_dist(dist, *plan[1:5]),
+                               value, support_mask)
+        return self._apply(plan, dist, value, support_mask)
+
+    def logpdf_part(self, state: dict,
+                    terms: tuple[str, ...] | None = None) -> torch.Tensor:
+        """This data rank's part of ``logpdf``: its part of every named
+        term, and on data rank 0 every other term.  Without a data axis,
+        ``logpdf`` itself.  Vmappable; sum the parts over the data group
+        outside ``vmap`` (``comm.data_sum``)."""
         env = self._eval_env(state)
         names = self.stochastic if terms is None else terms
+        lead = self.comm.data_rank == 0
         lp = torch.zeros((), dtype=self.dtype, device=self.device)
         for n in names:
-            dist = self._node_dist(n, env)
-            lp = lp + self._site_lp(n, dist, env[n])
+            if n in self._local_plans:
+                lp = lp + self._part_lp(self._local_plans[n],
+                                        self._node_dist(n, env), env[n])
+            elif lead:
+                lp = lp + self._site_lp(n, self._node_dist(n, env), env[n])
         return lp
 
+    def logpdf(self, state: dict, terms: tuple[str, ...] | None = None) -> torch.Tensor:
+        """Sum of stochastic log-densities (constrained space, no Jacobian)
+        of ONE chain's state, summed over the data group.  ``terms``
+        restricts to a subset (reference block logpdf, simulation.jl:54-58).
+        On a data axis of more than one rank it is a collective: call it
+        outside ``vmap`` (there, ``logpdf_part``)."""
+        return self.comm.data_sum(self.logpdf_part(state, terms))[0]
+
     def eval_logicals(self, state: dict) -> dict:
-        """State extended with logical node values (for monitoring)."""
+        """State extended with logical node values (for monitoring): a
+        named sampled site whole, as the state holds it; a node this rank
+        holds in part (``local_dims``), its slice."""
         env = self._eval_env(state)
-        return {n: env[n] for n in list(self.stochastic) + list(self.logical)}
+        return {**{n: state[n] for n in self.stochastic},
+                **{n: env[n] for n in self.logical}}
+
+    # ---- this data rank's slices ----------------------------------------
+    @property
+    def local_state(self) -> frozenset:
+        """Stochastic sites the state holds in part: the data sites
+        (observed, or imputed by MISS) named on the data axis."""
+        return frozenset(n for n in self.local_dims if n in self.sites)
+
+    def cut_state(self, state: dict, lead: int = 1) -> dict:
+        """A whole state (chain-stacked: ``lead`` 1) as this data rank
+        holds it: every site it holds in part (``local_state``) cut to its
+        slice."""
+        return {n: self.local(n, v, lead) for n, v in state.items()}
+
+    def local_shape(self, name: str) -> tuple[int, ...]:
+        """The shape of a stochastic site or logical node as this data rank
+        holds it (its whole shape unless it holds it in part)."""
+        shape = (self.sites[name].shape if name in self.sites
+                 else self.logical_shapes[name])
+        d = self.local_dims.get(name)
+        if d is None:
+            return tuple(shape)
+        return shape[:d] + (shape[d] // self.comm.data_size,) + shape[d + 1:]
+
+    def local(self, name: str, x, lead: int = 0):
+        """This data rank's slice of a whole value ``x`` (array or tensor,
+        ``lead`` dims before the node's own) of a node it holds in part
+        (``local_dims``); ``x`` itself for any other node."""
+        dim = self.local_dims.get(name)
+        return x if dim is None else self._block(x, lead + dim)
+
+    def _block(self, x, dim: int):
+        return data_block(x, dim, self.comm.data_rank, self.comm.data_size)
+
+    def whole(self, name: str, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """The whole value of node ``name`` from this rank's ``x`` (``lead``
+        dims before the node's own): a node it holds in part is gathered
+        over the data group (a collective); a node that is neither whole
+        nor a slice raises."""
+        if name in self.mixed:
+            raise ValueError(
+                f"node {name!r} is computed from a data rank's slices and is "
+                f"neither whole nor a slice of the whole, so no rank can "
+                f"read it whole")
+        dim = self.local_dims.get(name)
+        return x if dim is None else self.comm.gather_data(x, lead + dim)
+
+    def _env_value(self, name: str, value):
+        """A state value as the density's env holds it: a named sampled
+        site (whole in the state) cut to this rank's slice."""
+        dim = self._env_dims.get(name)
+        return value if dim is None else self._block(value, dim)
 
     # ---- block machinery ----------------------------------------------
     def block_terms(self, params: tuple[str, ...]) -> tuple[str, ...]:
@@ -332,8 +664,8 @@ class CompiledModel:
         terms = params if prior_only else self.block_terms(params)
         spec = self.block_ravel_spec(params, transform)
         pset = set(params)
-        # split over the data axis: this rank sums its slice of the split
-        # sites, and data rank 0 alone every other term and the Jacobian
+        # split over the data axis: this rank sums its part of every named
+        # term, and data rank 0 alone every other term and the Jacobian
         split = self.block_split(params, prior_only)
         lead = not split or self.comm.data_rank == 0
 
@@ -341,20 +673,20 @@ class CompiledModel:
             if not transform:
                 return spec.ravel({p: state[p] for p in params})
             env = self._eval_env(state)
-            packed = {}
-            for p in params:
-                b = self._node_dist(p, env).bijector()
-                packed[p] = b.inverse(env[p])
-            return spec.ravel(packed)
+            return spec.ravel({p: self._node_dist(p, env).bijector().inverse(
+                state[p]) for p in params})
 
         def _decode(flat, state):
             """Walk topo order decoding block sites (whose bijectors may
-            depend on parents) and recomputing intermediate logicals."""
+            depend on parents) and recomputing intermediate logicals.  The
+            block's sites are decoded whole (``values``, and the Jacobian);
+            the env holds them as the density reads them."""
             parts = spec.unravel(flat)
             env = dict(self.inputs)
-            env.update({n: v for n, v in state.items() if n not in pset})
+            env.update({n: self._env_value(n, v) for n, v in state.items()
+                        if n not in pset})
             logdet = torch.zeros((), dtype=self.dtype, device=self.device)
-            dists = {}
+            dists, values = {}, {}
             for name in self.model.topo:
                 node = self.model.nodes[name]
                 if isinstance(node, LogicalNode):
@@ -365,33 +697,31 @@ class CompiledModel:
                     if transform:
                         b = dist.bijector()
                         u = parts[name]
-                        env[name] = b.forward(u)
+                        values[name] = b.forward(u)
                         logdet = logdet + torch.sum(
                             b.event_log_det(u, max(dist.event_ndim, 0)))
                     else:
-                        env[name] = parts[name]
+                        values[name] = parts[name]
+                    env[name] = self._env_value(name, values[name])
                 elif name in terms:
                     dists[name] = self._call(node, env)
-            return env, dists, logdet
+            return env, dists, logdet, values
 
         def unpack(flat, state):
-            env, _, _ = _decode(flat, state)
-            return {p: env[p] for p in params}
+            return _decode(flat, state)[3]
 
         def logf(flat, state):
-            env, dists, logdet = _decode(flat, state)
+            env, dists, logdet, _ = _decode(flat, state)
             lp = logdet if lead else torch.zeros_like(logdet)
             for n in terms:
-                dist = dists[n]
-                if split and n in self._local_plans:
-                    lp = lp + self._site_lp(n, dist, env[n], local=True)
-                elif not lead:
-                    continue
-                elif transform and n in pset:
-                    # in-support by construction; no masking (keeps autodiff clean)
-                    lp = lp + self._site_lp(n, dist, env[n], support_mask=False)
-                else:
-                    lp = lp + self._site_lp(n, dist, env[n])
+                # a block site is in its support by construction in
+                # unconstrained space: no masking (keeps autodiff clean)
+                support = not (transform and n in pset)
+                if n in self._local_plans:
+                    lp = lp + self._part_lp(self._local_plans[n], dists[n],
+                                            env[n], support)
+                elif lead:
+                    lp = lp + self._site_lp(n, dists[n], env[n], support)
             if not transform:
                 # Reference early -Inf exit (simulation.jl:77-90): when block
                 # params leave their support, downstream terms may evaluate to
@@ -413,7 +743,10 @@ class CompiledModel:
 
         A generator cannot be drawn from under ``vmap``: each node's
         parameters are computed under it, and the draw is made once,
-        chain-stacked, outside."""
+        chain-stacked, outside.  A site this data rank holds in part is
+        drawn at its whole shape, from the distribution's parameters
+        gathered over the data group, so that the stream is the unsharded
+        run's; the rank keeps its slice."""
         names = set(self.stochastic if names is None else names)
         out = dict(state)
         chains = next(iter(state.values())).shape[0]
@@ -421,6 +754,9 @@ class CompiledModel:
             if name not in names:
                 continue
             dist = self.stacked_node_dist(name, out)
+            part = name in self.local_dims
+            if part:
+                dist = self._whole_stacked(name, dist)
             target = tuple(self.sites[name].shape)
             stacked = bool(dist_flatten(dist)[0])
             per_chain = tuple(dist.batch_shape + dist.event_shape)[int(stacked):]
@@ -435,48 +771,169 @@ class CompiledModel:
                 val = dist.sample(gen, (chains,) + lead)
             if tuple(val.shape[1:]) != target:      # trailing recycling
                 val = val.expand((chains,) + target)
+            if part:
+                val = self.local(name, val, lead=1).clone(
+                    memory_format=torch.contiguous_format)
             out[name] = val.to(dtype=self.dtype, device=self.device)
         return out
 
+    def _whole_stacked(self, name: str, dist):
+        """The chain-stacked distribution of a site this rank holds in part,
+        at the site's whole shape: parameters that are slices are gathered
+        over the data group (a distribution with whole parameters is
+        already whole)."""
+        dims = self._leaf_dims.get(name)
+        if dims is None:
+            return dist
+        leaves, rebuild = dist_flatten(dist)
+        out = []
+        for t, (dim, ndim) in zip(leaves, dims):
+            if dim == -1:
+                raise ValueError(
+                    f"site {name!r} cannot be drawn whole on a data rank: a "
+                    f"parameter of its distribution is neither whole nor a "
+                    f"slice of the whole")
+            out.append(t if dim is None
+                       else self.comm.gather_data(t, dim + t.dim() - ndim))
+        return rebuild(out)
+
     # ---- monitoring ----------------------------------------------------
+    def _monitor_selections(self):
+        """``(name, shape, indices-or-None, local shape or None, width)``
+        per monitored node, sorted by name: ``local`` is given for a node
+        this data rank holds in part (packed as its whole slice, its rows
+        gathered at fetch); ``width`` is its columns in a packed row."""
+        out = []
+        for n in sorted(self.model.keys("monitor")):
+            shape = (self.sites[n].shape if n in self.sites
+                     else self.logical_shapes[n])
+            size = int(np.prod(shape)) if shape else 1
+            idx = self.model.nodes[n].monitor_indices(size)
+            local = self.local_shape(n) if n in self.local_dims else None
+            width = (int(np.prod(local)) if local is not None
+                     else size if idx is None else len(idx))
+            out.append((n, shape, None if idx is None else torch.as_tensor(
+                idx, device=self.device), local, width))
+        return out
+
     def monitor_spec(self):
         """(names, flat element labels, pack fn) for monitored nodes.
         Labels follow the reference's ``beta[1]`` convention
         (src/variate.jl:76-88); nodes may monitor a subset of elements via
         1-based column-major index vectors (reference setmonitor!,
-        dependent.jl:31-48).  The pack fn takes one chain's state."""
-        monitored = sorted(self.model.keys("monitor"))
+        dependent.jl:31-48).  The pack fn takes one chain's state; a node
+        this data rank holds in part is packed as its whole slice, and
+        ``gather_monitored`` turns kept rows into the labels' rows."""
+        selections = self._monitor_selections()
         labels = []
-        selections = []      # (name, indices-or-None)
-        for n in monitored:
-            shape = (self.sites[n].shape if n in self.sites
-                     else self.logical_shapes[n])
-            size = int(np.prod(shape)) if shape else 1
-            idx = self.model.nodes[n].monitor_indices(size)
+        for n, shape, idx, _, _ in selections:
             names_n = elementwise_names(n, shape)
-            if idx is None:
-                labels.extend(names_n)
-            else:
-                labels.extend(names_n[i] for i in idx)
-            selections.append((n, None if idx is None else torch.as_tensor(
-                idx, device=self.device)))
+            labels.extend(names_n if idx is None else [names_n[i] for i in idx])
 
         def pack_monitored(state):
             vals = self.eval_logicals(state)
             # Julia column-major flatten for >1-d arrays
             flat = []
-            for n, idx in selections:
-                v = vals[n]
-                v = torch.reshape(v.permute(*reversed(range(v.dim())))
-                                  if v.dim() > 1 else v, (-1,))
-                v = v.to(self.dtype)
-                if idx is not None:
+            for n, _, idx, local, _ in selections:
+                v = _column_major(vals[n]).to(self.dtype)
+                if idx is not None and local is None:
                     v = v[idx]
                 flat.append(v)
             return (torch.cat(flat) if flat
                     else torch.zeros((0,), dtype=self.dtype, device=self.device))
 
-        return tuple(monitored), labels, pack_monitored
+        return tuple(s[0] for s in selections), labels, pack_monitored
+
+    def monitor_width(self) -> int:
+        """The length of a ``pack_monitored`` row on this rank."""
+        return sum(s[-1] for s in self._monitor_selections())
+
+    def gather_monitored(self, rows: torch.Tensor) -> torch.Tensor:
+        """Kept rows ``(draws, width, chains)`` of ``pack_monitored`` as the
+        labels' rows: the rows of the nodes this data rank holds in part
+        are gathered over the data group (one all-gather for all) and put
+        in the unsharded run's label order.  The identity when there are
+        none."""
+        selections = self._monitor_selections()
+        if all(local is None for _, _, _, local, _ in selections):
+            return rows
+        every = self.comm.gather_data(rows[None], 0)   # (ranks, draws, width, C)
+        out, at = [], 0
+        for n, _, idx, local, width in selections:
+            seg = every[:, :, at:at + width]
+            at += width
+            if local is None:
+                out.append(seg[0])
+                continue
+            # the columns of a slice are the C order of its reversed shape
+            rev = tuple(reversed(local))
+            ax = len(local) - self.local_dims[n]
+            v = torch.cat([s.reshape((s.shape[0],) + rev + (s.shape[-1],))
+                           for s in seg], dim=ax)
+            v = v.reshape(v.shape[0], -1, v.shape[-1])
+            out.append(v if idx is None else v[:, idx])
+        return torch.cat(out, dim=1)
+
+
+def _column_major(v: torch.Tensor) -> torch.Tensor:
+    """Julia's ``vec``: the column-major flatten of ``v``."""
+    return torch.reshape(v.permute(*reversed(range(v.dim()))) if v.dim() > 1
+                         else v, (-1,))
+
+
+def _close(a, b, tol: float) -> bool:
+    """``a`` equals ``b`` to ``tol`` of ``b``'s scale (NaN equal to NaN)."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.shape != b.shape:
+        return False
+    if not b.is_floating_point():
+        return bool(torch.equal(a, b))
+    a, b = a.double(), b.double()
+    finite = b[torch.isfinite(b)]
+    scale = max(float(finite.abs().max()) if finite.numel() else 0.0, 1.0)
+    return bool(torch.allclose(a, b, rtol=tol, atol=tol * scale,
+                               equal_nan=True))
+
+
+def _classify(whole, parts, tol: float):
+    """How the data slices' values ``parts`` of a node relate to its whole
+    value: None if every part is the whole, the dim ``d`` if they are
+    equal blocks of it along ``d`` in rank order, else ``"mixed"``."""
+    whole = torch.as_tensor(whole)
+    parts = [torch.as_tensor(p) for p in parts]
+    if all(p.shape == whole.shape for p in parts):
+        return None if all(_close(p, whole, tol) for p in parts) else "mixed"
+    shape = parts[0].shape
+    if any(p.shape != shape for p in parts) or len(shape) != whole.dim():
+        return "mixed"
+    diff = [d for d in range(whole.dim()) if shape[d] != whole.shape[d]]
+    if len(diff) != 1 or shape[diff[0]] * len(parts) != whole.shape[diff[0]]:
+        return "mixed"
+    return diff[0] if _close(torch.cat(parts, diff[0]), whole, tol) else "mixed"
+
+
+def _leaf_dims(whole, parts, tol: float) -> list:
+    """Per parameter of a distribution (``dist_flatten``'s leaves): the dim
+    along which the slices' parameters ``parts`` are blocks of the whole
+    one (None: whole; -1: neither), and its ndim."""
+    leaves = dist_flatten(whole)[0]
+    split = [dist_flatten(p)[0] for p in parts]
+    out = []
+    for i, w in enumerate(leaves):
+        how = _classify(w, [s[i] for s in split], tol)
+        out.append((-1 if how == "mixed" else how, w.dim()))
+    return out
+
+
+def _lp_close(parts, whole, tol: float) -> bool:
+    """The sum of the log densities ``parts`` equals ``whole`` to ``tol``
+    of their scale, every one of them finite."""
+    vals = [float(p) for p in parts]
+    total, want = sum(vals), float(whole)
+    if not np.isfinite(vals + [want]).all():
+        return False
+    scale = max(sum(abs(v) for v in vals) + abs(want), 1.0)
+    return abs(total - want) <= tol * scale
 
 
 def _identity(*tensors):

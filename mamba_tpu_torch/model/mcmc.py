@@ -26,10 +26,19 @@ generator's state, and ``mcmc(mc, iters)`` continues exactly.
 With ``mesh`` (``parallel.make_mesh``), each rank of the mesh's chain axis
 runs the loop on its block of the chains, with a generator seeded from
 ``(seed, chain rank)``; the ranks of a data axis run the same chains and
-sum their parts of the split densities (``model/compile.py``).  Every rank
-returns the full ModelChains: the kept rows are gathered over the chain
-axis.  The resume state is the rank's own, so ``mcmc(mc, iters)``
-continues on the same mesh.
+sum their parts of the split densities (``model/compile.py``).  Each data
+rank holds only its slice of the inputs and observed sites that
+``site_specs`` names on the data axis, as GSPMD does in the JAX package,
+with one difference: a named *sampled* site stays whole in the state on
+every data rank, because the samplers' momentum, U-turn and acceptance
+read the whole flat vector; the density reads its slice.  Every rank
+returns the full ModelChains: the kept rows are gathered over the data
+group (the rows of nodes a rank holds in part) and over the chain axis.
+The resume state is the rank's own, so ``mcmc(mc, iters)`` continues on
+the same mesh.  On a CUDA device ``timing`` also gives the rise of the
+run's peak allocated memory over what was allocated at its start
+(``peak_rise_bytes``): the run resets the device's peak statistics
+(``torch.cuda.reset_peak_memory_stats``) when it starts.
 """
 
 from __future__ import annotations
@@ -49,22 +58,26 @@ from .model import Model
 def _chain_inits(cm: CompiledModel, inits, chains: int, first: int = 0):
     """Initial constrained states of chains ``first .. first + chains - 1``,
     chain axis first.  ``inits`` is a dict or a list of dicts recycled over
-    the chains by their global index (reference mcmc.jl:27-31)."""
+    the chains by their global index (reference mcmc.jl:27-31).  A site this
+    data rank holds in part (``cm.local_state``) is stacked as its slice."""
     if isinstance(inits, dict):
         inits = [inits]
-    stacked = {}
+    stacked, nan_sites = {}, []
     for name in cm.stochastic:
         rows = []
         for k in range(first, first + chains):
             d = inits[k % len(inits)]
             if name not in d:
                 raise ValueError(f"chain {k}: no init for stochastic node {name!r}")
-            rows.append(np.broadcast_to(
-                np.asarray(d[name], dtype=np.float64), cm.sites[name].shape))
+            row = np.broadcast_to(np.asarray(d[name], dtype=np.float64),
+                                  cm.sites[name].shape)
+            # NaN inits mark missing data (reference MISS semantics,
+            # miss.jl:44-52); every data rank finds them in the whole value
+            if name not in nan_sites and np.isnan(row).any():
+                nan_sites.append(name)
+            rows.append(cm.local(name, row))
         stacked[name] = np.stack(rows)
 
-    # NaN inits mark missing data (reference MISS semantics, miss.jl:44-52)
-    nan_sites = [n for n in cm.stochastic if np.isnan(stacked[n]).any()]
     bad = [n for n in nan_sites
            if not getattr(cm.example_dists[n], "supports_imputation", True)]
     if bad:
@@ -108,7 +121,7 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
     _, labels, pack_monitored = cm.monitor_spec()
     pack_rows = torch.func.vmap(pack_monitored)
     chains = next(iter(state.values())).shape[0]
-    rows = torch.empty((n_kept, len(labels), chains), dtype=cm.dtype,
+    rows = torch.empty((n_kept, cm.monitor_width(), chains), dtype=cm.dtype,
                        device=cm.device)
 
     def gibbs_iter(state, tunes, adapt):
@@ -133,7 +146,8 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
     sample_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    value = cm.comm.gather_chains(rows, dim=2).cpu().numpy()
+    value = cm.comm.gather_chains(cm.gather_monitored(rows), dim=2)
+    value = value.cpu().numpy()
     fetch_s = time.perf_counter() - t0
     timing = {"sample_s": sample_s, "fetch_s": fetch_s}
     if cm.device.type == "cuda":
@@ -142,6 +156,23 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
         # the replays and the host tests of a device flag
         timing.update({k: graphs.STATS[k] - graphs0[k] for k in graphs0})
     return state, tunes, labels, value, timing
+
+
+def _memory_start(device: torch.device):
+    """Reset the device's peak statistics at a run's start; the bytes
+    allocated then (None off CUDA)."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _memory_timing(device: torch.device, before) -> dict:
+    """The rise of the run's peak allocated bytes over ``before``."""
+    if before is None:
+        return {}
+    return {"peak_rise_bytes": torch.cuda.max_memory_allocated(device) - before}
 
 
 def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
@@ -159,10 +190,11 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     it, and each chain rank's generator is seeded from ``(seed, chain
     rank)`` (``parallel.mesh.rank_seed``).  ``site_specs`` maps site names
     to per-dim specs (None, or mesh axis names, e.g. ``{"y": ("data",)}``):
-    an observed site sharded over the data axis is split between its
-    ranks, each summing its slice of the likelihood; a dim the axis does
-    not divide is edge-padded and masked out (reference semantics); sampled
-    sites named there are replicated."""
+    each data rank holds and evaluates its slice of every input and
+    observed site named on the data axis, and the density's part of every
+    sampled site named there (which stays whole in the state); a dim the
+    axis does not divide is edge-padded and masked out (reference
+    semantics)."""
     if isinstance(model_or_mc, ModelChains):
         return _mcmc_restart(model_or_mc, inputs if inputs is not None else iters,
                              verbose=verbose, progress=progress)
@@ -177,6 +209,7 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     comm = MeshComm(mesh, chain_axis)
     local = comm.local_chains(chains)
 
+    mem0 = _memory_start(torch.device(device))
     t_setup0 = time.perf_counter()
     masks = None
     if mesh is not None and site_specs:
@@ -197,6 +230,7 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     state_f, tunes_f, labels, value, timing = _run(
         cm, kernels, gen, state0, tunes0, burnin, n_kept, thin, meter)
     timing["setup_s"] = setup_s
+    timing.update(_memory_timing(cm.device, mem0))
     if verbose:
         print(f"MCMC: {chains} chains x {iters} iterations "
               f"({burnin} burnin, thin {thin}) in {timing['sample_s']:.2f}s "
@@ -265,11 +299,20 @@ def _mcmc_restart(mc: ModelChains, iters: int, *, verbose=True,
     if n_kept < 1:
         raise ValueError("iters too small for one kept sample at current thin")
     st = mc.states
+    moved = sorted(n for n, v in st["state"].items()
+                   if tuple(v.shape[1:]) != cm.local_shape(n))
+    if moved:
+        raise ValueError(
+            f"the resume state's {moved} do not have this rank's data layout "
+            f"({ {n: cm.local_shape(n) for n in moved} }): a run restarts on "
+            f"the mesh and site_specs it ran on")
+    mem0 = _memory_start(cm.device)
     gen = torch.Generator(device=cm.device)
     gen.set_state(st["rng"])
     meter = _meter(verbose, progress, n_kept * thin, mc.nchains)
     state_f, tunes_f, labels, value, timing = _run(
         cm, kernels, gen, st["state"], st["tunes"], 0, n_kept, thin, meter)
+    timing.update(_memory_timing(cm.device, mem0))
     new = ModelChains(
         value, start=mc.iter + thin, thin=thin, names=labels,
         chains=mc.chains, model=mc.model, compiled=cm,

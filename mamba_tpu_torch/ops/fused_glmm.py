@@ -28,10 +28,14 @@ kernel launch, and whose ``vmap`` rule turns ``torch.func.vmap`` over chains
 into one chain-batched launch.
 
 Under a mesh's data axis each data rank launches the kernel on its own
-contiguous range of groups (``BernoulliLogitGLMM.log_prob_range``): the
-covariates' slice is cut once where the compiled model plans the split,
-``y``'s and ``b``'s are made contiguous per call, and the engine sums ``lp`` and ``grad_beta`` over the
-data group while autograd places ``grad_b`` at the range's groups.
+contiguous range of groups, over the arrays it holds.  With ``y``, ``xt``
+and ``z`` named on the data axis the rank's ``y``, ``Xt`` and ``b`` are
+already its groups' (the compiled model's local views), and ``log_prob``
+launches over them.  With ``y`` alone named, ``log_prob_range`` takes the
+rank's ``y`` and the covariates' slice that the compiled model cut once
+(``split_constants``) and cuts ``b`` per call; autograd places ``grad_b``
+at the range's groups.  Either way the engine sums ``lp`` and the
+gradients over the data group.
 """
 
 from __future__ import annotations
@@ -330,15 +334,16 @@ class BernoulliLogitGLMM(Distribution):
 
     def split_constants(self, lo: int, hi: int):
         """The covariates of groups ``lo..hi-1``, contiguous.  The compiled
-        model cuts them once, from its example distribution, where it plans
-        the split: the covariates are data, the same on every call."""
+        model cuts them once, from a distribution whose covariates are
+        whole, where it plans the split: the covariates are data, the same
+        on every call."""
         return self.Xt[:, :, lo:hi].contiguous()
 
-    def log_prob_range(self, x, lo: int, hi: int, Xt):
+    def log_prob_range(self, y, lo: int, hi: int, Xt):
         """The log-likelihood of groups ``lo..hi-1`` alone, -inf if their
-        ``y`` leave {0, 1}: one launch over the range, on ``Xt``, the
-        covariates' slice from ``split_constants(lo, hi)``."""
-        y = x[:, lo:hi]
+        ``y`` leave {0, 1}: one launch over the range.  ``y`` (n, hi - lo)
+        holds those groups' observations, ``Xt`` their covariates, from
+        ``split_constants(lo, hi)``."""
         lp = bernoulli_logit_glmm_loglik.apply(Xt, y, self.beta,
                                                self.b[lo:hi])[0]
         return torch.where(self.in_support(y), lp, -torch.inf)

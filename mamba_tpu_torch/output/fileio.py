@@ -10,8 +10,10 @@ names to restore restartability — the same information the reference's
 ModelState snapshots carry (src/Mamba.jl:152-155).
 
 A run sharded over a mesh writes every chain's draws but only its own
-rank's resume state; its file reads back as draws, and restarting it
-raises: such a run restarts in memory, on its mesh.
+rank's resume state: its chains, and on a data axis its slices of the
+sites it holds in part, with the layout that cut them (``shard``).  Its
+file reads back as draws, and restarting it raises: such a run restarts in
+memory, on its mesh and its data layout.
 """
 
 from __future__ import annotations
@@ -52,9 +54,21 @@ def write_chains(path: str, c: Chains) -> None:
             payload["device"] = c.compiled.device.type
             payload["dtype"] = str(c.compiled.dtype).removeprefix("torch.")
             if c.compiled.comm.sharded:
-                payload["shard"] = c.compiled.comm.shard_state()
+                payload["shard"] = _shard_record(c)
     with open(path, "wb") as f:
         pickle.dump(payload, f)
+
+
+def _shard_record(mc) -> dict:
+    """A sharded rank's coordinates, and the data layout of its resume
+    state: for every site it holds in part, the dim and the shape of its
+    slice."""
+    cm = mc.compiled
+    state = mc.states["state"]
+    return {**cm.comm.shard_state(),
+            "local": {n: {"dim": cm.local_dims[n],
+                          "shape": list(state[n].shape[1:])}
+                      for n in sorted(cm.local_state)}}
 
 
 def read_chains(path: str, model=None, inputs=None, *, device=None,
@@ -78,9 +92,10 @@ def read_chains(path: str, model=None, inputs=None, *, device=None,
     if states is not None and "shard" in p:
         raise ValueError(
             f"{path} was written by one rank of a sharded run ({p['shard']}): "
-            f"its resume state holds that rank's chains only.  Restart the "
-            f"run in memory on its mesh (mcmc(mc, iters)), or read the file "
-            f"without a model for its draws")
+            f"its resume state holds that rank's chains and data slices "
+            f"only, and restarts on no other layout.  Restart the run in "
+            f"memory on its mesh (mcmc(mc, iters)), or read the file without "
+            f"a model for its draws")
     if states is not None:
         device = torch.device(device)
         if device.type != p["device"]:

@@ -14,6 +14,12 @@ their own.
 
 Requires every *sampled* stochastic node to be monitored (the reference has
 the same practical requirement: relist reads stored columns).
+
+On a mesh's data axis the stored draws are whole and each rank's final
+state holds its slices: the log densities are each rank's parts, summed
+over the data group outside ``vmap``, and predictive draws of a site a
+rank holds in part are gathered whole (``cm.whole``), so every number
+equals the run's without a mesh.
 """
 
 from __future__ import annotations
@@ -80,7 +86,9 @@ def _draw_state_fn(mc: ModelChains):
         for n in stored_stoch:
             off, shape = cols[n]
             size = int(np.prod(shape)) if shape else 1
-            state[n] = _unpack_site(row[..., off:off + size], shape).to(cm.dtype)
+            # a stored site that this data rank holds in part: its slice
+            state[n] = cm.local(n, _unpack_site(row[..., off:off + size],
+                                                shape).to(cm.dtype))
         return state
 
     return fn
@@ -111,9 +119,10 @@ def logpdf_chains(mc: ModelChains, nodekeys=None) -> Chains:
     draw_state = _draw_state_fn(mc)
     terms = tuple(nodekeys)
     rows, bases = _flat_batch(mc)
-    vals = torch.func.vmap(
-        lambda row, base: cm.logpdf(draw_state(row, base), terms=terms))(
+    parts = torch.func.vmap(
+        lambda row, base: cm.logpdf_part(draw_state(row, base), terms=terms))(
         rows, bases)
+    (vals,) = cm.comm.data_sum(parts)
     vals = vals.reshape(mc.nchains, mc.niter).detach().cpu().numpy()
     return Chains(vals.T[:, None, :], start=mc.start, thin=mc.thin,
                   names=["logpdf"], chains=mc.chains)
@@ -171,7 +180,7 @@ def predict(mc: ModelChains, nodekeys=None, seed: int = 0) -> ModelChains:
     drawn = cm.forward_sample(gen, states, names=nodekeys)
     flat = []
     for n in nodekeys:
-        v = drawn[n]                       # (C*n, *shape), column-major out
+        v = cm.whole(n, drawn[n], 1)       # (C*n, *shape), column-major out
         flat.append(v.permute(0, *reversed(range(1, v.dim())))
                     .reshape(v.shape[0], -1))
     vals = torch.cat(flat, dim=1).reshape(mc.nchains, mc.niter, -1)

@@ -13,9 +13,12 @@ names the axes:
   statistics (ChEES, SMC) and the kept draws are collectives over the
   ranks of that axis;
 - at most one **data axis** (any other name): the ranks of one data group
-  run the same chains with the same random stream, each sums the
-  likelihood terms of its slice of the sharded observed sites, and the
-  samplers sum the parts over the group (``MeshComm.data_sum``).
+  run the same chains with the same random stream.  Each holds only its
+  slice (``data_block`` of the dim ``data_dim`` reads from its spec) of
+  every input and observed site that ``site_specs`` shards over the data
+  axis, and evaluates its density's terms on that slice; the samplers sum the parts over the group
+  (``MeshComm.data_sum``), and a reader of a whole value gathers it
+  (``MeshComm.gather_data``).
 
 Collectives run at the sampler boundary, on the outputs of
 ``torch.func.vmap``, never inside it.  Under gloo a CUDA tensor is staged
@@ -25,7 +28,8 @@ for bit.
 
 ``pad_axes`` and ``pad_mask`` are numpy, with the JAX package's semantics:
 a sharded dim that the mesh axis does not divide is edge-padded and its
-tail masked out of the likelihood.
+tail masked out of the likelihood; the padded length then divides, and
+``data_block`` cuts it into equal slices.
 """
 
 from __future__ import annotations
@@ -207,6 +211,37 @@ def pad_mask(shape: tuple, pads: dict[int, tuple[int, int]]) -> np.ndarray:
     return mask
 
 
+def data_dim(spec, data_axis: str, chain_axis: str = CHAIN_AXIS) -> int | None:
+    """The dim of an array that its site spec shards over ``data_axis``
+    (None if no dim is).  A spec names the data axis on one dim at most,
+    and never the chain axis: the chain axis is the engine's leading dim,
+    not one of a site's own."""
+    dims = []
+    for dim, entry in enumerate(tuple(spec)):
+        names = _spec_names(entry)
+        if chain_axis in names:
+            raise ValueError(f"site spec {spec} names the chain axis "
+                             f"{chain_axis!r}")
+        if data_axis in names:
+            dims.append(dim)
+    if len(dims) > 1:
+        raise ValueError(f"site spec {spec} names the data axis "
+                         f"{data_axis!r} on more than one dim")
+    return dims[0] if dims else None
+
+
+def data_block(x, dim: int, rank: int, size: int):
+    """The ``rank``-th of ``size`` equal, consecutive blocks of ``x`` along
+    ``dim`` (a view of a tensor).  The dim's length is the padded one
+    ``pad_axes`` leaves, so it divides; any other length raises."""
+    n = x.shape[dim]
+    per, rem = divmod(n, size)
+    if rem:
+        raise ValueError(f"dim {dim} of length {n} does not divide over the "
+                         f"{size} ranks of the data axis; pad it (pad_axes)")
+    return x[(slice(None),) * dim + (slice(rank * per, (rank + 1) * per),)]
+
+
 def rank_seed(seed: int, chain_rank: int) -> int:
     """The generator seed of a chain rank: ``seed`` itself on chain rank 0
     (so a one-rank mesh replays the run without a mesh), a seed derived
@@ -227,7 +262,9 @@ class MeshComm:
       chain order;
     - ``chain_broadcast``: chain rank 0's value on every chain rank;
     - ``data_sum``: the parts of a split density, summed over the data
-      group.
+      group;
+    - ``gather_data``: the slices of the data group's ranks, joined in
+      data-rank order: the whole value.
 
     The chain axis's ranks hold the same number of chains."""
 
@@ -309,18 +346,29 @@ class MeshComm:
         (s,) = self.chain_sum(torch.sum(x, dim=0))
         return s / (x.shape[0] * self.chain_size)
 
+    def _gather(self, group, size, x, dim):
+        """Every rank's ``x`` of ``group`` joined along ``dim`` in rank
+        order (staged through the host under gloo)."""
+        buf = x.movedim(dim, 0).contiguous()
+        if self._staged(group):
+            buf = buf.cpu()
+        parts = [torch.empty_like(buf) for _ in range(size)]
+        dist.all_gather(parts, buf, group=group)
+        return torch.cat(parts).to(x.device).movedim(0, dim)
+
     def gather_chains(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every chain rank's ``x`` concatenated along its chain dim ``dim``
         in chain-rank order: the global chain order."""
         if self.chain_size == 1:
             return x
-        g = self._chain_group
-        buf = x.movedim(dim, 0).contiguous()
-        if self._staged(g):
-            buf = buf.cpu()
-        parts = [torch.empty_like(buf) for _ in range(self.chain_size)]
-        dist.all_gather(parts, buf, group=g)
-        return torch.cat(parts).to(x.device).movedim(0, dim)
+        return self._gather(self._chain_group, self.chain_size, x, dim)
+
+    def gather_data(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every data rank's slice ``x`` concatenated along ``dim`` in
+        data-rank order: the whole (padded) value that ``data_block`` cut."""
+        if self.data_size == 1:
+            return x
+        return self._gather(self._data_group, self.data_size, x, dim)
 
     def chain_broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Chain rank 0's ``x`` on every chain rank."""

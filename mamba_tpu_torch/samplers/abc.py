@@ -16,7 +16,9 @@ same draws as one at a time, at a fraction of the calls.  The host syncs
 once per batch of draws, to stop when every chain has accepted.
 
 Proposals are made in the block's link-transformed space, like the
-reference (unlist/relist with transform=true, abc.jl:45, 103-110).
+reference (unlist/relist with transform=true, abc.jl:45, 103-110).  On a
+mesh's data axis the summaries read the observed and simulated data whole:
+each data rank gathers its slices (``cm.whole``) before summarizing.
 
 Random draws, in order: at init, the nsim simulations and, with
 ``randeps``, the tolerances ``(C, nsim)`` (exponential); per batch of M
@@ -119,7 +121,12 @@ class ABC(SamplerSpec):
                      for k in datakeys]
             return torch.cat(parts) if len(parts) > 1 else parts[0]
 
-        summarize = torch.func.vmap(one_summary)
+        vsummary = torch.func.vmap(one_summary)
+
+        def summarize(values):
+            # the summaries read the data whole: a data rank gathers its
+            # slices over the data group first
+            return vsummary({k: cm.whole(k, values[k], 1) for k in datakeys})
         distances = torch.func.vmap(torch.func.vmap(self.dist, in_dims=(0, None)))
 
         def sim_batch(gen, state):

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.distributions.base import param_like
 from ..utils import graphs
 from .base import BlockKernel, SamplerSpec, candidate_logf, replays, summed
 
@@ -32,9 +33,12 @@ class DGSTune(NamedTuple):
     mask: torch.Tensor      # (n_elem, K) valid-candidate mask
 
 
-def dgs_support(dist, shape, dtype=torch.float64, device="cpu") -> DGSTune:
+def dgs_support(dist, shape, dtype=torch.float64, device=None) -> DGSTune:
     """Support grid of a (possibly batched) discrete distribution over a
-    node of ``shape``."""
+    node of ``shape``, on ``device``: by default the device of the
+    distribution's parameters, the model's."""
+    if device is None:
+        device = param_like(dist).device
     lo, hi = (np.broadcast_to(np.asarray(torch.as_tensor(b).detach().cpu(),
                                          dtype=float), shape).reshape(-1)
               for b in dist.support_bounds())

@@ -12,7 +12,9 @@ iteration — the reference gets the same effect because MISS runs inside
 iteration 1 before any likelihood-consuming block touches the node.
 
 Random draws per step: one ``forward_sample`` of each masked site, in the
-order of ``params``.
+order of ``params``.  On a mesh's data axis the draw is made at the site's
+whole shape (``forward_sample``), so every data rank takes the unsharded
+run's stream and keeps its slice.
 """
 
 from __future__ import annotations
@@ -39,9 +41,15 @@ class MISS(SamplerSpec):
     (reference MISS ctor, miss.jl:41-62)."""
 
     transform = False
+    #: its sites hold data: on a mesh's data axis a rank holds its slice
+    #: of them, in the state too (``model/compile.py``)
+    imputes_data = True
 
     def build(self, cm) -> BlockKernel:
-        masks = {n: torch.as_tensor(m, device=cm.device)
+        # which sites have missing values comes from the whole value, so
+        # every data rank draws the same sites from the stream; each
+        # redraws the entries of its slice
+        masks = {n: torch.as_tensor(cm.local(n, m), device=cm.device)
                  for n, m in missing_masks(cm, self.params).items()}
 
         def init(gen, state):

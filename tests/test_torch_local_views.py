@@ -1,0 +1,540 @@
+"""Local views on a mesh's data axis: each data rank holds and evaluates
+only its slice of the inputs and sites that ``site_specs`` names, as GSPMD
+does in the JAX package (mamba_tpu/model/mcmc.py:347-460,
+mamba_tpu/parallel/mesh.py:42-80).
+
+In one process, rank by rank (``_DataRank``: no collective is called):
+the shapes each rank holds, its parts of every block density and gradient
+and of ``logpdf``, summed over the ranks against the port's whole model
+(rtol 1e-12) and the JAX package's compiled density at the same state
+(rtol 1e-10); what the compiler refuses, naming the node; and
+``forward_sample``'s slice of the unsharded draw.  Across two gloo ranks
+(this file run as a script, started by ``parallel.launch.run_ranks``, as
+tests/test_torch_multiproc.py does): whatever reads whole values, a Gibbs
+block, modelstats (``logpdf_chains``, DIC, ``predict``), MISS, ABC and
+the kept rows of a site a rank holds in part, against the run without a
+mesh.  Float64 throughout.  The rank processes import no JAX: the tests
+import it where they use it."""
+
+import json
+import math
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+import mamba_tpu_torch as tmt
+from mamba_tpu_torch.model.mcmc import _chain_inits
+from mamba_tpu_torch.model.nodes import StochasticNode
+from mamba_tpu_torch.models import glmm as tglmm, line as tline, rats as trats
+from mamba_tpu_torch.parallel.launch import run_ranks
+from mamba_tpu_torch.parallel.mesh import (data_block, data_dim, make_mesh,
+                                           pad_axes, pad_mask)
+from mamba_tpu_torch.samplers.custom import WholeValues
+
+torch.set_num_threads(2)
+
+#: seconds a two-rank test may take, and a collective may wait
+RANKS_TIMEOUT, GROUP_TIMEOUT = 150, 60
+
+
+class _DataRank:
+    """Rank ``r`` of a (1, 2) chains x data mesh, for evaluating each part
+    of a split density in one process (no collectives are called)."""
+    chain_axis, data_axis = "chains", "data"
+    chain_rank, chain_size, data_size = 0, 1, 2
+
+    def __init__(self, r):
+        self.data_rank = r
+
+
+def _jax():
+    import jax
+    import mamba_tpu as jmt
+    return jax, jmt
+
+
+def test_data_slice_cuts_equal_blocks_by_spec():
+    """A rank's slice: ``data_block`` of the dim ``data_dim`` reads from
+    the spec."""
+    x = np.arange(2 * 6 * 4).reshape(2, 6, 4)
+    dim = data_dim((None, "data"), "data")
+    assert dim == 1
+    parts = [data_block(x, dim, r, 3) for r in range(3)]
+    assert all(p.shape == (2, 2, 4) for p in parts)
+    np.testing.assert_array_equal(np.concatenate(parts, 1), x)
+    t = torch.as_tensor(x)
+    np.testing.assert_array_equal(          # a chain-stacked array: dim + 1
+        data_block(t, 1 + data_dim(("data", None), "data"), 1, 2), x[:, 3:])
+    assert data_dim((None, None), "data") is None
+    assert data_dim(("model",), "data") is None
+    with pytest.raises(ValueError, match="does not divide"):
+        data_block(x, data_dim(("data",), "data"), 0, 3)
+    with pytest.raises(ValueError, match="names the chain axis"):
+        data_dim(("chains",), "data")
+    with pytest.raises(ValueError, match="more than one dim"):
+        data_dim(("data", "data"), "data")
+
+
+def test_dgs_support_takes_the_distribution_s_device():
+    from mamba_tpu_torch.samplers.dgs import dgs_support
+    dist = tmt.Bernoulli(torch.full((3,), 0.5, dtype=torch.float32))
+    tune = dgs_support(dist, (3,))
+    assert tune.support.device == dist.p.device
+    assert tune.support.tolist() == [[0.0, 1.0]] * 3
+
+
+# ---- the cases: (model, inputs, init, masks) of each package ------------
+LINE_SPECS = {"y": ("data",), "xmat": ("data", None)}
+RATS_SPECS = {"y": ("data",), "alpha": ("data",), "beta": ("data",)}
+GLMM_Y = {"y": (None, "data")}
+GLMM_LOCAL = {"y": (None, "data"), "xt": (None, None, "data"), "z": ("data",)}
+GLMM_GENERIC = {"y": ("data", None), "x": ("data", None, None), "z": ("data",)}
+G, C = 40, 3
+
+
+def _line(pkg):
+    """line with y and xmat named: 5 observations padded to 6."""
+    model, inputs, inits = pkg.models.line.build()
+    axes = {"chains": 1, "data": 2}
+    p_in, _ = pad_axes(axes, LINE_SPECS, inputs)
+    p_init, pads = pad_axes(axes, LINE_SPECS, inits[0])
+    return model, p_in, p_init, {"y": pad_mask(p_init["y"].shape, pads["y"])}
+
+
+def _rats(pkg):
+    model, inputs, inits = pkg.models.rats.build("nuts")
+    return model, inputs, inits[0], None
+
+
+def _glmm(fused):
+    def build(pkg):
+        model, inputs, inits, _ = pkg.models.glmm.build(G=G, n=10, seed=2,
+                                                        fused=fused)
+        return model, inputs, inits[0], None
+    return build
+
+
+def _states(init, rng):
+    """C chains around ``init``: each continuous sampled site moved by a
+    standard normal step (variances by a factor), data as it is."""
+    out = {}
+    for k, v in init.items():
+        v = np.asarray(v, dtype=float)
+        if k == "y":
+            out[k] = np.broadcast_to(v, (C,) + v.shape).copy()
+        elif k.startswith("s2"):
+            out[k] = v * rng.gamma(4.0, 0.25, size=(C,) + v.shape)
+        else:
+            out[k] = v + rng.normal(size=(C,) + v.shape)
+    return out
+
+
+# name: (build, specs, block, {node: shape this rank holds, chains first})
+CASES = {
+    "line": (_line, LINE_SPECS, ("beta", "s2"),
+             {"xmat": (3, 2), "y": (C, 3), "beta": (C, 2)}),
+    "rats": (_rats, RATS_SPECS, ("alpha", "beta", "mu_alpha", "mu_beta"),
+             {"y": (C, 15, 5), "alpha": (C, 30), "beta": (C, 30),
+              "Xm": (5,)}),
+    "glmm_fused_y": (_glmm(True), GLMM_Y, ("beta", "z", "s2"),
+                     {"y": (C, 10, 20), "xt": (4, 10, G), "z": (C, G)}),
+    "glmm_fused_local": (_glmm(True), GLMM_LOCAL, ("beta", "z", "s2"),
+                         {"y": (C, 10, 20), "xt": (4, 10, 20), "z": (C, G)}),
+    "glmm_generic": (_glmm(False), GLMM_GENERIC, ("beta", "z", "s2"),
+                     {"y": (C, 20, 10), "x": (20, 10, 4), "z": (C, G)}),
+}
+
+
+def _port(case):
+    """The port's whole model, each data rank's, and a whole state."""
+    build, specs, block, _ = CASES[case]
+    model, inputs, init, masks = build(tmt)
+    whole = tmt.compile_model(model, inputs, init, device="cpu", masks=masks)
+    ranks = [tmt.compile_model(model, inputs, init, device="cpu", masks=masks,
+                               comm=_DataRank(r), site_specs=specs)
+             for r in (0, 1)]
+    np_state = _states(init, np.random.default_rng(5))
+    state = {k: torch.as_tensor(v) for k, v in np_state.items()}
+    return whole, ranks, state, np_state
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_each_rank_holds_only_its_slices(case):
+    whole, ranks, state, _ = _port(case)
+    want = CASES[case][3]
+    for cm in ranks:
+        local = cm.cut_state(state)
+        held = {**cm.inputs, **local}
+        assert {k: tuple(held[k].shape) for k in want} == want
+        assert cm.local_state <= set(cm.sites)
+        for k in cm.local_state:     # the rank's slice of the whole value
+            np.testing.assert_array_equal(local[k], cm.local(k, state[k], 1))
+    # the slices of the two ranks are the whole, in data-rank order
+    for k, d in ranks[0].local_dims.items():
+        if k in ranks[0].inputs:
+            np.testing.assert_array_equal(
+                torch.cat([cm.inputs[k] for cm in ranks], d), whole.inputs[k])
+
+
+def _block(cm, block, state, transform):
+    pack, _, _, logf = cm.block_functions(block, transform)
+    x = torch.func.vmap(pack)(state)
+    g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, state)
+    return x, v, g
+
+
+@pytest.mark.parametrize("case, transform", [
+    (c, True) for c in CASES] + [("line", False), ("rats", False)])
+def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
+    """Each rank's block density and gradient from its local state, summed
+    over the ranks: the port's whole model's (1e-12) and the JAX
+    package's compiled block density (1e-10)."""
+    whole, ranks, state, np_state = _port(case)
+    block = CASES[case][2]
+    x, v, g = _block(whole, block, state, transform)
+    parts = [_block(cm, block, cm.cut_state(state), transform) for cm in ranks]
+    for xr, _, _ in parts:                     # the whole flat vector
+        np.testing.assert_array_equal(xr, x)
+    v_sum = parts[0][1] + parts[1][1]
+    g_sum = parts[0][2] + parts[1][2]
+    scale = float(g.abs().max())
+    np.testing.assert_allclose(v_sum, v, rtol=1e-12)
+    np.testing.assert_allclose(g_sum, g, rtol=1e-12, atol=1e-12 * scale)
+    # the JAX package at the same state, chain by chain
+    jax, jmt = _jax()
+    model, inputs, init, masks = CASES[case][0](jmt)
+    jcm = jmt.compile_model(model, inputs, init, masks=masks)
+    jpack, _, _, jlogf = jcm.block_functions(block, transform)
+    for c in range(C):
+        jst = {k: np.asarray(a[c]) for k, a in np_state.items()}
+        jv, jg = jax.value_and_grad(jlogf)(jpack(jst), jst)
+        np.testing.assert_allclose(float(v_sum[c]), float(jv), rtol=1e-10)
+        np.testing.assert_allclose(g_sum[c], np.asarray(jg), rtol=1e-10,
+                                   atol=1e-10 * scale)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_logpdf_parts_sum_to_the_whole_and_to_the_reference(case):
+    whole, ranks, state, np_state = _port(case)
+    want = torch.func.vmap(whole.logpdf)(state)
+    got = sum(torch.func.vmap(cm.logpdf_part)(cm.cut_state(state))
+              for cm in ranks)
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    _, jmt = _jax()
+    model, inputs, init, masks = CASES[case][0](jmt)
+    jcm = jmt.compile_model(model, inputs, init, masks=masks)
+    for c in range(C):
+        jst = {k: np.asarray(a[c]) for k, a in np_state.items()}
+        np.testing.assert_allclose(float(got[c]), float(jcm.logpdf(jst)),
+                                   rtol=1e-10)
+
+
+def test_the_plans_of_the_fused_glmm():
+    """With y alone named, the kernel runs over the rank's y and the
+    covariates' slice cut once (``log_prob_range``); with y, xt and z
+    named, over the rank's own arrays (``log_prob``), with no range."""
+    _, ranks, _, _ = _port("glmm_fused_y")
+    plan = ranks[1]._local_plans["y"]
+    assert plan[:3] == ("range", 20, 40) and plan[4] == 0
+    assert plan[3].shape == (4, 10, 20) and plan[3].is_contiguous()
+    _, ranks, _, _ = _port("glmm_fused_local")
+    assert ranks[1]._local_plans["y"][0] == "local"
+    assert ranks[1]._local_plans["z"][0] == "cut"
+    assert ranks[1].local_dims == {"y": 1, "xt": 2, "b": 0}
+
+
+# ---- what the compiler refuses ------------------------------------------
+def _line_with(**nodes):
+    """line's nodes, with ``nodes`` added; an input ``w`` (5,)."""
+    model, inputs, inits = tline.build()
+    model = tmt.Model(**{**model.nodes, **nodes})
+    model.set_samplers([tmt.NUTS("beta"), tmt.Slice("s2", 3.0)]
+                       + [tmt.Slice(n, 1.0) for n in nodes
+                          if isinstance(nodes[n], StochasticNode)])
+    return model, dict(inputs, w=np.arange(1.0, 6.0)), inits[0]
+
+
+def _compile_rank(model, inputs, init, specs, r=1):
+    return tmt.compile_model(model, inputs, init, device="cpu",
+                             comm=_DataRank(r), site_specs=specs)
+
+
+def test_a_term_that_reads_mean_y_is_refused_by_name():
+    """tau's prior reads mean(y): on a slice it would be a different
+    prior, and nothing would raise at run time."""
+    model, inputs, init = _line_with(
+        ybar=tmt.Logical(lambda y: torch.mean(y), monitor=False),
+        tau=tmt.Stochastic(lambda ybar: tmt.Normal(ybar, 1.0)))
+    init = dict(init, y=np.array([1.0, 3.0, 3.0, 3.0, 5.0, 5.0]), tau=0.0)
+    inputs["xmat"] = np.stack([np.ones(6), np.arange(1.0, 7.0)], 1)
+    specs = {"y": ("data",), "xmat": ("data", None)}
+    with pytest.raises(ValueError, match=r"density of 'tau'.*\['ybar'\]"):
+        _compile_rank(model, inputs, init, specs)
+    # unsharded, and over a data axis with y whole, the model compiles
+    _compile_rank(model, inputs, init, {})
+
+
+def test_a_centering_logical_at_symmetric_inits_is_refused_by_name():
+    """rats' inits set alpha to 250 on every rat, so alpha - mean(alpha) is
+    0 whole and on each slice there; on a slice it centres by the slice's
+    own mean.  The compiler checks at its probe state, where alpha is not
+    symmetric, and refuses y's density, which reads it."""
+    model, inputs, inits = trats.build("nuts")
+    assert np.all(inits[0]["alpha"] == 250.0)
+    centred = tmt.Model(**{
+        **model.nodes,
+        "alpha_c": tmt.Logical(1, lambda alpha: alpha - torch.mean(alpha),
+                               monitor=False),
+        "y": tmt.Stochastic(2, lambda alpha_c, beta, Xm, s2_c: tmt.Normal(
+            alpha_c[:, None] + beta[:, None] * Xm[None, :], torch.sqrt(s2_c)),
+            monitor=False)})
+    centred.set_samplers(model.samplers)
+    with pytest.raises(ValueError, match=r"parts of 'y'.*'alpha_c'"):
+        _compile_rank(centred, inputs, inits[0], RATS_SPECS)
+    _compile_rank(centred, inputs, inits[0], {})
+
+
+def test_a_term_that_reads_mean_y_is_refused_when_y_has_missing_entries():
+    """y with missing entries under MISS: mean(y) at the example inits is
+    NaN whole and on each slice.  The probe state draws the missing
+    entries, and tau's prior, which reads mean(y), is refused."""
+    model, inputs, inits = _line6("miss", MISSING_Y)
+    with_tau = tmt.Model(**{
+        **model.nodes,
+        "ybar": tmt.Logical(lambda y: torch.mean(y), monitor=False),
+        "tau": tmt.Stochastic(lambda ybar: tmt.Normal(ybar, 1.0))})
+    with_tau.set_samplers(model.samplers + [tmt.Slice("tau", 1.0)])
+    init = dict(inits[0], tau=0.0)
+    with pytest.raises(ValueError, match=r"density of 'tau'.*\['ybar'\]"):
+        _compile_rank(with_tau, inputs, init, LINE6_SPECS)
+    _compile_rank(with_tau, inputs, init, {})
+
+
+def test_a_density_that_is_not_finite_at_the_probe_is_refused_by_name():
+    """y2 = 50 under Uniform(0, theta): finite at the example's theta = 60,
+    -inf at the probe's theta (a standard normal's exp), where no part of
+    the model could be checked."""
+    model, init = _conjugate()
+    model = tmt.Model(**{
+        **model.nodes,
+        "y2": tmt.Stochastic(1, lambda theta: tmt.Uniform(0.0, theta),
+                             monitor=False),
+        "theta": tmt.Stochastic(lambda: tmt.Gamma(2.0, 1.0))})
+    model.set_samplers([tmt.NUTS("mu"), tmt.Slice("theta", 1.0)])
+    init = dict(init, y2=np.array([50.0]), theta=60.0)
+    with pytest.raises(ValueError, match=r"density of 'y2' is -inf at the probe"):
+        _compile_rank(model, {}, init, {"y": ("data",)})
+    _compile_rank(model, {}, init, {})
+
+
+def test_what_reads_a_slice_where_it_cannot_is_refused_by_name():
+    model, inputs, init = _line_with(
+        ybar=tmt.Logical(lambda y: torch.mean(y)))
+    init = dict(init, y=np.array([1.0, 3.0, 3.0, 3.0, 5.0, 5.0]))
+    inputs["xmat"] = np.stack([np.ones(6), np.arange(1.0, 7.0)], 1)
+    specs = {"y": ("data",), "xmat": ("data", None)}
+    with pytest.raises(ValueError, match=r"monitored nodes \['ybar'\]"):
+        _compile_rank(model, inputs, init, specs)
+    model.nodes["ybar"] = tmt.Logical(lambda y: torch.mean(y), monitor=False)
+    cm = _compile_rank(model, inputs, init, specs)
+    assert cm.mixed == {"ybar"}
+    nodes = torch.func.vmap(cm.eval_logicals)(
+        cm.cut_state({k: torch.as_tensor(np.asarray(v, float))[None]
+                      for k, v in init.items()}))
+    env = WholeValues(cm, cm.inputs, nodes)
+    assert env["s2"].shape == (1,)               # whole, read as it is
+    with pytest.raises(ValueError, match="node 'ybar'"):
+        env["ybar"]
+    # a sampled site on the data axis whose prior reads a slice
+    model, inputs, init = _line_with(
+        u=tmt.Stochastic(1, lambda w: tmt.Normal(w, 1.0), monitor=False))
+    init = dict(init, u=np.zeros(6))
+    inputs["w"] = np.arange(1.0, 7.0)
+    with pytest.raises(ValueError, match=r"sampled site 'u'.*\['w'\]"):
+        _compile_rank(model, inputs, init, {"w": ("data",), "u": ("data",)})
+    # the generic GLMM with y and x named but not z: b stays whole
+    model, inputs, inits, _ = tglmm.build(G=G, n=10, seed=2)
+    with pytest.raises(ValueError, match="node 'y' cannot be evaluated"):
+        _compile_rank(model, inputs, inits[0],
+                      {"y": ("data", None), "x": ("data", None, None)})
+    # a spec that names the chain axis, or a length that does not divide
+    with pytest.raises(ValueError, match="names the chain axis"):
+        _compile_rank(model, inputs, inits[0], {"y": ("chains", None)})
+    with pytest.raises(ValueError, match="does not divide"):
+        _compile_rank(*tline.build()[:2], tline.build()[2][0], LINE_SPECS)
+
+
+# ---- forward_sample -----------------------------------------------------
+def _conjugate():
+    """y (8,) ~ Normal(mu, 1): y's distribution reads only mu."""
+    model = tmt.Model(
+        y=tmt.Stochastic(1, lambda mu: tmt.Normal(mu.expand(8), 1.0),
+                         monitor=False),
+        mu=tmt.Stochastic(lambda: tmt.Normal(0.0, math.sqrt(2.0))))
+    model.set_samplers([tmt.NUTS("mu")])
+    return model, {"y": np.linspace(0.5, 1.5, 8), "mu": 0.0}
+
+
+def test_forward_sample_keeps_the_slice_of_the_unsharded_draw():
+    model, init = _conjugate()
+    whole = tmt.compile_model(model, {}, init, device="cpu")
+    state = _chain_inits(whole, init, 5)
+    state["mu"] = torch.linspace(-1.0, 1.0, 5, dtype=torch.float64)
+    gen = torch.Generator().manual_seed(11)
+    want = whole.forward_sample(gen, state, names=("y", "mu"))
+    for r in (0, 1):
+        cm = _compile_rank(model, {}, init, {"y": ("data",)}, r)
+        local = cm.cut_state(state)
+        assert local["y"].shape == (5, 4)
+        np.testing.assert_array_equal(_chain_inits(cm, init, 5)["y"],
+                                      local["y"])
+        gen = torch.Generator().manual_seed(11)
+        got = cm.forward_sample(gen, local, names=("y", "mu"))
+        assert got["y"].shape == (5, 4) and got["y"].is_contiguous()
+        np.testing.assert_array_equal(got["y"], want["y"][:, 4 * r:4 * r + 4])
+        np.testing.assert_array_equal(got["mu"], want["mu"])
+
+
+def test_a_slice_of_padding_alone_adds_nothing():
+    """Five observations over four data ranks pad to eight: rank 3 holds
+    padding alone, and its part of y is exactly 0."""
+    model, init = _conjugate()
+    model.nodes["y"] = tmt.Stochastic(1, lambda mu: tmt.Normal(mu, 1.0),
+                                      monitor=False)
+    init = dict(init, y=np.linspace(0.5, 1.5, 5))
+    whole = tmt.compile_model(model, {}, init, device="cpu")
+    p_init, pads = pad_axes({"chains": 1, "data": 4}, {"y": ("data",)}, init)
+    masks = {"y": pad_mask(p_init["y"].shape, pads["y"])}
+
+    class Rank(_DataRank):
+        data_size = 4
+    state = {"y": torch.as_tensor(p_init["y"])[None],
+             "mu": torch.tensor([0.3], dtype=torch.float64)}
+    parts = []
+    for r in range(4):
+        cm = tmt.compile_model(model, {}, p_init, device="cpu", masks=masks,
+                               comm=Rank(r), site_specs={"y": ("data",)})
+        parts.append(torch.func.vmap(cm.logpdf_part)(cm.cut_state(state)))
+        if r == 3:
+            assert cm._local_plans["y"] == ("zero",)
+            assert float(parts[-1]) == 0.0
+    want = whole.logpdf({"y": torch.as_tensor(init["y"]), "mu": state["mu"][0]})
+    np.testing.assert_allclose(float(sum(parts)), float(want), rtol=1e-12)
+
+
+# ---- across two gloo ranks ----------------------------------------------
+def _line6(samplers="nuts", y=(1.0, 3.0, 3.0, 3.0, 5.0, 6.0)):
+    """line on six points (the data axis divides them), y monitored; its
+    samplers: NUTS + Slice, with MISS on y, or ABC on beta + Slice."""
+    y = np.asarray(y, dtype=float)
+    model = tmt.Model(
+        y=tmt.Stochastic(1, lambda mu, s2: tmt.Normal(mu, torch.sqrt(s2))),
+        mu=tmt.Logical(1, lambda xmat, beta: xmat @ beta, monitor=False),
+        beta=tmt.Stochastic(1, lambda: tmt.Normal(torch.zeros(2),
+                                                  math.sqrt(1000.0))),
+        s2=tmt.Stochastic(lambda: tmt.InverseGamma(0.001, 0.001)))
+    blocks = {"nuts": [tmt.NUTS("beta"), tmt.Slice("s2", 3.0)],
+              "miss": [tmt.NUTS("beta"), tmt.Slice("s2", 3.0), tmt.MISS("y")],
+              "abc": [tmt.ABC("beta", 0.3, lambda v: v, 1.0, kernel="normal",
+                              maxdraw=4, nsim=2), tmt.Slice("s2", 3.0)]}
+    model.set_samplers(blocks[samplers])
+    inputs = {"xmat": np.stack([np.ones(6), np.arange(1.0, 7.0)], 1)}
+    inits = [{"y": y, "beta": np.array([0.5, 0.7]), "s2": 1.5},
+             {"y": y, "beta": np.array([-0.5, 1.0]), "s2": 0.5}]
+    return model, inputs, inits
+
+
+LINE6_SPECS = {"y": ("data",), "xmat": ("data", None)}
+MISSING_Y = (1.0, np.nan, 3.0, 3.0, np.nan, 6.0)
+RUN = dict(chains=4, seed=3, device="cpu", verbose=False)
+
+
+def _runs(mesh=None):
+    """The readers' runs: line6 under NUTS (then its modelstats), MISS
+    and ABC."""
+    kw = dict(RUN, mesh=mesh, site_specs=LINE6_SPECS if mesh else None)
+    sim = tmt.mcmc(*_line6(), 30, burnin=10, **kw)
+    miss = tmt.mcmc(*_line6("miss", MISSING_Y), 20, burnin=5, **kw)
+    abc = tmt.mcmc(*_line6("abc"), 12, burnin=4, **kw)
+    return {"value": sim.value, "dic": tmt.dic(sim).value,
+            "logpdf": tmt.logpdf_chains(sim).value,
+            "predict": tmt.predict(sim, seed=1).value,
+            "miss": miss.value, "abc": abc.value,
+            "shapes": json.dumps([list(sim.compiled.inputs["xmat"].shape),
+                                  list(sim.states["state"]["y"].shape),
+                                  list(miss.states["state"]["y"].shape),
+                                  list(sim.states["state"]["beta"].shape)])}
+
+
+def _rats_gibbs(mesh=None):
+    """One step of rats' conjugate Gibbs block (y, alpha and beta named)
+    from the chains' inits: its draws of the three variances."""
+    model, inputs, inits = trats.build("nuts")
+    cm = tmt.compile_model(model, inputs, inits[0], device="cpu",
+                           comm=tmt.parallel.mesh.MeshComm(mesh),
+                           site_specs=RATS_SPECS if mesh else None)
+    state = _chain_inits(cm, inits, 4)
+    gen = torch.Generator().manual_seed(9)
+    new, _ = model.samplers[1].build(cm).step(gen, state, (), False)
+    return {"s2": torch.stack([new[k] for k in
+                               ("s2_c", "s2_alpha", "s2_beta")]).numpy(),
+            "y_shape": np.array(state["y"].shape)}
+
+
+def _mode_readers(rank):
+    mesh = make_mesh({"chains": 1, "data": 2}, "cpu")
+    return {**_runs(mesh), **_rats_gibbs(mesh)}
+
+
+def _ranks(mode, tmp_path, n=2):
+    env = dict(os.environ, MULTIPROC_OUT=str(tmp_path))
+    run_ranks(lambda r, init: [sys.executable, __file__, init, n, r, mode],
+              n, timeout=RANKS_TIMEOUT, env=env)
+    return [dict(np.load(tmp_path / f"{mode}{r}.npz")) for r in range(n)]
+
+
+def test_readers_of_whole_values_on_two_data_ranks(tmp_path):
+    r0, r1 = _ranks("readers", tmp_path)
+    ref = {**_runs(), **_rats_gibbs()}
+    for res in (r0, r1):
+        # xmat's rows, y's entries (MISS's too) halved; beta whole
+        assert json.loads(str(res["shapes"])) == [[3, 2], [4, 3], [4, 3], [4, 2]]
+        assert res["y_shape"].tolist() == [4, 15, 5]
+    for k in ("value", "dic", "logpdf", "predict", "miss", "abc", "s2"):
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+        # the same random stream; only the density's summation order differs
+        np.testing.assert_allclose(r0[k], ref[k], rtol=1e-8, err_msg=k)
+    # the Gibbs block reads y whole: the unsharded draw, bit for bit
+    np.testing.assert_array_equal(r0["s2"], ref["s2"])
+    assert r0["value"].shape[1] == 9         # beta, s2 and y's six entries
+    # y monitored and gathered (columns 3-8, after beta and s2): its data
+    # as given, its two missing entries imputed and moving
+    miss = r0["miss"]
+    assert np.isfinite(miss).all()
+    y = np.asarray(MISSING_Y)
+    np.testing.assert_array_equal(
+        miss[:, 3:][:, ~np.isnan(y)],
+        np.broadcast_to(y[~np.isnan(y)][:, None], miss[:, 3:][:, ~np.isnan(y)].shape))
+    assert miss[:, 3:][:, np.isnan(y)].std((0, 2)).min() > 0
+
+
+def _main(argv) -> int:
+    from mamba_tpu_torch.parallel import distributed_init
+    init, n, rank, mode = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.set_num_threads(1)
+    distributed_init(init, n, rank, device_type="cpu", timeout=GROUP_TIMEOUT)
+    try:
+        out = {"readers": _mode_readers}[mode](rank)
+        np.savez(Path(os.environ["MULTIPROC_OUT"]) / f"{mode}{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(_main(sys.argv[1:]))

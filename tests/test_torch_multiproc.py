@@ -12,13 +12,15 @@ allows:
 - a chain mesh: rank r's chains are bit for bit an unsharded run of its
   chains seeded as rank r, gathered in global order, and restart on the
   mesh the same way;
-- a (1, 2) data mesh: the same random stream as the unsharded run, the
+- a (1, 2) data mesh: the same random stream as the unsharded run, each
+  rank holding its slice of the named inputs and observed sites and the
   density split between the two ranks: equal to 1e-8;
 - ChEES's step size and trajectory identical on both ranks after every
   iteration, and SMC's particles identical on both ranks.
 
 Float64 throughout (the CPU's default in the port)."""
 
+import json
 import os
 import sys
 from pathlib import Path
@@ -102,7 +104,16 @@ def _data(rank):
                    mesh=mesh, site_specs=LINE_SPECS, device="cpu",
                    verbose=False)
     return {"value": sim.value,
-            "split": sim.compiled.block_split(("beta",))}
+            "split": sim.compiled.block_split(("beta",)),
+            "shapes": _local_shapes(sim, ("y", "xmat"))}
+
+
+def _local_shapes(sim, names):
+    """The shapes of ``names`` as this rank holds them (inputs, else the
+    chain-stacked state), as JSON."""
+    cm, state = sim.compiled, sim.states["state"]
+    return json.dumps([list((cm.inputs[n] if n in cm.inputs else state[n]).shape)
+                       for n in names])
 
 
 def _chees(rank):
@@ -150,15 +161,17 @@ def _glmm(rank):
     params = ("beta", "z", "s2")
     out = {}
     for name, cm in (("whole", whole), ("split", split)):
+        local = cm.cut_state(state)            # the rank's slice of y
         pack, _, _, logf = cm.block_functions(params, True)
-        x = torch.func.vmap(pack)(state)
-        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, state)
+        x = torch.func.vmap(pack)(local)
+        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, local)
         v, g = cm.block_sum(params)(v, g)
         out[f"{name}_lp"], out[f"{name}_grad"] = v.numpy(), g.numpy()
     sim = tmt.mcmc(model, inputs, inits, 4, burnin=2, chains=4, seed=5,
                    mesh=mesh, site_specs=GLMM_SPECS, device="cpu",
                    verbose=False)
     out["value"] = sim.value
+    out["shapes"] = _local_shapes(sim, ("y", "xt", "z"))
     return out
 
 
@@ -168,7 +181,8 @@ def _dgs(rank):
     sim = tmt.mcmc(model, inputs, inits, 30, burnin=10, chains=8, seed=2,
                    mesh=mesh, site_specs={"y": ("data",), "x": ("data", None)},
                    device="cpu", verbose=False)
-    return {"value": sim.value, "split": sim.compiled.block_split(("g",))}
+    return {"value": sim.value, "split": sim.compiled.block_split(("g",)),
+            "shapes": _local_shapes(sim, ("y", "x", "g"))}
 
 
 def _rats(rank):
@@ -179,7 +193,8 @@ def _rats(rank):
                    mesh=mesh, device="cpu", verbose=False,
                    site_specs={"y": ("data",), "alpha": ("data",),
                                "beta": ("data",)})
-    return {"value": sim.value}
+    return {"value": sim.value,
+            "shapes": _local_shapes(sim, ("y", "alpha", "beta"))}
 
 
 MODES = {"chains": _chains, "data": _data, "chees": _chees, "smc": _smc,
@@ -221,6 +236,9 @@ def test_chain_mesh_ranks_are_unsharded_runs_seeded_by_rank(tmp_path):
 def test_data_mesh_matches_the_unsharded_run(tmp_path):
     r0, r1 = _ranks("data", tmp_path)
     assert bool(r0["split"])
+    # each rank holds 3 of y's 6 (padded) entries and xmat's rows
+    for res in (r0, r1):
+        assert json.loads(str(res["shapes"])) == [[2, 3], [3, 2]]
     np.testing.assert_array_equal(r0["value"], r1["value"])
     model, inputs, inits = tline.build()
     ref = tmt.mcmc(model, inputs, inits, 10, burnin=5, chains=2, seed=3,
@@ -250,6 +268,8 @@ def test_smc_with_sharded_particles(tmp_path):
 def test_glmm_split_by_groups_over_a_data_mesh(tmp_path):
     r0, r1 = _ranks("glmm", tmp_path)
     for res in (r0, r1):
+        # y's 32 of 64 groups per rank; xt and z (not named) whole
+        assert json.loads(str(res["shapes"])) == [[4, 10, 32], [4, 10, 64], [4, 64]]
         np.testing.assert_allclose(res["split_lp"], res["whole_lp"],
                                    rtol=1e-10)
         scale = np.abs(res["whole_grad"]).max()
@@ -264,6 +284,8 @@ def test_glmm_split_by_groups_over_a_data_mesh(tmp_path):
 def test_dgs_over_a_data_mesh(tmp_path):
     r0, r1 = _ranks("dgs", tmp_path)
     assert bool(r0["split"])
+    for res in (r0, r1):             # 4 of the 7 (padded to 8) observations
+        assert json.loads(str(res["shapes"])) == [[8, 4], [4, 4], [8, 4]]
     np.testing.assert_array_equal(r0["value"], r1["value"])
     model, inputs, inits = dgs_model()
     ref = tmt.mcmc(model, inputs, inits, 30, burnin=10, chains=8, seed=2,
@@ -277,7 +299,10 @@ def test_rats_sharded_posterior_parity(tmp_path):
     chains x data mesh against the unsharded run, posterior means within
     0.75 posterior SDs."""
     from mamba_tpu_torch.models import rats
-    (res, *_) = _ranks("rats", tmp_path, n=4, timeout=3600)
+    ranks = _ranks("rats", tmp_path, n=4, timeout=3600)
+    for r in ranks:          # 15 rats of y per rank; alpha, beta whole
+        assert json.loads(str(r["shapes"])) == [[4, 15, 5], [4, 30], [4, 30]]
+    res = ranks[0]
     model, inputs, inits = rats.build("nuts")
     plain = tmt.mcmc(model, inputs, inits, 500, burnin=300, chains=8,
                      seed=11, device="cpu", verbose=False)

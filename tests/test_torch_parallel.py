@@ -132,14 +132,16 @@ def test_padded_masked_density_matches_the_reference(transform):
 
 def _parts(cm_of_rank, params, state, transform):
     """Each data rank's block logf and gradient at ``state`` (chains
-    stacked), and their sums over the ranks."""
+    stacked, whole), from the rank's local state, and their sums over the
+    ranks."""
     lps, grads = [], []
     for r in (0, 1):
         cm = cm_of_rank(r)
         assert cm.block_split(params)
+        local = cm.cut_state(state)
         pack, _, _, logf = cm.block_functions(params, transform)
-        x = torch.func.vmap(pack)(state)
-        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, state)
+        x = torch.func.vmap(pack)(local)
+        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, local)
         lps.append(v)
         grads.append(g)
     return lps, grads
@@ -147,8 +149,8 @@ def _parts(cm_of_rank, params, state, transform):
 
 @pytest.mark.parametrize("transform", [True, False])
 def test_line_density_parts_sum_to_the_whole(transform):
-    """Each data rank sums its slice of y (padded 5 -> 6) and rank 0 the
-    priors and the Jacobian: the parts sum to the density."""
+    """Each data rank holds and sums its slice of y (padded 5 -> 6) and
+    rank 0 the priors and the Jacobian: the parts sum to the density."""
     tm, _, _, p_in, p_init, masks = _padded_line(tline, {"chains": 1, "data": 2})
     whole = tmt.compile_model(tm, p_in, p_init, device="cpu", masks=masks)
     rng = np.random.default_rng(1)
@@ -173,9 +175,9 @@ def test_line_density_parts_sum_to_the_whole(transform):
 
 
 def test_glmm_density_parts_are_the_kernel_over_each_range_of_groups():
-    """The fused GLMM's (n, G) event splits by groups: rank r's part is the
-    kernel (its plain version here) over its G/2 groups; the parts sum to
-    the whole density and gradient."""
+    """The fused GLMM's (n, G) event splits by groups: rank r holds y's
+    G/2 groups, and its part is the kernel (its plain version here) over
+    them; the parts sum to the whole density and gradient."""
     G, C = 40, 5
     model, inputs, inits, _ = tglmm.build(G=G, n=10, seed=2, fused=True)
     whole = tmt.compile_model(model, inputs, inits[0], device="cpu")
