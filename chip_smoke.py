@@ -97,14 +97,30 @@ through the port's public entry points (``mcmc``, ``advi``,
     gates with one launch per call over the rank's 5,000 groups, the gloo
     ``data_sum`` of one call timed; in this process, the device ms of a
     density and gradient whole and as a rank holds it, fused and generic;
+    (f) a sharded run's chain file: both ranks of (c) and of (e) call
+    ``write_chains``, and this process reads each file on the card
+    (``read_chains``: y is the data, z (1024, 10,000), the draws (c)'s and
+    (e)'s) and runs ``POST_RESTART`` more iterations on one device,
+    bit-identical to the restart from the same whole state built here from
+    the ranks' own, with rank 0's tunes and generator state; (g) in the
+    same two processes, models whose data-axis layout needs the
+    compiler's resolved cases, on the (1, 2) data mesh: the GLMM with
+    z ~ Normal(w, 1), w (10,000,) named
+    (a sampled site whose prior reads a slice), its density and gradient
+    at the warm starts against the whole (one launch over 5,000 groups), a
+    short run and its peak memory rise; birats with Y and beta named (a
+    law per row) and line with mean(y) and ss = sum((y - mu)**2) monitored
+    (a constant and a node computed again from whole values), each held
+    to the unsharded model at its inits (density, monitored rows) and run
+    a few iterations, draws finite and equal on both ranks;
     then the kernel at a rank's shares (C = 512; G = 5,000;
     C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
     plain version, the first two timed with their bounds.  Both ranks share
-    the one card: no number of (c), (d) or (e) is a scaling figure.
+    the one card: no number of (c)-(g) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
-runs one rank of (c), (d) and (e).
+runs one rank of (c), (d), (e) and (g), and writes (f)'s files.
 
 The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
@@ -1108,8 +1124,8 @@ def _split_against_whole(torch, fg, whole, split, state):
     out = {}
     for name, cm in (("whole", whole), ("split", split)):
         local = cm.cut_state(state)
-        pack, _, _, logf = cm.block_functions(params, True)
-        x = torch.func.vmap(pack)(local)
+        _, _, _, logf = cm.block_functions(params, True)
+        x = cm.block_maps(params, True)[0](local)
         fg.glmm_loglik_grads.launches = 0
         g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, local)
         launches = fg.glmm_loglik_grads.launches
@@ -1155,6 +1171,7 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
                      "z": list(state["z"].shape)}
     res["tunes"] = tunes
     np.save(Path(outdir) / f"local_draws{rank}.npy", sim.value)
+    res["write_s"] = _write_sharded(torch, mt, sim, outdir, "local", rank)
     del sim, state
     if rank == 0:
         with graphs.disabled():
@@ -1187,6 +1204,122 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
     return res
 
 
+def _write_sharded(torch, mt, sim, outdir, label, rank):
+    """(f): the run's one chain file (``write_chains`` on every rank), and
+    the rank's own resume state beside it for the one-device restart
+    built in memory: its sampled sites, tunes and generator state.  The
+    seconds ``write_chains`` took."""
+    t0 = time.perf_counter()
+    mt.write_chains(str(Path(outdir) / f"{label}.pkl"), sim)
+    seconds = time.perf_counter() - t0
+    st = sim.states
+    torch.save({"state": {k: st["state"][k] for k in ("beta", "z", "s2")},
+                "tunes": st["tunes"], "rng": st["rng"], "burnin": st["burnin"]},
+               Path(outdir) / f"{label}_rank{rank}.pt")
+    return seconds
+
+
+#: (g)(i)'s layout: LOCAL_SPECS with z's prior mean w (G,) named too
+W_SPECS = {**LOCAL_SPECS, "w": ("data",)}
+#: (g): the GLMM run with w, and the birats and line runs (iterations, burnin)
+GW_RUN, RESOLVED_RUN = (6, 3), (4, 2)
+#: (g)(ii)'s and (g)(iii)'s layouts
+BIRATS_SPECS = {"Y": ("data", None), "beta": ("data", None)}
+LINE6_SPECS = {"y": ("data",), "xmat": ("data", None)}
+
+
+def _glmm_w(mt, glmm):
+    """(g)(i): the GLMM of (e) with z's prior mean read from a per-group
+    input w, which W_SPECS names on the data axis: z ~ Normal(w, 1)."""
+    model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
+    w = 0.1 * np.random.default_rng(5).normal(size=MESH_G)
+    model = mt.Model(**{**model.nodes, "z": mt.Stochastic(
+        1, lambda w: mt.Normal(w, 1.0), monitor=False)})
+    model.set_samplers([mt.ChEESHMC(("beta", "z", "s2"), max_steps=256,
+                                    mass_window=40)])
+    return model, dict(inputs, w=w), inits
+
+
+def _line6(mt, torch):
+    """(g)(iii): line on six points with mean(y) (a constant) and
+    ss = sum((y - mu)**2) (computed from the state and slices) monitored."""
+    from mamba_tpu_torch.models import line
+    model, inputs, inits = line.build()
+    model = mt.Model(**{**model.nodes,
+                        "ybar": mt.Logical(lambda y: torch.mean(y)),
+                        "ss": mt.Logical(lambda y, mu: torch.sum((y - mu) ** 2))})
+    model.set_samplers([mt.NUTS("beta"), mt.Slice("s2", 3.0)])
+    y = np.array([1.0, 3.0, 3.0, 3.0, 5.0, 6.0])
+    inputs = {"xmat": np.stack([np.ones(6), np.arange(1.0, 7.0)], 1)}
+    return model, inputs, [dict(i, y=y) for i in inits]
+
+
+def _at_inits(torch, mt, mesh, model, inputs, inits, specs):
+    """The unsharded model's log density and monitored rows at the inits,
+    against this rank's parts summed over the data group and its rows
+    gathered: their relative errors."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                             comm=MeshComm(mesh), site_specs=specs)
+    state = _chain_inits(whole, inits, CHAINS)
+    lp = torch.func.vmap(whole.logpdf)(state).double()
+    (part,) = split.comm.data_sum(torch.func.vmap(split.logpdf_part)(
+        split.cut_state(state)))
+    rows = whole.monitor_rows()(state).T[None].double()
+    got = split.gather_monitored(
+        split.monitor_rows()(split.cut_state(state)).T[None]).double()
+    return {"lp_rel_err": float(((part.double() - lp).abs() / lp.abs()).max()),
+            "rows_rel_err": float((got - rows).abs().max()
+                                  / rows.abs().max().clamp_min(1.0)),
+            "mixed": sorted(split.mixed)}
+
+
+def _resolved_cases(torch, mt, glmm, fg, warm, mesh, rank, outdir):
+    """(g): data-axis cases the compiler resolves, on a (1, 2) data mesh
+    in this rank: (i) the GLMM with w (``_glmm_w``) at full width, its density and
+    gradient at the warm starts against the whole (one launch over the
+    rank's groups), a short run and its peak memory rise; (ii) birats with
+    Y and beta named, (iii) line with mean(y) and ss monitored, each at the
+    inits against the unsharded model and a short run.  Each run's draws
+    are saved for the parent's check that both ranks agree."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.models import birats
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    res = {}
+    model, inputs, inits = _glmm_w(mt, glmm)
+    whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                             comm=MeshComm(mesh), site_specs=W_SPECS)
+    d = _split_against_whole(torch, fg, whole, split,
+                             _chain_inits(whole, warm, CHAINS))
+    d["groups_split"] = split.inputs["xt"].shape[-1]
+    d["part_sites"] = sorted(split._part_sites)
+    del whole, split
+    iters, burnin = GW_RUN
+    fg.glmm_loglik_grads.launches = 0
+    sim = mt.mcmc(model, inputs, warm, iters, burnin=burnin, chains=CHAINS,
+                  verbose=False, device=DEVICE, mesh=mesh, site_specs=W_SPECS)
+    res["glmm_w"] = {"density": d, "kernel_launches": fg.glmm_loglik_grads.launches,
+                     "sample_s": sim.timing["sample_s"],
+                     "peak_rise_bytes": sim.timing["peak_rise_bytes"]}
+    np.save(Path(outdir) / f"glmm_w_draws{rank}.npy", sim.value)
+    del sim
+    for name, (model, inputs, inits), specs in (
+            ("birats", birats.build(), BIRATS_SPECS),
+            ("line_ss", _line6(mt, torch), LINE6_SPECS)):
+        out = _at_inits(torch, mt, mesh, model, inputs, inits, specs)
+        iters, burnin = RESOLVED_RUN if name == "birats" else (20, 10)
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE, mesh=mesh,
+                      site_specs=specs)
+        out["sample_s"] = sim.timing["sample_s"]
+        np.save(Path(outdir) / f"{name}_draws{rank}.npy", sim.value)
+        res[name] = out
+    return res
+
+
 def mesh_rank(init, rank, outdir):
     """One rank of the mesh phase's (c), (d) and (e): two processes over
     gloo, both on this process's card."""
@@ -1213,12 +1346,18 @@ def mesh_rank(init, rank, outdir):
         res["tunes"] = tunes
         res["draws_shape"] = list(sim.value.shape)
         np.save(outdir / f"draws{rank}.npy", sim.value)
+        res["write_s"] = _write_sharded(torch, mt, sim, outdir, "chain_mesh",
+                                        rank)
         del sim
         data_mesh = make_mesh({"chains": 1, "data": 2}, "cpu")
         res["split"] = _split_density_check(torch, mt, glmm, fg, data_mesh,
                                             warm)
         res["local"] = _local_views(torch, mt, glmm, fg, chees, warm,
                                     data_mesh, rank, outdir)
+        t0 = time.perf_counter()
+        res["resolved"] = _resolved_cases(torch, mt, glmm, fg, warm,
+                                          data_mesh, rank, outdir)
+        res["resolved"]["wall_s"] = time.perf_counter() - t0
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -1359,8 +1498,23 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
         draws = [np.load(Path(tmp) / f"draws{r}.npy") for r in range(2)]
         local_draws = [np.load(Path(tmp) / f"local_draws{r}.npy")
                        for r in range(2)]
+        resolved_draws = {k: [np.load(Path(tmp) / f"{k}_draws{r}.npy")
+                              for r in range(2)]
+                          for k in ("glmm_w", "birats", "line_ss")}
+        failed = []
+        t0 = time.perf_counter()                                  # (f)
+        res["restart"] = {
+            "chain_mesh": _file_restart(torch, mt, glmm, fg, tmp, "chain_mesh",
+                                        draws[0], failed),
+            "local": _file_restart(torch, mt, glmm, fg, tmp, "local",
+                                   local_draws[0], failed)}
+        res["restart"]["wall_s"] = time.perf_counter() - t0
+        res["restart"]["write_s"] = {
+            "chain_mesh": [r["write_s"] for r in ranks],
+            "local": [r["local"]["write_s"] for r in ranks]}
+    log("mesh (f), a sharded run's file restarted on one device: "
+        + json.dumps(res["restart"]))
     iters, burnin = GLMM_CHEES_RUN
-    failed = []
     if not np.array_equal(draws[0], draws[1]) or draws[0].shape != (
             iters - burnin, 5, CHAINS):
         failed.append("(c) both ranks hold every chain's draws")
@@ -1371,8 +1525,14 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
                                             "split")} for r in ranks]
     res["tunes_first_last"] = [ranks[0]["tunes"][0], ranks[0]["tunes"][-1]]
     local = [r["local"] for r in ranks]
+    res["resolved"] = _resolved_gates([r["resolved"] for r in ranks],
+                                      resolved_draws, failed)
+    log("mesh (g), data-axis cases the compiler resolves: "
+        + json.dumps(res["resolved"]))
     res["launches"] = one["kernel_launches"] + sum(
-        r["kernel_launches"] + r["local"]["kernel_launches"] for r in ranks)
+        r["kernel_launches"] + r["local"]["kernel_launches"]
+        + r["resolved"]["glmm_w"]["kernel_launches"] for r in ranks) + sum(
+        res["restart"][k]["kernel_launches"] for k in ("chain_mesh", "local"))
     res["local_views"] = _local_views_gates(local, local_draws, failed)
     res["local_views"]["density_ms"] = _rank_density_ms(torch, mt, glmm, warm)
     log("mesh (e): " + json.dumps(res["local_views"]))
@@ -1391,6 +1551,89 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
     if failed:
         raise AssertionError(f"mesh: gates failed: {failed}")
     return res
+
+
+def _file_restart(torch, mt, glmm, fg, tmp, label, draws, failed):
+    """(f): the chain file that both ranks of (c) or (e) wrote
+    (``label``), read on the card and run ``POST_RESTART`` more iterations
+    on one device, against the one-device restart from the same whole
+    state built here from the ranks' own (the chains of (c)'s two ranks
+    joined; (e)'s sampled sites, whole on each data rank, from rank 0)
+    and rank 0's tunes and generator state.  Appends what fails to
+    ``failed``."""
+    from mamba_tpu_torch.output.chains import ModelChains
+    model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
+    model = _chees_block(mt, model, max_steps=256, mass_window=40)
+    t0 = time.perf_counter()
+    mc = mt.read_chains(str(Path(tmp) / f"{label}.pkl"), model, inputs,
+                        device=DEVICE)
+    out = {"read_s": time.perf_counter() - t0}
+    state = mc.states["state"]
+    y = torch.as_tensor(inits[0]["y"], dtype=state["y"].dtype, device=DEVICE)
+    out["y_is_the_data"] = bool((state["y"] == y).all())
+    out["z_shape"] = list(state["z"].shape)
+    out["draws_equal"] = bool(np.array_equal(mc.value, draws))
+    # the sites come back on the card, the generator states on the host
+    own = [torch.load(Path(tmp) / f"{label}_rank{r}.pt", weights_only=False)
+           for r in range(2)]
+    whole = {"y": y.expand(CHAINS, *y.shape).contiguous()}
+    for k in ("beta", "z", "s2"):
+        whole[k] = (torch.cat([o["state"][k] for o in own])
+                    if label == "chain_mesh" else own[0]["state"][k])
+    cm = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    memory = ModelChains(draws, start=mc.start, thin=mc.thin, names=mc.names,
+                         chains=mc.chains, model=model, compiled=cm,
+                         states={"state": whole, "tunes": own[0]["tunes"],
+                                 "rng": own[0]["rng"],
+                                 "burnin": own[0]["burnin"]}, iter=mc.iter)
+    fg.glmm_loglik_grads.launches = 0
+    t0 = time.perf_counter()
+    more = mt.mcmc(mc, POST_RESTART, verbose=False)
+    out["restart_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = fg.glmm_loglik_grads.launches
+    want = mt.mcmc(memory, POST_RESTART, verbose=False)
+    rng = more.range
+    out["bit_identical"] = bool(np.array_equal(more.value, want.value))
+    out["contiguous"] = bool(np.array_equal(rng, want.range)
+                             and np.all(np.diff(rng) == mc.thin)
+                             and rng[mc.niter] == mc.iter + mc.thin)
+    out["finite"] = bool(np.isfinite(more.value).all())
+    for k in ("y_is_the_data", "draws_equal", "bit_identical", "contiguous",
+              "finite"):
+        if not out[k]:
+            failed.append(f"(f) {label}: {k}")
+    if out["z_shape"] != [CHAINS, MESH_G] or out["kernel_launches"] == 0:
+        failed.append(f"(f) {label}: z {out['z_shape']}, "
+                      f"{out['kernel_launches']} launches")
+    return out
+
+
+def _resolved_gates(resolved, draws, failed):
+    """(g)'s gates on both ranks' results (``_resolved_cases``): finite
+    draws, equal on both ranks; (i)'s density and gradient against the
+    whole with one launch per call over the rank's G/2 groups; (ii)'s and
+    (iii)'s density and monitored rows at the inits against the unsharded
+    model.  Appends what fails to ``failed``."""
+    for k, (a, b) in draws.items():
+        if not (np.array_equal(a, b) and np.isfinite(a).all()):
+            failed.append(f"(g) {k}: finite draws, equal on both ranks")
+    for r, res in enumerate(resolved):
+        d = res["glmm_w"]["density"]
+        if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL
+                and d["launches_split"] == 1
+                and d["groups_split"] == MESH_G // 2
+                and d["part_sites"] == ["z"]):
+            failed.append(f"(g)(i) rank {r}: {d}")
+        for k in ("birats", "line_ss"):
+            if not (res[k]["lp_rel_err"] <= LP_RTOL
+                    and res[k]["rows_rel_err"] <= LP_RTOL):
+                failed.append(f"(g) {k} rank {r}: {res[k]}")
+    if resolved[0]["line_ss"]["mixed"] != ["ss"]:
+        failed.append(f"(g)(iii) mixed nodes {resolved[0]['line_ss']['mixed']}")
+    return {"glmm_w": [r["glmm_w"] for r in resolved],
+            "birats": [r["birats"] for r in resolved],
+            "line_ss": [r["line_ss"] for r in resolved],
+            "wall_s": [r["wall_s"] for r in resolved]}
 
 
 def _direct_logpdf(sim, chain, draw):

@@ -50,6 +50,33 @@ slices it does not hold.  Whatever reads a whole value that a rank holds
 in part gathers it over the data group (``whole``), and ``forward_sample``
 draws a named site at its whole shape, from the unsharded run's stream,
 and keeps the slice.
+
+What GSPMD computes whole and a slice cannot, the compiler resolves where
+it can, in topo order on the slices:
+
+- a logical that comes out neither whole nor a slice ("mixed") but reads
+  only constants (inputs, data with no missing entry: ``mean(y)``) is
+  evaluated whole once, before the rank drops its slices (``_consts``);
+  one that reads only whole state values and constants (``alpha -
+  mean(alpha)`` of a named sampled site, whole in the state) is computed
+  from the whole values (``_recut``).  Each is then whole on the rank, or
+  cut where the slices' shape says a reader wants its slice;
+- a named sampled site whose prior reads a slice (``_part_sites``): each
+  rank's part is its slice's ``log_prob`` and the Jacobian of its slice
+  under the slice's bijector; its pack and unpack map the slice, and
+  ``block_maps`` joins the slices over the data group;
+- a named site with a law per row (a multivariate distribution whose
+  batch dims hold the data dim) is cut along its batch (``_cut_dist``);
+- a mixed node read outside the vmapped density (a monitor, a Gibbs or
+  custom block) is computed again from its parents' whole values
+  (``monitor_rows``, ``WholeValues``).
+
+A density term that reads a mixed node computed from the chain state and
+data held in part together stays refused by name: inside the vmapped
+density it would need a collective per call.  So does a resolved node, or
+a monitored mixed one, that reads an array the data axis pads (``pads``):
+its whole value would count the padded entries, and ``WholeValues``
+refuses to compute such a node.
 """
 
 from __future__ import annotations
@@ -66,6 +93,7 @@ from ..utils.convert import to_tensor
 from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
 from .model import Model
 from .nodes import LogicalNode, StochasticNode
+from .whole import WholeValues
 
 
 #: the seed of the generator that draws ``_plan_views``' probe state
@@ -95,7 +123,8 @@ class CompiledModel:
     def __init__(self, model: Model, inputs: dict[str, Any],
                  example_inits: dict[str, Any], *, device, dtype=None,
                  masks: dict[str, Any] | None = None,
-                 comm: MeshComm | None = None, site_specs: dict | None = None):
+                 comm: MeshComm | None = None, site_specs: dict | None = None,
+                 pads: dict[str, dict[int, int]] | None = None):
         self.model = model
         self.device = torch.device(device)
         self.dtype = dtype or default_dtype(self.device)
@@ -105,6 +134,10 @@ class CompiledModel:
         #: entries contribute exactly 0 to every log density
         self.masks = {k: np.asarray(v, dtype=bool)
                       for k, v in (masks or {}).items()}
+        #: the edge padding of a mesh's data axis (``mcmc``'s
+        #: ``_pad_sharded``): per input or site, each padded dim's length as
+        #: given
+        self.pads = {k: dict(v) for k, v in (pads or {}).items()}
         missing = model.input_names - set(inputs)
         if missing:
             raise ValueError(f"missing input values for {sorted(missing)}")
@@ -128,9 +161,22 @@ class CompiledModel:
         #: this data rank's part of every named stochastic term
         #: (``_part_plan``)
         self._local_plans: dict[str, tuple] = {}
-        #: per data site held in part whose distribution reads slices: each
-        #: parameter's sliced dim (None: whole, -1: neither) and its ndim
+        #: per site held in part, or named sampled site, whose distribution
+        #: reads slices: each parameter's sliced dim (None: whole, -1:
+        #: neither) and its ndim
         self._leaf_dims: dict[str, list] = {}
+        #: named sampled sites whose prior reads slices: the dim of the
+        #: slice the density maps and sums (``block_functions``)
+        self._part_sites: dict[str, int] = {}
+        #: logicals that read only constants (inputs, data with no missing
+        #: entries), evaluated whole once: (the rank's value, the whole)
+        self._consts: dict[str, tuple] = {}
+        #: logicals that read only whole state values and constants,
+        #: computed from the whole values: the dim the env cuts (None: whole)
+        self._recut: dict[str, int | None] = {}
+        #: the data sites a constant reads: every chain's init must hold
+        #: the example's value (``mcmc``'s ``_chain_inits`` checks)
+        self.const_data: frozenset = frozenset()
         # --- resolve shapes / bijectors with one eager forward pass -------
         state = {}
         for name in self.stochastic:
@@ -178,11 +224,43 @@ class CompiledModel:
         order (on a data axis, this rank's env: module docstring)."""
         env = dict(self.inputs)
         env.update({n: self._env_value(n, v) for n, v in state.items()})
+        wenv = self._whole_env(state)
         for name in self.model.topo:
             node = self.model.nodes[name]
             if isinstance(node, LogicalNode):
-                env[name] = self._call(node, env)
+                env[name] = self._logical(name, node, env, wenv)
         return env
+
+    def _whole_env(self, state: dict, skip=()):
+        """The whole values a recut logical reads that the env holds cut
+        (the named sampled sites of ``state``), or None without recut
+        logicals."""
+        if not self._recut:
+            return None
+        return {n: state[n] for n in self._env_dims
+                if n in state and n not in skip}
+
+    def _logical(self, name: str, node, env: dict, wenv):
+        """A logical node's value in a rank's env (module docstring): a
+        constant's stored value; a recut node computed from the whole
+        values ``wenv`` and cut; any other from ``env``.  Keeps in ``wenv``
+        the whole value of a constant or recut node."""
+        if name in self._consts:
+            value, whole = self._consts[name]
+            if wenv is not None:
+                wenv[name] = whole
+            return value
+        if name in self._recut:
+            whole = self._call_with(node, env, wenv)
+            wenv[name] = whole
+            dim = self._recut[name]
+            return whole if dim is None else self._block(whole, dim)
+        return self._call(node, env)
+
+    def _call_with(self, node, env, wenv):
+        with torch.device(self.device):
+            return node.fn(*[wenv[d] if d in wenv else env[d]
+                             for d in node.deps])
 
     def _node_dist(self, name: str, env: dict):
         return self._call(self.model.nodes[name], env)
@@ -287,27 +365,51 @@ class CompiledModel:
         def cut(name, x, k):
             return data_block(x, dims[name], k, size)
 
-        # the graph on every slice, on this host
-        envs, part_dists = [], []
-        for k in range(size):
-            e = {n: cut(n, v, k) if n in dims else v for n, v in arrays.items()}
-            for name in self.model.topo:
-                if isinstance(nodes[name], LogicalNode):
-                    e[name] = self._call_on_slice(name, e)
-            envs.append(e)
-            part_dists.append({n: self._call_on_slice(n, e)
-                               for n in self.stochastic})
-        sliced = dict(dims)
-        mixed = set()
-        for name in self.logical:
-            how = _classify(env[name], [e[name] for e in envs], tol)
-            if how == "mixed":
-                mixed.add(name)
-            elif how is not None:
-                sliced[name] = how
-        observed = self._data_sites()
-        reads = {n: sorted(d for d in nodes[n].deps if d in sliced or d in mixed)
-                 for n in self.stochastic}
+        # the graph on every slice, on this host, in topo order: how each
+        # node's slices relate to its whole value (``_classify``).  A node
+        # that is neither whole nor a slice ("mixed") but reads only
+        # constants (``const``) or only whole state values and constants
+        # (``run_whole``) is resolved: its whole value, cut where the
+        # slices' shape says (``_cut_dim``), as the rank will hold it
+        data = self._data_sites()
+        observed = set(self.model.keys("observed"))
+        const = {n: True for n in self.inputs}
+        run_whole = {n: n not in dims for n in self.inputs}
+        envs = [{n: cut(n, v, k) if n in dims else v
+                 for n, v in arrays.items()} for k in range(size)]
+        sliced, mixed, resolved, reads = dict(dims), set(), {}, {}
+        for name in self.model.topo:
+            node = nodes[name]
+            if isinstance(node, LogicalNode):
+                const[name] = all(const[d] for d in node.deps)
+                run_whole[name] = all(run_whole[d] for d in node.deps)
+                parts = [self._call_on_slice(name, e) for e in envs]
+                how = _classify(env[name], parts, tol)
+                if how == "mixed" and (const[name] or run_whole[name]):
+                    d = _cut_dim(env[name], parts)
+                    if d is not False:
+                        resolved[name] = d
+                        how = d
+                        parts = [env[name] if d is None else
+                                 data_block(env[name], d, k, size)
+                                 for k in range(size)]
+                for e, part in zip(envs, parts):
+                    e[name] = part
+                if how == "mixed":
+                    mixed.add(name)
+                elif how is not None:
+                    sliced[name] = how
+                continue
+            reads[name] = sorted(d for d in node.deps
+                                 if d in sliced or d in mixed)
+            const[name] = (name in observed
+                           and not bool(torch.isnan(example[name]).any()))
+            run_whole[name] = not (name in dims
+                                   and (name in data or reads[name]))
+        self._refuse_padded(mixed | set(resolved), resolved)
+        part_dists = [{n: self._call_on_slice(n, e) for n in self.stochastic}
+                      for e in envs]
+        observed = data
 
         # every term's parts against the whole, at the probe state
         for name in self.stochastic:
@@ -340,15 +442,24 @@ class CompiledModel:
                     f"not sum to its density: its distribution reads "
                     f"{reads[name]}, which a data rank holds in part (or "
                     f"computes from a part)")
-        bad = sorted(mixed & set(self.model.keys("monitor")))
-        if bad:
-            raise ValueError(
-                f"monitored nodes {bad} are neither whole nor a slice of the "
-                f"whole on a data rank, so their rows cannot be gathered; set "
-                f"monitor=False")
-
         # keep this rank's slices, as copies that own their memory
         r = comm.data_rank
+        owned = {n: d for n, d in resolved.items() if const[n]}
+        self._consts = {
+            n: (env[n] if d is None else data_block(env[n], d, r, size)
+                .clone(memory_format=torch.contiguous_format), env[n])
+            for n, d in owned.items()}
+        recut = {n: d for n, d in resolved.items() if n not in owned}
+        # a slice that a recut logical reads is computed from whole state
+        # values and constants too: it is recut as well (whole once, then cut)
+        recut.update({n: sliced[n] for n in _reads(self.model, recut)
+                      if n in self.logical_shapes and n in sliced
+                      and n not in resolved})
+        self._recut = recut
+        self.const_data = frozenset(
+            n for n in _reads(self.model, owned) if n in self.sites)
+        self._part_sites = {n: dims[n] for n in dims
+                            if n in self.sites and n not in data and reads[n]}
         self.inputs = {n: cut(n, v, r).clone(memory_format=torch.contiguous_format)
                        if n in dims else v for n, v in self.inputs.items()}
         self.local_dims = {n: d for n, d in sliced.items()
@@ -364,9 +475,31 @@ class CompiledModel:
                              for n in dims if n in self.sites}
         self._leaf_dims = {
             n: _leaf_dims(dists[n], [d[n] for d in part_dists], tol)
-            for n in self.local_state if reads[n]}
+            for n in (*self.local_state, *self._part_sites) if reads[n]}
         # the whole-mask plans of named sites hold whole constants
         self._plans = {n: p for n, p in self._plans.items() if n not in dims}
+
+    def padded_reads(self, name: str) -> list:
+        """The arrays that the data axis pads (``pads``) which node ``name``
+        reads, directly or through another logical."""
+        return sorted(n for n in _reads(self.model, [name]) if n in self.pads)
+
+    def _refuse_padded(self, nodes: set, resolved: dict) -> None:
+        """Raise, naming the node, for a node of ``nodes`` (neither whole
+        nor a slice on a data rank) that reads an array the data axis pads
+        and that the rank would compute whole: a resolved one, or one that
+        is monitored.  Its whole value would count the padded entries,
+        where the unsharded run has none."""
+        monitored = set(self.model.keys("monitor"))
+        for name in sorted(nodes):
+            padded = self.padded_reads(name)
+            if padded and (name in resolved or name in monitored):
+                raise ValueError(
+                    f"node {name!r} is computed from the whole of {padded}, "
+                    f"which the data axis pads to a length it divides: its "
+                    f"value would count the padded entries.  Give the data "
+                    f"axis a length it divides, or compute {name!r} from "
+                    f"whole values")
 
     def _probe_state(self, example: dict) -> dict:
         """The state at which ``_plan_views`` checks the parts: every
@@ -431,10 +564,12 @@ class CompiledModel:
 
         - ``("local", mask_plan)``: the distribution reads sliced values,
           so it is the slice's own; ``log_prob`` of the slice;
-        - ``("cut", from_right, lo, hi, length, mask_plan)``: an elementwise
+        - ``("cut", from_right, lo, hi, length, mask_plan, rows)``: a
           distribution with whole parameters, each parameter cut to entries
           lo..hi-1 of the site's data dim (``from_right`` dims from its
-          last) where it has the dim's whole ``length``;
+          last) where it has the dim's whole ``length``; ``rows``: a
+          multivariate law per row (the data dim among its batch dims,
+          its events whole), whose parameters carry event dims after it;
         - ``("range", lo, hi, consts, 0)``: a whole distribution whose one
           event splits along the data dim (``_mask_plan``'s range, the
           slice's values starting at 0);
@@ -450,16 +585,24 @@ class CompiledModel:
         if part_mask is not None and not part_mask.any():
             return ("zero",)
         if reads:
-            if name not in observed:
+            if name not in observed and whole.event_ndim > 0:
                 raise ValueError(
-                    f"sampled site {name!r} is named on the data axis, but "
-                    f"its distribution reads {reads}, which a data rank "
-                    f"holds in part: a sampled site on the data axis needs "
-                    f"a prior that reads whole values")
+                    f"sampled site {name!r} is named on the data axis and "
+                    f"its {type(whole).__name__} reads {reads}, which a data "
+                    f"rank holds in part: a sampled site whose prior reads "
+                    f"a slice needs an elementwise distribution, whose "
+                    f"bijector maps its slice alone")
             return ("local", self._mask_plan(name, part, part_mask))
         if whole.event_ndim <= 0:
             return ("cut", len(shape) - dim, lo, hi, shape[dim],
-                    self._mask_plan(name, whole, part_mask))
+                    self._mask_plan(name, whole, part_mask), False)
+        # a law per row: its batch dims hold the data dim, its events whole
+        rows = len(shape) - whole.event_ndim
+        batch = tuple(whole.batch_shape)
+        if (dim < rows and len(batch) >= rows - dim
+                and batch[len(batch) - (rows - dim)] == shape[dim]):
+            return ("cut", len(shape) - dim, lo, hi, shape[dim],
+                    self._mask_plan(name, whole, part_mask), True)
         if (len(shape) == whole.event_ndim
                 and getattr(whole, "event_split_dim", None) == dim):
             take = np.zeros(shape, dtype=bool)
@@ -516,16 +659,23 @@ class CompiledModel:
         return self._apply(self._plans.get(name), dist, value, support_mask)
 
     @staticmethod
-    def _cut_dist(dist, from_right: int, lo: int, hi: int, length: int):
-        """An elementwise distribution cut to entries lo..hi-1 of a dim
-        ``from_right`` dims from the value's last: every parameter that
-        has the dim's whole ``length`` there (by broadcasting) is cut."""
+    def _cut_dist(dist, from_right: int, lo: int, hi: int, length: int,
+                  rows: bool = False):
+        """A distribution cut to entries lo..hi-1 of a dim ``from_right``
+        dims from the value's last: every parameter that has the dim's
+        whole ``length`` there (by broadcasting) is cut.  ``rows``: the
+        parameters may carry event dims of their own after it (a matrix per
+        row), so the first such dim at or before that place is cut; the
+        compiler's check of the parts at the probe state refuses a wrong
+        cut."""
         leaves, rebuild = dist_flatten(dist)
         out = []
         for t in leaves:
-            ax = t.dim() - from_right
-            if ax >= 0 and t.shape[ax] == length:
-                t = t.narrow(ax, lo, hi - lo)
+            first = t.dim() - from_right
+            for ax in range(first, -1 if rows else first - 1, -1):
+                if ax >= 0 and t.shape[ax] == length:
+                    t = t.narrow(ax, lo, hi - lo)
+                    break
             out.append(t)
         return rebuild(out)
 
@@ -535,7 +685,8 @@ class CompiledModel:
         if plan[0] == "local":
             return self._apply(plan[1], dist, value, support_mask)
         if plan[0] == "cut":
-            return self._apply(plan[5], self._cut_dist(dist, *plan[1:5]),
+            return self._apply(plan[5], self._cut_dist(dist, *plan[1:5],
+                                                       plan[6]),
                                value, support_mask)
         return self._apply(plan, dist, value, support_mask)
 
@@ -609,13 +760,14 @@ class CompiledModel:
     def whole(self, name: str, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """The whole value of node ``name`` from this rank's ``x`` (``lead``
         dims before the node's own): a node it holds in part is gathered
-        over the data group (a collective); a node that is neither whole
-        nor a slice raises."""
+        over the data group (a collective).  A node that is neither whole
+        nor a slice (``mixed``) raises: ``WholeValues`` computes it again
+        from its parents' whole values."""
         if name in self.mixed:
             raise ValueError(
                 f"node {name!r} is computed from a data rank's slices and is "
-                f"neither whole nor a slice of the whole, so no rank can "
-                f"read it whole")
+                f"neither whole nor a slice of the whole: read it through "
+                f"WholeValues, which computes it from whole values")
         dim = self.local_dims.get(name)
         return x if dim is None else self.comm.gather_data(x, lead + dim)
 
@@ -652,7 +804,9 @@ class CompiledModel:
         - ``logf(flat, state) -> scalar``  (reference logpdf!, simulation.jl:77-90)
 
         With ``transform=True`` the flat vector is unconstrained and ``logf``
-        includes the log-Jacobian of the block's own sites.  With
+        includes the log-Jacobian of the block's own sites.  There a site
+        whose prior reads slices (``_part_sites``) is packed and unpacked
+        as this data rank's slice: chain-stacked, ``block_maps`` joins it.  With
         ``prior_only=True`` ``logf`` sums the params' own densities (and
         Jacobians) only, not their targets': the ABC sampler's log prior
         (reference abc.jl:46, 105-107).
@@ -670,11 +824,7 @@ class CompiledModel:
         lead = not split or self.comm.data_rank == 0
 
         def pack(state):
-            if not transform:
-                return spec.ravel({p: state[p] for p in params})
-            env = self._eval_env(state)
-            return spec.ravel({p: self._node_dist(p, env).bijector().inverse(
-                state[p]) for p in params})
+            return spec.ravel(self._flat_parts(params, transform, state))
 
         def _decode(flat, state):
             """Walk topo order decoding block sites (whose bijectors may
@@ -685,15 +835,27 @@ class CompiledModel:
             env = dict(self.inputs)
             env.update({n: self._env_value(n, v) for n, v in state.items()
                         if n not in pset})
+            wenv = self._whole_env(state, skip=pset)
             logdet = torch.zeros((), dtype=self.dtype, device=self.device)
+            part_logdet = torch.zeros_like(logdet)
             dists, values = {}, {}
             for name in self.model.topo:
                 node = self.model.nodes[name]
                 if isinstance(node, LogicalNode):
-                    env[name] = self._call(node, env)
+                    env[name] = self._logical(name, node, env, wenv)
                 elif name in pset:
                     dist = self._call(node, env)
                     dists[name] = dist
+                    dim = self._part_sites.get(name) if transform else None
+                    if dim is not None:
+                        # its prior reads slices, and so does its bijector:
+                        # the rank maps its slice, with its slice's Jacobian
+                        b = dist.bijector()
+                        u = self._block(parts[name], dim)
+                        values[name] = env[name] = b.forward(u)
+                        part_logdet = part_logdet + torch.sum(
+                            b.event_log_det(u, 0))
+                        continue
                     if transform:
                         b = dist.bijector()
                         u = parts[name]
@@ -703,16 +865,18 @@ class CompiledModel:
                     else:
                         values[name] = parts[name]
                     env[name] = self._env_value(name, values[name])
+                    if wenv is not None and name in self._env_dims:
+                        wenv[name] = values[name]
                 elif name in terms:
                     dists[name] = self._call(node, env)
-            return env, dists, logdet, values
+            return env, dists, logdet, part_logdet, values
 
         def unpack(flat, state):
-            return _decode(flat, state)[3]
+            return _decode(flat, state)[4]
 
         def logf(flat, state):
-            env, dists, logdet, _ = _decode(flat, state)
-            lp = logdet if lead else torch.zeros_like(logdet)
+            env, dists, logdet, part_logdet, _ = _decode(flat, state)
+            lp = (logdet if lead else torch.zeros_like(logdet)) + part_logdet
             for n in terms:
                 # a block site is in its support by construction in
                 # unconstrained space: no masking (keeps autodiff clean)
@@ -733,6 +897,46 @@ class CompiledModel:
         out = (pack, unpack, spec, logf)
         self._block_cache[key] = out
         return out
+
+    def _flat_parts(self, params, transform: bool, state: dict) -> dict:
+        """The block's values as its flat vector holds them, per site, from
+        ONE chain's state: unconstrained under ``transform``.  A site whose
+        prior reads slices (``_part_sites``) maps this rank's slice."""
+        if not transform:
+            return {p: state[p] for p in params}
+        env = self._eval_env(state)
+        out = {}
+        for p in params:
+            b = self._node_dist(p, env).bijector()
+            dim = self._part_sites.get(p)
+            out[p] = b.inverse(state[p] if dim is None
+                               else self._block(state[p], dim))
+        return out
+
+    def block_maps(self, params: tuple[str, ...], transform: bool,
+                   prior_only: bool = False):
+        """``(vpack, vunpack)``: ``block_functions``' pack and unpack on
+        chain-stacked states.  Under ``transform`` a site whose prior reads
+        slices (``_part_sites``) is mapped on each data rank's slice and
+        joined over the data group (a collective, outside ``vmap``), so
+        every rank holds the whole flat vector and the whole values."""
+        pack, unpack, spec, _ = self.block_functions(params, transform,
+                                                     prior_only)
+        joined = ({p: self._part_sites[p] + 1 for p in params
+                   if p in self._part_sites} if transform else {})
+        vunpack = torch.func.vmap(unpack)
+        if not joined:
+            return torch.func.vmap(pack), vunpack
+
+        def join(values):
+            return {p: self.comm.gather_data(v, joined[p]) if p in joined
+                    else v for p, v in values.items()}
+
+        vparts = torch.func.vmap(
+            lambda st: self._flat_parts(tuple(params), True, st))
+        vravel = torch.func.vmap(spec.ravel)
+        return (lambda state: vravel(join(vparts(state))),
+                lambda x, state: join(vunpack(x, state)))
 
     # ---- forward (generative) sampling --------------------------------
     def forward_sample(self, gen, state: dict, names=None) -> dict:
@@ -755,7 +959,7 @@ class CompiledModel:
                 continue
             dist = self.stacked_node_dist(name, out)
             part = name in self.local_dims
-            if part:
+            if part or name in self._leaf_dims:
                 dist = self._whole_stacked(name, dist)
             target = tuple(self.sites[name].shape)
             stacked = bool(dist_flatten(dist)[0])
@@ -778,10 +982,10 @@ class CompiledModel:
         return out
 
     def _whole_stacked(self, name: str, dist):
-        """The chain-stacked distribution of a site this rank holds in part,
-        at the site's whole shape: parameters that are slices are gathered
-        over the data group (a distribution with whole parameters is
-        already whole)."""
+        """The chain-stacked distribution of a site this rank holds in part
+        (or a named sampled site whose prior reads slices), at the site's
+        whole shape: parameters that are slices are gathered over the data
+        group (a distribution with whole parameters is already whole)."""
         dims = self._leaf_dims.get(name)
         if dims is None:
             return dist
@@ -834,7 +1038,11 @@ class CompiledModel:
             vals = self.eval_logicals(state)
             # Julia column-major flatten for >1-d arrays
             flat = []
-            for n, _, idx, local, _ in selections:
+            for n, _, idx, local, width in selections:
+                if n in self.mixed:     # filled whole by ``monitor_rows``
+                    flat.append(torch.zeros((width,), dtype=self.dtype,
+                                            device=self.device))
+                    continue
                 v = _column_major(vals[n]).to(self.dtype)
                 if idx is not None and local is None:
                     v = v[idx]
@@ -843,6 +1051,31 @@ class CompiledModel:
                     else torch.zeros((0,), dtype=self.dtype, device=self.device))
 
         return tuple(s[0] for s in selections), labels, pack_monitored
+
+    def monitor_rows(self):
+        """``rows(state) -> (C, width)``: ``pack_monitored`` of every chain
+        of a chain-stacked state.  A monitored node that is neither whole
+        nor a slice on a data rank (``mixed``) is computed again whole from
+        its parents' whole values outside ``vmap`` (``WholeValues``, a
+        collective), in the unsharded run's columns."""
+        selections = self._monitor_selections()
+        _, _, pack = self.monitor_spec()
+        vpack = torch.func.vmap(pack)
+        if not any(s[0] in self.mixed for s in selections):
+            return vpack
+
+        def rows(state):
+            out = vpack(state)
+            values = WholeValues(self, self.inputs,
+                                 torch.func.vmap(self.eval_logicals)(state))
+            at = 0
+            for n, _, idx, _, width in selections:
+                if n in self.mixed:
+                    v = torch.func.vmap(_column_major)(values[n]).to(self.dtype)
+                    out[:, at:at + width] = v if idx is None else v[:, idx]
+                at += width
+            return out
+        return rows
 
     def monitor_width(self) -> int:
         """The length of a ``pack_monitored`` row on this rank."""
@@ -912,6 +1145,37 @@ def _classify(whole, parts, tol: float):
     return diff[0] if _close(torch.cat(parts, diff[0]), whole, tol) else "mixed"
 
 
+def _cut_dim(whole, parts):
+    """How a resolved node's whole value is cut for the data ranks whose
+    own computation gave ``parts``: None (whole) if they have its shape,
+    the one dim where their shapes are an equal split of it, else False."""
+    whole = torch.as_tensor(whole)
+    shapes = {tuple(torch.as_tensor(p).shape) for p in parts}
+    if shapes == {tuple(whole.shape)}:
+        return None
+    if len(shapes) != 1:
+        return False
+    (shape,) = shapes
+    diff = [d for d in range(whole.dim()) if len(shape) == whole.dim()
+            and shape[d] != whole.shape[d]]
+    if len(diff) != 1 or shape[diff[0]] * len(parts) != whole.shape[diff[0]]:
+        return False
+    return diff[0]
+
+
+def _reads(model, names) -> set:
+    """Every node that the logicals ``names`` read, directly or through
+    another logical."""
+    out, todo = set(), list(names)
+    while todo:
+        for d in model.nodes[todo.pop()].deps:
+            if d not in out:
+                out.add(d)
+                if isinstance(model.nodes.get(d), LogicalNode):
+                    todo.append(d)
+    return out
+
+
 def _leaf_dims(whole, parts, tol: float) -> list:
     """Per parameter of a distribution (``dist_flatten``'s leaves): the dim
     along which the slices' parameters ``parts`` are blocks of the whole
@@ -943,10 +1207,13 @@ def _identity(*tensors):
 def compile_model(model: Model, inputs: dict, inits: dict, *, device,
                   dtype=None, masks: dict | None = None,
                   comm: MeshComm | None = None,
-                  site_specs: dict | None = None) -> CompiledModel:
+                  site_specs: dict | None = None,
+                  pads: dict | None = None) -> CompiledModel:
     """Compile ``model`` for ``device`` (required: nothing defaults to the
     CPU).  ``dtype`` defaults to float64 on the CPU and float32 elsewhere.
-    ``comm`` and ``site_specs`` place it on a rank of a mesh (``mcmc``
+    ``comm`` and ``site_specs`` place it on a rank of a mesh, and ``pads``
+    gives the lengths as given of the dims its data axis padded (``mcmc``
     passes them)."""
     return CompiledModel(model, inputs, inits, device=device, dtype=dtype,
-                         masks=masks, comm=comm, site_specs=site_specs)
+                         masks=masks, comm=comm, site_specs=site_specs,
+                         pads=pads)

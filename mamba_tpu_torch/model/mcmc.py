@@ -35,10 +35,13 @@ read the whole flat vector; the density reads its slice.  Every rank
 returns the full ModelChains: the kept rows are gathered over the data
 group (the rows of nodes a rank holds in part) and over the chain axis.
 The resume state is the rank's own, so ``mcmc(mc, iters)`` continues on
-the same mesh.  On a CUDA device ``timing`` also gives the rise of the
-run's peak allocated memory over what was allocated at its start
-(``peak_rise_bytes``): the run resets the device's peak statistics
-(``torch.cuda.reset_peak_memory_stats``) when it starts.
+the same mesh; ``write_chains`` writes it whole, and the file restarts on
+one device from chain rank 0's generator state, for every chain (the JAX
+package's keys are per chain, so its continuation is the same stream on
+any layout; the port's is not).  On a CUDA device ``timing`` also gives
+the rise of the run's peak allocated memory over what was allocated at
+its start (``peak_rise_bytes``): the run resets the device's peak
+statistics (``torch.cuda.reset_peak_memory_stats``) when it starts.
 """
 
 from __future__ import annotations
@@ -71,6 +74,14 @@ def _chain_inits(cm: CompiledModel, inits, chains: int, first: int = 0):
                 raise ValueError(f"chain {k}: no init for stochastic node {name!r}")
             row = np.broadcast_to(np.asarray(d[name], dtype=np.float64),
                                   cm.sites[name].shape)
+            given = cm.example_values.get(name)
+            if name in cm.const_data and not np.array_equal(
+                    row.astype(given.dtype), given, equal_nan=True):
+                raise ValueError(
+                    f"chain {k}: the data {name!r} differ from the first "
+                    f"init's, which a data rank's constants were computed "
+                    f"from once (model/compile.py); give every chain the "
+                    f"same data")
             # NaN inits mark missing data (reference MISS semantics,
             # miss.jl:44-52); every data rank finds them in the whole value
             if name not in nan_sites and np.isnan(row).any():
@@ -118,8 +129,8 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
     """Warmup then kept iterations; returns the final (state, tunes), the
     monitored labels, the kept rows (n_kept, npar, chains) of every chain
     rank on the host and the timing split."""
-    _, labels, pack_monitored = cm.monitor_spec()
-    pack_rows = torch.func.vmap(pack_monitored)
+    _, labels, _ = cm.monitor_spec()
+    pack_rows = cm.monitor_rows()
     chains = next(iter(state.values())).shape[0]
     rows = torch.empty((n_kept, cm.monitor_width(), chains), dtype=cm.dtype,
                        device=cm.device)
@@ -211,13 +222,14 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
 
     mem0 = _memory_start(torch.device(device))
     t_setup0 = time.perf_counter()
-    masks = None
+    masks = pads = None
     if mesh is not None and site_specs:
-        inputs, inits, masks = _pad_sharded(model, mesh, site_specs,
-                                            inputs or {}, inits)
+        inputs, inits, masks, pads = _pad_sharded(model, mesh, site_specs,
+                                                  inputs or {}, inits)
     ex_inits = inits[0] if isinstance(inits, list) else inits
     cm = compile_model(model, inputs, ex_inits, device=device, dtype=dtype,
-                       masks=masks, comm=comm, site_specs=site_specs)
+                       masks=masks, comm=comm, site_specs=site_specs,
+                       pads=pads)
     kernels = _build_kernels(cm)
     state0 = _chain_inits(cm, inits, local, first=comm.chain_rank * local)
     gen = torch.Generator(device=cm.device)
@@ -248,9 +260,10 @@ def _pad_sharded(model, mesh, site_specs, inputs, inits):
     """Edge-pad every array that ``site_specs`` shards on a dim its mesh
     axes do not divide, and mask the padded entries of stochastic sites
     out of the likelihood (the JAX package's mcmc, model/mcmc.py:366-412).
-    Returns the padded inputs and inits and the masks."""
-    inputs, _ = pad_axes(mesh, site_specs, inputs)
-    padded, pads = [], {}
+    Returns the padded inputs and inits, the masks, and per padded input
+    or site each padded dim's length as given."""
+    inputs, pads = pad_axes(mesh, site_specs, inputs)
+    padded = []
     for d in (inits if isinstance(inits, list) else [inits]):
         pd, pads_d = pad_axes(mesh, site_specs, d)
         padded.append(pd)
@@ -273,7 +286,8 @@ def _pad_sharded(model, mesh, site_specs, inputs, inits):
             f"axis divisible or shard a different dimension.")
     masks = {n: pad_mask(np.asarray(padded[0][n]).shape, p)
              for n, p in pads.items() if n in stoch}
-    return inputs, padded, masks
+    given = {n: {d: g for d, (g, _) in p.items()} for n, p in pads.items()}
+    return inputs, padded, masks, given
 
 
 def _meter(verbose, progress, total, chains):

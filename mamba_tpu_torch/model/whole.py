@@ -1,0 +1,55 @@
+"""A compiled model's nodes as a reader outside the vmapped density reads
+them: whole, on a mesh's data axis too (``WholeValues``)."""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import torch
+
+
+class WholeValues(Mapping):
+    """Every node's value as a reader outside the vmapped density reads it
+    (a Gibbs or custom block, a monitor): whole.  A value that this data
+    rank holds in part (``cm.local_dims``) is gathered over the data group
+    when it is first read; one that is neither whole nor a slice
+    (``cm.mixed``) is computed again from its parents' whole values, each
+    gathered or computed again in turn, and raises, naming it, where it
+    reads an array the data axis pads (``cm.pads``).  These are
+    collectives: every data rank runs the same reader on the same stream,
+    so all read the same keys in the same order.  Inputs are unstacked,
+    every other value chain-stacked."""
+
+    def __init__(self, cm, inputs: dict, nodes: dict):
+        self._cm, self._inputs, self._nodes = cm, inputs, nodes
+        self._whole: dict = {}
+
+    def __getitem__(self, name):
+        if name not in self._whole:
+            cm = self._cm
+            if name in cm.mixed:
+                padded = cm.padded_reads(name)
+                if padded:
+                    raise ValueError(
+                        f"node {name!r} is computed from the whole of "
+                        f"{padded}, which the data axis pads: its whole value "
+                        f"would count the padded entries")
+                node = cm.model.nodes[name]
+                args = [self[d] for d in node.deps]
+                dims = tuple(None if d in self._inputs and d not in self._nodes
+                             else 0 for d in node.deps)
+                with torch.device(cm.device):
+                    value = torch.func.vmap(node.fn, in_dims=dims)(*args)
+            elif name in self._nodes:
+                value = cm.whole(name, self._nodes[name], 1)
+            else:
+                value = cm.whole(name, self._inputs[name])
+            self._whole[name] = value
+        return self._whole[name]
+
+    def __iter__(self):
+        yield from self._inputs
+        yield from (n for n in self._nodes if n not in self._inputs)
+
+    def __len__(self):
+        return len(set(self._inputs) | set(self._nodes))

@@ -9,11 +9,15 @@ tunes and the random generator's state, every tensor moved to the CPU), and
 names to restore restartability — the same information the reference's
 ModelState snapshots carry (src/Mamba.jl:152-155).
 
-A run sharded over a mesh writes every chain's draws but only its own
-rank's resume state: its chains, and on a data axis its slices of the
-sites it holds in part, with the layout that cut them (``shard``).  Its
-file reads back as draws, and restarting it raises: such a run restarts in
-memory, on its mesh and its data layout.
+A run sharded over a mesh writes one file, as the JAX package writes its
+global arrays whole: ``write_chains`` is then a collective that every rank
+calls, and global rank 0 writes the draws (every rank holds them whole),
+the resume state as one device would hold it (every chain, every site at
+the unsharded run's shapes, the edge padding of a data axis dropped:
+``MeshComm.gather_leaf``) and every chain rank's generator state in rank
+order (``rngs``).  ``read_chains`` compiles the model unsharded from the
+whole inputs the caller passes, and ``mcmc(mc, iters)`` continues it on
+one device from chain rank 0's generator state, for every chain.
 """
 
 from __future__ import annotations
@@ -42,42 +46,84 @@ def _tree_map(fn, x):
 
 def write_chains(path: str, c: Chains) -> None:
     """Persist a Chains/ModelChains (draws, range, names, resume state —
-    not the model object itself)."""
+    not the model object itself).  For a ModelChains of a run sharded over
+    a mesh, a collective: every rank calls it, and global rank 0 writes
+    the one file (module docstring)."""
     payload = {
         "value": np.asarray(c.value), "start": c.start, "thin": c.thin,
         "names": c.names, "chains": c.chains,
     }
+    sharded = isinstance(c, ModelChains) and c.compiled is not None \
+        and c.compiled.comm.sharded
     if isinstance(c, ModelChains):
         payload["iter"] = c.iter
         if c.states is not None:
-            payload["states"] = _tree_map(lambda t: t.detach().cpu(), c.states)
+            states = c.states
+            if sharded:
+                payload["rngs"] = c.compiled.comm.gather_generators(
+                    states["rng"])
+                states = {**_whole_states(c), "rng": payload["rngs"][0]}
+            payload["states"] = _tree_map(lambda t: t.detach().cpu(), states)
             payload["device"] = c.compiled.device.type
             payload["dtype"] = str(c.compiled.dtype).removeprefix("torch.")
-            if c.compiled.comm.sharded:
-                payload["shard"] = _shard_record(c)
+    if not sharded:
+        _dump(path, payload)
+        return
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        _dump(path, payload)
+    dist.barrier()
+
+
+def _dump(path: str, payload: dict) -> None:
     with open(path, "wb") as f:
         pickle.dump(payload, f)
 
 
-def _shard_record(mc) -> dict:
-    """A sharded rank's coordinates, and the data layout of its resume
-    state: for every site it holds in part, the dim and the shape of its
-    slice."""
-    cm = mc.compiled
-    state = mc.states["state"]
-    return {**cm.comm.shard_state(),
-            "local": {n: {"dim": cm.local_dims[n],
-                          "shape": list(state[n].shape[1:])}
-                      for n in sorted(cm.local_state)}}
+def _whole_states(mc) -> dict:
+    """The resume state of a sharded run's rank as one device would hold
+    it (``MeshComm.gather_leaf`` leaf by leaf): every chain of every site,
+    each site this data rank holds in part joined over the data group and
+    its edge padding (``CompiledModel.pads``) dropped; the fields a tune
+    holds per chain (its type's ``CHAIN_LEAVES``) joined over the chain
+    ranks, and every other leaf, which every rank holds equally, kept
+    once; not the generator state."""
+    cm, st = mc.compiled, mc.states
+    comm = cm.comm
+    state = st["state"]
+    chains = next(iter(state.values())).shape[0]
+    whole = {}
+    for n, v in state.items():
+        dim = cm.local_dims.get(n) if n in cm.local_state else None
+        v = comm.gather_leaf(v, f"state[{n!r}]", chains,
+                             None if dim is None else dim + 1)
+        for d, length in cm.pads.get(n, {}).items():
+            v = v.narrow(d + 1, 0, length)
+        whole[n] = v.clone(memory_format=torch.contiguous_format)
+
+    def tree(x, label, per_chain=False):
+        if isinstance(x, dict):
+            return {k: tree(v, f"{label}[{k!r}]") for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            lead = getattr(type(x), "CHAIN_LEAVES", ())
+            return type(x)(*(tree(v, f"{label}.{f}", f in lead)
+                             for f, v in zip(x._fields, x)))
+        if isinstance(x, (tuple, list)):
+            return type(x)(tree(v, f"{label}[{i}]") for i, v in enumerate(x))
+        return comm.gather_leaf(x, label, chains if per_chain else None)
+
+    return {"state": whole, "tunes": tree(st["tunes"], "tunes"),
+            "burnin": st["burnin"]}
 
 
 def read_chains(path: str, model=None, inputs=None, *, device=None,
                 dtype=None):
     """Load chains written by ``write_chains`` (a file this program wrote:
     unpickling runs code).  Pass the Model, its inputs and a ``device`` to
-    get a restartable ModelChains back; otherwise a plain Chains.  ``dtype``
-    defaults to the one the run was written with.  A generator state only
-    seeds a generator of the device type that wrote it."""
+    get a restartable ModelChains back; otherwise a plain Chains.  The file
+    of a sharded run compiles unsharded here, from the whole inputs.
+    ``dtype`` defaults to the one the run was written with.  A generator
+    state only seeds a generator of the device type that wrote it."""
     with open(path, "rb") as f:
         p = pickle.load(f)
     if model is None:

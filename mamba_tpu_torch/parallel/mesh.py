@@ -264,7 +264,10 @@ class MeshComm:
     - ``data_sum``: the parts of a split density, summed over the data
       group;
     - ``gather_data``: the slices of the data group's ranks, joined in
-      data-rank order: the whole value.
+      data-rank order: the whole value;
+    - ``gather_leaf``/``gather_generators``: a leaf of a resume state and
+      the chain ranks' generator states, as one device would hold them
+      (``output.fileio.write_chains``).
 
     The chain axis's ranks hold the same number of chains."""
 
@@ -348,10 +351,13 @@ class MeshComm:
 
     def _gather(self, group, size, x, dim):
         """Every rank's ``x`` of ``group`` joined along ``dim`` in rank
-        order (staged through the host under gloo)."""
+        order (staged through the host under gloo; a host tensor goes to
+        the card under NCCL)."""
         buf = x.movedim(dim, 0).contiguous()
         if self._staged(group):
             buf = buf.cpu()
+        elif buf.device.type == "cpu":
+            buf = buf.cuda()
         parts = [torch.empty_like(buf) for _ in range(size)]
         dist.all_gather(parts, buf, group=group)
         return torch.cat(parts).to(x.device).movedim(0, dim)
@@ -379,7 +385,69 @@ class MeshComm:
         dist.broadcast(buf, src=dist.get_global_rank(g, 0), group=g)
         return buf.to(x.device)
 
-    def shard_state(self) -> dict:
-        """This rank's coordinates, as chain files record them."""
-        return {"chain_rank": self.chain_rank, "chain_size": self.chain_size,
-                "data_rank": self.data_rank, "data_size": self.data_size}
+    # ---- a resume state, whole ----------------------------------------
+    def _agree(self, group, size, x, label: str) -> None:
+        """Raise, naming ``label``, unless every rank of ``group`` holds the
+        same ``x`` (a tensor, NaN equal to NaN, or a Python value).  Every
+        rank sees the same gathered values, so all raise together."""
+        if size == 1:
+            return
+        if isinstance(x, torch.Tensor):
+            every = self._gather(group, size, x[None], 0).to(x.device)
+            same = all(_same(p, x) for p in every)
+        else:
+            every = [None] * size
+            dist.all_gather_object(every, x, group=group)
+            same = all(p == x for p in every)
+        if not same:
+            raise ValueError(f"the ranks of the mesh disagree on {label}, "
+                             f"which every rank should hold equally")
+
+    def gather_leaf(self, x, label: str, chains: int | None = None,
+                    data_dim=None):
+        """One leaf of a rank's resume state as one device would hold it:
+
+        - ``data_dim`` given (a site this data rank holds in part): the
+          slices joined over the data group along that dim;
+        - ``chains`` given (a leaf held per chain: a site's value, a tune's
+          ``CHAIN_LEAVES``): a tensor led by the rank's ``chains`` rows,
+          joined over the chain group in chain-rank order; any other shape
+          raises, naming ``label``;
+        - neither (ChEES's agreed step size and mass matrix, a Slice
+          width, a Python number): held equally by every rank, and kept
+          once.
+
+        Every leaf not cut by the data axis is checked to agree over the
+        data group, and a leaf not held per chain over the chain group
+        too; a disagreement raises, naming ``label``.  A collective: every
+        rank calls it, leaf for leaf in the same order."""
+        if data_dim is not None:
+            x = self.gather_data(x, data_dim)
+        else:
+            self._agree(self._data_group, self.data_size, x, label)
+        if chains is None:
+            self._agree(self._chain_group, self.chain_size, x, label)
+            return x
+        if not (isinstance(x, torch.Tensor) and x.dim()
+                and x.shape[0] == chains):
+            raise ValueError(f"{label} is held per chain, but its shape "
+                             f"{tuple(np.shape(x))} is not led by the "
+                             f"rank's {chains} chains")
+        return self.gather_chains(x, 0)
+
+    def gather_generators(self, state: torch.Tensor) -> list:
+        """Every chain rank's generator state (a byte tensor), in chain-rank
+        order."""
+        if self.chain_size == 1:
+            return [state]
+        every = self._gather(self._chain_group, self.chain_size, state[None], 0)
+        return [s.cpu().clone() for s in every]
+
+
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same values (NaN equal to NaN)."""
+    if a.shape != b.shape:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())

@@ -44,6 +44,9 @@ class ABCTune(NamedTuple):
     Tsim: torch.Tensor          # (C, nsim, Tdim) summaries at the current values
     epsilon: torch.Tensor       # (C, nsim) tolerances
     epsilonprime: torch.Tensor  # (C, nsim) randomized tolerances
+    #: the fields held per chain, chain axis first (a sharded run's chain
+    #: file joins them over the chain ranks: ``output.fileio``)
+    CHAIN_LEAVES = ("Tsim", "epsilon", "epsilonprime")
 
 
 def _default_dist(Tsim, Tobs):
@@ -100,9 +103,9 @@ class ABC(SamplerSpec):
         self.randeps = bool(randeps)
 
     def build(self, cm) -> BlockKernel:
-        pack, unpack, _, logf_prior = cm.block_functions(
+        _, _, _, logf_prior = cm.block_functions(
             self.params, True, prior_only=True)
-        vpack, vunpack = torch.func.vmap(pack), torch.func.vmap(unpack)
+        vpack, vunpack = cm.block_maps(self.params, True, prior_only=True)
         vprior = summed(torch.func.vmap(logf_prior),
                         cm.block_sum(self.params, prior_only=True))
         # data nodes: the block's stochastic targets, minus the block

@@ -33,6 +33,9 @@ class AMMTune(NamedTuple):
     m: torch.Tensor         # (C,) int32 adaptation steps so far
     beta: float
     scale: float
+    #: the fields held per chain, chain axis first (a sharded run's chain
+    #: file joins them over the chain ranks: ``output.fileio``)
+    CHAIN_LEAVES = ("SigmaL", "SigmaLm", "Mv", "Mvv", "m")
 
 
 def amm_init(x0, Sigma, beta: float = 0.05, scale: float = 2.38) -> AMMTune:

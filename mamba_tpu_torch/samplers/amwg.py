@@ -29,6 +29,9 @@ class AMWGTune(NamedTuple):
     m: int                # adaptation iterations so far
     batchsize: int
     target: float
+    #: the fields held per chain, chain axis first (a sharded run's chain
+    #: file joins them over the chain ranks: ``output.fileio``)
+    CHAIN_LEAVES = ("sigma", "accept")
 
 
 def amwg_init(x0, sigma, batchsize: int = 50, target: float = 0.44) -> AMWGTune:

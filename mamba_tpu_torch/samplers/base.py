@@ -94,9 +94,8 @@ class SamplerSpec:
         capture (DGS's rule).  So does every block built under
         ``utils.graphs.disabled()``.  A chain-axis-only mesh has no
         collective inside a leapfrog, and replays."""
-        pack, unpack, spec, logf = cm.block_functions(self.params, self.transform)
-        vpack = torch.func.vmap(pack)
-        vunpack = torch.func.vmap(unpack)
+        _, _, _, logf = cm.block_functions(self.params, self.transform)
+        vpack, vunpack = cm.block_maps(self.params, self.transform)
         total = cm.block_sum(self.params)
 
         if self.needs_grad:

@@ -80,6 +80,9 @@ class BHMCTune(NamedTuple):
     velocity: torch.Tensor      # (C, n)
     wallhits: torch.Tensor      # (C,) int32, summed over trajectories
     wallcrosses: torch.Tensor   # (C,) int32
+    #: the fields held per chain, chain axis first (a sharded run's chain
+    #: file joins them over the chain ranks: ``output.fileio``)
+    CHAIN_LEAVES = ("position", "velocity", "wallhits", "wallcrosses")
 
 
 def bhmc_init(gen, x0, traveltime) -> BHMCTune:
@@ -234,6 +237,9 @@ class BIATune(NamedTuple):
     decay: float
     target: float
     iter: int
+    #: the fields held per chain, chain axis first (a sharded run's chain
+    #: file joins them over the chain ranks: ``output.fileio``)
+    CHAIN_LEAVES = ("A", "D")
 
 
 def bia_init(x0, A=None, D=None, epsilon=None, decay: float = 0.55,

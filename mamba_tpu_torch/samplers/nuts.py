@@ -72,6 +72,11 @@ class NUTSTune(NamedTuple):
     window: torch.Tensor
 
 
+#: every field is held per chain (a sharded run's chain file joins them over
+#: the chain ranks: ``output.fileio``)
+NUTSTune.CHAIN_LEAVES = NUTSTune._fields
+
+
 def _col(v):
     return v[:, None]
 

@@ -34,7 +34,7 @@ from mamba_tpu_torch.models import glmm as tglmm, line as tline, rats as trats
 from mamba_tpu_torch.parallel.launch import run_ranks
 from mamba_tpu_torch.parallel.mesh import (data_block, data_dim, make_mesh,
                                            pad_axes, pad_mask)
-from mamba_tpu_torch.samplers.custom import WholeValues
+from mamba_tpu_torch.model.whole import WholeValues
 
 torch.set_num_threads(2)
 
@@ -94,6 +94,9 @@ RATS_SPECS = {"y": ("data",), "alpha": ("data",), "beta": ("data",)}
 GLMM_Y = {"y": (None, "data")}
 GLMM_LOCAL = {"y": (None, "data"), "xt": (None, None, "data"), "z": ("data",)}
 GLMM_GENERIC = {"y": ("data", None), "x": ("data", None, None), "z": ("data",)}
+LINE6_SPECS = {"y": ("data",), "xmat": ("data", None)}
+U_SPECS = {**LINE6_SPECS, "w": ("data",), "lo": ("data",), "u": ("data",)}
+BIRATS_SPECS = {"Y": ("data", None), "beta": ("data", None)}
 G, C = 40, 3
 
 
@@ -111,6 +114,75 @@ def _rats(pkg):
     return model, inputs, inits[0], None
 
 
+def _xp(pkg):
+    """The array module of a package's model lambdas."""
+    if pkg is tmt:
+        return torch
+    import jax.numpy as jnp
+    return jnp
+
+
+def _six(pkg, extra=None, inits=None, samplers=()):
+    """line on six points (the data axis divides them, no padding), with
+    ``extra(pkg)``'s nodes added, their inits and Slice samplers."""
+    model, inputs, init = pkg.models.line.build()
+    init = dict(init[0], y=np.array([1.0, 3.0, 3.0, 3.0, 5.0, 6.0]),
+                **(inits or {}))
+    inputs = dict(inputs, xmat=np.stack([np.ones(6), np.arange(1.0, 7.0)], 1),
+                  w=np.linspace(-0.6, 0.9, 6), lo=np.linspace(-1.0, 0.5, 6))
+    model = pkg.Model(**{**model.nodes, **(extra(pkg) if extra else {})})
+    model.set_samplers([pkg.NUTS("beta"), pkg.Slice("s2", 3.0)]
+                       + [pkg.Slice(n, 1.0) for n in samplers])
+    return model, inputs, init, None
+
+
+def _line_tau(pkg):
+    """(iv) tau's prior reads mean(y), y observed with no missing entry: a
+    constant, evaluated whole once."""
+    xp = _xp(pkg)
+    return _six(pkg, lambda pkg: dict(
+        ybar=pkg.Logical(lambda y: xp.mean(y), monitor=False),
+        tau=pkg.Stochastic(lambda ybar: pkg.Normal(ybar, 1.0))),
+        {"tau": 0.5}, ["tau"])
+
+
+def _line_u(truncated):
+    """(i) u (6,) named on the data axis, its prior reading w (and lo), a
+    slice: Normal(w, 1), or Truncated(Normal(w, 1), lo, inf), whose
+    bijector reads the slice lo."""
+    def build(pkg):
+        def u(pkg):
+            if truncated:
+                return dict(u=pkg.Stochastic(1, lambda w, lo: pkg.Truncated(
+                    pkg.Normal(w, 1.0), lo, float("inf")), monitor=False))
+            return dict(u=pkg.Stochastic(1, lambda w: pkg.Normal(w, 1.0),
+                                         monitor=False))
+        return _six(pkg, u, {"u": np.linspace(4.0, 5.5, 6)}, ["u"])
+    return build
+
+
+def _rats_centred(pkg):
+    """(iv) y reads alpha - mean(alpha): alpha is a named sampled site,
+    whole in the state, so the logical is computed whole and cut."""
+    xp = _xp(pkg)
+    model, inputs, inits, _ = _rats(pkg)
+    centred = pkg.Model(**{
+        **model.nodes,
+        "alpha_c": pkg.Logical(1, lambda alpha: alpha - xp.mean(alpha),
+                               monitor=False),
+        "y": pkg.Stochastic(2, lambda alpha_c, beta, Xm, s2_c: pkg.Normal(
+            alpha_c[:, None] + beta[:, None] * Xm[None, :], xp.sqrt(s2_c)),
+            monitor=False)})
+    centred.set_samplers(model.samplers)
+    return centred, inputs, inits, None
+
+
+def _birats(pkg):
+    """(ii) beta (30, 2) ~ MvNormal per row, Y and beta named at dim 0."""
+    model, inputs, inits = pkg.models.birats.build()
+    return model, inputs, inits[0], None
+
+
 def _glmm(fused):
     def build(pkg):
         model, inputs, inits, _ = pkg.models.glmm.build(G=G, n=10, seed=2,
@@ -125,10 +197,10 @@ def _states(init, rng):
     out = {}
     for k, v in init.items():
         v = np.asarray(v, dtype=float)
-        if k == "y":
+        if k in ("y", "Y"):
             out[k] = np.broadcast_to(v, (C,) + v.shape).copy()
-        elif k.startswith("s2"):
-            out[k] = v * rng.gamma(4.0, 0.25, size=(C,) + v.shape)
+        elif k.startswith("s2") or k in ("Sigma", "sigma2C"):
+            out[k] = v * rng.gamma(4.0, 0.25, size=(C,) + (1,) * v.ndim)
         else:
             out[k] = v + rng.normal(size=(C,) + v.shape)
     return out
@@ -147,6 +219,18 @@ CASES = {
                          {"y": (C, 10, 20), "xt": (4, 10, 20), "z": (C, G)}),
     "glmm_generic": (_glmm(False), GLMM_GENERIC, ("beta", "z", "s2"),
                      {"y": (C, 20, 10), "x": (20, 10, 4), "z": (C, G)}),
+    # what the compiler refused before local views resolved it
+    "line_tau": (_line_tau, LINE6_SPECS, ("beta", "s2", "tau"),
+                 {"y": (C, 3), "tau": (C,)}),
+    "line_u": (_line_u(False), U_SPECS, ("beta", "s2", "u"),
+               {"y": (C, 3), "w": (3,), "u": (C, 6)}),
+    "line_u_trunc": (_line_u(True), U_SPECS, ("beta", "s2", "u"),
+                     {"y": (C, 3), "w": (3,), "lo": (3,), "u": (C, 6)}),
+    "rats_centred": (_rats_centred, RATS_SPECS,
+                     ("alpha", "beta", "mu_alpha", "mu_beta"),
+                     {"y": (C, 15, 5), "alpha": (C, 30)}),
+    "birats": (_birats, BIRATS_SPECS, ("beta", "mu_beta", "Sigma"),
+               {"Y": (C, 15, 5), "beta": (C, 30, 2)}),
 }
 
 
@@ -181,25 +265,51 @@ def test_each_rank_holds_only_its_slices(case):
                 torch.cat([cm.inputs[k] for cm in ranks], d), whole.inputs[k])
 
 
-def _block(cm, block, state, transform):
+def _block(cm, block, state, transform, x=None):
     pack, _, _, logf = cm.block_functions(block, transform)
-    x = torch.func.vmap(pack)(state)
+    if x is None:
+        x = torch.func.vmap(pack)(state)
     g, v = torch.func.vmap(torch.func.grad_and_value(logf))(x, state)
     return x, v, g
 
 
+def _joined(ranks, values, transform):
+    """``block_maps``' join over the data group, done by hand: each rank's
+    ``values`` (block site -> chain-stacked), a site whose prior reads
+    slices joined along its dim under ``transform``."""
+    out = {}
+    for p in values[0]:
+        d = ranks[0]._part_sites.get(p) if transform else None
+        out[p] = (values[0][p] if d is None
+                  else torch.cat([v[p] for v in values], d + 1))
+    return out
+
+
 @pytest.mark.parametrize("case, transform", [
-    (c, True) for c in CASES] + [("line", False), ("rats", False)])
+    (c, True) for c in CASES] + [("line", False), ("rats", False),
+                                 ("line_u_trunc", False)])
 def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
     """Each rank's block density and gradient from its local state, summed
     over the ranks: the port's whole model's (1e-12) and the JAX
-    package's compiled block density (1e-10)."""
+    package's compiled block density (1e-10).  Every rank packs and
+    unpacks the whole flat vector (a site whose prior reads slices: each
+    rank its slice, joined)."""
     whole, ranks, state, np_state = _port(case)
     block = CASES[case][2]
     x, v, g = _block(whole, block, state, transform)
-    parts = [_block(cm, block, cm.cut_state(state), transform) for cm in ranks]
-    for xr, _, _ in parts:                     # the whole flat vector
-        np.testing.assert_array_equal(xr, x)
+    parts = [_block(cm, block, cm.cut_state(state), transform, x)
+             for cm in ranks]
+    spec = whole.block_ravel_spec(block, transform)
+    packed = _joined(ranks, [
+        torch.func.vmap(lambda st, cm=cm: cm._flat_parts(block, transform, st))(
+            cm.cut_state(state)) for cm in ranks], transform)
+    np.testing.assert_array_equal(torch.func.vmap(spec.ravel)(packed), x)
+    want = torch.func.vmap(whole.block_functions(block, transform)[1])(x, state)
+    got = _joined(ranks, [torch.func.vmap(
+        cm.block_functions(block, transform)[1])(x, cm.cut_state(state))
+        for cm in ranks], transform)
+    for p in block:
+        np.testing.assert_allclose(got[p], want[p], rtol=1e-14, err_msg=p)
     v_sum = parts[0][1] + parts[1][1]
     g_sum = parts[0][2] + parts[1][2]
     scale = float(g.abs().max())
@@ -265,38 +375,72 @@ def _compile_rank(model, inputs, init, specs, r=1):
 
 
 def test_a_term_that_reads_mean_y_is_refused_by_name():
-    """tau's prior reads mean(y): on a slice it would be a different
-    prior, and nothing would raise at run time."""
-    model, inputs, init = _line_with(
-        ybar=tmt.Logical(lambda y: torch.mean(y), monitor=False),
-        tau=tmt.Stochastic(lambda ybar: tmt.Normal(ybar, 1.0)))
-    init = dict(init, y=np.array([1.0, 3.0, 3.0, 3.0, 5.0, 5.0]), tau=0.0)
-    inputs["xmat"] = np.stack([np.ones(6), np.arange(1.0, 7.0)], 1)
-    specs = {"y": ("data",), "xmat": ("data", None)}
-    with pytest.raises(ValueError, match=r"density of 'tau'.*\['ybar'\]"):
-        _compile_rank(model, inputs, init, specs)
+    """(iv) tau's prior reads mean(y), y observed and named on the data
+    axis.  y has no missing entry, so mean(y) reads only constants: the
+    compiler evaluates it whole once, before the rank drops its slices,
+    and every rank holds the whole value (its parts of every term:
+    ``CASES["line_tau"]``).  What stays refused, by name: a prior that
+    reads a node computed from the chain state and data held in part
+    together (sum((y - mu)**2)), which inside the vmapped density would
+    need a collective per call."""
+    model, inputs, init, _ = _line_tau(tmt)
+    for r in (0, 1):
+        cm = _compile_rank(model, inputs, init, LINE6_SPECS, r)
+        assert set(cm._consts) == {"ybar"} and not cm.mixed
+        assert "ybar" not in cm.local_dims
+        np.testing.assert_allclose(cm._consts["ybar"][0], init["y"].mean(),
+                                   rtol=1e-15)
+        assert cm.const_data == {"y"}
+        _chain_inits(cm, [init, init], 2)
+        with pytest.raises(ValueError, match="chain 1: the data 'y' differ"):
+            _chain_inits(cm, [init, dict(init, y=init["y"] + 1.0)], 2)
+    model, inputs, init, _ = _six(tmt, lambda pkg: dict(
+        ss=tmt.Logical(lambda y, mu: torch.sum((y - mu) ** 2),
+                       monitor=False),
+        tau=tmt.Stochastic(lambda ss: tmt.Normal(ss, 1.0))),
+        {"tau": 0.5}, ["tau"])
+    with pytest.raises(ValueError, match=r"density of 'tau'.*\['ss'\]"):
+        _compile_rank(model, inputs, init, LINE6_SPECS)
     # unsharded, and over a data axis with y whole, the model compiles
     _compile_rank(model, inputs, init, {})
 
 
 def test_a_centering_logical_at_symmetric_inits_is_refused_by_name():
-    """rats' inits set alpha to 250 on every rat, so alpha - mean(alpha) is
-    0 whole and on each slice there; on a slice it centres by the slice's
-    own mean.  The compiler checks at its probe state, where alpha is not
-    symmetric, and refuses y's density, which reads it."""
-    model, inputs, inits = trats.build("nuts")
-    assert np.all(inits[0]["alpha"] == 250.0)
-    centred = tmt.Model(**{
-        **model.nodes,
-        "alpha_c": tmt.Logical(1, lambda alpha: alpha - torch.mean(alpha),
-                               monitor=False),
-        "y": tmt.Stochastic(2, lambda alpha_c, beta, Xm, s2_c: tmt.Normal(
-            alpha_c[:, None] + beta[:, None] * Xm[None, :], torch.sqrt(s2_c)),
-            monitor=False)})
-    centred.set_samplers(model.samplers)
-    with pytest.raises(ValueError, match=r"parts of 'y'.*'alpha_c'"):
-        _compile_rank(centred, inputs, inits[0], RATS_SPECS)
-    _compile_rank(centred, inputs, inits[0], {})
+    """(iv) rats' y reads alpha - mean(alpha), alpha named on the data
+    axis.  The inits set alpha to 250 on every rat, where the centring is
+    0 whole and on each slice; the compiler checks at its probe state,
+    where alpha is not symmetric.  alpha is a sampled site, whole in the
+    state, so the logical reads only whole state values: it is computed
+    from the whole alpha and cut to the rank's rats, which y reads."""
+    model, inputs, init, _ = _rats_centred(tmt)
+    assert np.all(init["alpha"] == 250.0)
+    state = _states(init, np.random.default_rng(2))
+    alpha = torch.as_tensor(state["alpha"])
+    for r in (0, 1):
+        cm = _compile_rank(model, inputs, init, RATS_SPECS, r)
+        assert cm._recut == {"alpha_c": 0} and not cm.mixed
+        assert cm.local_dims["alpha_c"] == 0
+        local = cm.cut_state({k: torch.as_tensor(v) for k, v in state.items()})
+        got = torch.func.vmap(cm.eval_logicals)(local)["alpha_c"]
+        want = alpha - alpha.mean(1, keepdim=True)
+        np.testing.assert_allclose(got, want[:, 15 * r:15 * r + 15],
+                                   rtol=1e-14)
+    _compile_rank(model, inputs, init, {})
+    # through a logical that comes out a slice: it reads only whole state
+    # values too, so it is computed whole once and cut
+    model = tmt.Model(**{
+        **model.nodes, "a2": tmt.Logical(1, lambda alpha: 2.0 * alpha,
+                                         monitor=False),
+        "alpha_c": tmt.Logical(1, lambda a2: 0.5 * (a2 - torch.mean(a2)),
+                               monitor=False)})
+    model.set_samplers(_rats_centred(tmt)[0].samplers)
+    for r in (0, 1):
+        cm = _compile_rank(model, inputs, init, RATS_SPECS, r)
+        assert cm._recut == {"alpha_c": 0, "a2": 0} and not cm.mixed
+        local = cm.cut_state({k: torch.as_tensor(v) for k, v in state.items()})
+        got = torch.func.vmap(cm.eval_logicals)(local)["alpha_c"]
+        np.testing.assert_allclose(got, want[:, 15 * r:15 * r + 15],
+                                   rtol=1e-13)
 
 
 def test_a_term_that_reads_mean_y_is_refused_when_y_has_missing_entries():
@@ -333,30 +477,44 @@ def test_a_density_that_is_not_finite_at_the_probe_is_refused_by_name():
 
 
 def test_what_reads_a_slice_where_it_cannot_is_refused_by_name():
+    """What the compiler refused before and now takes: a monitored
+    mean(y) (a constant, whole), a monitored node computed from the chain
+    state and slices (mixed: a monitor or a Gibbs block computes it again
+    from whole values, across two gloo ranks below) and a sampled site
+    named on the data axis whose prior reads a slice.  What it still
+    refuses, by name."""
     model, inputs, init = _line_with(
-        ybar=tmt.Logical(lambda y: torch.mean(y)))
+        ybar=tmt.Logical(lambda y: torch.mean(y)),
+        ss=tmt.Logical(lambda y, mu: torch.sum((y - mu) ** 2)))
     init = dict(init, y=np.array([1.0, 3.0, 3.0, 3.0, 5.0, 5.0]))
     inputs["xmat"] = np.stack([np.ones(6), np.arange(1.0, 7.0)], 1)
     specs = {"y": ("data",), "xmat": ("data", None)}
-    with pytest.raises(ValueError, match=r"monitored nodes \['ybar'\]"):
-        _compile_rank(model, inputs, init, specs)
-    model.nodes["ybar"] = tmt.Logical(lambda y: torch.mean(y), monitor=False)
     cm = _compile_rank(model, inputs, init, specs)
-    assert cm.mixed == {"ybar"}
+    assert cm.mixed == {"ss"} and set(cm._consts) == {"ybar"}
     nodes = torch.func.vmap(cm.eval_logicals)(
         cm.cut_state({k: torch.as_tensor(np.asarray(v, float))[None]
                       for k, v in init.items()}))
     env = WholeValues(cm, cm.inputs, nodes)
     assert env["s2"].shape == (1,)               # whole, read as it is
-    with pytest.raises(ValueError, match="node 'ybar'"):
-        env["ybar"]
+    np.testing.assert_allclose(env["ybar"], [init["y"].mean()], rtol=1e-15)
+    with pytest.raises(ValueError, match="node 'ss'.*WholeValues"):
+        cm.whole("ss", nodes["ss"], 1)
     # a sampled site on the data axis whose prior reads a slice
-    model, inputs, init = _line_with(
-        u=tmt.Stochastic(1, lambda w: tmt.Normal(w, 1.0), monitor=False))
-    init = dict(init, u=np.zeros(6))
+    cm = _compile_rank(*_line_u(True)(tmt)[:3], U_SPECS)
+    assert cm._part_sites == {"u": 0}
+    # ... but not one whose law has event dims
+    model, inputs, init = _line_with(v=tmt.Stochastic(2, lambda w: tmt.MvNormal(
+        torch.stack([w, w], 1), torch.eye(2, dtype=w.dtype)), monitor=False))
     inputs["w"] = np.arange(1.0, 7.0)
-    with pytest.raises(ValueError, match=r"sampled site 'u'.*\['w'\]"):
-        _compile_rank(model, inputs, init, {"w": ("data",), "u": ("data",)})
+    init = dict(init, v=np.zeros((6, 2)))
+    with pytest.raises(ValueError, match=r"sampled site 'v'.*elementwise"):
+        _compile_rank(model, inputs, init, {"w": ("data",), "v": ("data", None)})
+    # a law per row cuts only where its batch holds the data dim
+    model, inputs, inits = tmt.models.birats.build()
+    model.nodes["beta"] = tmt.Stochastic(2, lambda mu_beta, Sigma: tmt.MvNormal(
+        mu_beta, Sigma), monitor=False)
+    with pytest.raises(ValueError, match=r"site 'beta'.*cannot be cut there"):
+        _compile_rank(model, inputs, inits[0], BIRATS_SPECS)
     # the generic GLMM with y and x named but not z: b stays whole
     model, inputs, inits, _ = tglmm.build(G=G, n=10, seed=2)
     with pytest.raises(ValueError, match="node 'y' cannot be evaluated"):
@@ -367,6 +525,69 @@ def test_what_reads_a_slice_where_it_cannot_is_refused_by_name():
         _compile_rank(model, inputs, inits[0], {"y": ("chains", None)})
     with pytest.raises(ValueError, match="does not divide"):
         _compile_rank(*tline.build()[:2], tline.build()[2][0], LINE_SPECS)
+
+
+def _padded(**nodes):
+    """line's own five points, padded to six over a data axis of two, with
+    ``nodes`` added (``_line_with``): the model, the padded inputs and
+    init, the masks and each padded dim's length as given."""
+    model, inputs, init = _line_with(**nodes)
+    init = dict(init, tau=0.5)
+    axes = {"chains": 1, "data": 2}
+    p_in, in_pads = pad_axes(axes, LINE_SPECS, inputs)
+    p_init, pads = pad_axes(axes, LINE_SPECS, init)
+    masks = {"y": pad_mask(p_init["y"].shape, pads["y"])}
+    given = {n: {d: g for d, (g, _) in p.items()}
+             for n, p in {**in_pads, **pads}.items()}
+    return model, inputs, init, (p_in, p_init, masks, given)
+
+
+def _ybar_prior():
+    return dict(ybar=tmt.Logical(lambda y: torch.mean(y), monitor=False),
+                tau=tmt.Stochastic(lambda ybar: tmt.Normal(ybar, 1.0)))
+
+
+def _ss(monitor):
+    return dict(ss=tmt.Logical(lambda y, mu: torch.sum((y - mu) ** 2),
+                               monitor=monitor))
+
+
+#: nodes that read the whole of a padded array: (nodes, the node refused,
+#: the padded arrays it reads, whether the compiler refuses it)
+PADDED = {"prior": (_ybar_prior, "ybar", "'y'", True),
+          "monitor": (lambda: _ss(True), "ss", "'xmat', 'y'", True),
+          "gibbs": (lambda: _ss(False), "ss", "'xmat', 'y'", False)}
+
+
+@pytest.mark.parametrize("case", list(PADDED))
+def test_what_reads_the_whole_of_a_padded_array_is_refused_by_name(case):
+    """line's own five points on a data axis of two: y and xmat padded to
+    six.  mean(y) read by a prior (a constant) and a monitored ss = sum((y
+    - mu)**2) would count the padded row, which the unsharded run does
+    not have: the compiler refuses both by name.  An ss that only a Gibbs
+    block reads compiles, and ``WholeValues`` refuses to compute it.
+    Without the padding each compiles."""
+    nodes, name, padded, at_compile = PADDED[case]
+    model, inputs, init, (p_in, p_init, masks, given) = _padded(**nodes())
+    want = rf"node '{name}' is computed from the whole of \[{padded}\]"
+
+    def rank(r):
+        return tmt.compile_model(model, p_in, p_init, device="cpu",
+                                 masks=masks, comm=_DataRank(r),
+                                 site_specs=LINE_SPECS, pads=given)
+    for r in (0, 1):
+        if at_compile:
+            with pytest.raises(ValueError, match=want):
+                rank(r)
+            continue
+        cm = rank(r)
+        assert cm.mixed == {name} and cm.padded_reads(name) == ["xmat", "y"]
+        nodes_r = torch.func.vmap(cm.eval_logicals)(cm.cut_state(
+            {k: torch.as_tensor(np.asarray(v, float))[None]
+             for k, v in p_init.items()}))
+        with pytest.raises(ValueError, match=want):
+            WholeValues(cm, cm.inputs, nodes_r)[name]
+    tmt.compile_model(model, inputs, init, device="cpu")
 
 
 # ---- forward_sample -----------------------------------------------------
@@ -449,7 +670,6 @@ def _line6(samplers="nuts", y=(1.0, 3.0, 3.0, 3.0, 5.0, 6.0)):
     return model, inputs, inits
 
 
-LINE6_SPECS = {"y": ("data",), "xmat": ("data", None)}
 MISSING_Y = (1.0, np.nan, 3.0, 3.0, np.nan, 6.0)
 RUN = dict(chains=4, seed=3, device="cpu", verbose=False)
 
@@ -484,6 +704,59 @@ def _rats_gibbs(mesh=None):
     return {"s2": torch.stack([new[k] for k in
                                ("s2_c", "s2_alpha", "s2_beta")]).numpy(),
             "y_shape": np.array(state["y"].shape)}
+
+
+def _line_ss():
+    """(iii) line6 with ss = sum((y - mu)**2) monitored, a node computed
+    from the chain state and slices (mixed), and s2 drawn by a conjugate
+    Gibbs block that reads ss whole."""
+    model, inputs, init, _ = _six(tmt, lambda pkg: dict(
+        ss=tmt.Logical(lambda y, mu: torch.sum((y - mu) ** 2))))
+
+    def s2_gibbs(gen, env):
+        ss = env["ss"]                                    # (chains,)
+        shape = torch.full_like(ss, 0.001 + 3.0)
+        return {"s2": (0.001 + 0.5 * ss)
+                / torch._standard_gamma(shape, generator=gen)}
+    model.set_samplers([tmt.NUTS("beta"), tmt.Gibbs("s2", s2_gibbs)])
+    return model, inputs, init
+
+
+#: the resolved cases' runs: (build, site_specs, iterations, burnin)
+CASE_RUNS = {"line_tau": (lambda: _line_tau(tmt)[:3], LINE6_SPECS, 30, 10),
+             "line_u_trunc": (lambda: _line_u(True)(tmt)[:3], U_SPECS, 30, 10),
+             "rats_centred": (lambda: _rats_centred(tmt)[:3], RATS_SPECS, 4, 2),
+             "birats": (lambda: _birats(tmt)[:3], BIRATS_SPECS, 6, 3),
+             "line_ss": (_line_ss, LINE6_SPECS, 30, 10)}
+
+
+def _case_runs(mesh=None):
+    out = {}
+    for name, (build, specs, iters, burnin) in CASE_RUNS.items():
+        model, inputs, init = build()
+        sim = tmt.mcmc(model, inputs, [init], iters, burnin=burnin,
+                       site_specs=specs if mesh else None,
+                       **dict(RUN, mesh=mesh))
+        out[name] = sim.value
+    out["ss_names"] = np.array(sim.names)
+    return out
+
+
+def _padded_refusal(mesh):
+    """mcmc of line_tau on line's own five points over ``mesh``'s data
+    axis, which pads them to six: the message it raises with."""
+    model, inputs, init, _ = _padded(**_ybar_prior())
+    try:
+        tmt.mcmc(model, inputs, [init], 4, site_specs=LINE_SPECS,
+                 **dict(RUN, mesh=mesh))
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def _mode_cases(rank):
+    mesh = make_mesh({"chains": 1, "data": 2}, "cpu")
+    return {**_case_runs(mesh), "padded": _padded_refusal(mesh)}
 
 
 def _mode_readers(rank):
@@ -523,13 +796,35 @@ def test_readers_of_whole_values_on_two_data_ranks(tmp_path):
     assert miss[:, 3:][:, np.isnan(y)].std((0, 2)).min() > 0
 
 
+def test_resolved_cases_on_two_data_ranks_match_the_unsharded_runs(tmp_path):
+    """(i)-(iv) across two gloo ranks against the runs without a mesh: a
+    prior reading mean(y), a sampled site whose truncated prior reads
+    slices, rats' centring logical, birats' law per row, and line's
+    monitored ss that a Gibbs block reads whole (1e-8).  On line's own
+    five points, which the data axis pads, mcmc refuses mean(y) by name."""
+    r0, r1 = _ranks("cases", tmp_path)
+    ref = _case_runs()
+    # line_tau on line's own five points, padded: refused by name
+    for res in (r0, r1):
+        assert str(res["padded"]).startswith(
+            "node 'ybar' is computed from the whole of ['y']"), res["padded"]
+    assert list(r0["ss_names"]) == list(ref["ss_names"]) == [
+        "beta[1]", "beta[2]", "s2", "ss"]
+    for k in CASE_RUNS:
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+        assert np.isfinite(r0[k]).all(), k
+        np.testing.assert_allclose(r0[k], ref[k], rtol=1e-8, err_msg=k)
+    ss = r0["line_ss"][:, 3]                     # moves with the state
+    assert ss.std() > 0
+
+
 def _main(argv) -> int:
     from mamba_tpu_torch.parallel import distributed_init
     init, n, rank, mode = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
     distributed_init(init, n, rank, device_type="cpu", timeout=GROUP_TIMEOUT)
     try:
-        out = {"readers": _mode_readers}[mode](rank)
+        out = {"readers": _mode_readers, "cases": _mode_cases}[mode](rank)
         np.savez(Path(os.environ["MULTIPROC_OUT"]) / f"{mode}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

@@ -84,16 +84,13 @@ def _chains(rank):
     mesh = make_mesh({"chains": 2}, "cpu")
     sim = tmt.mcmc(model, inputs, inits, 40, burnin=10, chains=4, seed=3,
                    mesh=mesh, device="cpu", verbose=False)
-    path = Path(os.environ["MULTIPROC_OUT"]) / f"chains{rank}.pkl"
-    fileio.write_chains(str(path), sim)
-    try:
-        fileio.read_chains(str(path), model, inputs, device="cpu")
-        refused = False
-    except ValueError as e:
-        refused = "sharded run" in str(e)
+    path = Path(os.environ["MULTIPROC_OUT"]) / "chains.pkl"
+    fileio.write_chains(str(path), sim)          # every rank, one file
+    back = fileio.read_chains(str(path), model, inputs, device="cpu")
     drawn = fileio.read_chains(str(path)).value
     more = tmt.mcmc(sim, 10, verbose=False)
-    return {"value": sim.value, "restart": more.value, "refused": refused,
+    return {"value": sim.value, "restart": more.value,
+            "file_beta": back.states["state"]["beta"],
             "read_back": drawn, "local_beta": sim.states["state"]["beta"]}
 
 
@@ -197,8 +194,51 @@ def _rats(rank):
             "shapes": _local_shapes(sim, ("y", "alpha", "beta"))}
 
 
+#: the layouts of the chain-file restart tests: (mesh axes, site_specs)
+RESTART_LAYOUTS = {"chains": ({"chains": 2}, None),
+                   "data": ({"chains": 1, "data": 2}, LINE_SPECS)}
+#: line's sharded run (iterations, burnin) and the restart's iterations
+RESTART_RUN, RESTART_ITERS = (100, 50), 200
+#: ChEES's tunes of beta's length that every rank holds equally
+CHEES_SHARED = ("minv", "w_mean", "w_m2", "w_sw")
+
+
+def _restart(layout, chees=False):
+    """line on ``layout``'s mesh: every rank writes the run's one chain
+    file, and rank 0 also keeps the resume state gathered in memory (the
+    same gather, no file: ``memory.pkl``) for the parent's one-device
+    restart.  ``chees``: beta under ChEES (its tunes agreed across the
+    ranks), the rank's own ChEES tunes and beta saved too."""
+    import pickle
+    from mamba_tpu_torch.output import fileio
+    axes, specs = RESTART_LAYOUTS[layout]
+    model, inputs, inits = tline.build()
+    if chees:
+        model.set_samplers([tmt.ChEESHMC("beta"), tmt.Slice("s2", 2.0)])
+    iters, burnin = RESTART_RUN
+    sim = tmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
+                   seed=3, mesh=make_mesh(axes, "cpu"), site_specs=specs,
+                   device="cpu", verbose=False)
+    out = Path(os.environ["MULTIPROC_OUT"])
+    fileio.write_chains(str(out / "file.pkl"), sim)
+    memory = fileio._whole_states(sim)
+    rngs = sim.compiled.comm.gather_generators(sim.states["rng"])
+    if dist.get_rank() == 0:
+        with open(out / "memory.pkl", "wb") as f:
+            pickle.dump({**memory, "rng": rngs[0]}, f)
+    out = {"value": sim.value, "shapes": _local_shapes(sim, ("y", "beta"))}
+    if chees:
+        tune = sim.states["tunes"][0]
+        out.update({f: getattr(tune, f).numpy() for f in CHEES_SHARED},
+                   beta=sim.states["state"]["beta"].numpy())
+    return out
+
+
 MODES = {"chains": _chains, "data": _data, "chees": _chees, "smc": _smc,
-         "glmm": _glmm, "dgs": _dgs, "rats": _rats}
+         "glmm": _glmm, "dgs": _dgs, "rats": _rats,
+         "restart_chains": lambda rank: _restart("chains"),
+         "restart_data": lambda rank: _restart("data"),
+         "restart_chees": lambda rank: _restart("chains", chees=True)}
 
 
 def _ranks(mode, tmp_path, n=2, timeout=RANKS_TIMEOUT):
@@ -228,9 +268,10 @@ def test_chain_mesh_ranks_are_unsharded_runs_seeded_by_rank(tmp_path):
         more = tmt.mcmc(ref, 10, verbose=False)
         np.testing.assert_array_equal(res["restart"][:, :, 2 * r:2 * r + 2],
                                       more.value)
-        # a rank's chain file holds every draw, but restarts only on the mesh
-        assert bool(res["refused"])
+        # the run's one chain file holds every draw and every chain's state
         np.testing.assert_array_equal(res["read_back"], r0["value"])
+        np.testing.assert_array_equal(res["file_beta"][2 * r:2 * r + 2],
+                                      ref.states["state"]["beta"].numpy())
 
 
 def test_data_mesh_matches_the_unsharded_run(tmp_path):
@@ -291,6 +332,163 @@ def test_dgs_over_a_data_mesh(tmp_path):
     ref = tmt.mcmc(model, inputs, inits, 30, burnin=10, chains=8, seed=2,
                    device="cpu", verbose=False)
     np.testing.assert_array_equal(r0["value"], ref.value)
+
+
+@pytest.fixture(scope="module")
+def jax_files(tmp_path_factory):
+    """The JAX package's chain files of line for each layout's mesh shape
+    (GSPMD over two of the host devices, the same run), read as dicts, and
+    its restart from its own chain-mesh file.  Its data-mesh file holds y
+    padded to 6 and does not restart against line's inputs (ROADMAP,
+    faults of the reference)."""
+    import pickle
+    import jax
+    import mamba_tpu as jmt
+    from jax.sharding import PartitionSpec as P
+    from mamba_tpu.output import fileio as jfileio
+    from mamba_tpu.parallel import make_mesh as jmesh
+    model, inputs, inits = jmt.models.line.build()
+    iters, burnin = RESTART_RUN
+    out = {}
+    for layout, (axes, specs) in RESTART_LAYOUTS.items():
+        path = tmp_path_factory.mktemp("jax") / f"{layout}.pkl"
+        sim = jmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
+                       seed=3, mesh=jmesh(axes, devices=jax.devices()[:2]),
+                       site_specs=specs and {k: P(*v) for k, v in specs.items()},
+                       verbose=False)
+        jfileio.write_chains(str(path), sim)
+        with open(path, "rb") as f:
+            out[layout] = pickle.load(f)
+        if layout == "chains":
+            mc = jfileio.read_chains(str(path), model, inputs)
+            out["restart"] = np.asarray(
+                jmt.mcmc(mc, RESTART_ITERS, verbose=False).value)[-RESTART_ITERS:]
+    return out
+
+
+def _leaf_shapes(tune):
+    return {f: tuple(np.shape(v)) for f, v in zip(tune._fields, tune)}
+
+
+@pytest.mark.parametrize("layout", list(RESTART_LAYOUTS))
+def test_a_sharded_run_s_file_restarts_on_one_device(tmp_path, layout,
+                                                     jax_files):
+    """Two gloo ranks write line's chain file on a (2, 1) chain mesh or a
+    (1, 2) data mesh (y padded 5 -> 6 there).  Read back on the CPU it is
+    the unsharded run's layout, as the JAX package's file is; it restarts
+    on one device equal to the restart from the gathered in-memory state
+    (1e-12), its state is the ranks' runs', and its restart's posterior
+    means agree with the JAX package's restart from its own file."""
+    import pickle
+    from mamba_tpu_torch.output import fileio
+    r0, r1 = _ranks(f"restart_{layout}", tmp_path)
+    np.testing.assert_array_equal(r0["value"], r1["value"])
+    model, inputs, inits = tline.build()
+    iters, burnin = RESTART_RUN
+    with open(tmp_path / "file.pkl", "rb") as f:
+        payload = pickle.load(f)
+    mc = fileio.read_chains(str(tmp_path / "file.pkl"), model, inputs,
+                            device="cpu")
+    assert not mc.compiled.comm.sharded and "shard" not in payload
+    np.testing.assert_array_equal(mc.value, r0["value"])
+    state = mc.states["state"]
+    assert {k: tuple(v.shape) for k, v in state.items()} == {
+        "beta": (4, 2), "s2": (4,), "y": (4, 5)}          # padding dropped
+    np.testing.assert_array_equal(state["y"], np.broadcast_to(inits[0]["y"], (4, 5)))
+    assert len(payload["rngs"]) == (2 if layout == "chains" else 1)
+
+    # the JAX package's file for the same model and mesh shape
+    jp = jax_files[layout]
+    assert set(payload) - {"device", "dtype", "rngs"} == set(jp)
+    assert set(payload["states"]) - {"rng"} == set(jp["states"]) - {"key"}
+    for k in ("names", "start", "thin", "iter", "chains"):
+        assert payload[k] == (list(jp[k]) if k == "names" else jp[k]), k
+    assert payload["value"].shape == jp["value"].shape
+    jshapes = {k: np.shape(v) for k, v in jp["states"]["state"].items()}
+    if layout == "data":                  # the JAX file keeps y's padding
+        assert jshapes.pop("y") == (4, 6)
+        jshapes["y"] = (4, 5)
+    assert {k: tuple(v.shape) for k, v in state.items()} == jshapes
+    port_nuts, jax_nuts = (_leaf_shapes(t[0]) for t in
+                           (mc.states["tunes"], jp["states"]["tunes"]))
+    common = set(port_nuts) & set(jax_nuts)
+    assert len(common) >= 15
+    assert {f: port_nuts[f] for f in common} == {f: jax_nuts[f] for f in common}
+
+    # the restart from the file, against the one-device restart from the
+    # resume state gathered in memory
+    more = _restarts_as_in_memory(tmp_path, mc, model, inputs, r0["value"])
+
+    # the file's state is the ranks' runs'
+    if layout == "data":      # one stream; the density's sums differ
+        ref = tmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
+                       seed=3, device="cpu", verbose=False)
+        for k, v in ref.states["state"].items():
+            np.testing.assert_allclose(state[k], v, rtol=1e-8, err_msg=k)
+        assert torch.equal(payload["rngs"][0], ref.states["rng"])
+    else:                     # rank r: an unsharded run seeded as rank r
+        for r in range(2):
+            own = [inits[k % len(inits)] for k in (2 * r, 2 * r + 1)]
+            ref = tmt.mcmc(model, inputs, own, iters, burnin=burnin, chains=2,
+                           seed=rank_seed(3, r), device="cpu", verbose=False)
+            for k, v in ref.states["state"].items():
+                np.testing.assert_array_equal(state[k][2 * r:2 * r + 2], v)
+            assert torch.equal(payload["rngs"][r], ref.states["rng"])
+
+    # tests/test_torch_multiproc.py's rats criterion: posterior means
+    # within 0.75 posterior SDs of the JAX package's restart from its file
+    a, b = jax_files["restart"], more.value[-RESTART_ITERS:]
+    sd = np.maximum(a.std((0, 2)), 1e-3)
+    z = np.abs(a.mean((0, 2)) - b.mean((0, 2))) / sd
+    assert z.max() < 0.75, (mc.names[int(np.argmax(z))], z)
+
+
+def _restarts_as_in_memory(tmp_path, mc, model, inputs, value):
+    """``mc``, read from a sharded run's file, restarted on one device:
+    equal to the restart from the resume state the ranks gathered in
+    memory (``memory.pkl``) at 1e-12, finite, its range contiguous."""
+    import pickle
+    from mamba_tpu_torch.output.chains import ModelChains
+    iters, burnin = RESTART_RUN
+    with open(tmp_path / "memory.pkl", "rb") as f:
+        memory = pickle.load(f)
+    cm = tmt.compile_model(model, inputs, {k: v[0].numpy() for k, v in
+                                           memory["state"].items()}, device="cpu")
+    in_memory = ModelChains(value, start=burnin + 1, thin=1,
+                            names=mc.names, chains=mc.chains, model=model,
+                            compiled=cm, states=memory, iter=iters)
+    more = tmt.mcmc(mc, RESTART_ITERS, verbose=False)
+    want = tmt.mcmc(in_memory, RESTART_ITERS, verbose=False)
+    np.testing.assert_array_equal(more.range, np.arange(burnin + 1, iters + RESTART_ITERS + 1))
+    np.testing.assert_allclose(more.value, want.value, rtol=1e-12)
+    assert np.isfinite(more.value).all()
+    return more
+
+
+def test_a_chees_file_keeps_what_every_rank_holds_once(tmp_path):
+    """ChEES on line's beta over a (2, 1) chain mesh, two chains per rank:
+    its mass matrix and window sums have beta's two entries, as many as a
+    rank's chains.  The file keeps them once, as every rank holds them,
+    and joins beta's chains over the ranks; it restarts on one device as
+    the gathered in-memory state does."""
+    from mamba_tpu_torch.output import fileio
+    from mamba_tpu_torch.samplers.chees import ChEESTune
+    r0, r1 = _ranks("restart_chees", tmp_path)
+    model, inputs, _ = tline.build()
+    model.set_samplers([tmt.ChEESHMC("beta"), tmt.Slice("s2", 2.0)])
+    mc = fileio.read_chains(str(tmp_path / "file.pkl"), model, inputs,
+                            device="cpu")
+    tune = mc.states["tunes"][0]
+    assert isinstance(tune, ChEESTune)
+    for f in CHEES_SHARED:
+        assert r0[f].shape == (2,), f
+        np.testing.assert_array_equal(r0[f], r1[f], err_msg=f)
+        np.testing.assert_array_equal(getattr(tune, f), r0[f], err_msg=f)
+    beta = mc.states["state"]["beta"]
+    assert beta.shape == (4, 2)
+    np.testing.assert_array_equal(beta[:2], r0["beta"])
+    np.testing.assert_array_equal(beta[2:], r1["beta"])
+    _restarts_as_in_memory(tmp_path, mc, model, inputs, r0["value"])
 
 
 @pytest.mark.slow

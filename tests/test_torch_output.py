@@ -269,6 +269,28 @@ def test_restart_from_a_file_equals_the_in_memory_restart(tmp_path):
         assert torch.equal(a.states["state"][k], b.states["state"][k])
 
 
+def test_a_file_with_a_rank_s_shard_record_reads_as_draws_only(tmp_path):
+    """Before a sharded run's file was written whole, each rank wrote its
+    own resume state with a ``shard`` record.  Such a file still reads as
+    draws, and restarting it raises in plain words."""
+    import pickle
+    model, inputs, inits = tline.build()
+    sim = tmt.mcmc(model, inputs, inits, 20, burnin=10, chains=2,
+                   verbose=False, device="cpu")
+    path = os.path.join(tmp_path, "rank.pkl")
+    tmt.write_chains(path, sim)
+    with open(path, "rb") as f:
+        payload = pickle.load(f)
+    assert "shard" not in payload and "rngs" not in payload
+    payload["shard"] = {"chain_rank": 1, "chain_size": 2, "data_rank": 0,
+                        "data_size": 1, "local": {}}
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    np.testing.assert_array_equal(tmt.read_chains(path).value, sim.value)
+    with pytest.raises(ValueError, match="one rank of a sharded run"):
+        tmt.read_chains(path, model, inputs, device="cpu")
+
+
 def test_restart_of_a_converted_reference_run(runs):
     jsim, tsim = runs
     out = tmt.mcmc(tsim, 10, verbose=False)

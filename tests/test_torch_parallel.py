@@ -322,9 +322,11 @@ def test_sharded_padding_refuses_monitored_and_sampled_sites():
         model.nodes["beta"], monitor=False)
     with pytest.raises(ValueError, match="sampled sites"):
         _pad_sharded(model, axes, {"beta": ("data",)}, inputs, inits)
-    p_in, p_inits, masks = _pad_sharded(model, axes, LINE_SPECS, inputs, inits)
+    p_in, p_inits, masks, pads = _pad_sharded(model, axes, LINE_SPECS,
+                                              inputs, inits)
     assert p_in["xmat"].shape == (6, 2) and masks["y"].sum() == 5
     assert all(d["y"].shape == (6,) for d in p_inits)
+    assert pads == {"xmat": {0: 5}, "y": {0: 5}}
 
 
 def test_mesh_run_matches_the_reference_mesh_run():
