@@ -22,8 +22,9 @@ through the port's public entry points (``mcmc``, ``advi``,
    (``utils/graphs.py``); rats NUTS and GLMM ChEES at full width, and the
    zoo's samplers at 1024 chains (``GRAPH_ZOO_ARMS``: univariate Slice on
    pumps, AMWG with both forms of Slice on inhalers, AMWG with univariate
-   Slice on magnesium, SliceSimplex on asthma, BHMC on pollution, AMM on
-   seeds, HMC, MALA and RWM on line), 3 iterations (2 burnin) each, run
+   Slice on magnesium, SliceSimplex on asthma, BHMC, BIA, BMC3 and BMG on
+   pollution, AMM on seeds, HMC, MALA and RWM on line, ABC on line_abc and
+   gk, MISS on mice, bones and kidney), 3 iterations (2 burnin) each, run
    through those graphs and through the samplers' plain loops
    (``graphs.disabled()``) from one seed, held bit-identical (draws, tunes,
    final state and generator state, NUTS's tree depths), with the fused
@@ -59,7 +60,9 @@ through the port's public entry points (``mcmc``, ``advi``,
    posterior-predictive data through ``forward_sample``; no draw may come
    from a global generator; each run prints what zoo's runs print;
 10. GLMM ChEES at full width: ADVI on the generic build, then ChEES-HMC
-    through the fused kernel, 1024 chains, a short run;
+    through the fused kernel, 1024 chains, bench.py's 1300 iterations (300
+    burnin), under bench.py's gates: every beta mean within 0.05 of the
+    truth, s2's within 0.1, rank R-hat < 1.01 and bulk ESS > 400;
 11. post: the output layer on the 1024-chain pumps and jaws runs of phases
     8 and 9 (``gelmandiag`` with MPSRF on the link scale, ``dic``,
     ``logpdf_chains`` against ``compiled.logpdf``, ``predict`` inside the
@@ -80,8 +83,10 @@ through the port's public entry points (``mcmc``, ``advi``,
     from ``utils/roofline.py``, its ``roofline`` reading and the
     elementwise ceiling;
 15. mesh (``parallel/``, after phase 10): (a) ``graft_entry.dryrun_multichip(1)``;
-    (b) phase 10's GLMM ChEES run through ``mcmc(mesh=)`` on a one-rank NCCL
-    mesh in this process; (c) the same run in two processes over gloo on
+    (b) the GLMM ChEES run of phase 10, cut to ``MESH_CHEES_RUN``, through
+    ``mcmc(mesh=)`` on a one-rank NCCL mesh in this process, its (epsilon,
+    traj) path equal to phase 10's over the warmup iterations both share;
+    (c) that run in two processes over gloo on
     this one card, 512 chains each, their draws gathered on both and their
     step size and trajectory equal after every iteration; (d) in the same
     two processes, a (1, 2) data mesh: the GLMM's block density and
@@ -89,7 +94,7 @@ through the port's public entry points (``mcmc``, ``advi``,
     summed over the data group, against one launch over all groups, under
     phase 3's gates; (e) in the same two processes, local views: y, the
     covariates xt and z named on the data axis (``LOCAL_SPECS``), so each
-    rank holds y (1024, 10, 5,000) and xt (4, 10, 5,000); phase 10's run
+    rank holds y (1024, 10, 5,000) and xt (4, 10, 5,000); (b)'s run
     on that mesh (finite draws, equal on both ranks), its peak memory rise
     against the same steps without a mesh (at least
     ``LOCAL_MEM_SAVED_MIN`` lower), the block density and gradient at the
@@ -187,14 +192,25 @@ GRAPH_CHEES_TRAJ = 0.2
 GRAPH_ZOO_ARMS = (("pumps", None), ("inhalers", None), ("magnesium", None),
                   ("asthma", None), ("pollution", "bhmc"),
                   ("seeds", "reference"), ("line", "hmc_slice"),
-                  ("line", "mala_slice"), ("line", "rwm_slice_uni"))
+                  ("line", "mala_slice"), ("line", "rwm_slice_uni"),
+                  ("pollution", "bia"), ("pollution", "bmc3"),
+                  ("pollution", "bmg"), ("line_abc", None), ("gk", None),
+                  ("mice", None), ("bones", None), ("kidney", None))
 #: iterations that continue phase 6's run inside the profile phase's trace,
 #: over which the device's busy share is read
 BUSY_ITERS = 2
 #: rats ChEES (phase 7), bench.py:63-98
 RATS_CHEES_RUN = (1500, 500)
-#: GLMM ChEES at full width (phase 10); depth cut from bench.py's 1300/300
-GLMM_CHEES_RUN = (20, 10)
+#: GLMM ChEES at full width (phase 10): bench.py's 1300/300, under its
+#: gates (bench.py:154-156): every beta mean within ``GLMM_BETA_TOL`` of the
+#: truth, the s2 mean within ``GLMM_S2_TOL``, rank R-hat and bulk ESS
+GLMM_CHEES_RUN = (1300, 300)
+GLMM_BETA_TOL, GLMM_S2_TOL = 0.05, 0.1
+#: the mesh phase's runs of the same arm ((b), (c), (e)): a data rank's
+#: gradient costs 65-77 ms of wall through gloo, so they stay short; (b)
+#: is held to phase 10's (epsilon, traj) path over the warmup iterations
+#: the two runs share
+MESH_CHEES_RUN = (20, 10)
 #: zoo (phase 8): model, scheme, iterations, burnin, and the gates of the JAX
 #: package's golden test of that model, {label: (golden mean, tolerance)}
 #: (tests/test_models_golden.py).  Those tests run 2 chains for 6,000-8,000
@@ -1041,13 +1057,14 @@ def phase_zoo_mv(torch, mt):
     return out, sims
 
 
-def _glmm_chees_run(torch, mt, glmm, fg, chees, warm, label, **mesh_kw):
-    """Phase 10's run: the GLMM at full width under ChEES-HMC from the ADVI
-    draws ``warm``, on ``mesh_kw``'s mesh if given.  Gated on finite draws
-    of the run's shape and on kernel launches >= gradient evaluations;
-    returns its numbers, the draws and (epsilon, traj) after every
-    iteration."""
-    iters, burnin = GLMM_CHEES_RUN
+def _glmm_chees_run(torch, mt, glmm, fg, chees, warm, label,
+                    run=MESH_CHEES_RUN, **mesh_kw):
+    """The GLMM at full width under ChEES-HMC from the ADVI draws ``warm``
+    for ``run``'s iterations and burnin, on ``mesh_kw``'s mesh if given.
+    Gated on finite draws of the run's shape and on kernel launches >=
+    gradient evaluations; returns its numbers, the run and (epsilon, traj)
+    after every iteration."""
+    iters, burnin = run
     model, inputs, _, _ = glmm.build(MESH_G, fused=True)
     model = _chees_block(mt, model, max_steps=256, mass_window=40)
     steps, restore_steps = _recording(chees, "_steps", lambda L: L)
@@ -1090,10 +1107,31 @@ def _glmm_warm_inits(torch, mt, glmm):
 
 
 def phase_glmm_chees(torch, mt, glmm, fg, chees):
+    """bench.py's GLMM arm at its depth (``GLMM_CHEES_RUN``) from its ADVI
+    warm start, under its four gates."""
     warm, advi_s = _glmm_warm_inits(torch, mt, glmm)
-    res, _, tunes = _glmm_chees_run(torch, mt, glmm, fg, chees, warm,
-                                    "GLMM ChEES at full width")
-    return {**res, "advi_s": advi_s}, warm, tunes
+    res, sim, tunes = _glmm_chees_run(torch, mt, glmm, fg, chees, warm,
+                                      "GLMM ChEES at full width",
+                                      run=GLMM_CHEES_RUN)
+    truth = glmm.build(MESH_G, fused=True)[3]
+    s = mt.summarystats(sim).to_dict()
+    beta = np.array([s[f"beta[{i + 1}]"]["Mean"] for i in range(4)])
+    gates = {"beta_err_max": float(np.abs(beta - truth["beta"]).max()),
+             "s2_err": abs(s["s2"]["Mean"] - float(truth["s2"])),
+             "rhat_rank_max": float(np.max(mt.rhat_rank(sim.value))),
+             "ess_bulk_min": float(np.min(mt.ess_bulk(sim.value))),
+             "mean_L": float(np.mean(res["steps_per_iteration"])),
+             "max_L": max(res["steps_per_iteration"])}
+    log("GLMM ChEES gates: " + json.dumps(gates))
+    failed = [k for k, ok in (
+        ("beta", gates["beta_err_max"] < GLMM_BETA_TOL),
+        ("s2", gates["s2_err"] < GLMM_S2_TOL),
+        ("rank R-hat", gates["rhat_rank_max"] < RHAT_MAX),
+        ("bulk ESS", gates["ess_bulk_min"] > ESS_MIN)) if not ok]
+    if failed:
+        raise AssertionError(f"GLMM ChEES: gates failed: {failed}: {gates}")
+    res = {k: v for k, v in res.items() if k != "steps_per_iteration"}
+    return {**res, **gates, "advi_s": advi_s}, warm, tunes
 
 
 def _split_density_check(torch, mt, glmm, fg, mesh, warm):
@@ -1153,7 +1191,7 @@ DATA_SUM_REPS = 5
 def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
     """(e): the GLMM at full width on a (1, 2) data mesh with local views
     (``LOCAL_SPECS``): each rank holds its half of y's and the covariates'
-    groups.  Phase 10's run on the mesh, then (rank 0) the same steps
+    groups.  (b)'s run on the mesh, then (rank 0) the same steps
     without one under the plain loops the mesh run takes, each's peak
     memory rise; the block density and gradient at the warm starts against
     the whole, with the kernel's launches and groups per call; the gloo
@@ -1369,7 +1407,7 @@ def _local_views_gates(local, draws, failed):
     whole, one launch per call over its G/2 groups, the shapes it holds,
     and its peak memory rise at least ``LOCAL_MEM_SAVED_MIN`` below the
     same steps without a mesh.  Appends what fails to ``failed``."""
-    iters, burnin = GLMM_CHEES_RUN
+    iters, burnin = MESH_CHEES_RUN
     half = MESH_G // 2
     if not (np.array_equal(draws[0], draws[1]) and np.isfinite(draws[0]).all()
             and draws[0].shape == (iters - burnin, 5, CHAINS)):
@@ -1478,9 +1516,13 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
     res["one_rank"] = {k: one[k] for k in ("sample_s", "kernel_launches",
                                            "leapfrog_steps")}
     # a one-rank mesh replays the run without one: chain rank 0 takes the
-    # run's seed and an axis of size one takes no collective
-    res["one_rank"]["tunes_equal_phase_10"] = tunes_b == tunes_10
-    if tunes_b != tunes_10:
+    # run's seed and an axis of size one takes no collective.  Phase 10 runs
+    # longer, so the two share their warmup's first iterations (both adapt)
+    shared = MESH_CHEES_RUN[1]
+    same = tunes_b[:shared] == tunes_10[:shared]
+    res["one_rank"]["tunes_equal_phase_10"] = same
+    res["one_rank"]["iterations_compared"] = shared
+    if not same:
         raise AssertionError("(b) the one-rank mesh's (eps, traj) path "
                              "differs from phase 10's")
     with tempfile.TemporaryDirectory(prefix="mesh-") as tmp:      # (c)-(e)
@@ -1514,7 +1556,7 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
             "local": [r["local"]["write_s"] for r in ranks]}
     log("mesh (f), a sharded run's file restarted on one device: "
         + json.dumps(res["restart"]))
-    iters, burnin = GLMM_CHEES_RUN
+    iters, burnin = MESH_CHEES_RUN
     if not np.array_equal(draws[0], draws[1]) or draws[0].shape != (
             iters - burnin, 5, CHAINS):
         failed.append("(c) both ranks hold every chain's draws")

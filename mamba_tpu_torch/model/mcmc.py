@@ -10,14 +10,14 @@ engine compiles each phase into one program; here the loop stays on the
 host, and the samplers' steps are replayed from CUDA graphs
 (``utils/graphs.py``), captured at their first step: NUTS's leaves, the
 leapfrogs of ChEES and HMC, DGS's sweeps, the shrink trips of Slice (both
-forms) and SliceSimplex, AMWG's sweeps, BHMC's wall hits and the whole MH
-step of RWM, AMM and MALA.  A loop that runs until no chain is left (a
-slice sampler's shrink trips, BHMC's wall hits) tests a device flag on the
-host once per batch of trips.  MISS, ABC, BIA, BMC3, BMG and the Gibbs
-and custom blocks run eagerly.  On a CUDA device ``timing`` reports the
-graphs a run captured (``graphs``), the seconds their captures took
-(``capture_s``, part of ``sample_s``), the replays and the host tests
-(``host_tests``).
+forms) and SliceSimplex, AMWG's sweeps, BHMC's wall hits, the whole step
+of RWM, AMM, MALA, BIA, BMC3 and BMG, ABC's batches of draws and MISS's
+imputations.  A loop that runs until no chain is left (a slice sampler's
+shrink trips, BHMC's wall hits, ABC's retries) tests a device flag on the
+host once per batch.  The Gibbs and custom blocks run eagerly.  On a CUDA
+device ``timing`` reports the graphs a run captured (``graphs``), the
+seconds their captures took (``capture_s``, part of ``sample_s``), the
+replays and the host tests (``host_tests``).
 
 Restart matches the reference contract (mcmc.jl:3-16): the returned
 ModelChains carries the chain-stacked values, the tunes and the random

@@ -67,14 +67,19 @@ def _simulate_data(seed: int = 123) -> np.ndarray:
 def _stats(x):
     """The five order-statistic summaries (gk.jl:80): ``jnp.quantile``'s
     default linear interpolation, written with ``torch.sort`` so that it
-    batches over chains (``torch.quantile`` has no batching rule)."""
+    batches over chains (``torch.quantile`` has no batching rule), and with
+    Python numbers for the order statistics' positions, so that no index
+    or weight is copied from the host (ABC's batches are captured in CUDA
+    graphs)."""
     s = torch.sort(x).values
-    pos = [(x.shape[-1] - 1) * p for p in PROBS]
-    lo = [int(np.floor(q)) for q in pos]
-    hi = [min(i + 1, x.shape[-1] - 1) for i in lo]
-    frac = torch.tensor([q - i for q, i in zip(pos, lo)], dtype=x.dtype,
-                        device=x.device)
-    return s[lo] + frac * (s[hi] - s[lo])
+    n = x.shape[-1]
+    parts = []
+    for p in PROBS:
+        q = (n - 1) * p
+        lo = int(np.floor(q))
+        hi = min(lo + 1, n - 1)
+        parts.append(s[..., lo] + (q - lo) * (s[..., hi] - s[..., lo]))
+    return torch.stack(parts, -1)
 
 
 def build():

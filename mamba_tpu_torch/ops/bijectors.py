@@ -125,12 +125,15 @@ class Sigmoid(Bijector):
     def forward_log_det(self, u):
         # log((hi-lo) * sigmoid(u) * (1-sigmoid(u)))
         width = self.hi - self.lo
-        # a Python number becomes a tensor by a fill on the device: a copy
-        # from the host cannot be captured in a CUDA graph
-        ld = (torch.log(torch.full((), width, dtype=u.dtype, device=u.device)
-                        if isinstance(width, (int, float)) else
-                        torch.as_tensor(width, dtype=u.dtype, device=u.device))
-              - softplus(u) - softplus(-u))
+        # a Python number becomes a tensor by a fill on the device, and a
+        # 0-d tensor on the host (Uniform(0, 10)'s bounds) stays there, an
+        # operand that the device's operation reads as a number: a copy from
+        # the host cannot be captured in a CUDA graph
+        if isinstance(width, (int, float)):
+            width = torch.full((), width, dtype=u.dtype, device=u.device)
+        elif width.device != u.device and width.dim() > 0:
+            width = width.to(u.device)
+        ld = torch.log(width.to(u.dtype)) - softplus(u) - softplus(-u)
         return _bcast(ld, self.lo, self.hi)
 
 

@@ -169,11 +169,14 @@ def _rpoisson(gen, shape, lam):
 
 
 def _rcategorical(gen, logits):
-    """One index per row of ``logits (..., K)`` (unnormalized log weights)."""
-    p = torch.softmax(logits, dim=-1)
-    idx = torch.multinomial(p.reshape(-1, p.shape[-1]), 1, replacement=True,
-                            generator=gen)
-    return idx.reshape(p.shape[:-1])
+    """One index per row of ``logits (..., K)`` (unnormalized log weights):
+    ``argmax(p / q)``, ``q`` standard exponential, which is what
+    ``torch.multinomial`` draws for one sample (the same numbers from the
+    same generator) without its checks of ``p`` on the host, which a CUDA
+    graph cannot capture (MISS imputes Categorical sites in one)."""
+    p = torch.softmax(logits, dim=-1).reshape(-1, logits.shape[-1])
+    q = torch.empty_like(p).exponential_(1.0, generator=gen)
+    return torch.argmax(p / q, -1).reshape(logits.shape[:-1])
 
 
 # ---- distributions as trees of tensors ------------------------------------

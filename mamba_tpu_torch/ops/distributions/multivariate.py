@@ -204,11 +204,15 @@ class MvNormalFull(_MvBase):
 
 def _as_tensor(v):
     """A parameter as a tensor: numpy arrays keep their dtype, Python
-    numbers take the default one."""
+    numbers take the default one, by a fill on the device (a copy from the
+    host would wait for it, and a CUDA graph cannot capture it: ABC's
+    captured batches evaluate priors such as ``MvNormal(mu, 10.0)``)."""
     if isinstance(v, torch.Tensor):
         return v
     if isinstance(v, np.ndarray):
         return torch.as_tensor(v)
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=torch.get_default_dtype())
     return torch.as_tensor(v, dtype=torch.get_default_dtype())
 
 

@@ -10,15 +10,27 @@ compiled model's ``forward_sample``, all ``nsim`` of every chain in one call
 runs in lockstep: a draw proposes for every chain, and a chain takes the
 first draw it accepts (the reference's ``break``) and keeps it.  A chain's
 draws are all proposed from its current value and share nothing else, so
-``DRAWS_PER_CALL`` of them are scored at once for every chain (one
+up to ``DRAWS_PER_CALL`` of them are scored at once for every chain (one
 simulation call for all of them) and the first accepted one is kept: the
-same draws as one at a time, at a fraction of the calls.  The host syncs
-once per batch of draws, to stop when every chain has accepted.
+same draws as one at a time, at a fraction of the calls.  The batches are
+bodies (``utils.graphs.Captured``) that the engine replays from CUDA
+graphs: the first holds the step's set-up and ``maxdraw``'s remainder
+(``maxdraw - DRAWS_PER_CALL * (batches - 1)`` draws, 1 to
+``DRAWS_PER_CALL``), each later one ``DRAWS_PER_CALL`` draws, so a block
+has at most two bodies.  The host tests a device flag once per batch, to
+stop when every chain has accepted (``graphs.until_done``).  A body draws
+from the run's generator, which the graph registers
+(``Captured.draw_from``): the simulations draw inside the distributions'
+``sample``.  The plain loop runs the same bodies eagerly.
 
 Proposals are made in the block's link-transformed space, like the
 reference (unlist/relist with transform=true, abc.jl:45, 103-110).  On a
 mesh's data axis the summaries read the observed and simulated data whole:
-each data rank gathers its slices (``cm.whole``) before summarizing.
+each data rank gathers its slices (``cm.whole``) before summarizing, and
+the block takes its plain loop.  ``summary`` and ``dist`` run inside the
+captured bodies: a user function that waits for the device or copies from
+the host fails the capture, with ``graphs``' message, which names
+``utils.graphs.disabled()``.
 
 Random draws, in order: at init, the nsim simulations and, with
 ``randeps``, the tolerances ``(C, nsim)`` (exponential); per batch of M
@@ -34,7 +46,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .base import BlockKernel, SamplerSpec, summed
+from ..utils import graphs
+from .base import BlockKernel, SamplerSpec, drawing, replays, summed
 
 #: draws of the ``maxdraw`` loop scored together, per chain
 DRAWS_PER_CALL = 25
@@ -166,51 +179,86 @@ class ABC(SamplerSpec):
                 shape, generator=gen, **f)
             return u if self.proposal == "normal" else 2.0 * u - 1.0
 
+        def first(b, state, gen, M):
+            """The step's set-up, then its first batch, of ``M`` draws."""
+            b["logprior0"].copy_(vprior(b["theta0"], state))
+            Tobs = summarize({k: state[k] for k in datakeys})
+            b["Tobs"].copy_(Tobs)
+            b["pi0"].copy_(pi_epsilon(b["epsp0"], b["eps0"],
+                                      distances(b["Tsim0"], Tobs)))
+            for k in ("theta", "Tsim", "eps", "epsp"):
+                b[k].copy_(b[k + "0"])
+            b["done"].zero_()
+            batch(b, state, gen, M)
+
+        def batch(b, state, gen, M):
+            """``M`` draws of every chain, all proposed from theta0: a
+            chain's draws share no state but theta0, so scoring them
+            together and keeping the first accepted one is the reference's
+            loop."""
+            theta0, done = b["theta0"], b["done"]
+            C, dim = theta0.shape
+            rep = {k: v.repeat_interleave(M, 0) for k, v in state.items()}
+            theta1 = (theta0[:, None] + scale * noise(gen, (C, M, dim))
+                      ).reshape(C * M, dim)
+            logprior1 = vprior(theta1, rep).reshape(C, M)
+            Tsim1 = sim_batch(gen, {**rep, **vunpack(theta1, rep)})
+            Tsim1 = Tsim1.reshape((C, M) + Tsim1.shape[1:])
+            d1 = distances(Tsim1.flatten(0, 1), b["Tobs"].repeat_interleave(M, 0)
+                           ).reshape(C, M, nsim)
+            eps0 = b["eps0"][:, None]
+            eps1 = ((1 - decay) * eps0
+                    + decay * torch.maximum(eps_target, torch.minimum(d1, eps0)))
+            epsp1 = draw_epsprime(gen, eps1)
+            ratio = (pi_epsilon(epsp1, eps1, d1) / b["pi0"][:, None]
+                     * torch.exp(logprior1 - b["logprior0"][:, None]))
+            u = torch.rand((C, M), generator=gen, **f)
+            acc = torch.isfinite(logprior1) & (u < ratio)
+            pick = torch.argmax(acc.to(torch.int8), 1)
+            take = ~done & acc.any(1)
+
+            def first_accepted(v):
+                return v[torch.arange(C, device=v.device), pick]
+
+            t = take[:, None]
+            b["theta"].copy_(torch.where(
+                t, first_accepted(theta1.reshape(C, M, dim)), b["theta"]))
+            b["Tsim"].copy_(torch.where(t[..., None], first_accepted(Tsim1),
+                                        b["Tsim"]))
+            b["eps"].copy_(torch.where(t, first_accepted(eps1), b["eps"]))
+            b["epsp"].copy_(torch.where(t, first_accepted(epsp1), b["epsp"]))
+            done.copy_(done | take)
+            b["more"].copy_(~done.all())
+
+        # the batches: maxdraw's remainder first (with the set-up), then
+        # full ones; one body each
+        batches = -(-self.maxdraw // DRAWS_PER_CALL)
+        rest = self.maxdraw - DRAWS_PER_CALL * (batches - 1)
+
+        def bodies(gen_of):
+            return {"first": lambda b, s: first(b, s, gen_of(), rest),
+                    "more": lambda b, s: batch(b, s, gen_of(), DRAWS_PER_CALL)}
+
+        cap = drawing(bodies, eager=not replays(cm, self.params, draws=True))
+
         def step(gen, state, tune: ABCTune, adapt):
             theta0 = vpack(state)
-            C, dim = theta0.shape
-            logprior0 = vprior(theta0, state)
-            Tobs = summarize({k: state[k] for k in datakeys})
-            pi0 = pi_epsilon(tune.epsilonprime, tune.epsilon,
-                             distances(tune.Tsim, Tobs))
-            done = torch.zeros(C, dtype=torch.bool, device=cm.device)
-            theta, Tsim, eps, epsp = theta0, tune.Tsim, tune.epsilon, tune.epsilonprime
-            for first in range(0, self.maxdraw, DRAWS_PER_CALL):
-                if bool(done.all()):            # the one host sync of a batch
-                    break
-                M = min(DRAWS_PER_CALL, self.maxdraw - first)
-                # M draws of every chain, all proposed from theta0: a chain's
-                # draws share no state but theta0, so scoring them together
-                # and keeping the first accepted one is the reference's loop
-                rep = {k: v.repeat_interleave(M, 0) for k, v in state.items()}
-                theta1 = (theta0[:, None] + scale * noise(gen, (C, M, dim))
-                          ).reshape(C * M, dim)
-                logprior1 = vprior(theta1, rep).reshape(C, M)
-                Tsim1 = sim_batch(gen, {**rep, **vunpack(theta1, rep)})
-                Tsim1 = Tsim1.reshape((C, M) + Tsim1.shape[1:])
-                d1 = distances(Tsim1.flatten(0, 1), Tobs.repeat_interleave(M, 0)
-                               ).reshape(C, M, nsim)
-                eps0 = tune.epsilon[:, None]
-                eps1 = ((1 - decay) * eps0
-                        + decay * torch.maximum(eps_target, torch.minimum(d1, eps0)))
-                epsp1 = draw_epsprime(gen, eps1)
-                ratio = (pi_epsilon(epsp1, eps1, d1) / pi0[:, None]
-                         * torch.exp(logprior1 - logprior0[:, None]))
-                u = torch.rand((C, M), generator=gen, **f)
-                acc = torch.isfinite(logprior1) & (u < ratio)
-                pick = torch.argmax(acc.to(torch.int8), 1)
-                take = ~done & acc.any(1)
-
-                def first_accepted(v):
-                    return v[torch.arange(C, device=v.device), pick]
-
-                t = take[:, None]
-                theta = torch.where(t, first_accepted(theta1.reshape(C, M, dim)), theta)
-                Tsim = torch.where(t[..., None], first_accepted(Tsim1), Tsim)
-                eps = torch.where(t, first_accepted(eps1), eps)
-                epsp = torch.where(t, first_accepted(epsp1), epsp)
-                done = done | take
-            state = {**state, **vunpack(theta, state)}
-            return state, ABCTune(Tsim=Tsim, epsilon=eps, epsilonprime=epsp)
+            C = theta0.shape[0]
+            cap.draw_from(gen)
+            cap.load_state(state)
+            if not cap.holds("Tsim0", tune.Tsim) or not cap.holds("theta0", theta0):
+                flag = dict(dtype=torch.bool, device=cm.device)
+                cap.load(theta=theta0, Tsim=tune.Tsim, eps=tune.epsilon,
+                         epsp=tune.epsilonprime, logprior0=theta0[:, 0],
+                         pi0=theta0[:, 0], Tobs=tune.Tsim[:, 0],
+                         done=torch.zeros(C, **flag),
+                         more=torch.zeros((), **flag))
+            cap.load(theta0=theta0, Tsim0=tune.Tsim, eps0=tune.epsilon,
+                     epsp0=tune.epsilonprime)
+            graphs.until_done(cap, "first", "more", batches)
+            b = cap.bufs
+            state = {**state, **vunpack(b["theta"].clone(), state)}
+            return state, ABCTune(Tsim=b["Tsim"].clone(), epsilon=b["eps"].clone(),
+                                  epsilonprime=b["epsp"].clone())
 
         return BlockKernel(init, step)

@@ -21,12 +21,14 @@ SamplerVariate).  Two levels, as in the JAX package:
 ``adapt`` is a Python bool (``iter <= burnin`` in the reference, e.g.
 nuts.jl:52): the engine's loop runs on the host.  The samplers' inner
 loops (NUTS's leaves, ChEES's and HMC's leapfrogs, the slice samplers'
-shrink trips, AMWG's sweep, BHMC's wall hits, the whole MH step of RWM,
-AMM and MALA) are replayed from CUDA graphs in the engine
+shrink trips, AMWG's sweep, BHMC's wall hits, the whole step of RWM,
+AMM, MALA, BIA, BMC3 and BMG, ABC's batches of draws and MISS's
+imputations) are replayed from CUDA graphs in the engine
 (``SamplerSpec.bind``'s ``graphed``, ``utils/graphs.py``); the
 stand-alone kernels run their plain loops, so they take any ``logf``,
-capturable or not.  Where a sampler's loop is a batch of trips, both
-forms run the same bodies and draw the same numbers in the same layout.
+capturable or not.  Both forms run the same bodies and draw the same
+numbers in the same layout.  Gibbs and custom blocks run eagerly: they
+call user functions that may read the host.
 
 Under a mesh's data axis a block's ``logf`` on one rank is a part of its
 density; every vmapped value and gradient is summed over the data group
@@ -136,12 +138,16 @@ class SamplerSpec:
         return f"{type(self).__name__}({list(self.params)})"
 
 
-def replays(cm, params) -> bool:
+def replays(cm, params, draws: bool = False) -> bool:
     """Whether the block of ``params`` takes its captured step: not built
     under ``utils.graphs.disabled()``, and its density not summed over a
     mesh's data group (``cm.block_split``), an all-reduce that a CUDA
-    graph does not capture."""
-    return graphs.enabled() and not cm.block_split(params)
+    graph does not capture.  A block whose bodies draw from the model
+    (``draws``: MISS, ABC) also takes its plain loop on a mesh with a data
+    axis, where a site is drawn whole from parameters gathered over the
+    data group (``cm.forward_sample``)."""
+    return (graphs.enabled() and not cm.block_split(params)
+            and not (draws and cm.comm.data_size > 1))
 
 
 def summed(vlogf, total):
@@ -226,6 +232,16 @@ def captured(bodies, density, grad: bool = False):
     if grad:
         return graphs.Captured(bodies(lambda state: lambda x: density(x, state)))
     return graphs.Captured(bodies(lambda state: candidate_logf(density, state)))
+
+
+def drawing(bodies, eager: bool = False):
+    """A ``Captured`` whose bodies draw from the generator given to its
+    ``draw_from`` (MISS, ABC): ``bodies(gen_of)``, ``gen_of()`` being that
+    generator.  With ``eager`` it is the plain loop, which runs the same
+    bodies eagerly."""
+    cap = graphs.Captured({}, eager=eager)
+    cap.bodies = bodies(lambda: cap.gen)
+    return cap
 
 
 def plain(bodies, logf):

@@ -30,11 +30,17 @@ step needs the density at several points per chain, they go in one call on
 - ``BMG``: Metropolised Gibbs with conditional Bernoulli proposals and the
   proposal correction when k > 1 (bmg.jl:57-104).
 
+BIA's, BMC3's and BMG's steps are one body each, on tensors of their own
+(``utils.graphs.Captured``), which the engine replays from a CUDA graph
+and the stand-alone step runs eagerly; BIA's ``rate`` (``iter ** -decay``),
+``epsilon`` and ``target`` are 0-d buffers, loaded before the replay.
+
 Random draws per step, in order: BHMC — the position ``(C, n)`` and the
 velocity ``(C, n)`` (normal); BIA — ``(C, n)`` then ``(C,)`` (uniform);
 BMC3 — the index draw, ``(C, n)`` whose ``argsort`` picks k coordinates or
 ``(C,)`` that picks a group, then the acceptance ``(C,)``; BMG — the index
-draw, the proposals ``(C, n)``, the acceptance ``(C,)`` (uniform).
+draw, the proposals ``(C, n)``, the acceptance ``(C,)`` (uniform; none
+with one coordinate).  Every draw is made before the step's body.
 """
 
 from __future__ import annotations
@@ -261,32 +267,55 @@ def bia_init(x0, A=None, D=None, epsilon=None, decay: float = 0.55,
                    epsilon=eps, decay=float(decay), target=float(target), iter=0)
 
 
-def bia_step(gen, x, tune: BIATune, logf):
-    """Add/delete proposal and per-coordinate adaptation of every chain
-    (reference sample!, bia.jl:70-119)."""
-    u = _rand(gen, x.shape, x)
-    it = tune.iter + 1
+def _bia(b, logf):
+    """The add/delete proposal, its MH test and the adaptation of ``A`` and
+    ``D`` on the draws ``b["u"]`` and ``b["ua"]``; writes ``x``, ``A`` and
+    ``D``.  ``rate``, ``eps`` and ``target`` are 0-d buffers."""
+    x, A, D, u = b["x"], b["A"], b["D"], b["u"]
     is0 = x == 0.0
-    added = (is0 & (u < tune.A)).to(x.dtype)
-    deleted = (~is0 & (u < tune.D)).to(x.dtype)
+    added = (is0 & (u < A)).to(x.dtype)
+    deleted = (~is0 & (u < D)).to(x.dtype)
     y = torch.where(added > 0, 1.0, torch.where(deleted > 0, 0.0, x))
-    logA, logD = torch.log(tune.A), torch.log(tune.D)
+    logA, logD = torch.log(A), torch.log(D)
     log_q = torch.sum(added * (logD - logA) + deleted * (logA - logD), -1)
     lfy, lfx = _pair(logf, y, x)
     alpha = torch.clamp(torch.exp(lfy - lfx + log_q), max=1.0)
-
-    rate = float(it) ** -tune.decay
-    eps = tune.epsilon
+    rate, eps, target = b["rate"], b["eps"], b["target"]
 
     def adapt_probs(P, moved):
         c = (torch.log((P - eps) / (1.0 - P - eps))
-             + rate * moved * (alpha[:, None] - tune.target))
+             + rate * moved * (alpha[:, None] - target))
         return (torch.exp(c) * (1.0 - eps) + eps) / (1.0 + torch.exp(c))
 
-    A, D = adapt_probs(tune.A, added), adapt_probs(tune.D, deleted)
-    accept = _rand(gen, alpha.shape, x) < alpha
-    return (torch.where(accept[:, None], y, x),
-            tune._replace(A=A, D=D, iter=it))
+    A2, D2 = adapt_probs(A, added), adapt_probs(D, deleted)
+    accept = b["ua"] < alpha
+    x.copy_(torch.where(accept[:, None], y, x))
+    A.copy_(A2)
+    D.copy_(D2)
+
+
+def bia_bodies(logf_of):
+    """BIA's step on the density ``logf_of(state)`` (its candidate form)."""
+    return {"body": lambda b, s: _bia(b, logf_of(s))}
+
+
+def bia_step(gen, x, tune: BIATune, logf, graphed=None):
+    """Add/delete proposal and per-coordinate adaptation of every chain
+    (reference sample!, bia.jl:70-119).  ``graphed``: the captured step
+    (``bia_bodies``), by default the plain one."""
+    cap = graphed or plain(bia_bodies, logf)
+    it = tune.iter + 1
+    u = _rand(gen, x.shape, x)
+    ua = _rand(gen, x.shape[:1], x)
+    f = dict(dtype=x.dtype, device=x.device)
+    cap.load(x=x, A=tune.A, D=tune.D, u=u, ua=ua,
+             rate=torch.full((), float(it) ** -tune.decay, **f),
+             eps=torch.full((), tune.epsilon, **f),
+             target=torch.full((), tune.target, **f))
+    cap.run()
+    b = cap.bufs
+    return b["x"].clone(), tune._replace(A=b["A"].clone(), D=b["D"].clone(),
+                                         iter=it)
 
 
 class BIA(SamplerSpec):
@@ -298,11 +327,15 @@ class BIA(SamplerSpec):
         self.kwargs = dict(A=A, D=D, epsilon=epsilon, decay=decay,
                            target=target)
 
+    def build(self, cm):
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(bia_bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return bia_init(x0, **self.kwargs)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
-        return bia_step(gen, x, tune, logf)
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+        return bia_step(gen, x, tune, logf, graphed=graphed)
 
 
 # ---------------------------------------------------------------------------
@@ -335,28 +368,63 @@ def _index_init(x0, k) -> IndexSelect:
     return IndexSelect(groups_mask=torch.as_tensor(masks, device=x0.device), k=0)
 
 
-def _index_mask(gen, x, tune: IndexSelect):
-    """``(C, n)`` mask of the coordinates each chain updates: k drawn
-    without replacement (reference randind), or one group."""
-    if tune.groups_mask is None:
-        order = torch.argsort(_rand(gen, x.shape, x), -1)[:, :tune.k]
+def _index_mask(b, k):
+    """``(C, n)`` mask of the coordinates each chain updates, from the
+    draw ``b["idx"]``: k drawn without replacement (reference randind), or
+    with ``k == 0`` one of the groups ``b["groups"] (G, n)``."""
+    x, u = b["x"], b["idx"]
+    if k:
+        order = torch.argsort(u, -1)[:, :k]
         return torch.zeros(x.shape, dtype=torch.bool, device=x.device).scatter(
             1, order, True)
-    G = tune.groups_mask.shape[0]
-    g = torch.clamp((_rand(gen, x.shape[:1], x) * G).long(), max=G - 1)
-    return tune.groups_mask[g]
+    G = b["groups"].shape[0]
+    return b["groups"][torch.clamp((u * G).long(), max=G - 1)]
+
+
+def _index_load(cap, gen, x, tune: IndexSelect):
+    """Loads ``x``, the index draw and the groups (once) into ``cap``: the
+    index draw is ``(C, n)`` uniforms, whose ``argsort`` picks k
+    coordinates, or ``(C,)``, which pick a group."""
+    if tune.groups_mask is None:
+        cap.load(x=x, idx=_rand(gen, x.shape, x))
+        return
+    cap.load(x=x, idx=_rand(gen, x.shape[:1], x))
+    if not cap.holds("groups", tune.groups_mask):
+        cap.load(groups=tune.groups_mask)
 
 
 def bmc3_init(x0, k=1) -> BMC3Tune:
     return _index_init(x0, k)
 
 
-def bmc3_step(gen, x, tune: BMC3Tune, logf):
-    """Flip the selected coordinates, MH accept (reference bmc3.jl:57-68)."""
-    y = torch.where(_index_mask(gen, x, tune), 1.0 - x, x)
+def _bmc3(b, logf, k):
+    x = b["x"]
+    y = torch.where(_index_mask(b, k), 1.0 - x, x)
     lfy, lfx = _pair(logf, y, x)
-    accept = torch.log(_rand(gen, x.shape[:1], x)) < lfy - lfx
-    return torch.where(accept[:, None], y, x), tune
+    accept = torch.log(b["ua"]) < lfy - lfx
+    x.copy_(torch.where(accept[:, None], y, x))
+
+
+def bmc3_bodies(logf_of, k):
+    """BMC3's step on the density ``logf_of(state)``; ``k`` coordinates, or
+    with ``k == 0`` a group."""
+    return {"body": lambda b, s: _bmc3(b, logf_of(s), k)}
+
+
+def bmc3_step(gen, x, tune: BMC3Tune, logf, graphed=None):
+    """Flip the selected coordinates, MH accept (reference bmc3.jl:57-68).
+    ``graphed``: the captured step (``bmc3_bodies`` of ``tune.k``), by
+    default the plain one."""
+    cap = graphed or plain(functools.partial(bmc3_bodies, k=tune.k), logf)
+    _index_load(cap, gen, x, tune)
+    cap.load(ua=_rand(gen, x.shape[:1], x))
+    cap.run()
+    return cap.bufs["x"].clone(), tune
+
+
+def _index_k(k) -> int:
+    """The bodies' ``k`` of a spec's ``k``: 0 for groups."""
+    return k if isinstance(k, int) else 0
 
 
 class BMC3(SamplerSpec):
@@ -366,11 +434,16 @@ class BMC3(SamplerSpec):
         super().__init__(params)
         self.k = k
 
+    def build(self, cm):
+        bodies = functools.partial(bmc3_bodies, k=_index_k(self.k))
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return bmc3_init(x0, self.k)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
-        return bmc3_step(gen, x, tune, logf)
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+        return bmc3_step(gen, x, tune, logf, graphed=graphed)
 
 
 # ---------------------------------------------------------------------------
@@ -392,15 +465,15 @@ def _cond_probs(logf, z):
     return torch.where((p > 0.0) & (p < 1.0), p, 0.5)
 
 
-def bmg_step(gen, x, tune: BMGTune, logf):
-    """Metropolised Gibbs with conditional Bernoulli proposals (reference
-    bmg.jl:57-104)."""
-    mask = _index_mask(gen, x, tune)
+def _bmg(b, logf, k):
+    x = b["x"]
+    mask = _index_mask(b, k)
     probs_x = _cond_probs(logf, x)
-    theta = (_rand(gen, x.shape, x) < probs_x).to(x.dtype)
+    theta = (b["u"] < probs_x).to(x.dtype)
     y = torch.where(mask, theta, x)
-    if x.shape[1] == 1:
-        return y, tune
+    if x.shape[1] == 1:         # the shape's, fixed when the body is built
+        x.copy_(y)
+        return
 
     def masked_logq(probs, z):
         lq = torch.where(z == 1.0, torch.log(probs), torch.log1p(-probs))
@@ -409,8 +482,29 @@ def bmg_step(gen, x, tune: BMGTune, logf):
     qy = masked_logq(probs_x, y)
     qx = masked_logq(_cond_probs(logf, y), x)
     lfy, lfx = _pair(logf, y, x)
-    accept = torch.log(_rand(gen, x.shape[:1], x)) < (lfy - qy) - (lfx - qx)
-    return torch.where(accept[:, None], y, x), tune
+    accept = torch.log(b["ua"]) < (lfy - qy) - (lfx - qx)
+    x.copy_(torch.where(accept[:, None], y, x))
+
+
+def bmg_bodies(logf_of, k):
+    """BMG's step on the density ``logf_of(state)``: the conditionals at
+    ``x`` (2n points), at the proposal, and the pair, three candidate
+    calls; ``k`` coordinates, or with ``k == 0`` a group."""
+    return {"body": lambda b, s: _bmg(b, logf_of(s), k)}
+
+
+def bmg_step(gen, x, tune: BMGTune, logf, graphed=None):
+    """Metropolised Gibbs with conditional Bernoulli proposals (reference
+    bmg.jl:57-104); with one coordinate the proposal is taken as it is.
+    ``graphed``: the captured step (``bmg_bodies`` of ``tune.k``), by
+    default the plain one."""
+    cap = graphed or plain(functools.partial(bmg_bodies, k=tune.k), logf)
+    _index_load(cap, gen, x, tune)
+    cap.load(u=_rand(gen, x.shape, x))
+    if x.shape[1] > 1:
+        cap.load(ua=_rand(gen, x.shape[:1], x))
+    cap.run()
+    return cap.bufs["x"].clone(), tune
 
 
 class BMG(SamplerSpec):
@@ -420,8 +514,13 @@ class BMG(SamplerSpec):
         super().__init__(params)
         self.k = k
 
+    def build(self, cm):
+        bodies = functools.partial(bmg_bodies, k=_index_k(self.k))
+        return self.bind(cm, self.kernel_init, self.kernel_step,
+                         graphed=lambda density: captured(bodies, density))
+
     def kernel_init(self, gen, x0, logf):
         return bmg_init(x0, self.k)
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
-        return bmg_step(gen, x, tune, logf)
+    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+        return bmg_step(gen, x, tune, logf, graphed=graphed)

@@ -12,17 +12,24 @@ iteration — the reference gets the same effect because MISS runs inside
 iteration 1 before any likelihood-consuming block touches the node.
 
 Random draws per step: one ``forward_sample`` of each masked site, in the
-order of ``params``.  On a mesh's data axis the draw is made at the site's
-whole shape (``forward_sample``), so every data rank takes the unsharded
-run's stream and keeps its slice.
+order of ``params``.  The step is one body (``utils.graphs.Captured``),
+which the engine replays from a CUDA graph: the draws are made inside it,
+from the run's generator, which the graph registers
+(``Captured.draw_from``), so that a replay draws the numbers the body run
+eagerly draws; the plain loop runs the same body eagerly.  On a mesh's
+data axis the draw is made at the site's whole shape (``forward_sample``),
+so every data rank takes the unsharded run's stream and keeps its slice;
+there the block takes its plain loop.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from .base import BlockKernel, SamplerSpec
+from .base import BlockKernel, SamplerSpec, drawing, replays
 
 
 def missing_masks(cm, params) -> dict[str, np.ndarray]:
@@ -52,13 +59,37 @@ class MISS(SamplerSpec):
         masks = {n: torch.as_tensor(cm.local(n, m), device=cm.device)
                  for n, m in missing_masks(cm, self.params).items()}
 
+        cap = drawing(functools.partial(impute_bodies, cm, masks),
+                      eager=not replays(cm, self.params, draws=True))
+
         def init(gen, state):
             return ()
 
         def step(gen, state, tune, adapt):
-            for name, mask in masks.items():
-                draw = cm.forward_sample(gen, state, names=(name,))[name]
-                state = {**state, name: torch.where(mask, draw, state[name])}
-            return state, tune
+            if not masks:
+                return state, tune
+            cap.draw_from(gen)
+            cap.load_state(state)
+            for name in masks:
+                if not cap.holds(name, state[name]):
+                    cap.load(**{name: state[name]})
+            cap.run()
+            return {**state, **{n: cap.bufs[n].clone() for n in masks}}, tune
 
         return BlockKernel(init, step)
+
+
+def _impute(cm, masks, gen, b, state):
+    """Each masked site redrawn where its mask is set, in order, from its
+    predictive distribution at the state as it stands; written to
+    ``b[site]``."""
+    state = dict(state)
+    for name, mask in masks.items():
+        draw = cm.forward_sample(gen, state, names=(name,))[name]
+        state[name] = torch.where(mask, draw, state[name])
+        b[name].copy_(state[name])
+
+
+def impute_bodies(cm, masks, gen_of):
+    """MISS's step on the compiled model ``cm``, drawing from ``gen_of()``."""
+    return {"body": lambda b, s: _impute(cm, masks, gen_of(), b, s)}

@@ -4,7 +4,7 @@ device back, at a given number of chains.
 
     python3 -m mamba_tpu_torch.scripts.zoo_probe [--models pumps,seeds]
         [--chains 1024] [--iters 30] [--burnin 10] [--profile-iters 2]
-        [--device cuda] [--out build/lab]
+        [--block-iters 3] [--device cuda] [--out build/lab]
 
 Run from the root of a checkout.  For every model (all of the zoo unless
 ``--models`` names some; ``name:scheme`` picks a scheme, and by default
@@ -115,6 +115,8 @@ def _device_ms(torch, sim, iters, plain=False, trips=False):
 
 def _form(bufs):
     """The sampler form whose trip batches ``bufs`` hold."""
+    if "Tsim0" in bufs:
+        return "ABC"
     if "hits" in bufs:
         return "BHMC"
     if "row" in bufs:
@@ -125,15 +127,18 @@ def _form(bufs):
 def _trip_window(graphs, run):
     """``run()`` with every ``graphs.until_done`` recorded: per sampler form,
     the deepest chain's trips in each loop (a coordinate, a row, a
-    trajectory: a host read after the loop, outside any timing) and the
-    batches it took, summarized."""
+    trajectory: a host read after the loop, outside any timing; for ABC,
+    the batches of draws) and the batches it took, summarized."""
     seen = {}
     inner = graphs.until_done
 
     def recording(cap, *args, **kwargs):
         runs = inner(cap, *args, **kwargs)
         b = cap.bufs
-        deepest = (int((b["hits"] - b["hits0"]).max()) if "hits" in b
+        # ABC's draws come in batches of a fixed size: its loop's length is
+        # the batches it took
+        deepest = (runs if "Tsim0" in b
+                   else int((b["hits"] - b["hits0"]).max()) if "hits" in b
                    else int(b["trips"].max()))
         seen.setdefault(_form(b), []).append((deepest, runs))
         return runs
@@ -157,7 +162,32 @@ def _trip_window(graphs, run):
     return out
 
 
-def probe(torch, spec, chains, iters, burnin, profile_iters, device, seed=123):
+def _block_ms(torch, sim, iters):
+    """Wall ms per iteration of each block's step over ``iters`` iterations
+    that continue ``sim`` (after ``WARM`` more), the device synchronized
+    before and after every step, and each block's share of their sum."""
+    from ..model.mcmc import _build_kernels, _sync
+    cm, st = sim.compiled, sim.states
+    kernels = _build_kernels(cm)
+    gen = torch.Generator(device=cm.device)
+    gen.set_state(st["rng"])
+    state, tunes = st["state"], list(st["tunes"])
+    ms = [0.0] * len(kernels)
+    for it in range(WARM + iters):
+        for j, k in enumerate(kernels):
+            _sync(cm.device)
+            t0 = time.perf_counter()
+            state, tunes[j] = k.step(gen, state, tunes[j], False)
+            _sync(cm.device)
+            if it >= WARM:
+                ms[j] += 1e3 * (time.perf_counter() - t0) / iters
+    labels = [repr(s) for s in cm.model.samplers]
+    return {"block_ms_per_iter": dict(zip(labels, ms)),
+            "block_share": dict(zip(labels, (m / sum(ms) for m in ms)))}
+
+
+def probe(torch, spec, chains, iters, burnin, profile_iters, device, seed=123,
+          block_iters=0):
     name, _, scheme = spec.partition(":")
     mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
     model, inputs, inits = mod.build(scheme) if scheme else mod.build()
@@ -185,6 +215,8 @@ def probe(torch, spec, chains, iters, burnin, profile_iters, device, seed=123):
                         **{f"{k}_per_iter": v for k, v in counts.items()}}
             if way == "captured":
                 out["trips"] = got[4]
+    if block_iters:
+        out.update(_block_ms(torch, sim, block_iters))
     print(json.dumps(out), flush=True)
     return out
 
@@ -196,6 +228,7 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=30)
     ap.add_argument("--burnin", type=int, default=10)
     ap.add_argument("--profile-iters", type=int, default=0)
+    ap.add_argument("--block-iters", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", type=Path, default=Path("build") / "lab")
     a = ap.parse_args(argv)
@@ -212,7 +245,8 @@ def main(argv=None) -> int:
              [f"{m}:{sc}" if sc else m for m in ALL_MODELS if m not in SKIP
               for sc in SCHEMES.get(m, (None,))])
     report["models"] = [probe(torch, m, a.chains, a.iters, a.burnin,
-                              a.profile_iters, a.device) for m in specs]
+                              a.profile_iters, a.device,
+                              block_iters=a.block_iters) for m in specs]
     a.out.mkdir(parents=True, exist_ok=True)
     (a.out / "zoo_probe.json").write_text(json.dumps(report, indent=1))
     return 0

@@ -267,8 +267,11 @@ class _HostWatch(TorchDispatchMode):
     """Records the operators that wait for the device or copy data from
     the host, neither of which a CUDA graph can capture."""
 
+    #: ``aten::multinomial`` checks its probabilities on the host before
+    #: it draws
     FORBIDDEN = ("aten::_local_scalar_dense", "aten::item", "aten::is_nonzero",
-                 "aten::nonzero", "aten::lift_fresh", "aten::lift_fresh_copy")
+                 "aten::nonzero", "aten::lift_fresh", "aten::lift_fresh_copy",
+                 "aten::multinomial")
 
     def __init__(self):
         super().__init__()

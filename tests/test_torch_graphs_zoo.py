@@ -1,7 +1,9 @@
 """The zoo's samplers on captured steps (``utils/graphs.py``) on the CPU,
 where a ``Captured`` runs its bodies eagerly on its own tensors: the steps
 of Slice (both forms), SliceSimplex, AMWG, BHMC, AMM, RWM, HMC and MALA
-through one ``Captured`` reused step after step, against their plain loops
+(those of BIA, BMC3, BMG, ABC and MISS are in
+``test_torch_graphs_eager.py``) through one ``Captured`` reused step after
+step, against their plain loops
 (fresh tensors every step), bit for bit, with one batch of trips and with
 several; engine runs through the captured steps against
 ``graphs.disabled()`` runs; a restart; the host tests and replays counted;
@@ -9,6 +11,7 @@ and no captured body of any zoo model that waits for the device or copies
 host data.  The CUDA graphs themselves are held to the plain loops on the
 card by ``chip_smoke.py``'s graphs phase."""
 
+import contextlib
 import functools
 import importlib
 
@@ -18,12 +21,14 @@ import torch
 
 import mamba_tpu_torch as tmt
 from mamba_tpu_torch.models import line
+from mamba_tpu_torch.samplers import abc as tabc
 from mamba_tpu_torch.samplers import amm as tamm
 from mamba_tpu_torch.samplers import amwg as tamwg
 from mamba_tpu_torch.samplers import base
 from mamba_tpu_torch.samplers import binary as tbin
 from mamba_tpu_torch.samplers import hmc as thmc
 from mamba_tpu_torch.samplers import mala as tmala
+from mamba_tpu_torch.samplers import miss as tmiss
 from mamba_tpu_torch.samplers import rwm as trwm
 from mamba_tpu_torch.samplers import slice as tslice
 from mamba_tpu_torch.samplers import slicesimplex as tss
@@ -307,13 +312,17 @@ def _assert_same_run(a, b):
     assert torch.equal(a.states["rng"], b.states["rng"])
 
 
-#: models (and schemes) that hold every sampler this slice captures:
+#: models (and schemes) that hold every sampler the engine captures:
 #: univariate Slice (pumps), AMWG with univariate Slice (magnesium), AMWG
-#: with both forms (inhalers), SliceSimplex (asthma), BHMC (pollution), AMM
-#: (seeds) and HMC, MALA and RWM on line
+#: with both forms (inhalers), SliceSimplex (asthma), BHMC, BIA, BMC3 and
+#: BMG (pollution), AMM (seeds), HMC, MALA and RWM on line, ABC (line_abc:
+#: a Normal y, 4 batches of draws; gk: a user distribution, 2 batches, with
+#: and without randeps), and MISS on a Truncated(Weibull) site (mice,
+#: kidney) and on a Categorical one (bones)
 ENGINE_ARMS = ["pumps", "magnesium", "inhalers", "asthma", "pollution:bhmc",
                "seeds:reference", "line:hmc_slice", "line:mala_slice",
-               "line:rwm_slice_uni"]
+               "line:rwm_slice_uni", "pollution:bia", "pollution:bmc3",
+               "pollution:bmg", "line_abc", "gk", "mice", "bones", "kidney"]
 
 
 @pytest.mark.parametrize("arm", ENGINE_ARMS)
@@ -362,6 +371,35 @@ def test_split_blocks_and_disabled_builds_take_the_plain_loops(monkeypatch):
     for spec in model.samplers:
         spec.build(cm)
     assert len(made) == 3
+    # the blocks whose bodies draw (MISS on mice, ABC on line_abc) take
+    # their plain loops under disabled(), split over a data axis, and on
+    # any mesh with a data axis, where a site is drawn whole
+    flags = []
+    real_drawing = base.drawing
+
+    def drawing(bodies, eager=False):
+        flags.append(eager)
+        return real_drawing(bodies, eager)
+
+    for mod in (tmiss, tabc):
+        monkeypatch.setattr(mod, "drawing", drawing)
+
+    for name, blocks in (("mice", 1), ("line_abc", 2)):
+        model, inputs, inits = _build(name)
+        cm = tmt.compile_model(model, inputs, inits[0], device="cpu")
+        ways = []
+        for way in ("captured", "disabled", "split", "data_axis"):
+            del flags[:]
+            with monkeypatch.context() as m:
+                if way == "split":
+                    m.setattr(cm, "block_split", lambda *a, **k: True)
+                if way == "data_axis":
+                    m.setattr(cm.comm, "data_size", 2)
+                with graphs.disabled() if way == "disabled" else contextlib.nullcontext():
+                    for spec in model.samplers:
+                        spec.build(cm)
+            ways.append(list(flags))
+        assert ways == [[False] * blocks] + [[True] * blocks] * 3, (name, ways)
 
 
 # ---------------------------------------------------------------------------
@@ -378,11 +416,13 @@ class _FakeGraph:
 def _fake_capture(self, name):
     """``Captured._capture`` without a card: the same warm-up, then a
     capture that records the body without running it (the body's launches
-    go to the tally, and the tensors are put back)."""
+    go to the tally, and the tensors and the state of the generator the
+    body draws from are put back: a capture advances neither)."""
     body = self.bodies[name]
     self.warm_up(body)
     tally = {}
     saved = {k: v.clone() for k, v in self.bufs.items()}
+    rng = None if self.gen is None else self.gen.get_state()
     graphs._CAPTURING.append(tally)
     try:
         out = body(self.bufs, self.state)
@@ -390,6 +430,8 @@ def _fake_capture(self, name):
         graphs._CAPTURING.pop()
     for k, v in saved.items():
         self.bufs[k].copy_(v)
+    if rng is not None:
+        self.gen.set_state(rng)
 
     def replay():
         graphs._CAPTURING.append({})      # the launches count from the tally
@@ -520,7 +562,8 @@ CAPTURING = ["asthma", "birats", "blocker", "bones", "dogs", "dyes", "epil",
              "oxford:nuts", "pollution:bhmc", "pumps", "rats:reference",
              "rats:nuts-slice", "salm", "seeds:reference", "seeds:nuts",
              "stacks", "surgical", "line:hmc_slice", "line:mala_slice",
-             "line:rwm_slice_uni"]
+             "line:rwm_slice_uni", "pollution:bia", "pollution:bmc3",
+             "pollution:bmg", "line_abc", "gk"]
 
 
 @pytest.mark.parametrize("arm", CAPTURING)
@@ -536,7 +579,7 @@ def test_zoo_captured_bodies_neither_sync_nor_copy_from_the_host(arm, monkeypatc
              device="cpu", dtype=torch.float32)
     kinds = {type(s).__name__ for s in model.samplers}
     captures = {"Slice", "SliceSimplex", "AMWG", "BHMC", "AMM", "RWM", "HMC",
-                "MALA"} & kinds
+                "MALA", "BIA", "BMC3", "BMG", "ABC", "MISS"} & kinds
     assert captures and seen["caps"]
     for cap in seen["caps"]:
         for name, body in cap.bodies.items():
