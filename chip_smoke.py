@@ -94,13 +94,17 @@ through the port's public entry points (``mcmc``, ``advi``,
     summed over the data group, against one launch over all groups, under
     phase 3's gates; (e) in the same two processes, local views: y, the
     covariates xt and z named on the data axis (``LOCAL_SPECS``), so each
-    rank holds y (1024, 10, 5,000) and xt (4, 10, 5,000); (b)'s run
-    on that mesh (finite draws, equal on both ranks), its peak memory rise
-    against the same steps without a mesh (at least
-    ``LOCAL_MEM_SAVED_MIN`` lower), the block density and gradient at the
-    warm starts summed over the ranks against the whole under phase 3's
-    gates with one launch per call over the rank's 5,000 groups, the gloo
-    ``data_sum`` of one call timed; in this process, the device ms of a
+    rank holds y (1024, 10, 5,000), xt (4, 10, 5,000) and z (1024, 5,000),
+    its ChEES block the rank's 5,005 coordinates (z's slice, beta and s2);
+    (b)'s run on that mesh (finite draws, equal on both ranks), its peak
+    memory rise against the same steps without a mesh (at least
+    ``LOCAL_MEM_SAVED_MIN`` lower; printed beside the rise when z was whole,
+    ``LOCAL_RISE_Z_WHOLE``), the block density and gradient at the warm
+    starts completed over the ranks against the whole under phase 3's
+    gates (the slice coordinates against the whole gradient's slice) with
+    one launch per call over the rank's 5,000 groups, the block's
+    all-reduce of one call timed ((1024, 6): the value and the whole
+    coordinates' gradient); in this process, the device ms of a
     density and gradient whole and as a rank holds it, fused and generic;
     (f) a sharded run's chain file: both ranks of (c) and of (e) call
     ``write_chains``, and this process reads each file on the card
@@ -111,21 +115,26 @@ through the port's public entry points (``mcmc``, ``advi``,
     same two processes, models whose data-axis layout needs the
     compiler's resolved cases, on the (1, 2) data mesh: the GLMM with
     z ~ Normal(w, 1), w (10,000,) named
-    (a sampled site whose prior reads a slice), its density and gradient
+    (a sampled site whose prior reads a slice, held as the rank's slice),
+    its density and gradient
     at the warm starts against the whole (one launch over 5,000 groups), a
     short run and its peak memory rise; birats with Y and beta named (a
     law per row) and line with mean(y) and ss = sum((y - mu)**2) monitored
     (a constant and a node computed again from whole values), each held
     to the unsharded model at its inits (density, monitored rows) and run
-    a few iterations, draws finite and equal on both ranks;
-    then the kernel at a rank's shares (C = 512; G = 5,000;
+    a few iterations, draws finite and equal on both ranks; (h) in the same
+    two processes, the rats NUTS headline cut as phase 6 at 1024 chains on
+    the (1, 2) data mesh with y, alpha and beta named (the JAX package's own
+    data-mesh setup, __graft_entry__.py:57): each rank holds 15 rats of
+    each, draws finite and equal on both ranks, phase 6's mu_beta gate, its
+    wall per leapfrog; then the kernel at a rank's shares (C = 512; G = 5,000;
     C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
     plain version, the first two timed with their bounds.  Both ranks share
     the one card: no number of (c)-(g) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
-runs one rank of (c), (d), (e) and (g), and writes (f)'s files.
+runs one rank of (c), (d), (e), (g) and (h), and writes (f)'s files.
 
 The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
@@ -298,9 +307,9 @@ SMC_GLMM_STEPS = 20
 #: the profile phase: full-width gradients traced, and how far
 #: time_compiled's time may lie from phase 3's CUDA-event time
 PROFILE_GRADIENTS, PROFILE_TIME_RTOL = 5, 0.2
-#: the mesh phase: the two processes of (c) and (d) must end within this
+#: the mesh phase: the two processes of (c)-(h) must end within this
 #: many seconds, and a collective may wait this many
-MESH_RANKS_TIMEOUT, MESH_GROUP_TIMEOUT = 300, 120
+MESH_RANKS_TIMEOUT, MESH_GROUP_TIMEOUT = 700, 120
 #: the mesh phase's model width (phase 10's)
 MESH_G = 10_000
 #: convergence gates of bench.py:48-52
@@ -1156,8 +1165,11 @@ def _split_density_check(torch, mt, glmm, fg, mesh, warm):
 def _split_against_whole(torch, fg, whole, split, state):
     """The (beta, z, s2) block density and gradient of ``split`` (a data
     rank's compiled GLMM) from the rank's local view of the whole state
-    ``state``, summed over the data group, against ``whole``'s: their
-    errors and each one's kernel launches."""
+    ``state``, completed over the data group (``block_sum``), against
+    ``whole``'s: their errors and each one's kernel launches.  Where the
+    rank holds z as its slice (``_held``) its gradient has the rank's
+    coordinates (``block_coords``): the slice coordinates are held against
+    the whole gradient's slice, the whole coordinates against the whole."""
     params = ("beta", "z", "s2")
     out = {}
     for name, cm in (("whole", whole), ("split", split)):
@@ -1170,9 +1182,14 @@ def _split_against_whole(torch, fg, whole, split, state):
         v, g = cm.block_sum(params)(v, g)
         out[name] = (v.double(), g.double(), launches)
     (v, g, n_split), (vw, gw, n_whole) = out["split"], out["whole"]
+    coords = split.block_coords(params)
+    if coords.index is not None:
+        gw = gw[:, coords.index]
     return {"lp_rel_err": float(((v - vw).abs() / vw.abs()).max()),
             "grad_rel_err": float((g - gw).abs().max() / gw.abs().max()),
-            "launches_split": n_split, "launches_whole": n_whole}
+            "launches_split": n_split, "launches_whole": n_whole,
+            "held": sorted(split._held), "part_sites": sorted(split._part_sites),
+            "grad_shape": list(g.shape)}
 
 
 #: (e)'s layout: y, the covariates and the random effects' z split by
@@ -1184,7 +1201,10 @@ LOCAL_SPECS_GENERIC = {"y": ("data", None), "x": ("data", None, None),
 #: (e) gates: a rank's peak memory rise at least this many bytes below the
 #: same steps without a mesh (most of the half of y a rank does not hold)
 LOCAL_MEM_SAVED_MIN = 180e6
-#: all-reduces timed for (e)'s data_sum figure
+#: a data rank's peak memory rise in (e) when z was whole in the state (an
+#: H100 80GB HBM3 at 700 W, PERF.md §6): printed beside this run's
+LOCAL_RISE_Z_WHOLE = 748.0e6
+#: all-reduces timed for (e)'s figure of the block's completion of a call
 DATA_SUM_REPS = 5
 
 
@@ -1204,9 +1224,9 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
         f"(e) rank {rank}, local views on a (1, 2) data mesh", mesh=mesh,
         site_specs=LOCAL_SPECS)
     state = sim.states["state"]
-    res["shapes"] = {"y": list(state["y"].shape),
-                     "xt": list(sim.compiled.inputs["xt"].shape),
-                     "z": list(state["z"].shape)}
+    res["shapes"] = {k: list(state[k].shape) for k in ("y", "z", "beta", "s2")}
+    res["shapes"]["xt"] = list(sim.compiled.inputs["xt"].shape)
+    res["minv_shape"] = list(sim.states["tunes"][0].minv.shape)
     res["tunes"] = tunes
     np.save(Path(outdir) / f"local_draws{rank}.npy", sim.value)
     res["write_s"] = _write_sharded(torch, mt, sim, outdir, "local", rank)
@@ -1225,20 +1245,32 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
         torch, fg, whole, split, _chain_inits(whole, warm, CHAINS))
     # the split's launch runs over the arrays the rank holds
     res["density"]["groups_split"] = split.inputs["xt"].shape[-1]
-    # the all-reduce of one density call's value and gradient, staged
-    # through the host under gloo
-    comm = MeshComm(mesh)
-    dim = whole.block_ravel_spec(("beta", "z", "s2"), True).total
+    # the block's completion of one density call: one all-reduce of the
+    # value and the whole coordinates' gradient, staged through the host
+    # under gloo (the slice coordinates' gradient stays the rank's own)
+    params = ("beta", "z", "s2")
+    total, coords = split.block_sum(params), split.block_coords(params)
     v = torch.zeros(CHAINS, device=DEVICE)
-    g = torch.zeros(CHAINS, dim, device=DEVICE)
-    comm.data_sum(v, g)
+    g = torch.zeros(CHAINS, len(coords.index), device=DEVICE)
+    shapes = []
+    inner = MeshComm.data_sum
+
+    def counted(comm, *tensors):
+        shapes.append([list(t.shape) for t in tensors])
+        return inner(comm, *tensors)
+    MeshComm.data_sum = counted
+    try:
+        total(v, g)
+    finally:
+        MeshComm.data_sum = inner
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(DATA_SUM_REPS):
-        comm.data_sum(v, g)
+        total(v, g)
     torch.cuda.synchronize()
     res["data_sum_ms"] = 1e3 * (time.perf_counter() - t0) / DATA_SUM_REPS
-    res["data_sum_shape"] = [CHAINS, dim]
+    (res["data_sum_shape"],) = shapes[0]
+    res["rank_dim"], res["whole_dim"] = len(coords.index), coords.dim
     return res
 
 
@@ -1251,10 +1283,29 @@ def _write_sharded(torch, mt, sim, outdir, label, rank):
     mt.write_chains(str(Path(outdir) / f"{label}.pkl"), sim)
     seconds = time.perf_counter() - t0
     st = sim.states
+    coords = sim.compiled.block_coords(("beta", "z", "s2"))
     torch.save({"state": {k: st["state"][k] for k in ("beta", "z", "s2")},
-                "tunes": st["tunes"], "rng": st["rng"], "burnin": st["burnin"]},
+                "tunes": st["tunes"], "rng": st["rng"], "burnin": st["burnin"],
+                "index": coords.index, "dim": coords.dim},
                Path(outdir) / f"{label}_rank{rank}.pt")
     return seconds
+
+
+def _joined_tunes(torch, own):
+    """The ChEES tunes of (e)'s two data ranks as one device holds them:
+    each per-coordinate leaf (``COORD_LEAVES``) put back into the unsharded
+    flat order from each rank's coordinates (``index``), every other leaf
+    rank 0's."""
+    tune = own[0]["tunes"][0]
+    joined = {}
+    for f in type(tune).COORD_LEAVES:
+        leaf = getattr(tune, f)
+        out = leaf.new_zeros(leaf.shape[:-1] + (own[0]["dim"],))
+        for o in own:
+            out.index_copy_(-1, o["index"].to(leaf.device),
+                            getattr(o["tunes"][0], f))
+        joined[f] = out
+    return (tune._replace(**joined),) + tuple(own[0]["tunes"][1:])
 
 
 #: (g)(i)'s layout: LOCAL_SPECS with z's prior mean w (G,) named too
@@ -1333,7 +1384,6 @@ def _resolved_cases(torch, mt, glmm, fg, warm, mesh, rank, outdir):
     d = _split_against_whole(torch, fg, whole, split,
                              _chain_inits(whole, warm, CHAINS))
     d["groups_split"] = split.inputs["xt"].shape[-1]
-    d["part_sites"] = sorted(split._part_sites)
     del whole, split
     iters, burnin = GW_RUN
     fg.glmm_loglik_grads.launches = 0
@@ -1341,7 +1391,8 @@ def _resolved_cases(torch, mt, glmm, fg, warm, mesh, rank, outdir):
                   verbose=False, device=DEVICE, mesh=mesh, site_specs=W_SPECS)
     res["glmm_w"] = {"density": d, "kernel_launches": fg.glmm_loglik_grads.launches,
                      "sample_s": sim.timing["sample_s"],
-                     "peak_rise_bytes": sim.timing["peak_rise_bytes"]}
+                     "peak_rise_bytes": sim.timing["peak_rise_bytes"],
+                     "z_shape": list(sim.states["state"]["z"].shape)}
     np.save(Path(outdir) / f"glmm_w_draws{rank}.npy", sim.value)
     del sim
     for name, (model, inputs, inits), specs in (
@@ -1358,16 +1409,51 @@ def _resolved_cases(torch, mt, glmm, fg, warm, mesh, rank, outdir):
     return res
 
 
+#: (h)'s layout: the JAX package's own data-mesh setup of rats
+#: (__graft_entry__.py:57)
+RATS_SPECS = {"y": ("data",), "alpha": ("data",), "beta": ("data",)}
+
+
+def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
+    """(h): the rats NUTS headline, cut as phase 6 (``RATS_NUTS_RUN``), at
+    1024 chains on a (1, 2) data mesh with y, alpha and beta named: each
+    rank holds 15 of the 30 rats' y, alpha and beta, and its NUTS block
+    sums over its coordinates across the two ranks (the plain loops).  The
+    golden mu_beta gate of phase 6; its wall per leapfrog; the draws saved
+    for the parent's check that both ranks agree."""
+    from mamba_tpu_torch.models import rats
+    iters, burnin = RATS_NUTS_RUN
+    model, inputs, inits = rats.build("nuts")
+    depths, restore = _record_depths(nuts)
+    try:
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=CHAINS, verbose=False, device=DEVICE, mesh=mesh,
+                      site_specs=RATS_SPECS)
+    finally:
+        restore()
+    res = {**_timing(sim, CHAINS, iters), **_nuts_work(torch, depths)}
+    res["wall_ms_per_leapfrog"] = 1e3 * res["sample_s"] / res["leapfrog_steps"]
+    res["peak_rise_bytes"] = sim.timing["peak_rise_bytes"]
+    state = sim.states["state"]
+    res["shapes"] = {k: list(state[k].shape) for k in ("y", "alpha", "beta")}
+    res["held"] = sorted(sim.compiled._held)
+    log(f"(h) rank {rank}, rats NUTS on a (1, 2) data mesh ({CHAINS} chains, "
+        f"{iters} iters, {burnin} burnin): " + json.dumps(res))
+    res.update(_rats_gates(mt, rats, sim, f"(h) rank {rank}"))
+    np.save(Path(outdir) / f"rats_draws{rank}.npy", sim.value)
+    return res
+
+
 def mesh_rank(init, rank, outdir):
-    """One rank of the mesh phase's (c), (d) and (e): two processes over
-    gloo, both on this process's card."""
+    """One rank of the mesh phase's (c), (d), (e), (g) and (h): two
+    processes over gloo, both on this process's card."""
     import torch
     import torch.distributed as dist
     import mamba_tpu_torch as mt
     from mamba_tpu_torch.models import glmm
     from mamba_tpu_torch.ops import fused_glmm as fg
     from mamba_tpu_torch.parallel import distributed_init, make_mesh
-    from mamba_tpu_torch.samplers import chees
+    from mamba_tpu_torch.samplers import chees, nuts
     outdir = Path(outdir)
     with np.load(outdir / "warm.npz") as f:
         warm_arrays = {k: f[k] for k in f.files}
@@ -1396,6 +1482,9 @@ def mesh_rank(init, rank, outdir):
         res["resolved"] = _resolved_cases(torch, mt, glmm, fg, warm,
                                           data_mesh, rank, outdir)
         res["resolved"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["rats"] = _rats_data_mesh(torch, mt, nuts, data_mesh, rank, outdir)
+        res["rats"]["wall_s"] = time.perf_counter() - t0
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -1422,8 +1511,14 @@ def _local_views_gates(local, draws, failed):
             failed.append(f"(e) rank {r}: one launch per call over {half} groups")
         if (res["shapes"]["y"] != [CHAINS, 10, half]
                 or res["shapes"]["xt"] != [4, 10, half]
-                or res["shapes"]["z"] != [CHAINS, MESH_G]):
-            failed.append(f"(e) rank {r}: the shapes it holds {res['shapes']}")
+                or res["shapes"]["z"] != [CHAINS, half]
+                or res["minv_shape"] != [half + 5]
+                or d["held"] != ["z"]):
+            failed.append(f"(e) rank {r}: the shapes it holds {res['shapes']}, "
+                          f"minv {res['minv_shape']}, held {d['held']}")
+        if res["data_sum_shape"] != [CHAINS, 6]:
+            failed.append(f"(e) rank {r}: a call's all-reduce carries "
+                          f"{res['data_sum_shape']}, not [{CHAINS}, 6]")
     whole = local[0]["whole_peak_rise_bytes"]
     saved = [whole - res["peak_rise_bytes"] for res in local]
     if min(saved) < LOCAL_MEM_SAVED_MIN:
@@ -1431,10 +1526,13 @@ def _local_views_gates(local, draws, failed):
                       f"< {LOCAL_MEM_SAVED_MIN:.0f}")
     return {"peak_rise_bytes": [res["peak_rise_bytes"] for res in local],
             "whole_peak_rise_bytes": whole, "saved_bytes": saved,
+            "rise_below_z_whole_bytes": [LOCAL_RISE_Z_WHOLE - res["peak_rise_bytes"]
+                                         for res in local],
             "shapes": local[0]["shapes"],
             "density": [res["density"] for res in local],
             "data_sum_ms": [res["data_sum_ms"] for res in local],
             "data_sum_shape": local[0]["data_sum_shape"],
+            "rank_dim": local[0]["rank_dim"], "whole_dim": local[0]["whole_dim"],
             "sample_s": [res["sample_s"] for res in local],
             "leapfrog_steps": local[0]["leapfrog_steps"],
             "wall_ms_per_gradient": [res["wall_ms_per_gradient"]
@@ -1543,6 +1641,8 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
         resolved_draws = {k: [np.load(Path(tmp) / f"{k}_draws{r}.npy")
                               for r in range(2)]
                           for k in ("glmm_w", "birats", "line_ss")}
+        rats_draws = [np.load(Path(tmp) / f"rats_draws{r}.npy")
+                      for r in range(2)]
         failed = []
         t0 = time.perf_counter()                                  # (f)
         res["restart"] = {
@@ -1575,6 +1675,8 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
         r["kernel_launches"] + r["local"]["kernel_launches"]
         + r["resolved"]["glmm_w"]["kernel_launches"] for r in ranks) + sum(
         res["restart"][k]["kernel_launches"] for k in ("chain_mesh", "local"))
+    res["rats"] = _rats_gates_h([r["rats"] for r in ranks], rats_draws, failed)
+    log("mesh (h), rats NUTS on a (1, 2) data mesh: " + json.dumps(res["rats"]))
     res["local_views"] = _local_views_gates(local, local_draws, failed)
     res["local_views"]["density_ms"] = _rank_density_ms(torch, mt, glmm, warm)
     log("mesh (e): " + json.dumps(res["local_views"]))
@@ -1622,10 +1724,15 @@ def _file_restart(torch, mt, glmm, fg, tmp, label, draws, failed):
     for k in ("beta", "z", "s2"):
         whole[k] = (torch.cat([o["state"][k] for o in own])
                     if label == "chain_mesh" else own[0]["state"][k])
+    tunes = own[0]["tunes"]
+    if own[0]["index"] is not None:
+        # (e)'s data ranks hold z's slices and their coordinates' tunes
+        whole["z"] = torch.cat([o["state"]["z"] for o in own], 1)
+        tunes = _joined_tunes(torch, own)
     cm = mt.compile_model(model, inputs, inits[0], device=DEVICE)
     memory = ModelChains(draws, start=mc.start, thin=mc.thin, names=mc.names,
                          chains=mc.chains, model=model, compiled=cm,
-                         states={"state": whole, "tunes": own[0]["tunes"],
+                         states={"state": whole, "tunes": tunes,
                                  "rng": own[0]["rng"],
                                  "burnin": own[0]["burnin"]}, iter=mc.iter)
     fg.glmm_loglik_grads.launches = 0
@@ -1664,7 +1771,7 @@ def _resolved_gates(resolved, draws, failed):
         if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL
                 and d["launches_split"] == 1
                 and d["groups_split"] == MESH_G // 2
-                and d["part_sites"] == ["z"]):
+                and d["held"] == ["z"] and d["part_sites"] == []):
             failed.append(f"(g)(i) rank {r}: {d}")
         for k in ("birats", "line_ss"):
             if not (res[k]["lp_rel_err"] <= LP_RTOL
@@ -1676,6 +1783,29 @@ def _resolved_gates(resolved, draws, failed):
             "birats": [r["birats"] for r in resolved],
             "line_ss": [r["line_ss"] for r in resolved],
             "wall_s": [r["wall_s"] for r in resolved]}
+
+
+def _rats_gates_h(rats_res, draws, failed):
+    """(h)'s gates on both ranks' results (``_rats_data_mesh``, which
+    raised on the mu_beta gate already): finite draws, equal on both
+    ranks, of the run's shape; each rank holding 15 rats of y, alpha and
+    beta.  Appends what fails to ``failed``."""
+    iters, burnin = RATS_NUTS_RUN
+    if not (np.array_equal(draws[0], draws[1]) and np.isfinite(draws[0]).all()
+            and draws[0].shape[0] == iters - burnin
+            and draws[0].shape[2] == CHAINS):
+        failed.append("(h) finite draws, equal on both ranks")
+    for r, res in enumerate(rats_res):
+        if (res["shapes"] != {"y": [CHAINS, 15, 5], "alpha": [CHAINS, 15],
+                              "beta": [CHAINS, 15]}
+                or res["held"] != ["alpha", "beta"]):
+            failed.append(f"(h) rank {r}: holds {res['shapes']}, "
+                          f"held {res['held']}")
+    keys = ("sample_s", "wall_s", "leapfrog_steps", "mean_tree_depth",
+            "max_tree_depth", "wall_ms_per_leapfrog", "peak_rise_bytes",
+            "mu_beta_mean", "rhat_rank_max", "ess_bulk_min")
+    return {k: [res[k] for res in rats_res] for k in keys} | {
+        "shapes": rats_res[0]["shapes"]}
 
 
 def _direct_logpdf(sim, chain, draw):
@@ -2094,6 +2224,7 @@ def main() -> int:
     log(f"phase walls (s): {json.dumps(walls)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log("mesh (e), local views: " + json.dumps(mesh_res["local_views"]))
+    log("mesh (h), rats NUTS on a data mesh: " + json.dumps(mesh_res["rats"]))
     slice_case = cases[0]
     bound = slice_case["bound"]
     log(f"card: {card}")

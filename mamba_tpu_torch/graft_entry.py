@@ -4,9 +4,11 @@ Counterpart of the JAX package's root ``__graft_entry__.py``.
 ``entry()`` returns one Gibbs iteration of the flagship model (rats, NUTS
 scheme) and its arguments.  ``dryrun_multichip(n)`` runs 3 iterations with
 the chains sharded over an n-rank mesh; for even n >= 4 a (n/2, 2)
-chains x data mesh also splits the rats' observations over the data axis,
-so each leapfrog's density is summed over a data group.  Both run on the
-card unless the caller names the CPU.
+chains x data mesh also splits the rats over the data axis, as the JAX
+package's entry names them (y, alpha and beta): each data rank holds its
+15 rats' observations and its slices of alpha and beta, and the NUTS block
+completes each density call and each sum over its coordinates over the
+data group.  Both run on the card unless the caller names the CPU.
 
     python -m mamba_tpu_torch.graft_entry <init_method> <n> <rank> <device>
 

@@ -25,23 +25,37 @@ that ``site_specs`` names on the data axis, as GSPMD does in the JAX
 package:
 
 - ``inputs`` hold the rank's slice of every named input;
-- the chain-stacked state holds the slice of every named observed site
-  (``local_state``).  A named *sampled* site stays whole in the state: the
-  samplers' momentum, U-turn and acceptance read the whole flat vector.
-  The density's env holds its slice;
+- the chain-stacked state holds the slice of every named data site
+  (observed, or imputed by MISS) and of every named *sampled* site that
+  the rank can hold in part (``_held``, ``local_state``): each block that
+  samples it can hold slices (NUTS, ChEES-HMC, HMC and MALA with unit
+  mass: ``SamplerSpec.holds_slices``) and the probe below finds it read
+  only as its slice.  Such a block's flat vector, momentum, gradient and
+  per-coordinate tunes are the rank's coordinates (``block_coords``: their
+  place in the unsharded flat vector, and the sums over them completed
+  over the data group).  Any other named sampled site stays whole in the
+  state, as the samplers of its blocks read it, and the density's env
+  holds its slice (``_whole_reasons`` says why);
 - logical nodes are computed from the slices: a node that reads only
   slices and whole values may come out a slice (line's ``mu = xmat @
   beta``); which nodes do, and along which dim, is found at compile time.
 
 A rank's block density sums its part of every named term (the slice's
-terms, padding masked out) and, on data rank 0 alone, every other term and
-the block's Jacobian, computed once from the whole flat vector: the parts
-sum to the density over the data group (``block_sum``, ``logpdf``).  To
+terms, padding masked out), the Jacobian of the slices it maps and, on
+data rank 0 alone, every other term and the Jacobian of the whole sites:
+the parts sum to the density over the data group (``logpdf``).  A block
+call is completed by one all-reduce (``block_sum``): of the value and the
+whole coordinates' gradient where the block holds slices (each slice
+coordinate's gradient is the rank's own), else of the value and the whole
+gradient.  To
 know the parts are right, the compiler evaluates the graph at a probe
 state once whole and once on every slice, all on this host (every rank is
 given whole inputs), and refuses, naming the node, a model whose named
 terms' parts do not sum to the term or whose unnamed terms change on a
-slice (a prior that reads ``mean(y)``).  The probe state draws every
+slice (a prior that reads ``mean(y)``); a named sampled site is held in
+part only if each slice's bijector maps its slice as the whole bijector
+maps the whole and their Jacobians sum to the whole's.  The probe state
+draws every
 sampled site and every missing data entry from a fixed generator, so its
 values are distinct and finite where the example inits may be symmetric
 (rats' ``alpha`` all 250) or NaN, and a node that reads a slice where it
@@ -59,12 +73,15 @@ it can, in topo order on the slices:
   evaluated whole once, before the rank drops its slices (``_consts``);
   one that reads only whole state values and constants (``alpha -
   mean(alpha)`` of a named sampled site, whole in the state) is computed
-  from the whole values (``_recut``).  Each is then whole on the rank, or
-  cut where the slices' shape says a reader wants its slice;
-- a named sampled site whose prior reads a slice (``_part_sites``): each
-  rank's part is its slice's ``log_prob`` and the Jacobian of its slice
-  under the slice's bijector; its pack and unpack map the slice, and
-  ``block_maps`` joins the slices over the data group;
+  from the whole values (``_recut``), so such a site stays whole in the
+  state.  Each is then whole on the rank, or cut where the slices' shape
+  says a reader wants its slice;
+- a named sampled site whose prior reads a slice: each rank's part is its
+  slice's ``log_prob`` and the Jacobian of its slice under the slice's
+  bijector.  Held in part, it is the rank's slice; whole in the state
+  (``_part_sites``: a sampler that cannot hold slices), its pack and
+  unpack map the slice and ``block_maps`` joins the slices over the data
+  group;
 - a named site with a law per row (a multivariate distribution whose
   batch dims hold the data dim) is cut along its batch (``_cut_dist``);
 - a mixed node read outside the vmapped density (a monitor, a Gibbs or
@@ -88,7 +105,8 @@ import numpy as np
 import torch
 
 from ..ops.distributions.base import dist_flatten
-from ..parallel.mesh import MeshComm, data_block, data_dim
+from ..parallel.mesh import (WHOLE, BlockCoords, MeshComm, data_block,
+                             data_dim)
 from ..utils.convert import to_tensor
 from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
 from .model import Model
@@ -156,6 +174,11 @@ class CompiledModel:
         #: named sampled sites, whole in the state: the dim the density's
         #: env cuts
         self._env_dims: dict[str, int] = {}
+        #: named sampled sites this rank holds as its slice, in the state and
+        #: in its blocks' flat vectors (module docstring): their dim
+        self._held: dict[str, int] = {}
+        #: named sampled sites whole in the state: why each is not held
+        self._whole_reasons: dict[str, str] = {}
         #: logical nodes that are neither whole nor a slice on a data rank
         self.mixed: frozenset = frozenset()
         #: this data rank's part of every named stochastic term
@@ -165,8 +188,9 @@ class CompiledModel:
         #: reads slices: each parameter's sliced dim (None: whole, -1:
         #: neither) and its ndim
         self._leaf_dims: dict[str, list] = {}
-        #: named sampled sites whose prior reads slices: the dim of the
-        #: slice the density maps and sums (``block_functions``)
+        #: named sampled sites whose prior reads slices, whole in the state
+        #: (not ``_held``): the dim of the slice the density maps and sums
+        #: (``block_functions``)
         self._part_sites: dict[str, int] = {}
         #: logicals that read only constants (inputs, data with no missing
         #: entries), evaluated whole once: (the rank's value, the whole)
@@ -412,6 +436,7 @@ class CompiledModel:
         observed = data
 
         # every term's parts against the whole, at the probe state
+        plans = {}
         for name in self.stochastic:
             whole_lp = self._site_lp(name, dists[name], state[name])
             if not torch.isfinite(whole_lp):
@@ -431,10 +456,11 @@ class CompiledModel:
                             f"site_specs, or compute what it reads from "
                             f"whole values")
                 continue
-            parts = [self._part_lp(self._part_plan(name, k, part_dists[k][name],
-                                                   dists[name], reads[name],
-                                                   observed),
-                                   part_dists[k][name], cut(name, state[name], k))
+            plans[name] = [self._part_plan(name, k, part_dists[k][name],
+                                           dists[name], reads[name], observed)
+                           for k in range(size)]
+            parts = [self._part_lp(plans[name][k], part_dists[k][name],
+                                   cut(name, state[name], k))
                      for k in range(size)]
             if not _lp_close(parts, whole_lp, tol):
                 raise ValueError(
@@ -458,12 +484,16 @@ class CompiledModel:
         self._recut = recut
         self.const_data = frozenset(
             n for n in _reads(self.model, owned) if n in self.sites)
+        self._held, self._whole_reasons = self._held_sites(
+            dims, data, recut, plans, state, dists, part_dists, tol)
         self._part_sites = {n: dims[n] for n in dims
-                            if n in self.sites and n not in data and reads[n]}
+                            if n in self.sites and n not in data and reads[n]
+                            and n not in self._held}
         self.inputs = {n: cut(n, v, r).clone(memory_format=torch.contiguous_format)
                        if n in dims else v for n, v in self.inputs.items()}
         self.local_dims = {n: d for n, d in sliced.items()
-                           if n not in self.sites or n in observed}
+                           if n not in self.sites or n in observed
+                           or n in self._held}
         self._env_dims = {n: d for n, d in sliced.items()
                           if n in self.sites and n not in self.local_dims}
         self.mixed = frozenset(mixed)
@@ -478,6 +508,94 @@ class CompiledModel:
             for n in (*self.local_state, *self._part_sites) if reads[n]}
         # the whole-mask plans of named sites hold whole constants
         self._plans = {n: p for n, p in self._plans.items() if n not in dims}
+
+    def _held_sites(self, dims, data, recut, plans, state, dists, part_dists,
+                    tol) -> tuple[dict, dict]:
+        """The named sampled sites each data rank holds as its slice
+        (``_held``): those that every sampler block sampling them can hold
+        in part (``SamplerSpec.holds_slices``) and that the probe finds read
+        only as slices.  No recut logical reads them (it is computed from
+        the whole value), each rank's part of their density is its slice's
+        own (a ``"local"`` or ``"cut"`` plan: ``plans``, per rank), their
+        unconstrained shape keeps the data dim, and each slice's bijector
+        maps the slice as the whole one maps the whole (``_maps_slices``).
+        Any other stays whole in the state, as before, and the second dict
+        says why (``_whole_reasons``)."""
+        holds: dict[str, list] = {}
+        for spec in self.model.samplers:
+            for p in spec.params:
+                holds.setdefault(p, []).append(spec)
+        read_whole = _reads(self.model, recut)
+        held, reasons = {}, {}
+        for n, d in dims.items():
+            if n not in self.sites or n in data:
+                continue
+            site = self.sites[n]
+            cannot = sorted({type(s).__name__ for s in holds.get(n, ())
+                             if not getattr(s, "holds_slices", False)})
+            if not holds.get(n):
+                reasons[n] = "no sampler block samples it"
+            elif cannot:
+                reasons[n] = (f"sampled by a block that cannot hold a slice "
+                              f"({', '.join(cannot)})")
+            elif n in read_whole:
+                reasons[n] = "a logical computed from its whole value reads it"
+            elif any(p[0] not in ("local", "cut") for p in plans[n]):
+                reasons[n] = "a rank's part of its density is not its slice's"
+            elif (len(site.unconstrained_shape) != len(site.shape)
+                  or site.unconstrained_shape[d] != site.shape[d]):
+                reasons[n] = ("its unconstrained shape does not keep the data "
+                              "dim")
+            else:
+                why = self._maps_slices(d, plans[n], state[n], dists[n],
+                                        [p[n] for p in part_dists], tol)
+                if why:
+                    reasons[n] = why
+                else:
+                    held[n] = d
+        return held, reasons
+
+    def _maps_slices(self, dim, plans, value, whole, parts, tol) -> str:
+        """Why a site's bijector does not map each data rank's slice
+        alone at the probe state ("" where it does): each slice's bijector
+        (of the rank's distribution, cut by its plan) must take the slice
+        of the whole unconstrained value to the slice of ``value`` and
+        back, and the slices' Jacobians sum to the whole's.  A slice's
+        distribution shaped beyond the slice (a parameter the data axis
+        does not cut) does not map it."""
+        size = self.comm.data_size
+        ev = max(whole.event_ndim, 0)
+        b = whole.bijector()
+        u = b.inverse(value)
+        logdets = []
+        for k, (plan, part) in enumerate(zip(plans, parts)):
+            dk = self._slice_dist(plan, part)
+            uk, vk = data_block(u, dim, k, size), data_block(value, dim, k, size)
+            shape = tuple(dk.batch_shape) + tuple(dk.event_shape)
+            if not _fits(shape, tuple(vk.shape)):
+                return (f"data rank {k}'s distribution is shaped {shape}, "
+                        f"beyond its slice's {tuple(vk.shape)}")
+            bk = dk.bijector()
+            if not (_close(bk.forward(uk), vk, tol)
+                    and _close(bk.inverse(vk), uk, tol)):
+                return f"its bijector on data rank {k}'s slice is not the whole's"
+            logdets.append(torch.sum(bk.event_log_det(uk, ev)))
+        if not _lp_close(logdets, torch.sum(b.event_log_det(u, ev)), tol):
+            return "its slices' Jacobians do not sum to the whole's"
+        return ""
+
+    def _slice_dist(self, plan, dist):
+        """A data rank's distribution of a named site as its part reads it
+        (``_part_plan``): cut to the slice under a ``"cut"`` plan."""
+        if plan[0] == "cut":
+            return self._cut_dist(dist, *plan[1:5], plan[6])
+        return dist
+
+    def _slice_bijector(self, name: str, dist):
+        """The bijector that maps this rank's slice of a named sampled
+        site held in part (``_held``) or whose prior reads slices
+        (``_part_sites``), from its distribution in the rank's env."""
+        return self._slice_dist(self._local_plans[name], dist).bijector()
 
     def padded_reads(self, name: str) -> list:
         """The arrays that the data axis pads (``pads``) which node ``name``
@@ -625,13 +743,64 @@ class CompiledModel:
         return any(n in self._local_plans for n in terms)
 
     def block_sum(self, params: tuple[str, ...], prior_only: bool = False):
-        """``f(*tensors) -> tuple`` that completes the block's vmapped
-        ``logf`` values and gradients on this rank: their sum over the data
-        group (one all-reduce) for a split block, else the identity.  It is
-        called on the outputs of ``torch.func.vmap``, never inside it."""
-        if self.block_split(params, prior_only):
+        """``f(value, grad=None) -> tuple`` that completes the block's
+        vmapped ``logf`` values ``(C,)`` and gradients ``(C, rank dim)`` on
+        this rank, with one all-reduce over the data group for a split
+        block (the identity otherwise): of the value and the whole
+        gradient, or, where the block holds slices (``block_coords``), of
+        the value and the whole coordinates' gradient alone, ``(C, 1 +
+        whole dim)``: a slice coordinate's gradient is the rank's own.  It
+        is called on the outputs of ``torch.func.vmap``, never inside it."""
+        if not self.block_split(params, prior_only):
+            return _identity
+        coords = self.block_coords(params)
+        if prior_only or coords.index is None:
             return self.comm.data_sum
-        return _identity
+        whole, comm = coords.whole, self.comm
+
+        def complete(value, grad=None):
+            if grad is None:
+                return comm.data_sum(value)
+            (head,) = comm.data_sum(torch.cat(
+                [value[..., None], grad.index_select(-1, whole)], dim=-1))
+            return head[..., 0], grad.index_copy(-1, whole, head[..., 1:])
+        return complete
+
+    def block_coords(self, params: tuple[str, ...]) -> BlockCoords:
+        """The block's flat coordinates on this data rank
+        (``parallel.mesh.BlockCoords``) where it holds a site in part
+        (``_held``): every data rank's positions in the unsharded
+        unconstrained flat vector (the samplers that hold slices all
+        transform), and this rank's whole coordinates.  ``WHOLE`` for a
+        block that holds no slice."""
+        if not any(p in self._held for p in params):
+            return WHOLE
+        key = ("coords", tuple(params))
+        if key in self._block_cache:
+            return self._block_cache[key]
+        size = self.comm.data_size
+        full = make_ravel_spec(
+            {p: np.zeros(self.sites[p].unconstrained_shape) for p in params},
+            dtype=self.dtype)
+        indices = []
+        for k in range(size):
+            at = []
+            for p, shape, offset, n in zip(full.names, full.shapes,
+                                           full.offsets, full.sizes):
+                ids = offset + np.arange(n).reshape(shape)
+                if p in self._held:
+                    ids = data_block(ids, self._held[p], k, size)
+                at.append(ids.reshape(-1))
+            indices.append(torch.as_tensor(np.concatenate(at),
+                                           device=self.device))
+        spec = self.block_ravel_spec(tuple(params), True)
+        whole = torch.as_tensor(np.concatenate(
+            [np.arange(o, o + n, dtype=np.int64) for p, o, n in
+             zip(spec.names, spec.offsets, spec.sizes) if p not in self._held]
+            + [np.zeros(0, dtype=np.int64)]), device=self.device)
+        out = BlockCoords(self.comm, indices, whole, full.total)
+        self._block_cache[key] = out
+        return out
 
     # ---- full log density ---------------------------------------------
     def _apply(self, plan, dist, value, support_mask=True) -> torch.Tensor:
@@ -717,9 +886,9 @@ class CompiledModel:
         return self.comm.data_sum(self.logpdf_part(state, terms))[0]
 
     def eval_logicals(self, state: dict) -> dict:
-        """State extended with logical node values (for monitoring): a
-        named sampled site whole, as the state holds it; a node this rank
-        holds in part (``local_dims``), its slice."""
+        """State extended with logical node values (for monitoring), as
+        this rank holds them: a node it holds in part (``local_dims``), its
+        slice; any other whole."""
         env = self._eval_env(state)
         return {**{n: state[n] for n in self.stochastic},
                 **{n: env[n] for n in self.logical}}
@@ -728,7 +897,8 @@ class CompiledModel:
     @property
     def local_state(self) -> frozenset:
         """Stochastic sites the state holds in part: the data sites
-        (observed, or imputed by MISS) named on the data axis."""
+        (observed, or imputed by MISS) named on the data axis, and the named
+        sampled sites held as slices (``_held``)."""
         return frozenset(n for n in self.local_dims if n in self.sites)
 
     def cut_state(self, state: dict, lead: int = 1) -> dict:
@@ -773,7 +943,8 @@ class CompiledModel:
 
     def _env_value(self, name: str, value):
         """A state value as the density's env holds it: a named sampled
-        site (whole in the state) cut to this rank's slice."""
+        site whole in the state cut to this rank's slice (a site held in
+        part is its slice already)."""
         dim = self._env_dims.get(name)
         return value if dim is None else self._block(value, dim)
 
@@ -790,8 +961,17 @@ class CompiledModel:
         return tuple(sorted(terms, key=order.__getitem__))
 
     def block_ravel_spec(self, params: tuple[str, ...], transform: bool) -> RavelSpec:
-        shapes = {p: (self.sites[p].unconstrained_shape if transform
-                      else self.sites[p].shape) for p in params}
+        """The block's flat vector on this rank: a site held in part
+        (``_held``) at its slice's shape."""
+        shapes = {}
+        for p in params:
+            shape = (self.sites[p].unconstrained_shape if transform
+                     else self.sites[p].shape)
+            d = self._held.get(p)
+            if d is not None:
+                shape = (shape[:d] + (shape[d] // self.comm.data_size,)
+                         + shape[d + 1:])
+            shapes[p] = shape
         example = {p: np.zeros(s) for p, s in shapes.items()}
         return make_ravel_spec(example, dtype=self.dtype)
 
@@ -804,9 +984,11 @@ class CompiledModel:
         - ``logf(flat, state) -> scalar``  (reference logpdf!, simulation.jl:77-90)
 
         With ``transform=True`` the flat vector is unconstrained and ``logf``
-        includes the log-Jacobian of the block's own sites.  There a site
-        whose prior reads slices (``_part_sites``) is packed and unpacked
-        as this data rank's slice: chain-stacked, ``block_maps`` joins it.  With
+        includes the log-Jacobian of the block's own sites.  A site this
+        data rank holds in part (``_held``) is its slice in the flat vector,
+        with its slice's Jacobian; one whose prior reads slices
+        (``_part_sites``) is packed and unpacked as the rank's slice:
+        chain-stacked, ``block_maps`` joins it.  With
         ``prior_only=True`` ``logf`` sums the params' own densities (and
         Jacobians) only, not their targets': the ABC sampler's log prior
         (reference abc.jl:46, 105-107).
@@ -847,14 +1029,16 @@ class CompiledModel:
                     dist = self._call(node, env)
                     dists[name] = dist
                     dim = self._part_sites.get(name) if transform else None
-                    if dim is not None:
-                        # its prior reads slices, and so does its bijector:
-                        # the rank maps its slice, with its slice's Jacobian
-                        b = dist.bijector()
-                        u = self._block(parts[name], dim)
+                    if transform and (dim is not None or name in self._held):
+                        # held in part, or its prior (and so its bijector)
+                        # reads slices: the rank maps its slice, with its
+                        # slice's Jacobian
+                        b = self._slice_bijector(name, dist)
+                        u = (parts[name] if dim is None
+                             else self._block(parts[name], dim))
                         values[name] = env[name] = b.forward(u)
                         part_logdet = part_logdet + torch.sum(
-                            b.event_log_det(u, 0))
+                            b.event_log_det(u, max(dist.event_ndim, 0)))
                         continue
                     if transform:
                         b = dist.bijector()
@@ -900,17 +1084,21 @@ class CompiledModel:
 
     def _flat_parts(self, params, transform: bool, state: dict) -> dict:
         """The block's values as its flat vector holds them, per site, from
-        ONE chain's state: unconstrained under ``transform``.  A site whose
-        prior reads slices (``_part_sites``) maps this rank's slice."""
+        ONE chain's state: unconstrained under ``transform``.  A site held
+        in part (``_held``), or whose prior reads slices (``_part_sites``),
+        maps this rank's slice."""
         if not transform:
             return {p: state[p] for p in params}
         env = self._eval_env(state)
         out = {}
         for p in params:
-            b = self._node_dist(p, env).bijector()
+            dist = self._node_dist(p, env)
             dim = self._part_sites.get(p)
-            out[p] = b.inverse(state[p] if dim is None
-                               else self._block(state[p], dim))
+            if dim is None and p not in self._held:
+                out[p] = dist.bijector().inverse(state[p])
+                continue
+            out[p] = self._slice_bijector(p, dist).inverse(
+                state[p] if dim is None else self._block(state[p], dim))
         return out
 
     def block_maps(self, params: tuple[str, ...], transform: bool,
@@ -1112,6 +1300,12 @@ def _column_major(v: torch.Tensor) -> torch.Tensor:
     """Julia's ``vec``: the column-major flatten of ``v``."""
     return torch.reshape(v.permute(*reversed(range(v.dim()))) if v.dim() > 1
                          else v, (-1,))
+
+
+def _fits(shape: tuple, within: tuple) -> bool:
+    """``shape`` broadcasts to ``within`` without growing it."""
+    return len(shape) <= len(within) and all(
+        a in (1, b) for a, b in zip(reversed(shape), reversed(within)))
 
 
 def _close(a, b, tol: float) -> bool:

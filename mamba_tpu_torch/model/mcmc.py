@@ -27,13 +27,16 @@ With ``mesh`` (``parallel.make_mesh``), each rank of the mesh's chain axis
 runs the loop on its block of the chains, with a generator seeded from
 ``(seed, chain rank)``; the ranks of a data axis run the same chains and
 sum their parts of the split densities (``model/compile.py``).  Each data
-rank holds only its slice of the inputs and observed sites that
-``site_specs`` names on the data axis, as GSPMD does in the JAX package,
-with one difference: a named *sampled* site stays whole in the state on
-every data rank, because the samplers' momentum, U-turn and acceptance
-read the whole flat vector; the density reads its slice.  Every rank
+rank holds only its slice of the inputs and sites that ``site_specs``
+names on the data axis, as GSPMD does in the JAX package: a named
+*sampled* site too where every block that samples it can hold slices
+(NUTS, ChEES-HMC, HMC and MALA with unit mass) and the compiler finds it
+read only as a slice; such a block sums over its coordinates across the
+data group.  Any other named sampled site stays whole in the state, and
+the density reads its slice.  Every rank
 returns the full ModelChains: the kept rows are gathered over the data
-group (the rows of nodes a rank holds in part) and over the chain axis.
+group (the rows of nodes a rank holds in part, sampled sites held as
+slices too) and over the chain axis.
 The resume state is the rank's own, so ``mcmc(mc, iters)`` continues on
 the same mesh; ``write_chains`` writes it whole, and the file restarts on
 one device from chain rank 0's generator state, for every chain (the JAX
@@ -201,9 +204,10 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     it, and each chain rank's generator is seeded from ``(seed, chain
     rank)`` (``parallel.mesh.rank_seed``).  ``site_specs`` maps site names
     to per-dim specs (None, or mesh axis names, e.g. ``{"y": ("data",)}``):
-    each data rank holds and evaluates its slice of every input and
-    observed site named on the data axis, and the density's part of every
-    sampled site named there (which stays whole in the state); a dim the
+    each data rank holds and evaluates its slice of every input and site
+    named on the data axis (a sampled site stays whole in the state where
+    a block that samples it cannot hold slices, or the compiler finds it
+    read whole: ``model/compile.py``); a dim the
     axis does not divide is edge-padded and masked out (reference
     semantics)."""
     if isinstance(model_or_mc, ModelChains):

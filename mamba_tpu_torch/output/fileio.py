@@ -13,8 +13,9 @@ A run sharded over a mesh writes one file, as the JAX package writes its
 global arrays whole: ``write_chains`` is then a collective that every rank
 calls, and global rank 0 writes the draws (every rank holds them whole),
 the resume state as one device would hold it (every chain, every site at
-the unsharded run's shapes, the edge padding of a data axis dropped:
-``MeshComm.gather_leaf``) and every chain rank's generator state in rank
+the unsharded run's shapes, the edge padding of a data axis dropped, every
+per-coordinate tune in the unsharded flat order: ``MeshComm.gather_leaf``)
+and every chain rank's generator state in rank
 order (``rngs``).  ``read_chains`` compiles the model unsharded from the
 whole inputs the caller passes, and ``mcmc(mc, iters)`` continues it on
 one device from chain rank 0's generator state, for every chain.
@@ -85,9 +86,11 @@ def _whole_states(mc) -> dict:
     it (``MeshComm.gather_leaf`` leaf by leaf): every chain of every site,
     each site this data rank holds in part joined over the data group and
     its edge padding (``CompiledModel.pads``) dropped; the fields a tune
-    holds per chain (its type's ``CHAIN_LEAVES``) joined over the chain
-    ranks, and every other leaf, which every rank holds equally, kept
-    once; not the generator state."""
+    holds per coordinate of a block that holds slices (its type's
+    ``COORD_LEAVES``) joined into the unsharded flat order, those it holds
+    per chain (``CHAIN_LEAVES``) joined over the chain ranks, and every
+    other leaf, which every rank holds equally, kept once; not the
+    generator state."""
     cm, st = mc.compiled, mc.states
     comm = cm.comm
     state = st["state"]
@@ -101,19 +104,24 @@ def _whole_states(mc) -> dict:
             v = v.narrow(d + 1, 0, length)
         whole[n] = v.clone(memory_format=torch.contiguous_format)
 
-    def tree(x, label, per_chain=False):
+    def tree(x, label, per_chain=False, coords=None):
         if isinstance(x, dict):
             return {k: tree(v, f"{label}[{k!r}]") for k, v in x.items()}
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             lead = getattr(type(x), "CHAIN_LEAVES", ())
-            return type(x)(*(tree(v, f"{label}.{f}", f in lead)
+            per_coord = getattr(type(x), "COORD_LEAVES", ())
+            return type(x)(*(tree(v, f"{label}.{f}", f in lead,
+                                  coords if f in per_coord else None)
                              for f, v in zip(x._fields, x)))
         if isinstance(x, (tuple, list)):
             return type(x)(tree(v, f"{label}[{i}]") for i, v in enumerate(x))
-        return comm.gather_leaf(x, label, chains if per_chain else None)
+        return comm.gather_leaf(x, label, chains if per_chain else None,
+                                coords=coords)
 
-    return {"state": whole, "tunes": tree(st["tunes"], "tunes"),
-            "burnin": st["burnin"]}
+    tunes = tuple(
+        tree(t, f"tunes[{i}]", coords=cm.block_coords(s.params))
+        for i, (s, t) in enumerate(zip(cm.model.samplers, st["tunes"])))
+    return {"state": whole, "tunes": tunes, "burnin": st["burnin"]}
 
 
 def read_chains(path: str, model=None, inputs=None, *, device=None,

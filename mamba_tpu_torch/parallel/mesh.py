@@ -15,10 +15,11 @@ names the axes:
 - at most one **data axis** (any other name): the ranks of one data group
   run the same chains with the same random stream.  Each holds only its
   slice (``data_block`` of the dim ``data_dim`` reads from its spec) of
-  every input and observed site that ``site_specs`` shards over the data
-  axis, and evaluates its density's terms on that slice; the samplers sum the parts over the group
-  (``MeshComm.data_sum``), and a reader of a whole value gathers it
-  (``MeshComm.gather_data``).
+  every input and site that ``site_specs`` shards over the data axis
+  (a sampled site where its sampler can hold a slice: ``BlockCoords``),
+  and evaluates its density's terms on that slice; the samplers sum the
+  parts over the group (``MeshComm.data_sum``), and a reader of a whole
+  value gathers it (``MeshComm.gather_data``).
 
 Collectives run at the sampler boundary, on the outputs of
 ``torch.func.vmap``, never inside it.  Under gloo a CUDA tensor is staged
@@ -404,11 +405,15 @@ class MeshComm:
                              f"which every rank should hold equally")
 
     def gather_leaf(self, x, label: str, chains: int | None = None,
-                    data_dim=None):
+                    data_dim=None, coords: "BlockCoords | None" = None):
         """One leaf of a rank's resume state as one device would hold it:
 
         - ``data_dim`` given (a site this data rank holds in part): the
           slices joined over the data group along that dim;
+        - ``coords`` holding a slice (a tune leaf per coordinate of a block
+          that holds slices: NUTS's and ChEES's inverse mass): the ranks'
+          coordinates joined into the unsharded flat order
+          (``BlockCoords.join``);
         - ``chains`` given (a leaf held per chain: a site's value, a tune's
           ``CHAIN_LEAVES``): a tensor led by the rank's ``chains`` rows,
           joined over the chain group in chain-rank order; any other shape
@@ -423,6 +428,8 @@ class MeshComm:
         rank calls it, leaf for leaf in the same order."""
         if data_dim is not None:
             x = self.gather_data(x, data_dim)
+        elif coords is not None and coords.index is not None:
+            x = coords.join(x)
         else:
             self._agree(self._data_group, self.data_size, x, label)
         if chains is None:
@@ -442,6 +449,96 @@ class MeshComm:
             return [state]
         every = self._gather(self._chain_group, self.chain_size, state[None], 0)
         return [s.cpu().clone() for s in every]
+
+
+class BlockCoords:
+    """A sampler block's flat coordinates as one data rank holds them.
+
+    On a data axis a block of a sampler that can hold slices (NUTS,
+    ChEES-HMC, unit-mass HMC and MALA) holds each named sampled site as
+    this rank's slice, as GSPMD shards it: the block's flat vector is the
+    unsharded one's coordinates ``index`` (in its order), the whole sites'
+    coordinates (``whole``, positions in the rank's vector), which every
+    rank holds equally, and the rank's slice coordinates (``part``).
+    ``WHOLE`` (``BlockCoords()``) is a block that holds no slice: its sums
+    are ``torch.sum`` over the last dim and its draws the unsharded ones.
+
+    - ``sums``: sums over the coordinates (a momentum's kinetic energy, a
+      U-turn's dot products): the whole coordinates summed locally plus
+      ``data_sum`` of the slice coordinates' local sums (one all-reduce
+      for all), so every rank holds the same bits;
+    - ``randn``: a standard normal per coordinate, drawn at the unsharded
+      flat length from the run's generator and cut to ``index``, so every
+      rank draws the unsharded run's numbers;
+    - ``cut``: a per-coordinate value of the unsharded flat vector (a
+      warm-start inverse mass) cut to the rank's coordinates;
+    - ``join``: a per-coordinate leaf of every data rank put back into the
+      unsharded flat order (a collective)."""
+
+    def __init__(self, comm: MeshComm | None = None, indices=None,
+                 whole=None, dim: int | None = None):
+        self.comm = comm or MeshComm()
+        #: every data rank's ``index``, in data-rank order (None: no slice)
+        self.indices = indices
+        self.index = None if indices is None else indices[self.comm.data_rank]
+        self.whole = whole
+        self.part = None
+        if indices is not None:
+            mask = torch.ones(len(self.index), dtype=torch.bool,
+                              device=self.index.device)
+            mask[whole] = False
+            self.part = torch.nonzero(mask).reshape(-1)
+        #: the unsharded flat vector's length
+        self.dim = dim
+
+    def sums(self, *xs):
+        """Each ``x (..., rank dim)`` summed over its coordinates, completed
+        over the data group (one all-reduce for all).  Returns a tuple."""
+        if self.index is None:
+            return tuple(torch.sum(x, dim=-1) for x in xs)
+        parts = self.comm.data_sum(*(torch.sum(x.index_select(-1, self.part),
+                                               dim=-1) for x in xs))
+        return tuple(torch.sum(x.index_select(-1, self.whole), dim=-1) + p
+                     for x, p in zip(xs, parts))
+
+    def sum(self, x):
+        """``x (..., rank dim)`` summed over the block's coordinates."""
+        return self.sums(x)[0]
+
+    def randn(self, gen, x):
+        """Standard normals shaped like ``x (..., rank dim)``: the unsharded
+        run's draw, cut to this rank's coordinates."""
+        if self.index is None:
+            return torch.randn(x.shape, generator=gen, dtype=x.dtype,
+                               device=x.device)
+        z = torch.randn(tuple(x.shape[:-1]) + (self.dim,), generator=gen,
+                        dtype=x.dtype, device=x.device)
+        return z.index_select(-1, self.index)
+
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        """``x (..., dim)``, per coordinate of the unsharded flat vector,
+        cut to this rank's ``(..., rank dim)``; a value of any other shape
+        (a scalar, a block with no slice) as it is."""
+        if self.index is None or x.dim() == 0 or x.shape[-1] != self.dim:
+            return x
+        return x.index_select(-1, self.index.to(x.device))
+
+    def join(self, x):
+        """A leaf ``x (..., rank dim)`` of every data rank in the unsharded
+        flat order ``(..., dim)``: each rank's coordinates where ``index``
+        puts them (a collective; the identity for a block with no
+        slice)."""
+        if self.index is None:
+            return x
+        every = self.comm.gather_data(x[None], 0)
+        out = x.new_empty(tuple(x.shape[:-1]) + (self.dim,))
+        for part, index in zip(every, self.indices):
+            out.index_copy_(-1, index.to(x.device), part)
+        return out
+
+
+#: the coordinates of a block that holds no slice
+WHOLE = BlockCoords()
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -31,8 +31,18 @@ numbers in the same layout.  Gibbs and custom blocks run eagerly: they
 call user functions that may read the host.
 
 Under a mesh's data axis a block's ``logf`` on one rank is a part of its
-density; every vmapped value and gradient is summed over the data group
-(``cm.block_sum``) right after the vmapped call, outside it.
+density; every vmapped value and gradient is completed over the data group
+(``cm.block_sum``, one all-reduce) right after the vmapped call, outside
+it.  A block of a sampler that can hold slices (``holds_slices``: NUTS,
+ChEES-HMC, HMC and MALA with unit mass) holds each named sampled site as
+the rank's slice where the compiler allows it: its flat vector is the
+rank's coordinates, and ``bind`` gives the kernels the block's
+coordinates (``coords=``, a ``parallel.mesh.BlockCoords``), whose sums
+over coordinates are completed over the data group and whose normal draws
+are the unsharded run's, cut.  Such a block's all-reduce carries the value
+and the whole coordinates' gradient alone.  The stand-alone kernels sum
+with ``torch.sum`` over the last dim by default, so they take any
+``logf``.
 """
 
 from __future__ import annotations
@@ -58,6 +68,10 @@ class SamplerSpec:
     transform: bool = False
     #: does the kernel consume (logf, grad) rather than logf?
     needs_grad: bool = False
+    #: can its block hold a site as a data rank's slice (its kernels take
+    #: ``coords=``: every sum over coordinates and every normal draw goes
+    #: through them)?
+    holds_slices: bool = False
 
     def __init__(self, params):
         if isinstance(params, str):
@@ -90,7 +104,10 @@ class SamplerSpec:
         form).  ``f`` closes over the other blocks' state (rats' variances,
         which its Gibbs block redraws every iteration); the captured loop
         reads them from static copies, which the block step loads once
-        (``load_state``), not once per leapfrog.  A block whose density is
+        (``load_state``), not once per leapfrog.  A sampler that can hold
+        slices (``holds_slices``) gives both kernels the block's
+        coordinates, ``coords=cm.block_coords(params)`` (``WHOLE`` where
+        the block holds no slice).  A block whose density is
         summed over a mesh's data group (``cm.block_split``) takes the
         plain loop: that sum is an all-reduce, which a CUDA graph does not
         capture (DGS's rule).  So does every block built under
@@ -99,6 +116,8 @@ class SamplerSpec:
         _, _, _, logf = cm.block_functions(self.params, self.transform)
         vpack, vunpack = cm.block_maps(self.params, self.transform)
         total = cm.block_sum(self.params)
+        kw = ({"coords": cm.block_coords(self.params)} if self.holds_slices
+              else {})
 
         if self.needs_grad:
             grad_value = torch.func.vmap(torch.func.grad_and_value(logf))
@@ -120,12 +139,13 @@ class SamplerSpec:
             captured = graphed(density)
 
         def init(gen, state):
-            return kernel_init(gen, vpack(state), make_f(state))
+            return kernel_init(gen, vpack(state), make_f(state), **kw)
 
         def step(gen, state, tune, adapt):
             x = vpack(state)
             if captured is None:
-                x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt)
+                x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt,
+                                        **kw)
             else:
                 captured.load_state(state)
                 x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt,

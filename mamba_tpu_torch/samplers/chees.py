@@ -30,6 +30,12 @@ ChEES gradient estimate  E_accept[ (|x'-x̄|^2 - |x-x̄|^2) (x'-x̄)·p' ].
 Random draws per step, in order: the momentum noise ``(C, dim)`` and one
 acceptance uniform per chain.
 
+On a mesh's data axis a block may hold some sites as the rank's slice
+(``coords``, a ``parallel.mesh.BlockCoords``): the momentum noise is drawn
+at the unsharded flat length and cut, the energy change's and the ChEES
+criterion's sums over coordinates are completed over the data group, and
+the mass adaptation stays per coordinate, on the rank's own.
+
 The stand-alone ``chees_step`` runs the ``L`` leapfrogs as a plain loop
 (``_trajectory``); the engine replays one captured leapfrog ``L`` times
 (``GraphedTrajectory``), with the step size a tensor on the device, as the
@@ -45,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..parallel.mesh import MeshComm
+from ..parallel.mesh import WHOLE, BlockCoords, MeshComm
 from ..utils.graphs import Captured
 from .base import SamplerSpec
 from .nuts import nutsepsilon
@@ -83,6 +89,12 @@ class ChEESTune(NamedTuple):
                               # near-Gaussian posteriors)
 
 
+#: the fields held per coordinate of the block's flat vector (a data rank's
+#: coordinates where the block holds slices: a sharded run's file joins them
+#: into the unsharded order, ``output.fileio``)
+ChEESTune.COORD_LEAVES = ("minv", "w_mean", "w_m2", "w_sw")
+
+
 def _halton2(m: int) -> float:
     """Base-2 Halton (van der Corput) value of the integer ``m``: its low 16
     bits reversed into [0, 1).  Exact in float32 and float64."""
@@ -92,20 +104,23 @@ def _halton2(m: int) -> float:
 def chees_init(gen, x0, logfgrad, epsilon: float | None = None,
                traj: float | None = None, target: float = 0.75,
                max_steps: int = 1024, minv0=None,
-               mass_window: int = 0, comm: MeshComm | None = None) -> ChEESTune:
+               mass_window: int = 0, comm: MeshComm | None = None,
+               coords: BlockCoords = WHOLE) -> ChEESTune:
     """Tune for chains ``x0 (C, dim)``.  ``epsilon`` defaults to the
     geometric mean of the per-chain NUTS doubling searches, ``traj`` to one
     step.  ``minv0`` seeds the diagonal inverse mass; ``mass_window > 0``
     refreshes it every that many warmup iterations from pooled cross-chain
     statistics (the recommended mode above ~1k dimensions).  ``comm`` pools
-    the chains of every rank of a mesh."""
+    the chains of every rank of a mesh; ``coords`` are the block's
+    coordinates on a data rank (module docstring), to which a ``minv0``
+    per coordinate of the unsharded flat vector is cut."""
     f = dict(dtype=x0.dtype, device=x0.device)
     comm = comm or _ONE_RANK
     if epsilon is None:
         # per-chain doubling searches agree only in order of magnitude;
         # every chain starts (and stays) on their geometric mean
         eps = torch.exp(comm.chain_mean(torch.log(
-            nutsepsilon(gen, x0, logfgrad))))
+            nutsepsilon(gen, x0, logfgrad, coords))))
     else:
         eps = torch.as_tensor(float(epsilon), **f)
     dim = x0.shape[1:]
@@ -117,7 +132,7 @@ def chees_init(gen, x0, logfgrad, epsilon: float | None = None,
         adam_m=zero, adam_v=zero, target=torch.as_tensor(float(target), **f),
         max_steps=int(max_steps),
         minv=(torch.ones(dim, **f) if minv0 is None
-              else torch.as_tensor(minv0, **f).expand(dim).clone()),
+              else coords.cut(torch.as_tensor(minv0, **f)).expand(dim).clone()),
         w_n=0, w_mean=torch.zeros(dim, **f), w_m2=torch.zeros(dim, **f),
         w_sw=torch.zeros(dim, **f), window=int(mass_window), it=0)
 
@@ -185,13 +200,15 @@ class GraphedTrajectory:
 
 
 def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
-               comm: MeshComm | None = None, trajectory=None):
+               comm: MeshComm | None = None, trajectory=None,
+               coords: BlockCoords = WHOLE):
     """One ChEES-HMC iteration for chains ``x (C, dim)``: jittered
     fixed-length leapfrog + MH, then (when ``adapt``) the cross-chain
     dual-averaging, Adam and mass-window updates, pooled over every rank's
     chains by ``comm``.  ``trajectory`` runs the ``L`` leapfrogs
-    (``_trajectory``'s contract; by default that plain loop).  Returns the
-    new positions and tune."""
+    (``_trajectory``'s contract; by default that plain loop); ``coords``
+    are the block's coordinates on a data rank.  Returns the new positions
+    and tune."""
     dt = x.dtype
     C = x.shape[0]
     comm = comm or _ONE_RANK
@@ -202,14 +219,13 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
     # diagonal mass: p ~ N(0, M) with M = minv^-1, kinetic p' minv p / 2,
     # dx/dt = minv * p (Neal 2011 eq. 5.29-5.31)
     minv = tune.minv
-    p0 = torch.randn(x.shape, generator=gen, dtype=dt, device=x.device) \
-        * torch.rsqrt(minv)
+    p0 = coords.randn(gen, x) * torch.rsqrt(minv)
     logf0, grad0 = logfgrad(x)
     x1, p1, logf1, grad1 = (trajectory or _trajectory)(
         x, p0, logf0, grad0, eps, minv, L, logfgrad)
 
-    dH = (logf1 - 0.5 * torch.sum(p1 * (minv * p1), dim=-1)) \
-        - (logf0 - 0.5 * torch.sum(p0 * (minv * p0), dim=-1))
+    k1, k0 = coords.sums(p1 * (minv * p1), p0 * (minv * p0))
+    dH = (logf1 - 0.5 * k1) - (logf0 - 0.5 * k0)
     dH = torch.where(torch.isnan(dH), -torch.inf, dH)
     alpha = torch.clamp(torch.exp(dH), max=1.0)
     u = torch.rand(C, generator=gen, dtype=dt, device=x.device)
@@ -230,8 +246,10 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
     xbar = comm.chain_mean(x)
     d_prop = x1 - xbar
     d_cur = x - xbar
-    dsq = torch.sum(d_prop * d_prop, dim=-1) - torch.sum(d_cur * d_cur, dim=-1)
-    g_chain = dsq * torch.sum(d_prop * (minv * p1), dim=-1) * h
+    sq_prop, sq_cur, along = coords.sums(d_prop * d_prop, d_cur * d_cur,
+                                         d_prop * (minv * p1))
+    dsq = sq_prop - sq_cur
+    g_chain = dsq * along * h
     # a divergent trajectory has zero accept probability, but 0 * nan would
     # still poison the mean
     g_chain = torch.where(torch.isfinite(g_chain), g_chain, 0.0)
@@ -304,6 +322,7 @@ class ChEESHMC(SamplerSpec):
 
     transform = True
     needs_grad = True
+    holds_slices = True
 
     def __init__(self, params, epsilon=None, traj=None, target=0.75,
                  max_steps=1024, minv0=None, mass_window: int = 0):
@@ -318,17 +337,19 @@ class ChEESHMC(SamplerSpec):
     def build(self, cm):
         # the cross-chain statistics pool every rank's chains
         return self.bind(
-            cm, lambda gen, x0, f: self.kernel_init(gen, x0, f, cm.comm),
-            lambda gen, x, tune, f, adapt, graphed=None: self.kernel_step(
-                gen, x, tune, f, adapt, cm.comm, graphed),
+            cm, lambda gen, x0, f, **kw: self.kernel_init(gen, x0, f, cm.comm,
+                                                          **kw),
+            lambda gen, x, tune, f, adapt, graphed=None, **kw: self.kernel_step(
+                gen, x, tune, f, adapt, cm.comm, graphed, **kw),
             graphed=GraphedTrajectory)
 
-    def kernel_init(self, gen, x0, logfgrad, comm=None):
+    def kernel_init(self, gen, x0, logfgrad, comm=None, coords=WHOLE):
         return chees_init(gen, x0, logfgrad, self.epsilon, self.traj,
                           self.target, self.max_steps, minv0=self.minv0,
-                          mass_window=self.mass_window, comm=comm)
+                          mass_window=self.mass_window, comm=comm,
+                          coords=coords)
 
     def kernel_step(self, gen, x, tune, logfgrad, adapt, comm=None,
-                    graphed=None):
+                    graphed=None, coords=WHOLE):
         return chees_step(gen, x, tune, logfgrad, adapt, comm=comm,
-                          trajectory=graphed)
+                          trajectory=graphed, coords=coords)

@@ -9,14 +9,22 @@ last half step undone and the MH test); the engine replays each from a
 CUDA graph, the stand-alone step runs them eagerly.  Random draws per step,
 in order, both before the start: the momentum noise ``(C, dim)`` and one
 acceptance uniform per chain.
+
+With unit mass a block may hold some sites as a data rank's slice
+(``coords``, a ``parallel.mesh.BlockCoords``): the momentum noise is drawn
+at the unsharded flat length and cut, and the kinetic energies' sums over
+coordinates are completed over the data group.  A dense ``Sigma`` mixes
+the coordinates, so such a block keeps every site whole.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import WHOLE
 from .base import SamplerSpec, captured, mh_select, plain
 
 
@@ -38,12 +46,17 @@ def hmc_init(x0, epsilon, L, Sigma=None) -> HMCTune:
                    L=int(L), SigmaL=_cholesky(Sigma, x0))
 
 
-def _sqnorm_Linv(SigmaL, v):
-    """Per chain ``|SigmaL^-1 v|^2`` for rows ``v (C, dim)``."""
+def _sqnorm_Linv(SigmaL, *vs, coords=WHOLE):
+    """Per chain ``|SigmaL^-1 v|^2`` for rows ``v (C, dim)`` of each of
+    ``vs``, a tuple; with unit mass (``SigmaL`` None) summed over the
+    block's ``coords`` (one all-reduce for all on a data rank)."""
     if SigmaL is None:
-        return torch.sum(v * v, dim=-1)
-    w = torch.linalg.solve_triangular(SigmaL, v.T, upper=False)
-    return torch.sum(w * w, dim=0)
+        return coords.sums(*(v * v for v in vs))
+    out = []
+    for v in vs:
+        w = torch.linalg.solve_triangular(SigmaL, v.T, upper=False)
+        out.append(torch.sum(w * w, dim=0))
+    return tuple(out)
 
 
 def _start(b, logfgrad):
@@ -70,33 +83,36 @@ def _leapfrog(b, logfgrad):
     b["grad1"].copy_(grad1)
 
 
-def _end(b):
+def _end(b, coords=WHOLE):
     """The extra half step undone (hmc.jl:96) and the MH test on
     ``b["u"]``: the new positions in ``b["out"]``."""
     L = b.get("SigmaL")
     p1 = b["p"] - 0.5 * b["eps"] * b["grad1"]
-    K0 = 0.5 * _sqnorm_Linv(L, b["p0"])
-    K1 = 0.5 * _sqnorm_Linv(L, p1)
+    sq0, sq1 = _sqnorm_Linv(L, b["p0"], p1, coords=coords)
+    K0, K1 = 0.5 * sq0, 0.5 * sq1
     x2, _ = mh_select(b["u"], (b["logf1"] - K1) - (b["logf0"] - K0), b["x1"],
                       b["x"])
     b["out"].copy_(x2)
 
 
-def trajectory_bodies(logfgrad_of):
-    """The step's bodies on the density and gradient ``logfgrad_of(state)``."""
+def trajectory_bodies(logfgrad_of, coords=WHOLE):
+    """The step's bodies on the density and gradient ``logfgrad_of(state)``,
+    summing over the block's ``coords``."""
     return {"start": lambda b, s: _start(b, logfgrad_of(s)),
             "leapfrog": lambda b, s: _leapfrog(b, logfgrad_of(s)),
-            "end": lambda b, s: _end(b)}
+            "end": lambda b, s: _end(b, coords)}
 
 
-def hmc_step(gen, x, tune: HMCTune, logfgrad, graphed=None):
+def hmc_step(gen, x, tune: HMCTune, logfgrad, graphed=None, coords=WHOLE):
     """Fixed-length leapfrog + MH accept (reference hmc.jl:72-111): momentum
     p = SigmaL z, z ~ N(0, I); kinetic energy 0.5 |SigmaL^-1 p|^2.
     ``graphed``: the captured bodies (``trajectory_bodies``), by default the
-    plain loop."""
+    plain loop; ``coords``: the block's coordinates on a data rank (unit
+    mass)."""
     f = dict(dtype=x.dtype, device=x.device)
-    cap = graphed or plain(trajectory_bodies, logfgrad)
-    z = torch.randn(x.shape, generator=gen, **f)
+    cap = graphed or plain(functools.partial(trajectory_bodies, coords=coords),
+                           logfgrad)
+    z = coords.randn(gen, x)
     u = torch.rand(x.shape[:1], generator=gen, **f)
     if not cap.holds("x", x):
         zeros = torch.zeros(x.shape[:1], **f)
@@ -111,24 +127,29 @@ def hmc_step(gen, x, tune: HMCTune, logfgrad, graphed=None):
 
 
 class HMC(SamplerSpec):
-    """HMC(params, epsilon, L; Sigma=None) — reference hmc.jl:47-58."""
+    """HMC(params, epsilon, L; Sigma=None) — reference hmc.jl:47-58.  With
+    unit mass its block can hold sites as a data rank's slice; a dense
+    ``Sigma`` mixes the coordinates, and keeps them whole."""
 
     transform = True
     needs_grad = True
+    holds_slices = True
 
     def __init__(self, params, epsilon, L, Sigma=None):
         super().__init__(params)
         self.epsilon = epsilon
         self.L = L
         self.Sigma = Sigma
+        self.holds_slices = Sigma is None
 
     def build(self, cm):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(
                              trajectory_bodies, density, grad=True))
 
-    def kernel_init(self, gen, x0, logfgrad):
+    def kernel_init(self, gen, x0, logfgrad, coords=WHOLE):
         return hmc_init(x0, self.epsilon, self.L, self.Sigma)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None):
-        return hmc_step(gen, x, tune, logfgrad, graphed=graphed)
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None,
+                    coords=WHOLE):
+        return hmc_step(gen, x, tune, logfgrad, graphed=graphed, coords=coords)

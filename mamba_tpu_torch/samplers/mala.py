@@ -7,14 +7,22 @@ step, in order: the proposal noise ``(C, dim)`` and one acceptance uniform
 per chain, both drawn before the step, which is one body
 (``utils.graphs.Captured``): replayed from a CUDA graph in the engine, run
 eagerly by the stand-alone step.
+
+With unit mass a block may hold some sites as a data rank's slice
+(``coords``, a ``parallel.mesh.BlockCoords``): the proposal noise is drawn
+at the unsharded flat length and cut, and the proposal densities' sums
+over coordinates are completed over the data group.  A dense ``Sigma``
+keeps every site whole.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import WHOLE
 from .base import SamplerSpec, captured, mh_select, plain
 from .hmc import _cholesky, _sqnorm_Linv
 
@@ -29,7 +37,7 @@ def mala_init(x0, epsilon, Sigma=None) -> MALATune:
                     SigmaL=_cholesky(Sigma, x0))
 
 
-def _step(b, logfgrad):
+def _step(b, logfgrad, coords=WHOLE):
     """Proposal and MH test on the draws ``b["z"]`` and ``b["u"]``."""
     x, z, eps, L = b["x"], b["z"], b["eps"], b.get("SigmaL")
 
@@ -39,25 +47,29 @@ def _step(b, logfgrad):
     logf0, grad0 = logfgrad(x)
     y = x + drift(grad0) + torch.sqrt(eps) * (z if L is None else z @ L.T)
     logf1, grad1 = logfgrad(y)
-    q0 = -0.5 * _sqnorm_Linv(L, x - y - drift(grad1)) / eps
-    q1 = -0.5 * _sqnorm_Linv(L, y - x - drift(grad0)) / eps
+    sq0, sq1 = _sqnorm_Linv(L, x - y - drift(grad1), y - x - drift(grad0),
+                            coords=coords)
+    q0 = -0.5 * sq0 / eps
+    q1 = -0.5 * sq1 / eps
     x2, _ = mh_select(b["u"], (logf1 - q1) - (logf0 - q0), y, x)
     b["x"].copy_(x2)
 
 
-def step_bodies(logfgrad_of):
-    """The step's body on the density and gradient ``logfgrad_of(state)``."""
-    return {"body": lambda b, s: _step(b, logfgrad_of(s))}
+def step_bodies(logfgrad_of, coords=WHOLE):
+    """The step's body on the density and gradient ``logfgrad_of(state)``,
+    summing over the block's ``coords``."""
+    return {"body": lambda b, s: _step(b, logfgrad_of(s), coords)}
 
 
-def mala_step(gen, x, tune: MALATune, logfgrad, graphed=None):
+def mala_step(gen, x, tune: MALATune, logfgrad, graphed=None, coords=WHOLE):
     """Proposal y = x + (eps/2) Sigma grad + sqrt(eps) SigmaL z with the
     asymmetric-proposal MH correction (reference mala.jl:67-86).
     ``graphed``: the captured step (``step_bodies``), by default the plain
-    one."""
+    one; ``coords``: the block's coordinates on a data rank (unit mass)."""
     f = dict(dtype=x.dtype, device=x.device)
-    cap = graphed or plain(step_bodies, logfgrad)
-    z = torch.randn(x.shape, generator=gen, **f)
+    cap = graphed or plain(functools.partial(step_bodies, coords=coords),
+                           logfgrad)
+    z = coords.randn(gen, x)
     cap.load(x=x, eps=tune.epsilon, z=z,
              u=torch.rand(x.shape[:1], generator=gen, **f))
     if tune.SigmaL is not None:
@@ -67,23 +79,29 @@ def mala_step(gen, x, tune: MALATune, logfgrad, graphed=None):
 
 
 class MALA(SamplerSpec):
-    """MALA(params, epsilon; Sigma=None) — reference mala.jl:47-58."""
+    """MALA(params, epsilon; Sigma=None) — reference mala.jl:47-58.  With
+    unit mass its block can hold sites as a data rank's slice; a dense
+    ``Sigma`` keeps them whole."""
 
     transform = True
     needs_grad = True
+    holds_slices = True
 
     def __init__(self, params, epsilon, Sigma=None):
         super().__init__(params)
         self.epsilon = epsilon
         self.Sigma = Sigma
+        self.holds_slices = Sigma is None
 
     def build(self, cm):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(step_bodies, density,
                                                           grad=True))
 
-    def kernel_init(self, gen, x0, logfgrad):
+    def kernel_init(self, gen, x0, logfgrad, coords=WHOLE):
         return mala_init(x0, self.epsilon, self.Sigma)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None):
-        return mala_step(gen, x, tune, logfgrad, graphed=graphed)
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None,
+                    coords=WHOLE):
+        return mala_step(gen, x, tune, logfgrad, graphed=graphed,
+                         coords=coords)

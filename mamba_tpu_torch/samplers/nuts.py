@@ -28,6 +28,13 @@ leaf index and checkpoint slots live on the device (the JAX package's
 traced ``_ckpt_idxs`` and slot loop), as the JAX engine runs the subtree as
 a ``lax.while_loop``.  The two give the same draws.
 
+On a mesh's data axis a block may hold some sites as the rank's slice
+(``coords``, a ``parallel.mesh.BlockCoords``, which the engine passes): the
+momentum is drawn at the unsharded flat length and cut to the rank's
+coordinates, and the kinetic energy, the step-size search's and the U-turn
+checks' sums over coordinates are completed over the data group, so every
+rank takes the same tree.  Such a block takes the plain loop.
+
 The slice-variable formulation, uniform proposal selection within the
 candidate set, divergence cutoff (+1000), U-turn criterion (nuts.jl:183-187)
 and dual-averaging schedule (nuts.jl:63-92) match the reference; the tree
@@ -41,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.mesh import WHOLE
 from ..utils.graphs import Captured
 from .base import SamplerSpec
 
@@ -75,6 +83,10 @@ class NUTSTune(NamedTuple):
 #: every field is held per chain (a sharded run's chain file joins them over
 #: the chain ranks: ``output.fileio``)
 NUTSTune.CHAIN_LEAVES = NUTSTune._fields
+#: the fields held per coordinate of the block's flat vector (a data rank's
+#: coordinates where the block holds slices: the file joins them into the
+#: unsharded order)
+NUTSTune.COORD_LEAVES = ("minv", "w_mean", "w_m2")
 
 
 def _col(v):
@@ -91,24 +103,24 @@ def _leapfrog(x, r, grad, eps, logfgrad, minv=None):
     return x, r, logf, grad
 
 
-def _kinetic(r, minv):
-    return 0.5 * torch.sum(r * r if minv is None else r * (minv * r), dim=-1)
+def _kinetic(r, minv, coords=WHOLE):
+    return 0.5 * coords.sum(r * r if minv is None else r * (minv * r))
 
 
-def nutsepsilon(gen, x, logfgrad):
+def nutsepsilon(gen, x, logfgrad, coords=WHOLE):
     """Initial step size per chain by doubling/halving search (reference
-    nuts.jl:192-205)."""
-    r0 = torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
-    return _epsilon_search(x, r0, logfgrad)
+    nuts.jl:192-205); ``coords``: the block's coordinates on a data rank
+    (module docstring)."""
+    return _epsilon_search(x, coords.randn(gen, x), logfgrad, coords)
 
 
-def _epsilon_search(x, r0, logfgrad):
+def _epsilon_search(x, r0, logfgrad, coords=WHOLE):
     logf0, grad0 = logfgrad(x)
-    k0 = torch.sum(r0 * r0, dim=-1)
+    k0 = coords.sum(r0 * r0)
 
     def probe(eps):
         _, rp, logfp, _ = _leapfrog(x, r0, grad0, eps, logfgrad)
-        prob = torch.exp(logfp - logf0 - 0.5 * (torch.sum(rp * rp, dim=-1) - k0))
+        prob = torch.exp(logfp - logf0 - 0.5 * (coords.sum(rp * rp) - k0))
         # NaN (diverged probe) counts as accept-prob 0 so the search halves
         # the step instead of silently returning the current epsilon
         return torch.where(torch.isnan(prob), 0.0, prob)
@@ -127,16 +139,18 @@ def _epsilon_search(x, r0, logfgrad):
 
 
 def nuts_init(gen, x0, logfgrad, epsilon=None, target: float = 0.6,
-              mass_window: int = 0, minv0=None) -> NUTSTune:
+              mass_window: int = 0, minv0=None, coords=WHOLE) -> NUTSTune:
     """Tune init for chains ``x0 (C, dim)`` (reference NUTSTune ctor,
     nuts.jl:22-27; epsilon search when not given, nuts.jl:29-30).
     ``minv0`` seeds the diagonal inverse mass with a posterior-variance
     estimate; with ``mass_window == 0`` it is used as-is, never
-    refreshed."""
+    refreshed.  ``coords``: the block's coordinates on a data rank; a
+    ``minv0`` per coordinate of the unsharded flat vector is cut to
+    them."""
     C = x0.shape[0]
     f = dict(dtype=x0.dtype, device=x0.device)
     i32 = dict(dtype=torch.int32, device=x0.device)
-    eps = (nutsepsilon(gen, x0, logfgrad) if epsilon is None
+    eps = (nutsepsilon(gen, x0, logfgrad, coords) if epsilon is None
            else torch.full((C,), float(epsilon), **f))
     zeros = torch.zeros(C, **f)
     window = mass_window if (mass_window or minv0 is None) else 2**30
@@ -148,7 +162,8 @@ def nuts_init(gen, x0, logfgrad, epsilon=None, target: float = 0.6,
         gamma=torch.full((C,), 0.05, **f), kappa=torch.full((C,), 0.75, **f),
         t0=torch.full((C,), 10.0, **f), target=torch.full((C,), target, **f),
         minv=(torch.ones_like(x0) if minv0 is None
-              else torch.as_tensor(minv0, **f).expand(x0.shape).clone()),
+              else coords.cut(torch.as_tensor(minv0, **f))
+              .expand(x0.shape).clone()),
         w_n=torch.zeros(C, **i32),
         w_mean=torch.zeros_like(x0), w_m2=torch.zeros_like(x0),
         window=torch.full((C,), window, **i32))
@@ -192,27 +207,32 @@ def _ckpt_idxs_t(leaf):
     return idx_max - trailing_ones + 1, idx_max
 
 
-def _subtree_turned(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
-    """Per chain: U-turn between the current (odd) leaf and every buffered
+def _turn_terms(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
+    """The U-turn check between the current (odd) leaf and every buffered
     subtree start it closes, slots ``idx_min..idx_max`` of the ``(C,
-    max_depth, dim)`` buffers.  Criterion oriented by build direction
-    ``pm``: dx = pm * (x_new - x_start); turned iff dx.v_start < 0 or
-    dx.v_new < 0 with v the velocity minv*r (reference nouturn,
-    nuts.jl:183-187)."""
+    max_depth, dim)`` buffers: the products dx * v_start and dx * v_new,
+    each ``(C, slots, dim)``, with dx = pm * (x_new - x_start) oriented by
+    build direction ``pm`` and v the velocity minv*r.  A chain turned iff
+    either sum over the coordinates is negative (``_turned``; reference
+    nouturn, nuts.jl:183-187)."""
     sl = slice(idx_min, idx_max + 1)
     dx = pm[:, None, None] * (x[:, None, :] - x_ck[:, sl])
     v_ck = r_ck[:, sl] if minv is None else minv[:, None, :] * r_ck[:, sl]
     v = r if minv is None else minv * r
-    turned = ((torch.sum(dx * v_ck, dim=-1) < 0)
-              | (torch.sum(dx * v[:, None, :], dim=-1) < 0))
-    return turned.any(dim=-1)
+    return dx * v_ck, dx * v[:, None, :]
+
+
+def _turned(start, end):
+    """Per chain: any slot's dot product negative."""
+    return ((start < 0) | (end < 0)).any(dim=-1)
 
 
 def _subtree_turned_slots(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
-    """``_subtree_turned`` with the slot range as int tensors, ``(1,)`` for
-    every chain or ``(C, 1)`` per chain: the check runs over all
-    ``max_depth`` slots and masks out those outside the range, as the JAX
-    package's loop over traced slots does (nuts.py:155-182)."""
+    """The U-turn check (``_turn_terms``, ``_turned``) with the slot range
+    as int tensors, ``(1,)`` for every chain or ``(C, 1)`` per chain: the
+    check runs over all ``max_depth`` slots and masks out those outside the
+    range, as the JAX package's loop over traced slots does
+    (nuts.py:155-182)."""
     slots = torch.arange(x_ck.shape[1], dtype=idx_max.dtype, device=x.device)
     inrange = (slots >= idx_min) & (slots <= idx_max)
     dx = pm[:, None, None] * (x[:, None, :] - x_ck)
@@ -224,7 +244,7 @@ def _subtree_turned_slots(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
 
 
 def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
-                   x_ck, r_ck, minv, active, us):
+                   x_ck, r_ck, minv, active, us, coords=WHOLE):
     """Build ``2**j`` leapfrog steps in direction ``pm (C,)`` from end states
     (x0, r0, grad0), for the chains in ``active``; leaf ``i`` takes its
     uniform proposal draw from row ``i`` of ``us``.  Returns the new end
@@ -233,7 +253,8 @@ def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
     buildtree (nuts.jl:139-180).  A chain stops at the leaf that diverges
     or turns; later leaves leave it as it was.  This is the plain loop,
     one Python pass per leaf with host slot indices; the engine replays
-    ``_leaf`` instead (``GraphedSubtree``), with the same results."""
+    ``_leaf`` instead (``GraphedSubtree``), with the same results.
+    ``coords``: the block's coordinates on a data rank."""
     dt = x0.dtype
     x, r, grad, xprop = x0, r0, grad0, x0
     nprime = torch.zeros_like(active, dtype=torch.int32)
@@ -248,7 +269,16 @@ def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
         x = torch.where(a2, xn, x)
         r = torch.where(a2, rn, r)
         grad = torch.where(a2, gn, grad)
-        logp = logf - _kinetic(rn, minv)
+        # the kinetic energy and, on an odd leaf, the U-turn checks' dot
+        # products: one sum over the coordinates (one all-reduce where the
+        # block holds slices)
+        idx_min, idx_max = _ckpt_idxs(leaf)
+        odd = leaf % 2 == 1
+        kinetic, *dots = coords.sums(
+            rn * rn if minv is None else rn * (minv * rn),
+            *(_turn_terms(x_ck, r_ck, xn, rn, pm, idx_min, idx_max, minv)
+              if odd else ()))
+        logp = logf - 0.5 * kinetic
         # a diverged trajectory can hit NaN log-densities; treat as -inf so
         # the divergence machinery fires instead of NaN-poisoning the
         # accept statistics
@@ -265,14 +295,12 @@ def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
         take = valid & (us[leaf] * nprime.to(dt) < 1.0)
         xprop = torch.where(_col(take), xn, xprop)
 
-        idx_min, idx_max = _ckpt_idxs(leaf)
-        if leaf % 2 == 0:
+        if odd:
+            turned = _turned(*dots)
+        else:
             x_ck[:, idx_max] = torch.where(a2, xn, x_ck[:, idx_max])
             r_ck[:, idx_max] = torch.where(a2, rn, r_ck[:, idx_max])
             turned = torch.zeros_like(act)
-        else:
-            turned = _subtree_turned(x_ck, r_ck, xn, rn, pm, idx_min,
-                                     idx_max, minv)
         sprime = sprime & ~diverged & ~turned
     return x, r, grad, xprop, nprime, sprime, alpha, nalpha
 
@@ -380,21 +408,22 @@ class GraphedSubtree:
 
 
 def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
-             subtree=None):
+             subtree=None, coords=WHOLE):
     """One NUTS transition per chain at fixed step sizes ``epsilon (C,)``
     (reference nuts_sub!, nuts.jl:95-126).  With ``minv``, momenta are drawn
     from N(0, M) and the dynamics use the diagonal metric.  ``subtree``
     builds each level (``_build_subtree``'s contract; by default that plain
-    loop).  Returns the new positions and each chain's accept stats and
-    tree depth."""
+    loop, given ``coords``, the block's coordinates on a data rank).
+    Returns the new positions and each chain's accept stats and tree
+    depth."""
     C, dim = x.shape
     f = dict(dtype=x.dtype, device=x.device)
-    build = subtree or _build_subtree
+    build = subtree or functools.partial(_build_subtree, coords=coords)
     if minv is None:
         minv = torch.ones_like(x)
-    r0 = torch.randn(C, dim, generator=gen, **f) / torch.sqrt(minv)
+    r0 = coords.randn(gen, x) / torch.sqrt(minv)
     logf0, grad0 = logfgrad(x)
-    logp0 = logf0 - _kinetic(r0, minv)
+    logp0 = logf0 - _kinetic(r0, minv, coords)
     logu0 = logp0 + torch.log(torch.rand(C, generator=gen, **f))
 
     x_ck = torch.zeros(C, max_depth, dim, **f)
@@ -429,8 +458,8 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
         xcur = torch.where(_col(accept), xprop, xcur)
         n = torch.where(s, n + nprime, n)
         xdiff = xp - xm
-        no_turn = ((torch.sum(xdiff * (minv * rm), dim=-1) >= 0)
-                   & (torch.sum(xdiff * (minv * rp), dim=-1) >= 0))
+        at_m, at_p = coords.sums(xdiff * (minv * rm), xdiff * (minv * rp))
+        no_turn = (at_m >= 0) & (at_p >= 0)
         alpha = torch.where(s, alpha2, alpha)
         nalpha = torch.where(s, nalpha2, nalpha)
         depth = depth + s.to(torch.int32)
@@ -439,10 +468,11 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
 
 
 def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10,
-              subtree=None):
+              subtree=None, coords=WHOLE):
     """NUTS transition + dual-averaging update for every chain (reference
     sample!, nuts.jl:63-92).  ``adapt`` is the warmup flag; ``subtree``
-    builds each doubling level (``nuts_sub``)."""
+    builds each doubling level and ``coords`` are the block's coordinates
+    on a data rank (``nuts_sub``)."""
     dt = x.dtype
     if adapt:
         # setadapt!: entering adaptation at m == 0 fixes mu = log(10 eps)
@@ -457,7 +487,8 @@ def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10,
     use_mass = tune.window > 0
     minv = torch.where(_col(use_mass), tune.minv, torch.ones_like(tune.minv))
     x2, alpha, nalpha, depth = nuts_sub(gen, x, eps_used, logfgrad,
-                                        max_depth, minv=minv, subtree=subtree)
+                                        max_depth, minv=minv, subtree=subtree,
+                                        coords=coords)
     if not adapt:
         return x2, tune._replace(epsilon=eps_used, alpha=alpha,
                                  nalpha=nalpha, depth=depth)
@@ -520,6 +551,7 @@ class NUTS(SamplerSpec):
 
     transform = True
     needs_grad = True
+    holds_slices = True
 
     def __init__(self, params, epsilon=None, target: float = 0.6,
                  max_depth: int = 10, mass_window: int = 0, minv0=None):
@@ -530,16 +562,17 @@ class NUTS(SamplerSpec):
         self.mass_window = int(mass_window)
         self.minv0 = minv0
 
-    def kernel_init(self, gen, x0, logfgrad):
+    def kernel_init(self, gen, x0, logfgrad, coords=WHOLE):
         return nuts_init(gen, x0, logfgrad, epsilon=self.epsilon,
                          target=self.target, mass_window=self.mass_window,
-                         minv0=self.minv0)
+                         minv0=self.minv0, coords=coords)
 
     def build(self, cm):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: GraphedSubtree(
                              density, self.max_depth))
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None):
+    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None,
+                    coords=WHOLE):
         return nuts_step(gen, x, tune, logfgrad, adapt, self.max_depth,
-                         subtree=graphed)
+                         subtree=graphed, coords=coords)

@@ -11,11 +11,13 @@ the card (its name and power limit, printed), the kernel's build, phase 10
 (the GLMM ChEES run at full width from ADVI warm starts, which gives the
 mesh phase its warm starts and its one-rank reference), then the mesh
 phase (a)-(e) ``RUNS`` times, each with the same gates as in the script.
-Printed per run: its wall and part (e)'s figures (``LOCAL {...}``: the
-ranks' peak memory rise against the run without a mesh, the gloo
-``data_sum`` per call, the density's device and eager ms per rank and
-whole, the kernel's launches).  Everything also goes to
-``build/lab/mesh_probe.json``.
+Printed per run: its wall, part (e)'s figures (``LOCAL {...}``: the
+ranks' peak memory rise against the run without a mesh, the shapes each
+rank's state holds, the block's all-reduce per density call, its shape
+and ms, the wall per gradient, the density's device and eager ms per rank
+and whole, the kernel's launches) and part (h)'s (``RATS {...}``: rats
+NUTS on the data mesh, its wall per leapfrog and the shapes each rank
+holds).  Everything also goes to ``build/lab/mesh_probe.json``.
 """
 
 from __future__ import annotations
@@ -56,9 +58,11 @@ def main() -> int:
         res = cs.phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes)
         wall = time.perf_counter() - t0
         out["runs"].append({"mesh_s": wall, "local_views": res["local_views"],
+                            "rats": res["rats"],
                             "kernel_ms": [c["ms"] for c in res["kernel"][:2]]})
         print(f"run {k}: mesh phase {wall:.1f} s", flush=True)
         print("LOCAL " + json.dumps(res["local_views"]), flush=True)
+        print("RATS " + json.dumps(res["rats"]), flush=True)
     lab = ROOT / "build" / "lab"
     lab.mkdir(parents=True, exist_ok=True)
     (lab / "mesh_probe.json").write_text(json.dumps(out, indent=1))

@@ -18,6 +18,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from mamba_tpu.samplers import nuts as jnuts
 import mamba_tpu_torch as tmt
 from mamba_tpu_torch.models import glmm, rats
+from mamba_tpu_torch.parallel.mesh import WHOLE
 from mamba_tpu_torch.samplers import chees as tchees
 from mamba_tpu_torch.samplers import dgs as tdgs
 from mamba_tpu_torch.samplers import nuts as tnuts
@@ -71,10 +72,10 @@ def test_slot_mask_subtree_turned_matches_the_jax_slot_loop(with_minv):
     # both outcomes occur, and the host-index form agrees chain by chain
     assert 0 < int(t_turned.sum()) < C
     for c in range(C):
-        one = tnuts._subtree_turned(
+        one = tnuts._turned(*WHOLE.sums(*tnuts._turn_terms(
             _t(x_ck[c:c + 1]), _t(r_ck[c:c + 1]), _t(x[c:c + 1]), _t(r[c:c + 1]),
             _t(pm[c:c + 1]), int(imin[c]), int(imax[c]),
-            None if m is None else _t(m[c:c + 1]))
+            None if m is None else _t(m[c:c + 1]))))
         assert bool(one[0]) == bool(t_turned[c])
 
 

@@ -210,16 +210,19 @@ def _states(init, rng):
 CASES = {
     "line": (_line, LINE_SPECS, ("beta", "s2"),
              {"xmat": (3, 2), "y": (C, 3), "beta": (C, 2)}),
+    # a named sampled site under NUTS or ChEES is the rank's slice too
     "rats": (_rats, RATS_SPECS, ("alpha", "beta", "mu_alpha", "mu_beta"),
-             {"y": (C, 15, 5), "alpha": (C, 30), "beta": (C, 30),
+             {"y": (C, 15, 5), "alpha": (C, 15), "beta": (C, 15),
               "Xm": (5,)}),
     "glmm_fused_y": (_glmm(True), GLMM_Y, ("beta", "z", "s2"),
                      {"y": (C, 10, 20), "xt": (4, 10, G), "z": (C, G)}),
     "glmm_fused_local": (_glmm(True), GLMM_LOCAL, ("beta", "z", "s2"),
-                         {"y": (C, 10, 20), "xt": (4, 10, 20), "z": (C, G)}),
+                         {"y": (C, 10, 20), "xt": (4, 10, 20), "z": (C, 20)}),
     "glmm_generic": (_glmm(False), GLMM_GENERIC, ("beta", "z", "s2"),
-                     {"y": (C, 20, 10), "x": (20, 10, 4), "z": (C, G)}),
-    # what the compiler refused before local views resolved it
+                     {"y": (C, 20, 10), "x": (20, 10, 4), "z": (C, 20)}),
+    # what the compiler refused before local views resolved it.  u under
+    # Slice, and rats' alpha read by a centring logical, stay whole
+
     "line_tau": (_line_tau, LINE6_SPECS, ("beta", "s2", "tau"),
                  {"y": (C, 3), "tau": (C,)}),
     "line_u": (_line_u(False), U_SPECS, ("beta", "s2", "u"),
@@ -228,9 +231,9 @@ CASES = {
                      {"y": (C, 3), "w": (3,), "lo": (3,), "u": (C, 6)}),
     "rats_centred": (_rats_centred, RATS_SPECS,
                      ("alpha", "beta", "mu_alpha", "mu_beta"),
-                     {"y": (C, 15, 5), "alpha": (C, 30)}),
+                     {"y": (C, 15, 5), "alpha": (C, 30), "beta": (C, 15)}),
     "birats": (_birats, BIRATS_SPECS, ("beta", "mu_beta", "Sigma"),
-               {"Y": (C, 15, 5), "beta": (C, 30, 2)}),
+               {"Y": (C, 15, 5), "beta": (C, 15, 2)}),
 }
 
 
@@ -274,15 +277,29 @@ def _block(cm, block, state, transform, x=None):
 
 
 def _joined(ranks, values, transform):
-    """``block_maps``' join over the data group, done by hand: each rank's
-    ``values`` (block site -> chain-stacked), a site whose prior reads
-    slices joined along its dim under ``transform``."""
+    """The join over the data group, done by hand: each rank's ``values``
+    (block site -> chain-stacked), a site the ranks hold in part
+    (``_held``), or whose prior reads slices under ``transform``
+    (``block_maps``), joined along its dim."""
     out = {}
     for p in values[0]:
         d = ranks[0]._part_sites.get(p) if transform else None
+        d = ranks[0]._held.get(p, d)
         out[p] = (values[0][p] if d is None
                   else torch.cat([v[p] for v in values], d + 1))
     return out
+
+
+def _scattered(cm, block, v):
+    """A rank's chain-stacked per-coordinate ``v (C, rank dim)`` added into
+    the unsharded flat order ``(C, dim)`` (zero elsewhere): summed over the
+    ranks, the parts of a gradient give the whole one (each slice
+    coordinate from its rank, each whole coordinate the ranks' sum)."""
+    coords = cm.block_coords(block)
+    if coords.index is None:
+        return v
+    out = v.new_zeros(v.shape[0], coords.dim)
+    return out.index_add_(1, coords.index, v)
 
 
 @pytest.mark.parametrize("case, transform", [
@@ -291,14 +308,23 @@ def _joined(ranks, values, transform):
 def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
     """Each rank's block density and gradient from its local state, summed
     over the ranks: the port's whole model's (1e-12) and the JAX
-    package's compiled block density (1e-10).  Every rank packs and
-    unpacks the whole flat vector (a site whose prior reads slices: each
-    rank its slice, joined)."""
+    package's compiled block density (1e-10).  A rank packs and unpacks
+    its coordinates of the flat vector (``block_coords``): the whole
+    vector where the block holds no slice (a site whose prior reads
+    slices: each rank its slice, joined); put in the unsharded order, the
+    ranks' coordinates are the whole vector and their gradients sum to the
+    whole gradient."""
     whole, ranks, state, np_state = _port(case)
     block = CASES[case][2]
     x, v, g = _block(whole, block, state, transform)
-    parts = [_block(cm, block, cm.cut_state(state), transform, x)
-             for cm in ranks]
+    parts = []
+    for cm in ranks:
+        coords = cm.block_coords(block)
+        xr = x if coords.index is None else x[:, coords.index]
+        parts.append(_block(cm, block, cm.cut_state(state), transform, xr))
+        if coords.index is not None:    # the rank packs its coordinates
+            np.testing.assert_array_equal(_block(
+                cm, block, cm.cut_state(state), transform)[0], xr)
     spec = whole.block_ravel_spec(block, transform)
     packed = _joined(ranks, [
         torch.func.vmap(lambda st, cm=cm: cm._flat_parts(block, transform, st))(
@@ -306,12 +332,13 @@ def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
     np.testing.assert_array_equal(torch.func.vmap(spec.ravel)(packed), x)
     want = torch.func.vmap(whole.block_functions(block, transform)[1])(x, state)
     got = _joined(ranks, [torch.func.vmap(
-        cm.block_functions(block, transform)[1])(x, cm.cut_state(state))
-        for cm in ranks], transform)
+        cm.block_functions(block, transform)[1])(xr, cm.cut_state(state))
+        for cm, (xr, _, _) in zip(ranks, parts)], transform)
     for p in block:
         np.testing.assert_allclose(got[p], want[p], rtol=1e-14, err_msg=p)
     v_sum = parts[0][1] + parts[1][1]
-    g_sum = parts[0][2] + parts[1][2]
+    g_sum = sum(_scattered(cm, block, part[2])
+                for cm, part in zip(ranks, parts))
     scale = float(g.abs().max())
     np.testing.assert_allclose(v_sum, v, rtol=1e-12)
     np.testing.assert_allclose(g_sum, g, rtol=1e-12, atol=1e-12 * scale)
@@ -347,7 +374,8 @@ def test_logpdf_parts_sum_to_the_whole_and_to_the_reference(case):
 def test_the_plans_of_the_fused_glmm():
     """With y alone named, the kernel runs over the rank's y and the
     covariates' slice cut once (``log_prob_range``); with y, xt and z
-    named, over the rank's own arrays (``log_prob``), with no range."""
+    named, over the rank's own arrays (``log_prob``), with no range, and
+    the rank holds its slice of z (its prior's whole zeros cut)."""
     _, ranks, _, _ = _port("glmm_fused_y")
     plan = ranks[1]._local_plans["y"]
     assert plan[:3] == ("range", 20, 40) and plan[4] == 0
@@ -355,7 +383,8 @@ def test_the_plans_of_the_fused_glmm():
     _, ranks, _, _ = _port("glmm_fused_local")
     assert ranks[1]._local_plans["y"][0] == "local"
     assert ranks[1]._local_plans["z"][0] == "cut"
-    assert ranks[1].local_dims == {"y": 1, "xt": 2, "b": 0}
+    assert ranks[1].local_dims == {"y": 1, "xt": 2, "z": 0, "b": 0}
+    assert ranks[1]._held == {"z": 0}
 
 
 # ---- what the compiler refuses ------------------------------------------

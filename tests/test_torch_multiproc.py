@@ -498,8 +498,8 @@ def test_rats_sharded_posterior_parity(tmp_path):
     0.75 posterior SDs."""
     from mamba_tpu_torch.models import rats
     ranks = _ranks("rats", tmp_path, n=4, timeout=3600)
-    for r in ranks:          # 15 rats of y per rank; alpha, beta whole
-        assert json.loads(str(r["shapes"])) == [[4, 15, 5], [4, 30], [4, 30]]
+    for r in ranks:          # 15 rats of y, alpha and beta per rank
+        assert json.loads(str(r["shapes"])) == [[4, 15, 5], [4, 15], [4, 15]]
     res = ranks[0]
     model, inputs, inits = rats.build("nuts")
     plain = tmt.mcmc(model, inputs, inits, 500, burnin=300, chains=8,
