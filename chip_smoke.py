@@ -13,11 +13,22 @@ through the port's public entry points (``mcmc``, ``advi``,
 ``utils.roofline``), in these phases:
 
 1. device: the card's name, power limit and SM clocks;
-2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` with nvcc (sm_90a);
+2. build: ``mamba_tpu_torch/csrc/fused_glmm.cu`` and
+   ``mamba_tpu_torch/csrc/threefry.cu`` with nvcc (sm_90a), one nvcc each,
+   started together;
 3. kernel: the fused GLMM kernel against its plain torch version in five
    cases (``KERNEL_CASES``): full width, where both are timed; a ragged
    edge; one chain; a shape that takes the generic kernel; and full width
    near a posterior mode, where ``grad_beta`` cancels;
+3a. threefry: the keyed-draw kernel (``ops/random.py``) against its plain
+   torch version on 1024 chain keys: folded keys, splits, 32- and 64-bit
+   bits, float32 and float64 uniforms (scaled too), a draw at a rank's
+   counters, one folded with a device tensor, one from a view of a split
+   and one from an expanded key, all identical; float32 and float64
+   normals within ``THREEFRY_NORMAL_ULPS``; then timed at a rats NUTS
+   momentum draw (1024 x 62) and a GLMM ChEES one (1024 x 10,005), folded
+   as the samplers draw them, beside the plain version and ``torch.randn``
+   of the same shape, with its bound;
 3b. graphs: the engine replays its samplers' steps from CUDA graphs
    (``utils/graphs.py``); rats NUTS and GLMM ChEES at full width, and the
    zoo's samplers at 1024 chains (``GRAPH_ZOO_ARMS``: univariate Slice on
@@ -27,7 +38,7 @@ through the port's public entry points (``mcmc``, ``advi``,
    gk, MISS on mice, bones and kidney), 3 iterations (2 burnin) each, run
    through those graphs and through the samplers' plain loops
    (``graphs.disabled()``) from one seed, held bit-identical (draws, tunes,
-   final state and generator state, NUTS's tree depths), with the fused
+   final state and every chain's key, NUTS's tree depths), with the fused
    kernel's launches counted through the replays at least the gradient
    evaluations;
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains,
@@ -38,9 +49,10 @@ through the port's public entry points (``mcmc``, ``advi``,
    mu_beta mean (rank R-hat and bulk ESS printed; they are gated only for
    runs of 500 kept draws or more, and ``scripts/rats_headline.py`` runs
    the full 1500/500 under them);
-7. rats ChEES: ADVI warm start, then ChEES-HMC with the conjugate Gibbs
-   block, 1024 chains x 1500 iterations (500 burnin), gated on the golden
-   mu_beta mean, rank R-hat < 1.01 and bulk ESS > 400;
+7. rats ChEES: ADVI warm start (``RATS_CHEES_ADVI_STEPS``, longer than
+   bench.py's 1500 steps, whose q has not converged), then ChEES-HMC with
+   the conjugate Gibbs block, 1024 chains x 1500 iterations (500 burnin),
+   gated on the golden mu_beta mean, rank R-hat < 1.01 and bulk ESS > 400;
 8. zoo: pumps, surgical, seeds (its reference scheme) and mice (NaN inits,
    MISS) with the schemes their ``build()`` gives, 1024 chains each, gated
    on the golden means of the JAX package's golden tests with those tests'
@@ -111,7 +123,7 @@ through the port's public entry points (``mcmc``, ``advi``,
     (``read_chains``: y is the data, z (1024, 10,000), the draws (c)'s and
     (e)'s) and runs ``POST_RESTART`` more iterations on one device,
     bit-identical to the restart from the same whole state built here from
-    the ranks' own, with rank 0's tunes and generator state; (g) in the
+    the ranks' own, with rank 0's tunes and every chain's key; (g) in the
     same two processes, models whose data-axis layout needs the
     compiler's resolved cases, on the (1, 2) data mesh: the GLMM with
     z ~ Normal(w, 1), w (10,000,) named
@@ -127,27 +139,39 @@ through the port's public entry points (``mcmc``, ``advi``,
     the (1, 2) data mesh with y, alpha and beta named (the JAX package's own
     data-mesh setup, __graft_entry__.py:57): each rank holds 15 rats of
     each, draws finite and equal on both ranks, phase 6's mu_beta gate, its
-    wall per leapfrog; then the kernel at a rank's shares (C = 512; G = 5,000;
+    wall per leapfrog; (i) in the same two processes, phase 6's rats NUTS
+    run on the (2, 1) chain mesh, 512 chains a rank, each chain keyed by its
+    global index: the gathered draws held chain by chain to phase 6's
+    (``RATS_CHAIN_IDENTICAL_MIN``, ``RATS_CHAIN_MAX_DIFF``), the share of
+    bit-identical chains and the largest difference printed; then the
+    kernel at a rank's shares (C = 512; G = 5,000;
     C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
     plain version, the first two timed with their bounds.  Both ranks share
     the one card: no number of (c)-(g) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
-runs one rank of (c), (d), (e), (g) and (h), and writes (f)'s files.
+runs one rank of (c), (d), (e), (g), (h) and (i), and writes (f)'s files.
 
 The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
-in a CUDA graph counts once per replay.  Every phase raises on
+in a CUDA graph counts once per replay.  So does the threefry kernel's
+count around every phase from 3b on that draws (all but map), and the
+script fails if one of them launched it no time.  Every phase raises on
 failure.  The engine's loop runs on the host, so the time follows the
 host's CPU, and each phase's wall is printed.  The
 last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it lists the kernel with its launches on the main paths, its
+the line before it lists the two kernels; the fused one with its launches on the main paths, its
 error, its time, the plain version's, and the least time the card could take
 (``bound_ms``, from ``ops.fused_glmm.glmm_bound_ms``: the floors set by
 memory, float32 arithmetic and the special-function pipe are in
 ``floors_ms``, for the kernel's arithmetic and for the form with a polynomial
-logarithm; ``bound_floor`` names the one that sets the bound).  With no CUDA device the script exits with status 2 and
+logarithm; ``bound_floor`` names the one that sets the bound); the threefry
+kernel with its launches on the main paths, its largest normal error, its
+time, the plain version's and ``torch.randn``'s at the GLMM ChEES momentum
+draw, and its bound (the keys read and the numbers written over 3.35 TB/s,
+or the hash's integer operations over the card's int32 lanes, whichever
+is larger).  With no CUDA device the script exits with status 2 and
 prints no result.
 """
 
@@ -208,8 +232,19 @@ GRAPH_ZOO_ARMS = (("pumps", None), ("inhalers", None), ("magnesium", None),
 #: iterations that continue phase 6's run inside the profile phase's trace,
 #: over which the device's busy share is read
 BUSY_ITERS = 2
-#: rats ChEES (phase 7), bench.py:63-98
+#: rats ChEES (phase 7): bench.py:63-98's run, 1024 chains
 RATS_CHEES_RUN = (1500, 500)
+#: its ADVI warm start's steps, where bench.py takes 1500 (nmc 4, seed 1):
+#: after 1500 steps q has not converged (its means of s2_c and s2_beta are
+#: 202.4 and 0.103, after 5000 steps 38.4 and 0.297; s2_c's posterior mean
+#: is 37.25), and a chain drawn from its tail can fall into the funnel where
+#: s2_beta and the spread of beta shrink together and ChEES's shared step
+#: no longer moves it.  The JAX package on the CPU in float32 left one to
+#: four such chains in 6 of 9 runs at 1500 steps (rank R-hat over 1.01 in
+#: 2), in 6 of 8 with 32 draws a step in place of 4, and none in 8 after
+#: 5000 steps (R-hat 1.0040-1.0045); on the card this phase's R-hat at
+#: 1500 steps was 1.0166 (ROADMAP Queue 3, PERF.md §6)
+RATS_CHEES_ADVI_STEPS = 5000
 #: GLMM ChEES at full width (phase 10): bench.py's 1300/300, under its
 #: gates (bench.py:154-156): every beta mean within ``GLMM_BETA_TOL`` of the
 #: truth, the s2 mean within ``GLMM_S2_TOL``, rank R-hat and bulk ESS
@@ -348,14 +383,20 @@ def sm_clocks_mhz():
     return float(now), float(most)
 
 
-def phase_build(fg):
+def phase_build(fg, rnd):
+    """Both kernels' sources compiled at once, one nvcc each."""
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    fg.build_library()
+    with ThreadPoolExecutor(2) as pool:
+        for lib in [pool.submit(m.build_library) for m in (fg, rnd)]:
+            lib.result()
     fg._lib()
+    rnd._lib()
     log(f"build: {time.perf_counter() - t0:.2f} s")
-    for line in fg.BUILD_LOG.read_text().splitlines():
-        if "ptxas" in line and ("registers" in line or "Compiling" in line):
-            log("  " + line.strip())
+    for report in (fg.BUILD_LOG, rnd._lib_path().with_name("libthreefry.build.log")):
+        for line in report.read_text().splitlines():
+            if "ptxas" in line and ("registers" in line or "Compiling" in line):
+                log("  " + line.strip())
 
 
 def _event_ms(torch, fn, reps):
@@ -425,6 +466,112 @@ def kernel_case(torch, fg, glmm_cases, C, G, n=10, P=4, seed=0, near_mode=False,
 def phase_kernels(torch, fg, glmm_cases):
     return [kernel_case(torch, fg, glmm_cases, **case, time_reps=20 if i == 0 else 0)
             for i, case in enumerate(KERNEL_CASES)]
+
+
+#: phase 3's threefry draws: the rats NUTS momentum and a GLMM ChEES one
+#: (1024 chains x the block's coordinates), float32 and folded as the
+#: samplers draw them (``coords.randn(key, x, fold=0)``)
+THREEFRY_SHAPES = {"rats_nuts_momentum": 62, "glmm_chees_momentum": 10_005}
+#: a normal may differ from the plain version's by this many float32 ulp
+#: (CUDA's erfinvf in both, so 0 is expected; the uniforms are bit-identical)
+THREEFRY_NORMAL_ULPS = 2
+#: integer operations of one threefry2x32 (20 rounds of add, rotate and
+#: xor; 5 key injections of two adds; the key schedule), and the card's
+#: int32 lanes an SM a clock (half its 128 float32 lanes)
+THREEFRY_INT_OPS, INT32_LANES = 78, 64
+
+
+def _threefry_bound(keys, n, dtype, sm_mhz):
+    """(bound_ms, bound_by, bytes, int ops) of one draw of ``n`` numbers a
+    key, folded once a key as the main path draws: the keys read and the
+    numbers written once over 3.35 TB/s, and the hashes' integer operations
+    (one a number, and one a key for the fold) over 132 SMs' int32 lanes at
+    ``sm_mhz``."""
+    rows = keys.shape[0]
+    nbytes = rows * 16 + rows * n * dtype.itemsize
+    ops = rows * (n + 1) * THREEFRY_INT_OPS
+    byte_ms = 1e3 * nbytes / 3.35e12
+    op_ms = 1e3 * ops / (132 * INT32_LANES * sm_mhz * 1e6)
+    return (max(byte_ms, op_ms), "bytes" if byte_ms >= op_ms else "operations",
+            nbytes, ops)
+
+
+def phase_threefry(torch, rnd):
+    """The threefry kernel against its plain version on the card, on chain
+    keys: bits, uniforms (float32 and float64, scaled too), folded keys,
+    splits, draws at a rank's counters, with a fold tensor, from a view of a
+    split and from one expanded key, identical; normals within
+    ``THREEFRY_NORMAL_ULPS``.  Then its time at the two momentum draws as
+    the samplers make them (folded with 0) beside the plain version's and
+    ``torch.randn``'s of the same shape, and its bound."""
+    keys = rnd.chain_keys(7, range(CHAINS), DEVICE)
+    plain = rnd.threefry_plain
+    idx = torch.tensor([3, 0, 61, 17, 40], device=DEVICE)
+    fold = torch.full((1,), 9, dtype=torch.int64, device=DEVICE)
+    sub = rnd.split(keys)[1]                   # rows 2 * 2 words apart
+    one = rnd.key(11, DEVICE).expand(CHAINS, 2)
+    same = {
+        "folded": (rnd.fold_in(keys, 5), plain("folded", keys, fold=5)),
+        "split": (rnd.split(keys, 3),
+                  plain("words", keys, (3,)).movedim(1, 0)),
+        "bits32": (rnd.bits(keys, (62,)), plain("bits32", keys, (62,))),
+        "bits64": (rnd.bits(keys, (62,), 64), plain("bits64", keys, (62,))),
+        "uniform32": (rnd.uniform(keys, (2, 31), torch.float32),
+                      plain("uniform", keys, (2, 31), torch.float32)),
+        "uniform64": (rnd.uniform(keys, (62,), torch.float64, fold=4),
+                      plain("uniform", keys, (62,), torch.float64, fold=4)),
+        "uniform_scaled": (rnd.uniform(keys, (62,), torch.float32, -2.5, 3.0),
+                           plain("uniform", keys, (62,), torch.float32,
+                                 minval=-2.5, maxval=3.0)),
+        "index": (rnd.uniform(keys, (62,), torch.float32, index=idx),
+                  plain("uniform", keys, (62,), torch.float32, index=idx)),
+        "fold_tensor": (rnd.uniform(keys, (62,), torch.float32, fold=fold),
+                        plain("uniform", keys, (62,), torch.float32, fold=9)),
+        "split_view": (rnd.uniform(sub, (62,), torch.float32, fold=0),
+                       plain("uniform", sub.contiguous(), (62,),
+                             torch.float32, fold=0)),
+        "expanded": (rnd.fold_in(one, torch.arange(CHAINS, device=DEVICE)),
+                     plain("folded", one.contiguous(),
+                           fold=torch.arange(CHAINS, device=DEVICE))),
+    }
+    torch.cuda.synchronize()
+    res = {"identical": {k: bool(torch.equal(a, b)) for k, (a, b) in same.items()}}
+    ulps, errs = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        for name, n in THREEFRY_SHAPES.items():
+            a = rnd.normal(keys, (n,), dtype, fold=0)
+            b = plain("normal", keys, (n,), dtype, fold=0)
+            d = (a - b).abs()
+            spacing = torch.finfo(dtype).eps * b.abs().clamp(min=1e-3)
+            tag = f"{dtype}:{name}"
+            ulps[tag] = float((d / spacing).max())
+            errs[tag] = float(d.max())
+    res["normal_ulps"], res["normal_max_abs_err"] = ulps, errs
+    _, sm_mhz = sm_clocks_mhz()
+    res["timed"] = {}
+    for name, n in THREEFRY_SHAPES.items():
+        reps = 200
+        kernel_ms = _event_ms(torch, lambda: rnd.normal(keys, (n,), fold=0),
+                              reps)
+        plain_ms = _event_ms(torch, lambda: plain("normal", keys, (n,),
+                                                  torch.float32, fold=0), 5)
+        randn_ms = _event_ms(torch, lambda: torch.randn(
+            (CHAINS, n), device=DEVICE), reps)
+        bound_ms, bound_by, nbytes, ops = _threefry_bound(
+            keys, n, torch.float32, sm_mhz)
+        res["timed"][name] = {"shape": [CHAINS, n], "fold": 0,
+                              "ms": kernel_ms, "plain_ms": plain_ms,
+                              "randn_ms": randn_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "bytes": nbytes,
+                              "int_ops": ops, "sm_mhz": sm_mhz,
+                              "max_abs_err": errs[f"torch.float32:{name}"]}
+    log("threefry: " + json.dumps(res))
+    bad = [k for k, v in res["identical"].items() if not v]
+    bad += [k for k, v in ulps.items() if v > THREEFRY_NORMAL_ULPS]
+    if bad:
+        raise AssertionError(f"threefry kernel disagrees with its plain "
+                             f"version: {bad}")
+    return res
 
 
 def _recording(module, name, pick):
@@ -512,7 +659,7 @@ def _same_run(torch, a, b):
                 and _tunes_equal(torch, a.states["tunes"], b.states["tunes"])
                 and all(torch.equal(a.states["state"][k], b.states["state"][k])
                         for k in a.states["state"])
-                and torch.equal(a.states["rng"], b.states["rng"]))
+                and torch.equal(a.states["key"], b.states["key"]))
 
 
 def _zoo_build(mt, name, scheme):
@@ -750,12 +897,10 @@ def _continuation(torch, sim):
     from mamba_tpu_torch.model.mcmc import _build_kernels, _run
     cm, st = sim.compiled, sim.states
     kernels = _build_kernels(cm)
-    gen = torch.Generator(device=cm.device)
-    gen.set_state(st["rng"])
-    carry = [st["state"], st["tunes"]]
+    carry = [st["key"], st["state"], st["tunes"]]
 
     def run(n):
-        carry[:] = _run(cm, kernels, gen, *carry, 0, n, 1, None)[:2]
+        carry[:] = _run(cm, kernels, *carry, 0, n, 1, None)[:3]
 
     run(1)
     return run
@@ -786,9 +931,9 @@ def _advi_warm_inits(torch, mt, model, inputs, init, steps, chains):
     """bench.py's ADVI warm start: fit, then one draw from q per chain."""
     t0 = time.perf_counter()
     res = mt.advi(model, inputs, init, steps=steps, nmc=4, seed=1, device=DEVICE)
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(5)
-    draws = {k: v.cpu().numpy() for k, v in res.sample(gen, chains).items()}
+    from mamba_tpu_torch.ops import random as R
+    draws = {k: v.cpu().numpy()
+             for k, v in res.sample(R.key(5, DEVICE), chains).items()}
     advi_s = time.perf_counter() - t0
     inits = [dict(init, **{k: d[i] for k, d in draws.items()})
              for i in range(chains)]
@@ -812,8 +957,8 @@ def phase_rats_chees(torch, mt, rats, chees):
     iters, burnin = RATS_CHEES_RUN
     model, inputs, inits = rats.build("nuts")
     model = _chees_block(mt, model, mass_window=50)
-    warm, advi_s = _advi_warm_inits(torch, mt, model, inputs, inits[0], 1500,
-                                    CHAINS)
+    warm, advi_s = _advi_warm_inits(torch, mt, model, inputs, inits[0],
+                                    RATS_CHEES_ADVI_STEPS, CHAINS)
     steps, restore = _recording(chees, "_steps", lambda L: L)
     try:
         sim = mt.mcmc(model, inputs, warm, iters, burnin=burnin,
@@ -853,12 +998,12 @@ def zoo_run(torch, mt, name, scheme, iters, burnin, gates):
            "convergence_gated": converge,
            "finite": bool(np.isfinite(v).all())}
     # posterior-predictive draws of the data nodes on the card (Poisson,
-    # Binomial, truncated Weibull), from a generator of the script's own:
-    # finite and inside their support (outside it the density is -inf)
+    # Binomial, truncated Weibull), from keys of the script's own: finite
+    # and inside their support (outside it the density is -inf)
+    from mamba_tpu_torch.ops import random as R
     cm = sim.compiled
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(11)
     state = sim.states["state"]
+    gen = R.chain_keys(11, range(next(iter(state.values())).shape[0]), DEVICE)
     sampled = {p for b in model.samplers if not isinstance(b, mt.MISS)
                for p in b.params}
     data = tuple(n for n in cm.stochastic if n not in sampled)
@@ -902,11 +1047,11 @@ def phase_zoo(torch, mt):
 
 def _predictive(torch, mt, cm, model, state):
     """Posterior-predictive draws of the data nodes through
-    ``forward_sample``, from a generator of the script's own: the names, and
+    ``forward_sample``, from keys of the script's own: the names, and
     whether every draw has its node's shape, is finite and (where the node
     has a density) inside its support."""
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(11)
+    from mamba_tpu_torch.ops import random as R
+    gen = R.chain_keys(11, range(next(iter(state.values())).shape[0]), DEVICE)
     sampled = {p for b in model.samplers if not isinstance(b, mt.MISS)
                for p in b.params}
     data = tuple(n for n in cm.stochastic if n not in sampled)
@@ -1009,22 +1154,26 @@ def zoo_mv_run(torch, mt, binary, name, scheme, iters, burnin, gates):
 def _dgs_graph_check(torch, mt, cm, model, state, reps=5):
     """The model's DGS block at the run's final state, replayed from its
     CUDA graph by the engine's kernel and run eagerly by the stand-alone
-    ``dgs_step`` from the same generator state: whether the draws are equal,
-    and the wall ms per sweep of each."""
+    ``dgs_step`` from the same keys: whether the draws are equal, and the
+    wall ms per sweep of each."""
     from mamba_tpu_torch.samplers import dgs
     from mamba_tpu_torch.samplers.base import candidate_logf
     (name,) = next(b for b in model.samplers if isinstance(b, mt.DGS)).params
+    from mamba_tpu_torch.ops import random as R
     kern = mt.DGS(name).build(cm)
     tune = kern.init(None, state)
+    chains = next(iter(state.values())).shape[0]
     pack, _, _, logf = cm.block_functions((name,), False)
     x = torch.func.vmap(pack)(state)
     f = candidate_logf(torch.func.vmap(logf), state)
+    # the engine's block splits one key off per node: the stand-alone step
+    # takes that key
     runs = {"graph": lambda gen: kern.step(gen, state, tune, False)[0][name],
-            "eager": lambda gen: dgs.dgs_step(gen, x, tune[0], f)[0]}
+            "eager": lambda gen: dgs.dgs_step(R.split(gen, 1)[0], x, tune[0],
+                                              f)[0]}
     out, ms = {}, {}
     for which, run in runs.items():
-        gen = torch.Generator(device=DEVICE)
-        gen.manual_seed(3)
+        gen = R.chain_keys(3, range(chains), DEVICE)
         out[which] = run(gen).reshape(x.shape)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1277,15 +1426,15 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
 def _write_sharded(torch, mt, sim, outdir, label, rank):
     """(f): the run's one chain file (``write_chains`` on every rank), and
     the rank's own resume state beside it for the one-device restart
-    built in memory: its sampled sites, tunes and generator state.  The
-    seconds ``write_chains`` took."""
+    built in memory: its sampled sites, tunes and chain keys.  The seconds
+    ``write_chains`` took."""
     t0 = time.perf_counter()
     mt.write_chains(str(Path(outdir) / f"{label}.pkl"), sim)
     seconds = time.perf_counter() - t0
     st = sim.states
     coords = sim.compiled.block_coords(("beta", "z", "s2"))
     torch.save({"state": {k: st["state"][k] for k in ("beta", "z", "s2")},
-                "tunes": st["tunes"], "rng": st["rng"], "burnin": st["burnin"],
+                "tunes": st["tunes"], "key": st["key"], "burnin": st["burnin"],
                 "index": coords.index, "dim": coords.dim},
                Path(outdir) / f"{label}_rank{rank}.pt")
     return seconds
@@ -1444,6 +1593,55 @@ def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
     return res
 
 
+def _rats_chain_mesh(torch, mt, mesh, rank, outdir):
+    """(i): phase 6's rats NUTS run (``RATS_NUTS_RUN``, 1024 chains) on the
+    (2, 1) chain mesh, 512 chains a rank, each chain keyed by its global
+    index: the gathered draws saved for the parent, which holds them chain
+    by chain to phase 6's (the captured steps: a chain mesh replays)."""
+    from mamba_tpu_torch.models import rats
+    iters, burnin = RATS_NUTS_RUN
+    model, inputs, inits = rats.build("nuts")
+    sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
+                  verbose=False, device=DEVICE, mesh=mesh)
+    res = {"sample_s": sim.timing["sample_s"],
+           "local_chains": int(sim.states["key"].shape[0])}
+    log(f"(i) rank {rank}, rats NUTS on a (2, 1) chain mesh: " + json.dumps(res))
+    np.save(Path(outdir) / f"rats_chain_draws{rank}.npy", sim.value)
+    return res
+
+
+#: (i): of phase 6's 1024 chains run on the (2, 1) chain mesh, the share
+#: whose draws must be bit-identical, and the largest absolute difference
+#: of any draw (float32).  Measured: every chain bit-identical, 512 chains
+#: a rank against 1024 in one process (measured on one H100, two ranks;
+#: PERF.md §6): a chain's numbers are its key's, and the leaf's arithmetic
+#: runs per chain, so the gate is exact
+RATS_CHAIN_IDENTICAL_MIN, RATS_CHAIN_MAX_DIFF = 1.0, 0.0
+
+
+def _rats_chains_gates(draws, want, failed):
+    """(i)'s gates: both ranks hold the same draws, and each chain's draws
+    against phase 6's, chain by chain."""
+    if not np.array_equal(draws[0], draws[1]):
+        failed.append("(i) both ranks hold every chain's draws")
+    a, b = draws[0], want
+    if a.shape != b.shape or not np.isfinite(a).all():
+        failed.append("(i) finite draws of phase 6's shape")
+        return {"shape": list(a.shape)}
+    same = np.all(a == b, axis=(0, 1))
+    diff = np.abs(a.astype(np.float64) - b)
+    res = {"chains": int(a.shape[2]), "identical_share": float(same.mean()),
+           "max_abs_diff": float(diff.max()),
+           "max_rel_diff": float((diff / np.maximum(np.abs(b), 1e-30)).max()),
+           "gate_identical_min": RATS_CHAIN_IDENTICAL_MIN,
+           "gate_max_abs_diff": RATS_CHAIN_MAX_DIFF}
+    if res["identical_share"] < RATS_CHAIN_IDENTICAL_MIN:
+        failed.append("(i) bit-identical chains")
+    if res["max_abs_diff"] > RATS_CHAIN_MAX_DIFF:
+        failed.append("(i) largest difference")
+    return res
+
+
 def mesh_rank(init, rank, outdir):
     """One rank of the mesh phase's (c), (d), (e), (g) and (h): two
     processes over gloo, both on this process's card."""
@@ -1485,6 +1683,9 @@ def mesh_rank(init, rank, outdir):
         t0 = time.perf_counter()
         res["rats"] = _rats_data_mesh(torch, mt, nuts, data_mesh, rank, outdir)
         res["rats"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["rats_chains"] = _rats_chain_mesh(torch, mt, mesh, rank, outdir)
+        res["rats_chains"]["wall_s"] = time.perf_counter() - t0
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -1589,7 +1790,8 @@ def _rank_density_ms(torch, mt, glmm, warm):
     return out
 
 
-def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
+def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
+               rats_draws_6):
     """(a)-(e) of the mesh phase, then the kernel at a rank's shares."""
     import tempfile
     import torch.distributed as dist
@@ -1643,6 +1845,8 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
                           for k in ("glmm_w", "birats", "line_ss")}
         rats_draws = [np.load(Path(tmp) / f"rats_draws{r}.npy")
                       for r in range(2)]
+        rats_chain_draws = [np.load(Path(tmp) / f"rats_chain_draws{r}.npy")
+                            for r in range(2)]
         failed = []
         t0 = time.perf_counter()                                  # (f)
         res["restart"] = {
@@ -1677,6 +1881,12 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10):
         res["restart"][k]["kernel_launches"] for k in ("chain_mesh", "local"))
     res["rats"] = _rats_gates_h([r["rats"] for r in ranks], rats_draws, failed)
     log("mesh (h), rats NUTS on a (1, 2) data mesh: " + json.dumps(res["rats"]))
+    res["rats_chains"] = _rats_chains_gates(rats_chain_draws, rats_draws_6,
+                                            failed)
+    res["rats_chains"]["sample_s"] = [r["rats_chains"]["sample_s"]
+                                      for r in ranks]
+    log("mesh (i), rats NUTS on a (2, 1) chain mesh against phase 6, chain "
+        "by chain: " + json.dumps(res["rats_chains"]))
     res["local_views"] = _local_views_gates(local, local_draws, failed)
     res["local_views"]["density_ms"] = _rank_density_ms(torch, mt, glmm, warm)
     log("mesh (e): " + json.dumps(res["local_views"]))
@@ -1703,7 +1913,7 @@ def _file_restart(torch, mt, glmm, fg, tmp, label, draws, failed):
     on one device, against the one-device restart from the same whole
     state built here from the ranks' own (the chains of (c)'s two ranks
     joined; (e)'s sampled sites, whole on each data rank, from rank 0)
-    and rank 0's tunes and generator state.  Appends what fails to
+    with rank 0's tunes and every chain's key.  Appends what fails to
     ``failed``."""
     from mamba_tpu_torch.output.chains import ModelChains
     model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
@@ -1717,13 +1927,16 @@ def _file_restart(torch, mt, glmm, fg, tmp, label, draws, failed):
     out["y_is_the_data"] = bool((state["y"] == y).all())
     out["z_shape"] = list(state["z"].shape)
     out["draws_equal"] = bool(np.array_equal(mc.value, draws))
-    # the sites come back on the card, the generator states on the host
+    # the sites and keys come back on the card; a chain mesh's ranks hold
+    # their chains' keys, a data mesh's ranks the same keys
     own = [torch.load(Path(tmp) / f"{label}_rank{r}.pt", weights_only=False)
            for r in range(2)]
     whole = {"y": y.expand(CHAINS, *y.shape).contiguous()}
     for k in ("beta", "z", "s2"):
         whole[k] = (torch.cat([o["state"][k] for o in own])
                     if label == "chain_mesh" else own[0]["state"][k])
+    keys = (torch.cat([o["key"] for o in own]) if label == "chain_mesh"
+            else own[0]["key"])
     tunes = own[0]["tunes"]
     if own[0]["index"] is not None:
         # (e)'s data ranks hold z's slices and their coordinates' tunes
@@ -1733,7 +1946,7 @@ def _file_restart(torch, mt, glmm, fg, tmp, label, draws, failed):
     memory = ModelChains(draws, start=mc.start, thin=mc.thin, names=mc.names,
                          chains=mc.chains, model=model, compiled=cm,
                          states={"state": whole, "tunes": tunes,
-                                 "rng": own[0]["rng"],
+                                 "key": keys,
                                  "burnin": own[0]["burnin"]}, iter=mc.iter)
     fg.glmm_loglik_grads.launches = 0
     t0 = time.perf_counter()
@@ -2149,6 +2362,26 @@ def phase_profile(torch, fg, glmm_cases, kernel_ms, rats_sim):
     return res
 
 
+def _threefry_line(res, launches):
+    """The threefry kernel's entry of the ``kernels`` line: timed at the
+    GLMM ChEES momentum draw as ChEES makes it (1024 x 10,005 float32
+    normals, folded with 0), the rats NUTS one beside it; ``library_ms`` is
+    ``torch.randn`` of the same shape."""
+    full = res["timed"]["glmm_chees_momentum"]
+    return {
+        "name": "threefry_draw", "route": "cuda",
+        "source": "mamba_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: XLA fuses jax.random's threefry into the TPU "
+                    "programs (keys at mamba_tpu/model/mcmc.py:428)",
+        "launches": launches,
+        "max_abs_err": full["max_abs_err"],
+        "normal_ulps": res["normal_ulps"],
+        "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+        "library_ms": full["randn_ms"],
+        "rats_nuts_momentum": res["timed"]["rats_nuts_momentum"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2157,6 +2390,7 @@ def main() -> int:
     import mamba_tpu_torch as mt
     from mamba_tpu_torch.models import glmm, rats
     from mamba_tpu_torch.ops import fused_glmm as fg
+    from mamba_tpu_torch.ops import random as rnd
     from mamba_tpu_torch.samplers import chees, nuts
     from mamba_tpu_torch.scripts import glmm_cases
     from mamba_tpu_torch.utils import graphs
@@ -2165,39 +2399,54 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     walls = {}
+    #: threefry launches of each main-path phase: the count is set to 0
+    #: just before the phase and read just after (phase 3b's comparisons
+    #: come before and are not counted)
+    draws = {}
 
-    def timed(name, fn, *args):
+    def timed(name, fn, *args, path=False):
+        rnd.threefry_draw.launches = 0
         t0 = time.perf_counter()
         out = fn(*args)
         walls[name] = time.perf_counter() - t0
+        if path:
+            draws[name] = rnd.threefry_draw.launches
         log(f"phase {name}: {walls[name]:.1f} s")
         return out
 
     card = phase_device(torch)
-    timed("build", phase_build, fg)
+    timed("build", phase_build, fg, rnd)
     cases = timed("kernel", phase_kernels, torch, fg, glmm_cases)
+    threefry = timed("threefry", phase_threefry, torch, rnd)
     graph_res = timed("graphs", phase_graphs, torch, mt, rats, glmm, fg,
-                      nuts, chees)
-    recovery_sim = timed("glmm_recovery", phase_recovery, mt, glmm)
-    glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts)
+                      nuts, chees, path=True)
+    recovery_sim = timed("glmm_recovery", phase_recovery, mt, glmm, path=True)
+    glmm_nuts = timed("glmm_nuts", phase_glmm_nuts, torch, mt, glmm, fg, nuts,
+                      path=True)
     rats_nuts, rats_nuts_sim = timed("rats_nuts", phase_rats_nuts, torch, mt,
-                                     rats, nuts)
+                                     rats, nuts, path=True)
     rats_chees, rats_chees_sim = timed("rats_chees", phase_rats_chees, torch,
-                                       mt, rats, chees)
-    _, zoo_sims = timed("zoo", phase_zoo, torch, mt)
-    _, zoo_mv_sims = timed("zoo_mv", phase_zoo_mv, torch, mt)
+                                       mt, rats, chees, path=True)
+    _, zoo_sims = timed("zoo", phase_zoo, torch, mt, path=True)
+    _, zoo_mv_sims = timed("zoo_mv", phase_zoo_mv, torch, mt, path=True)
     glmm_chees, glmm_warm, glmm_tunes = timed(
-        "glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees)
+        "glmm_chees", phase_glmm_chees, torch, mt, glmm, fg, chees, path=True)
     mesh_res = timed("mesh", phase_mesh, torch, mt, glmm, fg, chees,
-                     glmm_cases, glmm_warm, glmm_tunes)
+                     glmm_cases, glmm_warm, glmm_tunes, rats_nuts_sim.value,
+                     path=True)
     del glmm_warm
     timed("post", phase_post, torch, mt, glmm, fg, {**zoo_sims, **zoo_mv_sims},
-          rats_chees_sim, recovery_sim)
+          rats_chees_sim, recovery_sim, path=True)
     del zoo_sims, zoo_mv_sims, rats_chees_sim, recovery_sim
     map_res = timed("map", phase_map, torch, mt, glmm, fg)
-    smc_res = timed("smc", phase_smc, torch, mt, glmm, fg)
+    smc_res = timed("smc", phase_smc, torch, mt, glmm, fg, path=True)
     profile = timed("profile", phase_profile, torch, fg, glmm_cases,
-                    cases[0]["ms"], rats_nuts_sim)
+                    cases[0]["ms"], rats_nuts_sim, path=True)
+    log(f"threefry launches on the main paths (graph replays counted): "
+        f"{json.dumps(draws)}")
+    idle = [k for k, v in draws.items() if v == 0]
+    if idle:
+        raise AssertionError(f"the threefry kernel was not launched in {idle}")
     launches = {"graphs": graph_res["glmm_chees"]["launches_graphed"],
                 "glmm_nuts": glmm_nuts["kernel_launches"],
                 "glmm_chees": glmm_chees["kernel_launches"],
@@ -2246,7 +2495,7 @@ def main() -> int:
         "floors_ms": {k[:-3]: v for k, v in bound.items() if k.endswith("_ms")
                       and k != "bound_ms"},
         "pct_of_bound": slice_case["pct_of_bound"],
-        "library_ms": None}]}))
+        "library_ms": None}, _threefry_line(threefry, sum(draws.values()))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,23 +35,24 @@ def entry(device="cuda"):
     from .model.compile import compile_model
     from .model.mcmc import _chain_inits
     from .models import rats
+    from .ops import random as R
 
     model, inputs, inits = rats.build("nuts")
     cm = compile_model(model, inputs, inits[0], device=device)
     kernels = [s.build(cm) for s in model.samplers]
 
-    def gibbs(gen, state, tunes):
+    def gibbs(keys, state, tunes):
         new_tunes = []
         for k, tune in zip(kernels, tunes):
-            state, t = k.step(gen, state, tune, False)
+            keys, sub = R.split(keys)
+            state, t = k.step(sub, state, tune, False)
             new_tunes.append(t)
-        return gen, state, tuple(new_tunes)
+        return keys, state, tuple(new_tunes)
 
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(0)
+    keys = R.chain_keys(0, range(1), cm.device)
     state = _chain_inits(cm, inits[0], 1)
-    tunes = tuple(k.init(gen, state) for k in kernels)
-    return gibbs, (gen, state, tunes)
+    tunes = tuple(k.init(keys, state) for k in kernels)
+    return gibbs, (keys, state, tunes)
 
 
 def _rank_device(device: str) -> torch.device:

@@ -26,6 +26,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..model.compile import CompiledModel, compile_model
 from ..model.model import Model
 from ..utils.pytree import RavelSpec
@@ -42,12 +43,12 @@ class ADVIResult:
     _spec: RavelSpec
     _state0: dict[str, Any]
 
-    def sample(self, gen: torch.Generator, n: int = 1000) -> dict[str, torch.Tensor]:
+    def sample(self, key, n: int = 1000) -> dict[str, torch.Tensor]:
         """``n`` draws from q in constrained space: {site: (n, ...)}, on the
-        model's device.  One ``(n, dim)`` normal draw from ``gen``."""
-        z = self.mu + torch.exp(self.log_sigma) * torch.randn(
-            (n, self.mu.shape[0]), generator=gen, dtype=self.mu.dtype,
-            device=self.mu.device)
+        model's device.  One ``(n, dim)`` normal draw from the key ``key``
+        (``ops.random.key(seed)``), as the JAX package's ``sample``."""
+        z = self.mu + torch.exp(self.log_sigma) * R.normal(
+            key.to(self.mu.device), (n, self.mu.shape[0]), self.mu.dtype)
         return torch.func.vmap(self._unpack, in_dims=(0, None))(z, self._state0)
 
     def mean_state(self) -> dict[str, np.ndarray]:
@@ -83,9 +84,8 @@ def _setup(model: Model, inputs: dict, inits: dict, params, *, device, dtype):
     return cm, params, pack, unpack, spec, logf, state0
 
 
-def _mc_noise(gen, nmc: int, dim: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.randn((nmc, dim), generator=gen, dtype=like.dtype,
-                       device=like.device)
+def _mc_noise(key, nmc: int, dim: int, like: torch.Tensor) -> torch.Tensor:
+    return R.normal(key, (nmc, dim), like.dtype)
 
 
 def advi(model: Model, inputs: dict, inits: dict, params=None, *,
@@ -93,8 +93,9 @@ def advi(model: Model, inputs: dict, inits: dict, params=None, *,
          device, dtype=None) -> ADVIResult:
     """Fit a mean-field Gaussian to the free parameters' posterior
     (``params`` defaults to every stochastic node that no sampler block
-    leaves observed).  ``device`` is required; the Monte Carlo noise comes
-    from a ``torch.Generator`` on it seeded with ``seed``."""
+    leaves observed).  ``device`` is required; the Monte Carlo noise of
+    each step comes from ``key, sub = split(key)`` from ``key(seed)``, as
+    in the JAX package."""
     if device is None:
         raise ValueError("advi needs an explicit device (e.g. 'cuda' or 'cpu')")
     cm, params, pack, unpack, spec, logf, state0 = _setup(
@@ -105,12 +106,12 @@ def advi(model: Model, inputs: dict, inits: dict, params=None, *,
     grad_value = torch.func.vmap(torch.func.grad_and_value(logf),
                                  in_dims=(0, None))
     entropy_const = 0.5 * d * (1.0 + math.log(2.0 * math.pi))
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(seed)
+    key = R.key(seed, cm.device)
     opt = torch.optim.Adam([mu, log_sigma], lr=lr, betas=(0.9, 0.999), eps=1e-8)
     trace = torch.empty(steps, dtype=cm.dtype, device=cm.device)
     for i in range(steps):
-        eps = _mc_noise(gen, nmc, d, mu)
+        key, sub = R.split(key)
+        eps = _mc_noise(sub, nmc, d, mu)
         sigma = torch.exp(log_sigma)
         g, lp = grad_value(mu + sigma * eps, state0)
         trace[i] = torch.mean(lp) + torch.sum(log_sigma) + entropy_const

@@ -41,7 +41,8 @@ import torch
 
 from ..model.compile import compile_model
 from ..model.model import Model
-from ..parallel.mesh import MeshComm, rank_seed
+from ..ops import random as R
+from ..parallel.mesh import MeshComm
 
 
 @dataclasses.dataclass
@@ -53,15 +54,12 @@ class SMCResult:
     params: tuple[str, ...]
 
 
-def systematic_resample(gen, logw: torch.Tensor, n: int,
-                        comm: MeshComm | None = None) -> torch.Tensor:
-    """Systematic resampling indices (one uniform per generation, chain
-    rank 0's under ``comm``), each in [0, n - 1]."""
+def systematic_resample(key, logw: torch.Tensor, n: int) -> torch.Tensor:
+    """Systematic resampling indices (one uniform per generation, from the
+    key ``key``, which every rank holds alike), each in [0, n - 1]."""
     w = torch.softmax(logw, dim=0)
     cum = torch.cumsum(w, dim=0)
-    u0 = torch.rand((), generator=gen, dtype=w.dtype, device=w.device)
-    if comm is not None:
-        u0 = comm.chain_broadcast(u0)
+    u0 = R.uniform(key, (), w.dtype)
     pts = (u0 + torch.arange(n, dtype=w.dtype, device=w.device)) / n
     return torch.searchsorted(cum, pts).clamp_(max=n - 1)
 
@@ -95,8 +93,11 @@ def smc(model: Model, inputs: dict, inits: dict, params=None, *,
         device=None, dtype=None, mesh=None,
         particle_axis: str = "chains") -> SMCResult:
     """Sample the posterior by tempering prior -> posterior on ``device``
-    (required, as for ``mcmc``), with random draws from a
-    ``torch.Generator`` on it seeded with ``seed``.
+    (required, as for ``mcmc``), with random draws keyed as the JAX
+    package keys them: from ``key(seed)``, particle ``i`` drawn from the
+    prior with ``fold_in(kz, i)``, and each stage's resampling and each
+    RWM step from keys split off the run's key, every particle's normals
+    and uniforms at its own counters of the whole draw.
 
     ``rejuvenation_steps`` is the main quality knob: hierarchical posteriors
     with heavy-tailed priors (line/rats-style variance terms) need ~20-50
@@ -104,7 +105,8 @@ def smc(model: Model, inputs: dict, inits: dict, params=None, *,
 
     ``mesh`` (a ``DeviceMesh``) shards the particles over its
     ``particle_axis``, which must divide ``n_particles``; every rank
-    returns all particles."""
+    returns all particles; each rank draws its particles' counters of the
+    whole draws, so the run draws the unsharded run's numbers."""
     if device is None:
         raise ValueError("smc needs an explicit device (e.g. 'cuda' or 'cpu')")
     comm = MeshComm(mesh, particle_axis)
@@ -123,8 +125,9 @@ def smc(model: Model, inputs: dict, inits: dict, params=None, *,
     state0 = {n: cm.tensor(np.broadcast_to(np.asarray(inits[n], dtype=np.float64),
                                            cm.sites[n].shape))
               for n in cm.stochastic}
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(rank_seed(seed, comm.chain_rank))
+    key = R.key(seed, cm.device)
+    key, kz = R.split(key)
+    rows = torch.arange(first, first + local, device=cm.device)
 
     lprior = torch.func.vmap(lambda z: log_prior(z, state0))
     lpost = torch.func.vmap(lambda z: log_post(z, state0))
@@ -142,13 +145,15 @@ def smc(model: Model, inputs: dict, inits: dict, params=None, *,
     with torch.no_grad():
         # init particles from the prior via forward sampling, packed
         stacked = {k: v.expand(local, *v.shape) for k, v in state0.items()}
-        drawn = cm.forward_sample(gen, stacked, names=params)
+        drawn = cm.forward_sample(R.fold_in(kz.expand(local, 2), rows),
+                                  stacked, names=params)
         z = torch.func.vmap(pack)(drawn)
         # clip unconstrained coordinates: extreme prior tails can overflow
         # to +-inf (log of an underflowed Gamma draw)
         z = torch.clamp(torch.nan_to_num(z, nan=0.0, posinf=1e8, neginf=-1e8),
                         -1e8, 1e8)
         d = z.shape[1]
+        cells = (rows[:, None] * d + torch.arange(d, device=cm.device)).reshape(-1)
         beta, stage = 0.0, 0
         logZ = torch.zeros((), dtype=cm.dtype, device=cm.device)
         _, ll = target(z, 0.0)
@@ -157,18 +162,19 @@ def smc(model: Model, inputs: dict, inits: dict, params=None, *,
             beta2 = _next_beta(beta, ll.double().cpu().numpy(), ess_target)
             logw = (beta2 - beta) * ll
             logZ = logZ + torch.logsumexp(logw, dim=0) - math.log(N)
-            idx = systematic_resample(gen, logw, N, comm)
+            key, kr, kj = R.split(key, 3)
+            idx = systematic_resample(kr, logw, N)
             z = comm.gather_chains(z)[idx]
             # proposal scale from resampled particle spread
             scale = 2.38 / math.sqrt(d) * torch.std(z, dim=0, correction=0) + 1e-6
             z = z[first:first + local]              # this rank's block
             lp, ll = target(z, beta2)
             for _ in range(rejuvenation_steps):
-                prop = z + scale * torch.randn(z.shape, generator=gen,
-                                               dtype=z.dtype, device=z.device)
+                kj, kp, ka = R.split(kj, 3)
+                prop = z + scale * R.normal(kp, (N * d,), z.dtype,
+                                            index=cells).reshape(local, d)
                 lp1, ll1 = target(prop, beta2)
-                u = torch.rand((local,), generator=gen, dtype=z.dtype,
-                               device=z.device)
+                u = R.uniform(ka, (N,), z.dtype, index=rows)
                 acc = torch.log(u) < lp1 - lp
                 z = torch.where(acc[:, None], prop, z)
                 lp = torch.where(acc, lp1, lp)

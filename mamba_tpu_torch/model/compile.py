@@ -104,7 +104,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.distributions.base import dist_flatten
+from ..ops import random as R
+from ..ops.distributions.base import dist_flatten, keys_lead
 from ..parallel.mesh import (WHOLE, BlockCoords, MeshComm, data_block,
                              data_dim)
 from ..utils.convert import to_tensor
@@ -624,13 +625,13 @@ class CompiledModel:
         sampled site drawn in unconstrained space (a standard normal
         mapped by its bijector; a discrete site from its distribution),
         and the missing (NaN) entries of a data site drawn from its
-        distribution, in topo order from one generator seeded with
-        ``PROBE_SEED``; data entries as ``example`` holds them.  Every rank
-        draws the same values."""
-        gen = torch.Generator(device=self.device).manual_seed(PROBE_SEED)
+        distribution, in topo order, node ``i`` from ``fold_in(key(
+        PROBE_SEED), i)``; data entries as ``example`` holds them.  Every
+        rank draws the same values."""
+        probe = R.key(PROBE_SEED, self.device)
         data = self._data_sites()
         env, out = dict(self.inputs), {}
-        for name in self.model.topo:
+        for i, name in enumerate(self.model.topo):
             node = self.model.nodes[name]
             if isinstance(node, LogicalNode):
                 env[name] = self._call(node, env)
@@ -638,13 +639,13 @@ class CompiledModel:
                 x = example[name]
                 missing = torch.isnan(x)
                 if name not in data or bool(missing.any()):
-                    draw = self._probe_draw(name, self._call(node, env), gen,
-                                            name in data)
+                    draw = self._probe_draw(name, self._call(node, env),
+                                            R.fold_in(probe, i), name in data)
                     x = torch.where(missing, draw, x) if name in data else draw
                 out[name] = env[name] = x
         return out
 
-    def _probe_draw(self, name: str, dist, gen, data: bool) -> torch.Tensor:
+    def _probe_draw(self, name: str, dist, key, data: bool) -> torch.Tensor:
         """One probe value of site ``name`` under ``dist``: a draw from
         ``dist`` for data and discrete sites, else a standard normal in
         unconstrained space mapped by the bijector (a vague prior's own
@@ -652,10 +653,9 @@ class CompiledModel:
         site = self.sites[name]
         if data or dist.is_discrete:
             per = tuple(dist.batch_shape + dist.event_shape)
-            value = dist.sample(gen, site.shape[:len(site.shape) - len(per)])
+            value = dist.sample(key, site.shape[:len(site.shape) - len(per)])
             return value.expand(site.shape).to(self.dtype)
-        u = torch.randn(site.unconstrained_shape, generator=gen,
-                        dtype=self.dtype, device=self.device)
+        u = R.normal(key, site.unconstrained_shape, self.dtype)
         return dist.bijector().forward(u)
 
     def _data_sites(self) -> set:
@@ -1127,18 +1127,20 @@ class CompiledModel:
                 lambda x, state: join(vunpack(x, state)))
 
     # ---- forward (generative) sampling --------------------------------
-    def forward_sample(self, gen, state: dict, names=None) -> dict:
+    def forward_sample(self, key, state: dict, names=None) -> dict:
         """Draw the given stochastic nodes of a chain-stacked ``state`` from
         their conditional priors in topo order (ancestral sampling), every
-        chain at once.  Powers prior init and MISS imputation (reference
-        miss.jl:54-59) and posterior-predictive draws (modelstats.jl:71-102).
+        chain at once, chain ``c`` from its key ``key[c]`` (``(C, 2)``):
+        each drawn node takes ``key, sub = split(key)`` and draws from
+        ``sub``, as the JAX package's ``forward_sample`` does per chain.
+        Powers prior init and MISS imputation (reference miss.jl:54-59) and
+        posterior-predictive draws (modelstats.jl:71-102).
 
-        A generator cannot be drawn from under ``vmap``: each node's
-        parameters are computed under it, and the draw is made once,
-        chain-stacked, outside.  A site this data rank holds in part is
-        drawn at its whole shape, from the distribution's parameters
-        gathered over the data group, so that the stream is the unsharded
-        run's; the rank keeps its slice."""
+        Each node's parameters are computed under ``vmap``, and the draw is
+        made once, chain-stacked, outside.  A site this data rank holds in
+        part is drawn at its whole shape, from the distribution's
+        parameters gathered over the data group, so that the numbers are
+        the unsharded run's; the rank keeps its slice."""
         names = set(self.stochastic if names is None else names)
         out = dict(state)
         chains = next(iter(state.values())).shape[0]
@@ -1157,10 +1159,13 @@ class CompiledModel:
             # dims are drawn iid, never one draw copied.  A distribution of
             # constants has no chain axis either, and gets one the same way.
             lead = target[: len(target) - len(per_chain)]
+            key, sub = R.split(key)
             if stacked:
-                val = dist.sample(gen, lead).movedim(len(lead), 0)
+                with keys_lead("params"):
+                    val = dist.sample(sub, lead).movedim(len(lead), 0)
             else:
-                val = dist.sample(gen, (chains,) + lead)
+                with keys_lead("draw"):
+                    val = dist.sample(sub, (chains,) + lead)
             if tuple(val.shape[1:]) != target:      # trailing recycling
                 val = val.expand((chains,) + target)
             if part:

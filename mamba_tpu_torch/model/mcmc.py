@@ -19,14 +19,21 @@ device ``timing`` reports the graphs a run captured (``graphs``), the
 seconds their captures took (``capture_s``, part of ``sample_s``), the
 replays and the host tests (``host_tests``).
 
+Random numbers come from per-chain threefry keys (``ops/random.py``), as
+in the JAX package: chain ``i`` (its global index) starts from
+``fold_in(key(seed), i)``, every sampler's tune starts from that key, and
+each iteration takes ``key, sub = split(key)`` per block and gives the
+block ``sub``.  A chain's draws therefore do not depend on the mesh, nor
+on the other chains.
+
 Restart matches the reference contract (mcmc.jl:3-16): the returned
-ModelChains carries the chain-stacked values, the tunes and the random
-generator's state, and ``mcmc(mc, iters)`` continues exactly.
+ModelChains carries the chain-stacked values, the tunes and every chain's
+key, and ``mcmc(mc, iters)`` continues exactly.
 
 With ``mesh`` (``parallel.make_mesh``), each rank of the mesh's chain axis
-runs the loop on its block of the chains, with a generator seeded from
-``(seed, chain rank)``; the ranks of a data axis run the same chains and
-sum their parts of the split densities (``model/compile.py``).  Each data
+runs the loop on its block of the chains, each chain on its own key; the
+ranks of a data axis run the same chains and sum their parts of the split
+densities (``model/compile.py``).  Each data
 rank holds only its slice of the inputs and sites that ``site_specs``
 names on the data axis, as GSPMD does in the JAX package: a named
 *sampled* site too where every block that samples it can hold slices
@@ -38,10 +45,9 @@ returns the full ModelChains: the kept rows are gathered over the data
 group (the rows of nodes a rank holds in part, sampled sites held as
 slices too) and over the chain axis.
 The resume state is the rank's own, so ``mcmc(mc, iters)`` continues on
-the same mesh; ``write_chains`` writes it whole, and the file restarts on
-one device from chain rank 0's generator state, for every chain (the JAX
-package's keys are per chain, so its continuation is the same stream on
-any layout; the port's is not).  On a CUDA device ``timing`` also gives
+the same mesh; ``write_chains`` writes it whole, every chain's key with
+it, and the file restarts on one device with every chain on its own
+stream, as the JAX package's does.  On a CUDA device ``timing`` also gives
 the rise of the run's peak allocated memory over what was allocated at
 its start (``peak_rise_bytes``): the run resets the device's peak
 statistics (``torch.cuda.reset_peak_memory_stats``) when it starts.
@@ -55,7 +61,8 @@ import numpy as np
 import torch
 
 from ..output.chains import ModelChains
-from ..parallel.mesh import MeshComm, pad_axes, pad_mask, rank_seed
+from ..ops import random as R
+from ..parallel.mesh import MeshComm, pad_axes, pad_mask
 from ..utils import graphs
 from .compile import CompiledModel, compile_model
 from .model import Model
@@ -104,13 +111,13 @@ def _chain_inits(cm: CompiledModel, inits, chains: int, first: int = 0):
     state = {n: cm.tensor(v) for n, v in stacked.items()}
     if nan_sites:
         # prior-impute them before the first iteration so kernel
-        # initialization sees finite log-densities; the draws come from a
-        # generator of their own, so the run's stream does not depend on
-        # whether there were values to impute
-        gen = torch.Generator(device=cm.device)
-        gen.manual_seed(rank_seed(777, cm.comm.chain_rank))
+        # initialization sees finite log-densities; the draws come from
+        # keys of their own, fold_in(key(777), i) for global chain i, so
+        # the run's keys do not depend on whether there were values to
+        # impute (the JAX package's _chain_inits)
+        keys = R.chain_keys(777, range(first, first + chains), cm.device)
         filled = {n: torch.nan_to_num(v) for n, v in state.items()}
-        draws = cm.forward_sample(gen, filled, names=nan_sites)
+        draws = cm.forward_sample(keys, filled, names=nan_sites)
         for n in nan_sites:
             state[n] = torch.where(torch.isnan(state[n]), draws[n], state[n])
     return state
@@ -128,33 +135,35 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
-    """Warmup then kept iterations; returns the final (state, tunes), the
-    monitored labels, the kept rows (n_kept, npar, chains) of every chain
-    rank on the host and the timing split."""
+def _run(cm, kernels, keys, state, tunes, burnin, n_kept, thin, meter):
+    """Warmup then kept iterations from the per-chain ``keys``; returns the
+    final (keys, state, tunes), the monitored labels, the kept rows
+    (n_kept, npar, chains) of every chain rank on the host and the timing
+    split."""
     _, labels, _ = cm.monitor_spec()
     pack_rows = cm.monitor_rows()
     chains = next(iter(state.values())).shape[0]
     rows = torch.empty((n_kept, cm.monitor_width(), chains), dtype=cm.dtype,
                        device=cm.device)
 
-    def gibbs_iter(state, tunes, adapt):
+    def gibbs_iter(keys, state, tunes, adapt):
         new_tunes = []
         for k, tune in zip(kernels, tunes):
-            state, t = k.step(gen, state, tune, adapt)
+            keys, sub = R.split(keys)
+            state, t = k.step(sub, state, tune, adapt)
             new_tunes.append(t)
         if meter is not None:
             meter.update(1)
-        return state, tuple(new_tunes)
+        return keys, state, tuple(new_tunes)
 
     _sync(cm.device)
     graphs0 = dict(graphs.STATS)
     t0 = time.perf_counter()
     for _ in range(burnin):
-        state, tunes = gibbs_iter(state, tunes, True)
+        keys, state, tunes = gibbs_iter(keys, state, tunes, True)
     for i in range(n_kept):
         for _ in range(thin):
-            state, tunes = gibbs_iter(state, tunes, False)
+            keys, state, tunes = gibbs_iter(keys, state, tunes, False)
         rows[i] = pack_rows(state).T
     _sync(cm.device)
     sample_s = time.perf_counter() - t0
@@ -169,7 +178,7 @@ def _run(cm, kernels, gen, state, tunes, burnin, n_kept, thin, meter):
         # sample_s), the seconds their captures took, warm-ups included,
         # the replays and the host tests of a device flag
         timing.update({k: graphs.STATS[k] - graphs0[k] for k in graphs0})
-    return state, tunes, labels, value, timing
+    return keys, state, tunes, labels, value, timing
 
 
 def _memory_start(device: torch.device):
@@ -196,13 +205,13 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
          site_specs: dict | None = None) -> ModelChains:
     """``mcmc(model, inputs, inits, iters; burnin, thin, chains, device)`` —
     run — or ``mcmc(mc, iters)`` — restart (reference mcmc.jl:19-33 and
-    3-16).  ``device`` is required for a new run; the random stream is a
-    ``torch.Generator`` on that device seeded with ``seed``.
+    3-16).  ``device`` is required for a new run; chain ``i`` draws from
+    ``fold_in(key(seed), i)`` on that device.
 
     ``mesh`` (a ``DeviceMesh`` with a ``chain_axis`` and at most one data
     axis) shards the chains over its chain axis: ``chains`` must divide by
-    it, and each chain rank's generator is seeded from ``(seed, chain
-    rank)`` (``parallel.mesh.rank_seed``).  ``site_specs`` maps site names
+    it, and each rank keys its chains by their global indices, so the run
+    draws the numbers of the run without a mesh.  ``site_specs`` maps site names
     to per-dim specs (None, or mesh axis names, e.g. ``{"y": ("data",)}``):
     each data rank holds and evaluates its slice of every input and site
     named on the data axis (a sampled site stays whole in the state where
@@ -235,16 +244,16 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
                        masks=masks, comm=comm, site_specs=site_specs,
                        pads=pads)
     kernels = _build_kernels(cm)
-    state0 = _chain_inits(cm, inits, local, first=comm.chain_rank * local)
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(rank_seed(seed, comm.chain_rank))
-    tunes0 = tuple(k.init(gen, state0) for k in kernels)
+    first = comm.chain_rank * local
+    state0 = _chain_inits(cm, inits, local, first=first)
+    keys = R.chain_keys(seed, range(first, first + local), cm.device)
+    tunes0 = tuple(k.init(keys, state0) for k in kernels)
     _sync(cm.device)
     setup_s = time.perf_counter() - t_setup0
 
     meter = _meter(verbose, progress, burnin + n_kept * thin, chains)
-    state_f, tunes_f, labels, value, timing = _run(
-        cm, kernels, gen, state0, tunes0, burnin, n_kept, thin, meter)
+    keys_f, state_f, tunes_f, labels, value, timing = _run(
+        cm, kernels, keys, state0, tunes0, burnin, n_kept, thin, meter)
     timing["setup_s"] = setup_s
     timing.update(_memory_timing(cm.device, mem0))
     if verbose:
@@ -255,7 +264,7 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     return ModelChains(
         value, start=burnin + thin, thin=thin, names=labels,
         chains=list(range(1, chains + 1)), model=model, compiled=cm,
-        states={"rng": gen.get_state(), "state": state_f, "tunes": tunes_f,
+        states={"key": keys_f, "state": state_f, "tunes": tunes_f,
                 "burnin": burnin}, iter=burnin + n_kept * thin,
         timing=timing)
 
@@ -306,7 +315,7 @@ def _meter(verbose, progress, total, chains):
 def _mcmc_restart(mc: ModelChains, iters: int, *, verbose=True,
                   progress=None) -> ModelChains:
     """Continue a run from its stored per-chain state (reference
-    mcmc.jl:3-16): tune state, values and the generator state carry over;
+    mcmc.jl:3-16): tune state, values and every chain's key carry over;
     the new draws are appended with a contiguous iteration range."""
     if mc.compiled is None or mc.states is None:
         raise ValueError("ModelChains lacks resume state")
@@ -325,16 +334,15 @@ def _mcmc_restart(mc: ModelChains, iters: int, *, verbose=True,
             f"({ {n: cm.local_shape(n) for n in moved} }): a run restarts on "
             f"the mesh and site_specs it ran on")
     mem0 = _memory_start(cm.device)
-    gen = torch.Generator(device=cm.device)
-    gen.set_state(st["rng"])
     meter = _meter(verbose, progress, n_kept * thin, mc.nchains)
-    state_f, tunes_f, labels, value, timing = _run(
-        cm, kernels, gen, st["state"], st["tunes"], 0, n_kept, thin, meter)
+    keys_f, state_f, tunes_f, labels, value, timing = _run(
+        cm, kernels, st["key"], st["state"], st["tunes"], 0, n_kept, thin,
+        meter)
     timing.update(_memory_timing(cm.device, mem0))
     new = ModelChains(
         value, start=mc.iter + thin, thin=thin, names=labels,
         chains=mc.chains, model=mc.model, compiled=cm,
-        states={"rng": gen.get_state(), "state": state_f, "tunes": tunes_f,
+        states={"key": keys_f, "state": state_f, "tunes": tunes_f,
                 "burnin": st["burnin"]}, iter=mc.iter + n_kept * thin,
         timing=timing)
     out = mc.cat_iters(new)

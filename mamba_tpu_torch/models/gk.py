@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.distributions.base import _normal
 from ..model.model import Model
 from ..model.nodes import Stochastic
 from ..ops.distributions import Uniform, UnivariateDistribution, distribution
@@ -44,11 +45,10 @@ class GK(UnivariateDistribution):
     def quantile(self, p):
         return self._z2gk(torch.special.ndtri(p))
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         like = next(v for v in (self.A, self.B, self.g, self.k)
                     if isinstance(v, torch.Tensor))
-        z = torch.randn(tuple(shape) + tuple(self.batch_shape), generator=gen,
-                        dtype=like.dtype, device=gen.device)
+        z = _normal(key, shape, self.batch_shape, like.dtype)
         return self._z2gk(z)
 
 

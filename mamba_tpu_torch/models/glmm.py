@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..model.model import Model
 from ..model.nodes import Logical, Stochastic
 from ..ops.distributions import Bernoulli, InverseGamma, Normal
@@ -71,13 +72,13 @@ def build(G: int = 10_000, n: int = 10, seed: int = 0,
         # Exact conjugate draw of the random-effect variance (the
         # reference's user-supplied Gibbs-block pattern,
         # doc/tutorial/line.jl:27-45): s2 | b ~ IG(2 + G/2, 2 + sum(b^2)/2),
-        # for all chains at once from torch's gamma sampler.
-        def s2_gibbs(gen, env):
+        # for all chains at once, each from its own key, with the
+        # fixed-round sampler the JAX package uses.
+        def s2_gibbs(key, env):
             b = env["b"]                                  # (chains, G)
-            shape = torch.full(b.shape[:1], 2.0 + 0.5 * b.shape[-1],
-                               dtype=b.dtype, device=b.device)
-            return {"s2": (2.0 + 0.5 * torch.sum(b * b, dim=-1))
-                    / torch._standard_gamma(shape, generator=gen)}
+            return {"s2": R.inverse_gamma_bounded(
+                key, 2.0 + 0.5 * b.shape[-1],
+                2.0 + 0.5 * torch.sum(b * b, dim=-1))}
 
         model.set_samplers([
             NUTS(["beta", "b"], mass_window=mass_window),

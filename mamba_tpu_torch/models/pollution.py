@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..model.model import Model
 from ..model.nodes import Logical, Stochastic
 from ..ops.distributions import Bernoulli, InverseGamma, Normal
@@ -109,22 +110,20 @@ def alphabeta_moments(env, dtype=torch.float64):
     return torch.cholesky_solve(rhs, L)[..., 0], L
 
 
-def gibbs_alphabeta(gen, env):
+def gibbs_alphabeta(key, env):
     # conjugate MvNormal draw of [alpha; beta] given gamma and sigma2:
     # mean + L^-T eps has covariance prec^-1
     mu, L = alphabeta_moments(env)
-    eps = torch.randn(mu.shape, generator=gen, dtype=mu.dtype,
-                      device=mu.device)
+    eps = R.normal(key, mu.shape[1:], mu.dtype)
     draw = mu + torch.linalg.solve_triangular(L.transpose(1, 2), eps[..., None],
                                               upper=True)[..., 0]
     return {"alpha": draw[:, 0], "beta": draw[:, 1:]}
 
 
-def gibbs_sigma2(gen, env):
+def gibbs_sigma2(key, env):
     # conjugate InverseGamma draw (pollution.jl:110-118)
     b = torch.sum((env["y"] - env["mu"]) ** 2, -1) / 2.0 + IG_SCALE
-    a = torch.full_like(b, NOBS / 2.0 + IG_SHAPE)
-    return {"sigma2": b / torch._standard_gamma(a, generator=gen)}
+    return {"sigma2": R.inverse_gamma_bounded(key, NOBS / 2.0 + IG_SHAPE, b)}
 
 
 def build(binary: str = "bhmc"):

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..model.model import Model
 from ..model.nodes import Logical, Stochastic
 from ..ops.distributions import InverseGamma, Normal
@@ -42,29 +43,26 @@ X = np.array([8.0, 15.0, 22.0, 29.0, 36.0])
 XBAR = float(X.mean())
 
 
-def _inverse_gamma(gen, shape: float, scale):
-    """InverseGamma(shape, scale) draws, one per element of ``scale``, from
-    torch's gamma sampler with the run's generator."""
-    return scale / torch._standard_gamma(torch.full_like(scale, shape),
-                                         generator=gen)
-
-
-def var_gibbs(gen, env):
+def var_gibbs(key, env):
     """Exact conjugate draws of the three variances for every chain,
     s2 | rest ~ InverseGamma(a + n/2, b + SS/2) (the user-supplied
     Gibbs-block pattern of reference doc/tutorial/line.jl:27-45).  ``env``
     holds chain-stacked values: y (C, 30, 5), alpha and beta (C, 30),
-    mu_alpha and mu_beta (C,).  Draws s2_c, s2_alpha, s2_beta in that
-    order."""
+    mu_alpha and mu_beta (C,).  Draws s2_c, s2_alpha, s2_beta from the
+    three keys ``split(key, 3)`` with ``inverse_gamma_bounded``, as the
+    JAX package's block does per chain."""
+    k1, k2, k3 = R.split(key, 3)
     y, alpha, beta = env["y"], env["alpha"], env["beta"]
     fit = alpha[:, :, None] + beta[:, :, None] * env["Xm"]
     sse = torch.sum((y - fit) ** 2, dim=(1, 2))
     ss_alpha = torch.sum((alpha - env["mu_alpha"][:, None]) ** 2, dim=1)
     ss_beta = torch.sum((beta - env["mu_beta"][:, None]) ** 2, dim=1)
     return {
-        "s2_c": _inverse_gamma(gen, 0.001 + 75.0, 0.001 + 0.5 * sse),
-        "s2_alpha": _inverse_gamma(gen, 0.001 + 15.0, 0.001 + 0.5 * ss_alpha),
-        "s2_beta": _inverse_gamma(gen, 0.001 + 15.0, 0.001 + 0.5 * ss_beta),
+        "s2_c": R.inverse_gamma_bounded(k1, 0.001 + 75.0, 0.001 + 0.5 * sse),
+        "s2_alpha": R.inverse_gamma_bounded(k2, 0.001 + 15.0,
+                                            0.001 + 0.5 * ss_alpha),
+        "s2_beta": R.inverse_gamma_bounded(k3, 0.001 + 15.0,
+                                           0.001 + 0.5 * ss_beta),
     }
 
 

@@ -15,8 +15,10 @@ Conventions
 - ``event_ndim``: 0 univariate, 1 vector-variate, 2 matrix-variate.
 - ``log_prob(x)`` reduces over the event dims only and returns batch-shaped
   values; node-level densities sum the batch.
-- ``sample(gen, shape)`` prepends ``shape`` to the broadcasted batch shape,
-  drawing from the ``torch.Generator`` ``gen``.
+- ``sample(key, shape)`` prepends ``shape`` to the broadcasted batch shape,
+  drawing from ``key`` (``ops/random.py``): one key, or a batch of keys
+  ``(*K, 2)`` that leads the parameters (one per chain of chain-stacked
+  parameters) or the draw, each drawing its own rows.
 - ``bijector()`` returns the support transform used for unconstrained
   sampling (reference link/invlink, transformdistribution.jl).
 - ``in_support(x)`` is the vectorized ``insupport`` check used to mask
@@ -25,11 +27,14 @@ Conventions
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import torch
 
 from .. import bijectors as bij
+from .. import random as R
 
 
 def distribution(cls):
@@ -72,7 +77,7 @@ class Distribution:
     def log_prob(self, x) -> torch.Tensor:
         raise NotImplementedError
 
-    def sample(self, gen, shape=()) -> torch.Tensor:
+    def sample(self, key, shape=()) -> torch.Tensor:
         raise NotImplementedError
 
     def bijector(self) -> bij.Bijector:
@@ -130,53 +135,120 @@ def _is_int(x):
     return torch.abs(x - torch.round(x)) < 1e-8
 
 
-# ---- random draws: every one takes the run's generator --------------------
-def _on(gen, *params):
-    """``_bc`` of the parameters, on the generator's device."""
-    return tuple(t.to(gen.device) for t in _bc(*params))
+# ---- random draws: every one takes a batch of keys ------------------------
+def _on(key, *params):
+    """``_bc`` of the parameters, on the keys' device."""
+    return tuple(t.to(key.device) for t in _bc(*params))
 
 
-def _cast_on(gen, *params):
-    """``_cast`` of the parameters, on the generator's device."""
-    return tuple(t.to(gen.device) for t in _cast(*params))
+def _cast_on(key, *params):
+    """``_cast`` of the parameters, on the keys' device."""
+    return tuple(t.to(key.device) for t in _cast(*params))
 
 
-def _rand(gen, shape, like):
-    """Uniform [0, 1) draws of shape ``shape + like.shape``."""
-    return torch.rand(tuple(shape) + tuple(like.shape), generator=gen,
-                      dtype=like.dtype, device=gen.device)
+#: where a batch of keys sits in the draws made under ``keys_lead``
+_KEYS_LEAD = contextvars.ContextVar("keys_lead", default=None)
 
 
-def _randn(gen, shape, like):
-    return torch.randn(tuple(shape) + tuple(like.shape), generator=gen,
-                       dtype=like.dtype, device=gen.device)
+@contextlib.contextmanager
+def keys_lead(where: str):
+    """Say where a batch of keys ``(*K, 2)`` sits in the draws made inside:
+    ``"params"``, at the parameters' leading dims (chain-stacked
+    parameters; the K dims follow ``shape``), or ``"draw"``, at the draw's
+    leading dims (``shape`` starts with K; parameters shared by every
+    key).  Outside it the shapes decide, the parameters first; a caller
+    that draws for chains says which, so that a batch that happens to have
+    the chain count never takes the other place."""
+    if where not in ("params", "draw"):
+        raise ValueError(f"keys lead the 'params' or the 'draw' (got {where!r})")
+    token = _KEYS_LEAD.set(where)
+    try:
+        yield
+    finally:
+        _KEYS_LEAD.reset(token)
 
 
-def _rexp(gen, shape, like):
+def _layout(key, shape, like_shape):
+    """Where a batch of keys ``(*K, 2)`` sits in a draw of ``shape +
+    like_shape``: at the parameters' leading dims (the K dims follow
+    ``shape``), or at the draw's leading dims, as ``keys_lead`` says (else
+    the parameters' where they fit).  Returns the per-key shape and the
+    maps ``front`` (the K dims of a full-shaped tensor first) and ``back``
+    (K-led to full-shaped)."""
+    nk = key.dim() - 1
+    K = tuple(key.shape[:-1])
+    full = tuple(shape) + tuple(like_shape)
+    if nk == 0:
+        return full, (lambda t: t), (lambda t: t)
+    where = _KEYS_LEAD.get()
+    fits = {"params": tuple(like_shape[:nk]) == K, "draw": full[:nk] == K}
+    if where is None:
+        where = "params" if fits["params"] else "draw"
+    if not fits[where]:
+        raise ValueError(f"keys of batch {K} do not lead the {where} "
+                         f"(draw {full}, parameters {tuple(like_shape)})")
+    p = len(tuple(shape)) if where == "params" else 0
+    lead, at = tuple(range(nk)), tuple(range(p, p + nk))
+    return (full[:p] + full[p + nk:], (lambda t: t.movedim(at, lead)),
+            (lambda t: t.movedim(lead, at)))
+
+
+def _rand(key, shape, like, minval=0.0):
+    """Uniform [minval, 1) draws of shape ``shape + like.shape``."""
+    per, _, back = _layout(key, shape, like.shape)
+    return back(R.uniform(key, per, like.dtype, minval, 1.0))
+
+
+def _normal(key, shape, like_shape, dtype):
+    """Standard normals of shape ``shape + like_shape``."""
+    per, _, back = _layout(key, shape, like_shape)
+    return back(R.normal(key, per, dtype))
+
+
+def _randn(key, shape, like):
+    return _normal(key, shape, like.shape, like.dtype)
+
+
+def _rexp(key, shape, like):
     """Standard exponential draws, strictly positive."""
-    return -torch.log1p(-_rand(gen, shape, like))
+    return -torch.log1p(-_rand(key, shape, like))
 
 
-def _rgamma(gen, shape, a):
-    """Gamma(a, 1) draws of shape ``shape + a.shape``."""
-    return torch._standard_gamma(
-        a.expand(tuple(shape) + tuple(a.shape)).contiguous(), generator=gen)
+def _rgamma(key, shape, a):
+    """Gamma(a, 1) draws of shape ``shape + a.shape`` (``gamma_bounded``).
+    A draw that underflows (a tiny ``a``: InverseGamma(0.001, 0.001)) is
+    the smallest normal number, as torch's own sampler gives it, so that
+    ``1 / g`` stays finite."""
+    return _rgamma_at(key, shape, a.expand(tuple(shape) + tuple(a.shape)))
 
 
-def _rpoisson(gen, shape, lam):
-    return torch.poisson(
-        lam.expand(tuple(shape) + tuple(lam.shape)).contiguous(), generator=gen)
+def _rgamma_at(key, shape, a):
+    """``_rgamma`` where ``a`` already has the draw's shape, ``shape``
+    followed by the parameters' batch."""
+    _, front, back = _layout(key, shape, a.shape[len(tuple(shape)):])
+    g = back(R.gamma_bounded(key, front(a)))
+    return torch.clamp(g, min=torch.finfo(g.dtype).tiny)
 
 
-def _rcategorical(gen, logits):
-    """One index per row of ``logits (..., K)`` (unnormalized log weights):
-    ``argmax(p / q)``, ``q`` standard exponential, which is what
-    ``torch.multinomial`` draws for one sample (the same numbers from the
-    same generator) without its checks of ``p`` on the host, which a CUDA
-    graph cannot capture (MISS imputes Categorical sites in one)."""
-    p = torch.softmax(logits, dim=-1).reshape(-1, logits.shape[-1])
-    q = torch.empty_like(p).exponential_(1.0, generator=gen)
-    return torch.argmax(p / q, -1).reshape(logits.shape[:-1])
+def _rpoisson(key, shape, lam):
+    _, front, back = _layout(key, shape, lam.shape)
+    return back(R.poisson(key, front(lam.expand(tuple(shape) + tuple(lam.shape)))))
+
+
+def _rbinomial(key, shape, n, p):
+    """Binomial(n, p) draws of shape ``shape + p.shape``."""
+    _, front, back = _layout(key, shape, p.shape)
+    full = tuple(shape) + tuple(p.shape)
+    return back(R.binomial(key, front(n.expand(full)), front(p.expand(full))))
+
+
+def _rcategorical(key, shape, logits):
+    """One index per row of ``logits (..., K)`` (unnormalized log weights),
+    of shape ``shape + logits.shape[:-1]``: ``argmax(logits + gumbel)``
+    (``jax.random.categorical``)."""
+    _, front, back = _layout(key, shape, logits.shape[:-1])
+    full = logits.expand(tuple(shape) + tuple(logits.shape))
+    return back(R.categorical(key, front(full)))
 
 
 # ---- distributions as trees of tensors ------------------------------------

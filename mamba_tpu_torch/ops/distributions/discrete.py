@@ -15,7 +15,9 @@ from __future__ import annotations
 import torch
 
 from .base import (DiscreteUnivariateDistribution, distribution, _bc, _is_int,
-                   _on, _rand, _rcategorical, _rgamma, _rpoisson, _support)
+                   _on, _rand, _rbinomial, _rcategorical, _rgamma,
+                   _rpoisson, _support)
+from .. import random as R
 
 __all__ = [
     "Bernoulli", "Binomial", "Poisson", "Geometric", "NegativeBinomial",
@@ -31,9 +33,9 @@ class Bernoulli(DiscreteUnivariateDistribution):
         (p,) = _bc(self.p, like=x)
         return torch.xlogy(x, p) + torch.special.xlog1py(1.0 - x, -p)
 
-    def sample(self, gen, shape=()):
-        (p,) = _on(gen, self.p)
-        return (_rand(gen, shape, p) < p).to(p.dtype)
+    def sample(self, key, shape=()):
+        (p,) = _on(key, self.p)
+        return (_rand(key, shape, p) < p).to(p.dtype)
 
     def in_support(self, x):
         return _support(self, x, (x == 0) | (x == 1))
@@ -57,11 +59,9 @@ class Binomial(DiscreteUnivariateDistribution):
                 - torch.lgamma(n - x + 1.0))
         return logc + torch.xlogy(x, p) + torch.special.xlog1py(n - x, -p)
 
-    def sample(self, gen, shape=()):
-        n, p = _on(gen, self.n, self.p)
-        full = tuple(shape) + tuple(n.shape)
-        return torch.binomial(n.expand(full).contiguous(),
-                              p.expand(full).contiguous(), generator=gen)
+    def sample(self, key, shape=()):
+        n, p = _on(key, self.n, self.p)
+        return _rbinomial(key, shape, n, p)
 
     def in_support(self, x):
         n = _bc(self.n, self.p, like=x)[0]
@@ -84,9 +84,9 @@ class Poisson(DiscreteUnivariateDistribution):
         (lam,) = _bc(self.lam, like=x)
         return torch.xlogy(x, lam) - lam - torch.lgamma(x + 1.0)
 
-    def sample(self, gen, shape=()):
-        (lam,) = _on(gen, self.lam)
-        return _rpoisson(gen, shape, lam)
+    def sample(self, key, shape=()):
+        (lam,) = _on(key, self.lam)
+        return _rpoisson(key, shape, lam)
 
     def in_support(self, x):
         return _support(self, x, (x >= 0) & _is_int(x))
@@ -109,9 +109,9 @@ class Geometric(DiscreteUnivariateDistribution):
         (p,) = _bc(self.p, like=x)
         return torch.special.xlog1py(x, -p) + torch.log(p)
 
-    def sample(self, gen, shape=()):
-        (p,) = _on(gen, self.p)
-        u = _rand(gen, shape, p)
+    def sample(self, key, shape=()):
+        (p,) = _on(key, self.p)
+        u = _rand(key, shape, p)
         return torch.floor(torch.log1p(-u) / torch.log1p(-p))
 
     def in_support(self, x):
@@ -133,11 +133,12 @@ class NegativeBinomial(DiscreteUnivariateDistribution):
         return (torch.lgamma(x + r) - torch.lgamma(r) - torch.lgamma(x + 1.0)
                 + r * torch.log(p) + torch.special.xlog1py(x, -p))
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         # gamma-Poisson mixture
-        r, p = _on(gen, self.r, self.p)
-        lam = _rgamma(gen, shape, r) * (1.0 - p) / p
-        return _rpoisson(gen, (), lam)
+        r, p = _on(key, self.r, self.p)
+        kg, kp = R.split(key)
+        lam = _rgamma(kg, shape, r) * (1.0 - p) / p
+        return _rpoisson(kp, (), lam)
 
     def in_support(self, x):
         return _support(self, x, (x >= 0) & _is_int(x))
@@ -169,10 +170,9 @@ class Categorical(DiscreteUnivariateDistribution):
         return torch.gather(logp.expand(full + (K,)), -1,
                             idx.expand(full)[..., None])[..., 0]
 
-    def sample(self, gen, shape=()):
-        p = self.p.to(gen.device)
-        p = p.expand(tuple(shape) + tuple(p.shape))
-        return (_rcategorical(gen, torch.log(p)) + 1).to(p.dtype)
+    def sample(self, key, shape=()):
+        p = self.p.to(key.device)
+        return (_rcategorical(key, shape, torch.log(p)) + 1).to(p.dtype)
 
     def in_support(self, x):
         K = self.p.shape[-1]
@@ -201,9 +201,9 @@ class DiscreteUniform(DiscreteUnivariateDistribution):
         return (-torch.log(b - a + 1.0)).expand(
             torch.broadcast_shapes(x.shape, a.shape))
 
-    def sample(self, gen, shape=()):
-        a, b = _on(gen, self.a, self.b)
-        return a + torch.floor(_rand(gen, shape, a) * (b - a + 1.0))
+    def sample(self, key, shape=()):
+        a, b = _on(key, self.a, self.b)
+        return a + torch.floor(_rand(key, shape, a) * (b - a + 1.0))
 
     def in_support(self, x):
         a, b = _bc(self.a, self.b, like=x)
@@ -240,16 +240,15 @@ class Hypergeometric(DiscreteUnivariateDistribution):
         ns, nf, n = _bc(self.ns, self.nf, self.n)
         return torch.clamp(n - nf, min=0.0), torch.minimum(ns, n)
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         # categorical draw over the enumerated support; batched parameters
         # share one width (the widest support) and mask each element's tail.
         # The width is read from the parameters, so they must be concrete.
-        ns, nf, n = _on(gen, self.ns, self.nf, self.n)
+        ns, nf, n = _on(key, self.ns, self.nf, self.n)
         lo, hi = torch.clamp(n - nf, min=0.0), torch.minimum(ns, n)
         kmax = int(torch.max(hi - lo)) + 1
         ks = lo[..., None] + torch.arange(kmax, dtype=ns.dtype, device=ns.device)
         sub = Hypergeometric(ns[..., None], nf[..., None], n[..., None])
         lp = torch.where(ks <= hi[..., None], sub.log_prob(ks),
                          torch.full_like(ks, -torch.inf))
-        lp = lp.expand(tuple(shape) + tuple(lp.shape))
-        return lo + _rcategorical(gen, lp).to(lo.dtype)
+        return lo + _rcategorical(key, shape, lp).to(lo.dtype)

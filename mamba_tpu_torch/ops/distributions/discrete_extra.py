@@ -14,6 +14,7 @@ import torch
 
 from .base import (DiscreteUnivariateDistribution, distribution, _bc, _is_int,
                    _on, _rand, _rcategorical, _rpoisson, _support)
+from .. import random as R
 from .discrete import _logchoose
 
 __all__ = ["PoissonBinomial", "Skellam", "NoncentralHypergeometric"]
@@ -55,9 +56,9 @@ class PoissonBinomial(DiscreteUnivariateDistribution):
                            idx.expand(full)[..., None])[..., 0]
         return torch.log(torch.clamp(out, min=1e-37))
 
-    def sample(self, gen, shape=()):
-        p = self.p.to(gen.device)
-        u = _rand(gen, shape, p)
+    def sample(self, key, shape=()):
+        p = self.p.to(key.device)
+        u = _rand(key, shape, p)
         return torch.sum((u < p).to(p.dtype), dim=-1)
 
     def in_support(self, x):
@@ -100,9 +101,10 @@ class Skellam(DiscreteUnivariateDistribution):
 
         return torch.logsumexp(pois_lp(j + k, mu_a) + pois_lp(j, mu_b), dim=0)
 
-    def sample(self, gen, shape=()):
-        mu1, mu2 = _on(gen, self.mu1, self.mu2)
-        return _rpoisson(gen, shape, mu1) - _rpoisson(gen, shape, mu2)
+    def sample(self, key, shape=()):
+        mu1, mu2 = _on(key, self.mu1, self.mu2)
+        k1, k2 = R.split(key)
+        return _rpoisson(k1, shape, mu1) - _rpoisson(k2, shape, mu2)
 
     def in_support(self, x):
         return _support(self, x, _is_int(x))
@@ -161,10 +163,9 @@ class NoncentralHypergeometric(DiscreteUnivariateDistribution):
         return torch.gather(lw.expand(full + lw.shape[-1:]), -1,
                             idx.expand(full)[..., None])[..., 0]
 
-    def sample(self, gen, shape=()):
-        ks, lw = (t.to(gen.device) for t in self._log_weights())
-        lw = lw.expand(tuple(shape) + tuple(lw.shape))
-        return ks[..., 0] + _rcategorical(gen, lw).to(ks.dtype)
+    def sample(self, key, shape=()):
+        ks, lw = (t.to(key.device) for t in self._log_weights())
+        return ks[..., 0] + _rcategorical(key, shape, lw).to(ks.dtype)
 
     def in_support(self, x):
         lo, hi = (t.to(x.dtype) for t in self.support_bounds())

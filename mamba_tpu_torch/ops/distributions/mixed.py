@@ -18,7 +18,8 @@ import dataclasses
 import torch
 
 from .. import bijectors as bij
-from .base import Distribution
+from .. import random as R
+from .base import _KEYS_LEAD, Distribution, keys_lead
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,16 +73,27 @@ class Mixed(Distribution):
             ok = ok & d.in_support(x[..., i])
         return ok
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         """Element ``i`` from its own family.  Where the elements' parameters
         carry a batch (chain-stacked ones), it follows ``shape``, and an
         element with a smaller batch draws the missing dims iid."""
         full = self.batch_shape
+        nk, shape = key.dim() - 1, tuple(shape)
+        # keys that lead the parameters lead the draw of an element whose
+        # parameters lack their dims
+        params = (nk > 0 and _KEYS_LEAD.get() != "draw"
+                  and tuple(full[:nk]) == tuple(key.shape[:-1]))
         cols = []
-        for d in self.parts:
-            lead = full[: len(full) - len(d.batch_shape)]
-            c = d.sample(gen, tuple(shape) + tuple(lead))
-            cols.append(c.expand(tuple(shape) + tuple(full)))
+        for d, k in zip(self.parts, R.split(key, len(self.parts))):
+            lead = tuple(full[: len(full) - len(d.batch_shape)])
+            if params and len(lead) >= nk:
+                with keys_lead("draw"):
+                    c = d.sample(k, lead[:nk] + shape + lead[nk:]).movedim(
+                        tuple(range(nk)), tuple(range(len(shape),
+                                                      len(shape) + nk)))
+            else:
+                c = d.sample(k, shape + lead)
+            cols.append(c.expand(shape + tuple(full)))
         dtype = cols[0].dtype
         for c in cols[1:]:
             dtype = torch.promote_types(dtype, c.dtype)

@@ -29,7 +29,9 @@ import numpy as np
 import torch
 
 from .. import bijectors as bij
-from .base import Distribution, _cast, _cast_on, _rgamma, _shape, distribution
+from .. import random as R
+from .base import (Distribution, _cast, _cast_on, _layout, _normal, _rgamma,
+                   _shape, distribution)
 
 __all__ = [
     "MvNormal", "MvNormalIso", "MvNormalDiag", "MvNormalFull", "MvNormalCanon",
@@ -99,11 +101,10 @@ class MvNormalIso(_MvBase):
         return (-0.5 * torch.sum(z * z, -1) - d * torch.log(sigma)
                 - 0.5 * d * _LOG_2PI)
 
-    def sample(self, gen, shape=()):
-        mu, sigma = _cast_on(gen, self.mu, self.sigma)
-        full = tuple(shape) + tuple(self.batch_shape) + tuple(self.event_shape)
-        return mu + sigma[..., None] * torch.randn(
-            full, generator=gen, dtype=mu.dtype, device=gen.device)
+    def sample(self, key, shape=()):
+        mu, sigma = _cast_on(key, self.mu, self.sigma)
+        return mu + sigma[..., None] * _normal(
+            key, shape, self.batch_shape + self.event_shape, mu.dtype)
 
     def mean(self):
         mu, _ = _cast(self.mu, self.sigma)
@@ -142,11 +143,10 @@ class MvNormalDiag(_MvBase):
         return (-0.5 * torch.sum(z * z, -1) - torch.sum(torch.log(sigma), -1)
                 - 0.5 * d * _LOG_2PI)
 
-    def sample(self, gen, shape=()):
-        mu, sigma = _cast_on(gen, self.mu, self.sigma)
-        full = tuple(shape) + tuple(self.batch_shape) + tuple(self.event_shape)
-        return mu + sigma * torch.randn(full, generator=gen, dtype=mu.dtype,
-                                        device=gen.device)
+    def sample(self, key, shape=()):
+        mu, sigma = _cast_on(key, self.mu, self.sigma)
+        return mu + sigma * _normal(
+            key, shape, self.batch_shape + self.event_shape, mu.dtype)
 
     def mean(self):
         mu, _ = _cast(self.mu, self.sigma)
@@ -181,10 +181,9 @@ class MvNormalFull(_MvBase):
         return (-0.5 * torch.sum(z * z, -1) - torch.sum(_logdiag(L), -1)
                 - 0.5 * d * _LOG_2PI)
 
-    def sample(self, gen, shape=()):
-        mu, L = _cast_on(gen, self.mu, self.scale_tril)
-        full = tuple(shape) + tuple(self.batch_shape) + tuple(self.event_shape)
-        eps = torch.randn(full, generator=gen, dtype=L.dtype, device=gen.device)
+    def sample(self, key, shape=()):
+        mu, L = _cast_on(key, self.mu, self.scale_tril)
+        eps = _normal(key, shape, self.batch_shape + self.event_shape, L.dtype)
         return mu + _matvec(L, eps)
 
     def mean(self):
@@ -295,10 +294,9 @@ class MvNormalCanon(_MvBase):
         q = torch.sum(diff * _matvec(J, diff), -1)
         return -0.5 * q + torch.sum(_logdiag(L), -1) - 0.5 * d * _LOG_2PI
 
-    def sample(self, gen, shape=()):
-        h, J = _cast_on(gen, self.h, self.J)
-        full = tuple(shape) + tuple(self.batch_shape) + tuple(self.event_shape)
-        eps = torch.randn(full, generator=gen, dtype=J.dtype, device=gen.device)
+    def sample(self, key, shape=()):
+        h, J = _cast_on(key, self.h, self.J)
+        eps = _normal(key, shape, self.batch_shape + self.event_shape, J.dtype)
         # x = mu + Lp^-T eps has covariance J^-1
         z = _tri_solve(_chol(J).transpose(-1, -2), eps[..., None], upper=True)
         return _solve(J, h) + z[..., 0]
@@ -338,13 +336,13 @@ class MvTDist(_MvBase):
                 - torch.sum(_logdiag(L), -1)
                 - 0.5 * (nu + d) * torch.log1p(q / nu))
 
-    def sample(self, gen, shape=()):
-        nu, mu, S = _cast_on(gen, self.nu, self.mu, self.Sigma)
+    def sample(self, key, shape=()):
+        nu, mu, S = _cast_on(key, self.nu, self.mu, self.Sigma)
         L = _chol(S)
         batch = tuple(self.batch_shape)
-        full = tuple(shape) + batch + tuple(self.event_shape)
-        eps = torch.randn(full, generator=gen, dtype=L.dtype, device=gen.device)
-        g = _rgamma(gen, shape, (0.5 * nu).expand(batch))
+        kn, kg = R.split(key)
+        eps = _normal(kn, shape, batch + tuple(self.event_shape), L.dtype)
+        g = _rgamma(kg, shape, (0.5 * nu).expand(batch))
         w = torch.sqrt(0.5 * nu / g)
         return mu + w[..., None] * _matvec(L, eps)
 
@@ -362,9 +360,9 @@ class Dirichlet(_MvBase):
         return (torch.sum(torch.xlogy(a - 1.0, x), -1)
                 - torch.sum(torch.lgamma(a), -1) + torch.lgamma(torch.sum(a, -1)))
 
-    def sample(self, gen, shape=()):
-        (a,) = _cast_on(gen, self.alpha)
-        g = _rgamma(gen, shape, a)
+    def sample(self, key, shape=()):
+        (a,) = _cast_on(key, self.alpha)
+        g = _rgamma(key, shape, a)
         return g / torch.sum(g, -1, keepdim=True)
 
     def in_support(self, x):
@@ -400,18 +398,20 @@ class Multinomial(_MvBase):
         return (torch.lgamma(n + 1.0) - torch.sum(torch.lgamma(x + 1.0), -1)
                 + torch.sum(torch.xlogy(x, p), -1))
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         # a binomial draw per category, conditioned on the ones before it
-        n, p = _cast_on(gen, self.n, self.p)
-        full = tuple(shape) + tuple(self.batch_shape)
+        n, p = _cast_on(key, self.n, self.p)
+        batch = tuple(self.batch_shape)
+        full = tuple(shape) + batch
         K = p.shape[-1]
         p = p.expand(full + (K,))
-        left = n.expand(full).contiguous()
+        left = n.expand(full)
         mass = torch.ones_like(left)
         out = []
-        for k in range(K - 1):
+        _, front, back = _layout(key, shape, batch)
+        for k, kk in zip(range(K - 1), R.split(key, max(K - 1, 1))):
             q = torch.clamp(torch.nan_to_num(p[..., k] / mass), 0.0, 1.0)
-            xk = torch.binomial(left, q.contiguous(), generator=gen)
+            xk = back(R.binomial(kk, front(left), front(q)))
             out.append(xk)
             left = left - xk
             mass = mass - p[..., k]
@@ -458,13 +458,12 @@ class BDiagNormal(_MvBase):
         return (-0.5 * torch.sum(z * z, (-2, -1))
                 - torch.sum(_logdiag(Ls), (-2, -1)) - 0.5 * n * b * _LOG_2PI)
 
-    def sample(self, gen, shape=()):
-        mu, blocks = _cast_on(gen, self.mu, self.blocks)
+    def sample(self, key, shape=()):
+        mu, blocks = _cast_on(key, self.mu, self.blocks)
         Ls = _chol(blocks)
         n, b = Ls.shape[-3], Ls.shape[-1]
         lead = tuple(shape) + tuple(self.batch_shape)
-        eps = torch.randn(lead + (n, b), generator=gen, dtype=mu.dtype,
-                          device=gen.device)
+        eps = _normal(key, shape, tuple(self.batch_shape) + (n, b), mu.dtype)
         return mu + _matvec(Ls, eps).reshape(lead + (n * b,))
 
     def mean(self):
@@ -515,17 +514,17 @@ class Wishart(_MatrixBase):
                 - 0.5 * nu * d * math.log(2.0) - 0.5 * nu * logdet_s
                 - _lmvgamma(d, 0.5 * nu))
 
-    def sample(self, gen, shape=()):
-        nu, S = _cast_on(gen, self.nu, self.S)
+    def sample(self, key, shape=()):
+        nu, S = _cast_on(key, self.nu, self.S)
         d = S.shape[-1]
         Ls = _chol(S)
-        full = tuple(shape) + tuple(self.batch_shape)
+        batch = tuple(self.batch_shape)
         # Bartlett: A lower triangular, A_ii ~ sqrt(chi2(nu - i + 1)), the
         # entries below the diagonal N(0, 1)
-        zn = torch.randn(full + (d, d), generator=gen, dtype=S.dtype,
-                         device=gen.device)
-        i = torch.arange(d, dtype=S.dtype, device=gen.device)
-        chi = 2.0 * _rgamma(gen, (), (0.5 * (nu[..., None] - i)).expand(full + (d,)))
+        kn, kg = R.split(key)
+        zn = _normal(kn, shape, batch + (d, d), S.dtype)
+        i = torch.arange(d, dtype=S.dtype, device=key.device)
+        chi = 2.0 * _rgamma(kg, shape, (0.5 * (nu[..., None] - i)).expand(batch + (d,)))
         A = torch.tril(zn, -1) + torch.diag_embed(torch.sqrt(chi))
         LA = Ls @ A
         return LA @ LA.transpose(-1, -2)
@@ -568,10 +567,10 @@ class InverseWishart(_MatrixBase):
                 - 0.5 * _trace(A) - 0.5 * nu * d * math.log(2.0)
                 - _lmvgamma(d, 0.5 * nu))
 
-    def sample(self, gen, shape=()):
-        nu, Psi = _cast_on(gen, self.nu, self.Psi)
+    def sample(self, key, shape=()):
+        nu, Psi = _cast_on(key, self.nu, self.Psi)
         W = Wishart(nu, torch.linalg.inv_ex(Psi).inverse)
-        return torch.linalg.inv_ex(W.sample(gen, shape)).inverse
+        return torch.linalg.inv_ex(W.sample(key, shape)).inverse
 
     def in_support(self, x):
         return _is_pd(x)

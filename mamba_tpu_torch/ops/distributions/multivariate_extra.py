@@ -17,7 +17,8 @@ import math
 
 import torch
 
-from .base import _cast, _cast_on, _rgamma, _shape, distribution
+from .. import random as R
+from .base import _cast, _cast_on, _layout, _shape, distribution
 from .multivariate import _MvBase
 
 __all__ = ["VonMisesFisher", "log_bessel_i"]
@@ -109,31 +110,38 @@ class VonMisesFisher(_MvBase):
     def in_support(self, x):
         return torch.abs(torch.sum(x * x, -1) - 1.0) < 1e-3
 
-    def sample(self, gen, shape=()):
-        mu, kappa = _cast_on(gen, self.mu, self.kappa)
+    def sample(self, key, shape=()):
+        mu, kappa = _cast_on(key, self.mu, self.kappa)
         p = mu.shape[-1]
         out = tuple(shape) + tuple(self.batch_shape)
-        kappa = kappa.expand(out)
-        f = dict(dtype=mu.dtype, device=gen.device)
+        # worked with the keys' batch dims in front (``_layout``)
+        per, front, back = _layout(key, shape, self.batch_shape)
+        nk = key.dim() - 1
+        kappa = front(kappa.expand(out))
+        mu = front(mu.expand(out + (p,)))
+        f = dict(dtype=mu.dtype, device=key.device)
+        kg1, kg2, ku, kv = R.split(key, 4)
 
         # Wood (1994): rejection for w = cos(angle to mu)
         d = p - 1.0
         b = d / (2.0 * kappa + torch.sqrt(4.0 * kappa * kappa + d * d))
         x0 = (1.0 - b) / (1.0 + b)
         c = kappa * x0 + d * torch.log(1.0 - x0 * x0)
-        half = torch.full((_ROUNDS,) + out, 0.5 * d, **f)
-        g1, g2 = _rgamma(gen, (), half), _rgamma(gen, (), half)
+        half = torch.full(tuple(kappa.shape[:nk]) + (_ROUNDS,) + per, 0.5 * d, **f)
+        g1, g2 = R.gamma_bounded(kg1, half), R.gamma_bounded(kg2, half)
         zb = g1 / (g1 + g2)                               # Beta(d/2, d/2)
-        u = 1e-7 + (1.0 - 1e-7) * torch.rand((_ROUNDS,) + out, generator=gen, **f)
+        u = 1e-7 + (1.0 - 1e-7) * R.uniform(ku, (_ROUNDS,) + per, mu.dtype)
+        b, x0, c, kr = (t.unsqueeze(nk) for t in (b, x0, c, kappa))
         wc = (1.0 - (1.0 + b) * zb) / (1.0 - (1.0 - b) * zb)
-        ok = (kappa * wc + d * torch.log(torch.clamp(1.0 - x0 * wc, min=1e-30))
+        ok = (kr * wc + d * torch.log(torch.clamp(1.0 - x0 * wc, min=1e-30))
               - c >= torch.log(u))
-        first = torch.argmax(ok.to(torch.int8), dim=0)
-        w = torch.where(ok.any(0), torch.gather(wc, 0, first[None])[0],
+        first = torch.argmax(ok.to(torch.int8), dim=nk)
+        w = torch.where(ok.any(nk),
+                        torch.gather(wc, nk, first.unsqueeze(nk)).squeeze(nk),
                         torch.full_like(kappa, 1.0 - 1e-6))
 
         # a uniform direction in the tangent (p-1)-subspace of e1
-        v = torch.randn(out + (p - 1,), generator=gen, **f)
+        v = R.normal(kv, per + (p - 1,), mu.dtype)
         v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
         z = torch.cat([w[..., None],
                        torch.sqrt(torch.clamp(1.0 - w * w, min=0.0))[..., None] * v],
@@ -146,7 +154,7 @@ class VonMisesFisher(_MvBase):
         norm = torch.linalg.vector_norm(uh, dim=-1, keepdim=True)
         uh = torch.where(norm > 1e-7, uh / torch.clamp(norm, min=1e-30),
                          torch.zeros_like(uh))
-        return z - 2.0 * torch.sum(z * uh, -1, keepdim=True) * uh
+        return back(z - 2.0 * torch.sum(z * uh, -1, keepdim=True) * uh)
 
     def mean(self):
         # the mean direction scaled by A_p(kappa) = I_{p/2} / I_{p/2-1}

@@ -19,8 +19,10 @@ import torch
 
 from ...utils.math import betainc
 from .. import bijectors as bij
+from .. import random as R
 from .base import (Distribution, UnivariateDistribution, distribution, _bc,
-                   _on, _rand, _randn, _rexp, _rgamma, _support, param_like)
+                   _normal, _on, _rand, _randn, _rexp, _rgamma, _support,
+                   param_like)
 
 __all__ = [
     "Normal", "LogNormal", "Exponential", "Gamma", "InverseGamma", "Beta",
@@ -41,9 +43,9 @@ class Normal(UnivariateDistribution):
         z = (x - mu) / sigma
         return -0.5 * z * z - torch.log(sigma) - _HALF_LOG_2PI
 
-    def sample(self, gen, shape=()):
-        mu, sigma = _on(gen, self.mu, self.sigma)
-        return mu + sigma * _randn(gen, shape, mu)
+    def sample(self, key, shape=()):
+        mu, sigma = _on(key, self.mu, self.sigma)
+        return mu + sigma * _randn(key, shape, mu)
 
     def cdf(self, x):
         mu, sigma = _bc(self.mu, self.sigma, like=x)
@@ -72,9 +74,9 @@ class LogNormal(UnivariateDistribution):
         z = (lx - mu) / sigma
         return -0.5 * z * z - torch.log(sigma) - _HALF_LOG_2PI - lx
 
-    def sample(self, gen, shape=()):
-        mu, sigma = _on(gen, self.mu, self.sigma)
-        return torch.exp(mu + sigma * _randn(gen, shape, mu))
+    def sample(self, key, shape=()):
+        mu, sigma = _on(key, self.mu, self.sigma)
+        return torch.exp(mu + sigma * _randn(key, shape, mu))
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -105,9 +107,9 @@ class Exponential(UnivariateDistribution):
         (theta,) = _bc(self.theta, like=x)
         return -x / theta - torch.log(theta)
 
-    def sample(self, gen, shape=()):
-        (theta,) = _on(gen, self.theta)
-        return theta * _rexp(gen, shape, theta)
+    def sample(self, key, shape=()):
+        (theta,) = _on(key, self.theta)
+        return theta * _rexp(key, shape, theta)
 
     def in_support(self, x):
         return _support(self, x, x >= 0)
@@ -137,9 +139,9 @@ class Gamma(UnivariateDistribution):
         a, t = _bc(self.alpha, self.theta, like=x)
         return torch.xlogy(a - 1.0, x) - x / t - torch.lgamma(a) - a * torch.log(t)
 
-    def sample(self, gen, shape=()):
-        a, t = _on(gen, self.alpha, self.theta)
-        return t * _rgamma(gen, shape, a)
+    def sample(self, key, shape=()):
+        a, t = _on(key, self.alpha, self.theta)
+        return t * _rgamma(key, shape, a)
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -180,9 +182,9 @@ class InverseGamma(UnivariateDistribution):
         a, b = _bc(self.alpha, self.beta, like=x)
         return a * torch.log(b) - torch.lgamma(a) - (a + 1.0) * torch.log(x) - b / x
 
-    def sample(self, gen, shape=()):
-        a, b = _on(gen, self.alpha, self.beta)
-        return b / _rgamma(gen, shape, a)
+    def sample(self, key, shape=()):
+        a, b = _on(key, self.alpha, self.beta)
+        return b / _rgamma(key, shape, a)
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -209,10 +211,11 @@ class Beta(UnivariateDistribution):
         return (torch.xlogy(a - 1.0, x) + torch.special.xlog1py(b - 1.0, -x)
                 - torch.lgamma(a) - torch.lgamma(b) + torch.lgamma(a + b))
 
-    def sample(self, gen, shape=()):
-        a, b = _on(gen, self.alpha, self.beta)
-        g1 = _rgamma(gen, shape, a)
-        g2 = _rgamma(gen, shape, b)
+    def sample(self, key, shape=()):
+        a, b = _on(key, self.alpha, self.beta)
+        k1, k2 = R.split(key)
+        g1 = _rgamma(k1, shape, a)
+        g2 = _rgamma(k2, shape, b)
         return g1 / (g1 + g2)
 
     def in_support(self, x):
@@ -241,9 +244,9 @@ class Uniform(UnivariateDistribution):
         return (-torch.log(b - a)).expand(
             torch.broadcast_shapes(x.shape, a.shape))
 
-    def sample(self, gen, shape=()):
-        a, b = _on(gen, self.a, self.b)
-        return a + (b - a) * _rand(gen, shape, a)
+    def sample(self, key, shape=()):
+        a, b = _on(key, self.a, self.b)
+        return a + (b - a) * _rand(key, shape, a)
 
     def in_support(self, x):
         a, b = _bc(self.a, self.b, like=x)
@@ -276,9 +279,9 @@ class Cauchy(UnivariateDistribution):
         z = (x - mu) / sigma
         return -torch.log(math.pi * sigma * (1.0 + z * z))
 
-    def sample(self, gen, shape=()):
-        mu, sigma = _on(gen, self.mu, self.sigma)
-        return self.icdf(_rand(gen, shape, mu))
+    def sample(self, key, shape=()):
+        mu, sigma = _on(key, self.mu, self.sigma)
+        return self.icdf(_rand(key, shape, mu))
 
     def cdf(self, x):
         mu, sigma = _bc(self.mu, self.sigma, like=x)
@@ -298,9 +301,9 @@ class Laplace(UnivariateDistribution):
         mu, b = _bc(self.mu, self.beta, like=x)
         return -torch.abs(x - mu) / b - torch.log(2.0 * b)
 
-    def sample(self, gen, shape=()):
-        mu, _ = _on(gen, self.mu, self.beta)
-        return self.icdf(_rand(gen, shape, mu))
+    def sample(self, key, shape=()):
+        mu, _ = _on(key, self.mu, self.beta)
+        return self.icdf(_rand(key, shape, mu))
 
     def cdf(self, x):
         mu, b = _bc(self.mu, self.beta, like=x)
@@ -325,9 +328,9 @@ class Logistic(UnivariateDistribution):
         z = (x - mu) / t
         return -z - 2.0 * bij.softplus(-z) - torch.log(t)
 
-    def sample(self, gen, shape=()):
-        mu, _ = _on(gen, self.mu, self.theta)
-        u = 1.0 - _rand(gen, shape, mu)          # (0, 1]
+    def sample(self, key, shape=()):
+        mu, _ = _on(key, self.mu, self.theta)
+        u = 1.0 - _rand(key, shape, mu)          # (0, 1]
         return self.icdf(torch.clamp(u, max=1.0 - torch.finfo(u.dtype).eps))
 
     def cdf(self, x):
@@ -354,10 +357,11 @@ class TDist(UnivariateDistribution):
                 - 0.5 * torch.log(nu * math.pi)
                 - 0.5 * (nu + 1.0) * torch.log1p(x * x / nu))
 
-    def sample(self, gen, shape=()):
-        (nu,) = _on(gen, self.nu)
-        z = _randn(gen, shape, nu)
-        return z / torch.sqrt(2.0 * _rgamma(gen, shape, 0.5 * nu) / nu)
+    def sample(self, key, shape=()):
+        (nu,) = _on(key, self.nu)
+        kz, kg = R.split(key)
+        z = _randn(kz, shape, nu)
+        return z / torch.sqrt(2.0 * _rgamma(kg, shape, 0.5 * nu) / nu)
 
     def mean(self):
         (nu,) = _bc(self.nu)
@@ -374,9 +378,9 @@ class Chisq(UnivariateDistribution):
         return (torch.xlogy(h - 1.0, x) - 0.5 * x - torch.lgamma(h)
                 - h * math.log(2.0))
 
-    def sample(self, gen, shape=()):
-        (nu,) = _on(gen, self.nu)
-        return 2.0 * _rgamma(gen, shape, 0.5 * nu)
+    def sample(self, key, shape=()):
+        (nu,) = _on(key, self.nu)
+        return 2.0 * _rgamma(key, shape, 0.5 * nu)
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -403,9 +407,9 @@ class Weibull(UnivariateDistribution):
         z = x / t
         return torch.log(a / t) + torch.xlogy(a - 1.0, z) - z ** a
 
-    def sample(self, gen, shape=()):
-        a, _ = _on(gen, self.alpha, self.theta)
-        return self.icdf(_rand(gen, shape, a))
+    def sample(self, key, shape=()):
+        a, _ = _on(key, self.alpha, self.theta)
+        return self.icdf(_rand(key, shape, a))
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -449,9 +453,9 @@ class Pareto(UnivariateDistribution):
         a, t = _bc(self.alpha, self.theta, like=x)
         return torch.log(a) + a * torch.log(t) - (a + 1.0) * torch.log(x)
 
-    def sample(self, gen, shape=()):
-        a, _ = _on(gen, self.alpha, self.theta)
-        return self.icdf(_rand(gen, shape, a))
+    def sample(self, key, shape=()):
+        a, _ = _on(key, self.alpha, self.theta)
+        return self.icdf(_rand(key, shape, a))
 
     def in_support(self, x):
         t = _bc(self.alpha, self.theta, like=x)[1]
@@ -479,9 +483,9 @@ class Gumbel(UnivariateDistribution):
         z = (x - mu) / b
         return -z - torch.exp(-z) - torch.log(b)
 
-    def sample(self, gen, shape=()):
-        mu, b = _on(gen, self.mu, self.beta)
-        return mu - b * torch.log(_rexp(gen, shape, mu))
+    def sample(self, key, shape=()):
+        mu, b = _on(key, self.mu, self.beta)
+        return mu - b * torch.log(_rexp(key, shape, mu))
 
     def cdf(self, x):
         mu, b = _bc(self.mu, self.beta, like=x)
@@ -500,9 +504,9 @@ class Flat(UnivariateDistribution):
     def log_prob(self, x):
         return torch.zeros_like(x)
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         # the reference errors on rand(Flat); N(0, 1) serves initialization
-        return torch.randn(tuple(shape), generator=gen, device=gen.device)
+        return _normal(key, shape, (), torch.get_default_dtype())
 
     def mean(self):
         return torch.zeros(())
@@ -524,9 +528,9 @@ class SymUniform(UnivariateDistribution):
         return (-torch.log(b - a)).expand(
             torch.broadcast_shapes(x.shape, a.shape))
 
-    def sample(self, gen, shape=()):
-        a, b = (t.to(gen.device) for t in self._ab())
-        return a + (b - a) * _rand(gen, shape, a)
+    def sample(self, key, shape=()):
+        a, b = (t.to(key.device) for t in self._ab())
+        return a + (b - a) * _rand(key, shape, a)
 
     def in_support(self, x):
         a, b = self._ab(x)
@@ -589,16 +593,17 @@ class Truncated(UnivariateDistribution):
         lm, _, _ = self._log_mass(x)
         return self.base.log_prob(x) - lm
 
-    def sample(self, gen, shape=()):
-        like = param_like(self, gen.device)
-        lo, hi = (t.to(gen.device) for t in _bc(self.lo, self.hi, like=like))
+    def sample(self, key, shape=()):
+        like = param_like(self, key.device)
+        lo, hi = (t.to(key.device) for t in _bc(self.lo, self.hi, like=like))
         if not hasattr(self.base, "cdf"):
             # improper base: draws exist only for initialization; land just
             # inside the truncation region (the reference errors here).
             lo_f, hi_f = torch.isfinite(lo), torch.isfinite(hi)
-            e = _rexp(gen, shape, lo)
-            u = _rand(gen, shape, lo)
-            z = _randn(gen, shape, lo)
+            ke, ku, kz = R.split(key, 3)
+            e = _rexp(ke, shape, lo)
+            u = _rand(ku, shape, lo)
+            z = _randn(kz, shape, lo)
             zero = torch.zeros_like(u)
             both = torch.where(lo_f & hi_f, lo + u * (hi - lo), zero)
             low_only = torch.where(lo_f & ~hi_f, lo + e, zero)
@@ -616,12 +621,12 @@ class Truncated(UnivariateDistribution):
                                  torch.zeros_like(lo))
             lsf_hi = torch.where(torch.isfinite(hi), self.base.logsf(hi),
                                  torch.full_like(lo, -math.inf))
-            u = _rand(gen, shape, lsf_lo)
+            u = _rand(key, shape, lsf_lo)
             return self.base.isf_log(
                 lsf_lo + torch.log((1.0 - u) + u * torch.exp(lsf_hi - lsf_lo)))
         _, cdf_lo, cdf_hi = self._log_mass(like)
-        cdf_lo, cdf_hi = cdf_lo.to(gen.device), cdf_hi.to(gen.device)
-        u = _rand(gen, shape, cdf_lo)
+        cdf_lo, cdf_hi = cdf_lo.to(key.device), cdf_hi.to(key.device)
+        u = _rand(key, shape, cdf_lo)
         q = torch.clamp(cdf_lo + u * (cdf_hi - cdf_lo),
                         max=1.0 - torch.finfo(cdf_lo.dtype).eps / 2)
         if hasattr(self.base, "icdf"):

@@ -24,8 +24,9 @@ import torch
 
 from ...utils.math import betainc
 from .. import bijectors as bij
-from .base import (UnivariateDistribution, distribution, _bc, _on, _rand,
-                   _randn, _rgamma, _rpoisson, _support)
+from .. import random as R
+from .base import (UnivariateDistribution, distribution, _bc, _layout, _on,
+                   _rand, _randn, _rgamma, _rgamma_at, _rpoisson, _support)
 from .univariate import Gamma, Normal, _HALF_LOG_2PI
 
 __all__ = [
@@ -71,9 +72,9 @@ class Arcsine(UnivariateDistribution):
         a, b = _bc(self.a, self.b, like=x)
         return -math.log(math.pi) - 0.5 * (torch.log(x - a) + torch.log(b - x))
 
-    def sample(self, gen, shape=()):
-        a, _ = _on(gen, self.a, self.b)
-        return self.icdf(_rand(gen, shape, a))
+    def sample(self, key, shape=()):
+        a, _ = _on(key, self.a, self.b)
+        return self.icdf(_rand(key, shape, a))
 
     def in_support(self, x):
         a, b = _bc(self.a, self.b, like=x)
@@ -108,9 +109,10 @@ class BetaPrime(UnivariateDistribution):
         return (torch.xlogy(a - 1.0, x) - (a + b) * torch.log1p(x)
                 - torch.lgamma(a) - torch.lgamma(b) + torch.lgamma(a + b))
 
-    def sample(self, gen, shape=()):
-        a, b = _on(gen, self.alpha, self.beta)
-        return _rgamma(gen, shape, a) / _rgamma(gen, shape, b)
+    def sample(self, key, shape=()):
+        a, b = _on(key, self.alpha, self.beta)
+        ka, kb = R.split(key)
+        return _rgamma(ka, shape, a) / _rgamma(kb, shape, b)
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -154,9 +156,9 @@ class _KernelDistribution(UnivariateDistribution):
         z, _ = self._z(x)
         return self._kernel_cdf(torch.clamp(z, -1.0, 1.0))
 
-    def sample(self, gen, shape=()):
-        mu, s = _on(gen, self.mu, self.sigma)
-        q = _rand(gen, shape, mu)
+    def sample(self, key, shape=()):
+        mu, s = _on(key, self.mu, self.sigma)
+        q = _rand(key, shape, mu)
         return mu + s * _bisect(self._kernel_cdf, q, -1.0, 1.0, 40)
 
     def mean(self):
@@ -228,9 +230,9 @@ class Chi(UnivariateDistribution):
         return (torch.xlogy(nu - 1.0, x) - 0.5 * x * x
                 - (h - 1.0) * math.log(2.0) - torch.lgamma(h))
 
-    def sample(self, gen, shape=()):
-        (nu,) = _on(gen, self.nu)
-        return torch.sqrt(2.0 * _rgamma(gen, shape, 0.5 * nu))
+    def sample(self, key, shape=()):
+        (nu,) = _on(key, self.nu)
+        return torch.sqrt(2.0 * _rgamma(key, shape, 0.5 * nu))
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -266,10 +268,11 @@ class FDist(UnivariateDistribution):
                 - (h1 + h2) * torch.log1p(n1 * x / n2)
                 - torch.lgamma(h1) - torch.lgamma(h2) + torch.lgamma(h1 + h2))
 
-    def sample(self, gen, shape=()):
-        n1, n2 = _on(gen, self.nu1, self.nu2)
-        g1 = _rgamma(gen, shape, 0.5 * n1)
-        g2 = _rgamma(gen, shape, 0.5 * n2)
+    def sample(self, key, shape=()):
+        n1, n2 = _on(key, self.nu1, self.nu2)
+        k1, k2 = R.split(key)
+        g1 = _rgamma(k1, shape, 0.5 * n1)
+        g2 = _rgamma(k2, shape, 0.5 * n2)
         return (g1 / n1) / (g2 / n2)
 
     def in_support(self, x):
@@ -298,9 +301,9 @@ class Frechet(UnivariateDistribution):
         z = x / t
         return torch.log(a / t) - (1.0 + a) * torch.log(z) - z ** (-a)
 
-    def sample(self, gen, shape=()):
-        a, _ = _on(gen, self.alpha, self.theta)
-        return self.icdf(1.0 - _rand(gen, shape, a))
+    def sample(self, key, shape=()):
+        a, _ = _on(key, self.alpha, self.theta)
+        return self.icdf(1.0 - _rand(key, shape, a))
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -329,15 +332,16 @@ class InverseGaussian(UnivariateDistribution):
         return (0.5 * torch.log(lam) - _HALF_LOG_2PI - 1.5 * torch.log(x)
                 - lam * d * d / (2.0 * mu * mu * x))
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         # Michael-Schucany-Haas (1976): a transformed normal and one
         # uniform that picks between the two roots
-        mu, lam = _on(gen, self.mu, self.lam)
-        z = _randn(gen, shape, mu)
+        mu, lam = _on(key, self.mu, self.lam)
+        kz, ku = R.split(key)
+        z = _randn(kz, shape, mu)
         y = z * z
         x = (mu + mu * mu * y / (2.0 * lam)
              - mu / (2.0 * lam) * torch.sqrt(4.0 * mu * lam * y + mu * mu * y * y))
-        u = _rand(gen, (), x)
+        u = _rand(ku, shape, mu)
         return torch.where(u <= mu / (mu + x), x, mu * mu / x)
 
     def in_support(self, x):
@@ -380,8 +384,8 @@ def _kolmogorov_logpdf(x, terms=12):
     return math.log(8.0) + torch.log(x) + torch.log(torch.clamp(s, min=1e-37))
 
 
-def _rand_between(gen, shape, lo, hi):
-    u = torch.rand(tuple(shape), generator=gen, device=gen.device)
+def _rand_between(key, shape, lo, hi):
+    u = _rand(key, shape, torch.zeros((), device=key.device))
     return lo + (hi - lo) * u
 
 
@@ -395,8 +399,8 @@ class Kolmogorov(UnivariateDistribution):
     def cdf(self, x):
         return _kolmogorov_cdf(x)
 
-    def sample(self, gen, shape=()):
-        q = _rand_between(gen, shape, 1e-6, 1.0 - 1e-7)
+    def sample(self, key, shape=()):
+        q = _rand_between(key, shape, 1e-6, 1.0 - 1e-7)
         return _bisect(_kolmogorov_cdf, q, 0.01, 4.0, 50)
 
     def in_support(self, x):
@@ -429,8 +433,8 @@ class KSDist(UnivariateDistribution):
     def cdf(self, x):
         return _kolmogorov_cdf(x * _stephens(self.n))
 
-    def sample(self, gen, shape=()):
-        return Kolmogorov().sample(gen, shape) / _stephens(self.n)
+    def sample(self, key, shape=()):
+        return Kolmogorov().sample(key, shape) / _stephens(self.n)
 
     def in_support(self, x):
         return (x > 0) & (x <= 1)
@@ -473,8 +477,8 @@ class KSOneSided(UnivariateDistribution):
         pdf = -torch.func.grad(lambda t: self._sf(t).sum())(x)
         return torch.log(torch.clamp(pdf, min=1e-300))
 
-    def sample(self, gen, shape=()):
-        q = _rand_between(gen, shape, 1e-6, 1.0 - 1e-6)
+    def sample(self, key, shape=()):
+        q = _rand_between(key, shape, 1e-6, 1.0 - 1e-6)
         return _bisect(self.cdf, q, 0.0, 1.0, 50)
 
     def in_support(self, x):
@@ -495,9 +499,9 @@ class Levy(UnivariateDistribution):
         d = x - mu
         return 0.5 * torch.log(s) - _HALF_LOG_2PI - 1.5 * torch.log(d) - 0.5 * s / d
 
-    def sample(self, gen, shape=()):
-        mu, s = _on(gen, self.mu, self.sigma)
-        z = _randn(gen, shape, mu)
+    def sample(self, key, shape=()):
+        mu, s = _on(key, self.mu, self.sigma)
+        z = _randn(key, shape, mu)
         return mu + s / (z * z)
 
     def in_support(self, x):
@@ -532,10 +536,11 @@ class NoncentralChisq(UnivariateDistribution):
                     - h * math.log(2.0))
         return torch.logsumexp(_pois_logpmf(j, 0.5 * lam) + chisq_lp, dim=0)
 
-    def sample(self, gen, shape=()):
-        nu, lam = _on(gen, self.nu, self.lam)
-        j = _rpoisson(gen, shape, 0.5 * lam)
-        return 2.0 * _rgamma(gen, (), 0.5 * nu + j)
+    def sample(self, key, shape=()):
+        nu, lam = _on(key, self.nu, self.lam)
+        kj, kg = R.split(key)
+        j = _rpoisson(kj, shape, 0.5 * lam)
+        return 2.0 * _rgamma_at(kg, shape, 0.5 * nu + j)
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -564,11 +569,12 @@ class NoncentralBeta(UnivariateDistribution):
                    - torch.lgamma(aj) - torch.lgamma(b) + torch.lgamma(aj + b))
         return torch.logsumexp(_pois_logpmf(j, 0.5 * lam) + beta_lp, dim=0)
 
-    def sample(self, gen, shape=()):
-        a, b, lam = _on(gen, self.alpha, self.beta, self.lam)
-        j = _rpoisson(gen, shape, 0.5 * lam)
-        g1 = _rgamma(gen, (), a + j)
-        g2 = _rgamma(gen, shape, b)
+    def sample(self, key, shape=()):
+        a, b, lam = _on(key, self.alpha, self.beta, self.lam)
+        kj, k1, k2 = R.split(key, 3)
+        j = _rpoisson(kj, shape, 0.5 * lam)
+        g1 = _rgamma_at(k1, shape, a + j)
+        g2 = _rgamma(k2, shape, b)
         return g1 / (g1 + g2)
 
     def in_support(self, x):
@@ -597,11 +603,12 @@ class NoncentralF(UnivariateDistribution):
                 - torch.lgamma(h1) - torch.lgamma(h2) + torch.lgamma(h1 + h2))
         return torch.logsumexp(_pois_logpmf(j, 0.5 * lam) + f_lp, dim=0)
 
-    def sample(self, gen, shape=()):
-        n1, n2, lam = _on(gen, self.nu1, self.nu2, self.lam)
-        j = _rpoisson(gen, shape, 0.5 * lam)
-        num = 2.0 * _rgamma(gen, (), 0.5 * n1 + j)
-        den = 2.0 * _rgamma(gen, shape, 0.5 * n2)
+    def sample(self, key, shape=()):
+        n1, n2, lam = _on(key, self.nu1, self.nu2, self.lam)
+        kj, k1, k2 = R.split(key, 3)
+        j = _rpoisson(kj, shape, 0.5 * lam)
+        num = 2.0 * _rgamma_at(k1, shape, 0.5 * n1 + j)
+        den = 2.0 * _rgamma(k2, shape, 0.5 * n2)
         return (num / n1) / (den / n2)
 
     def in_support(self, x):
@@ -636,10 +643,11 @@ class NoncentralT(UnivariateDistribution):
                  - 0.5 * (nu + 1.0) * torch.log(nu + x * x))
         return log_c + log_series
 
-    def sample(self, gen, shape=()):
-        nu, lam = _on(gen, self.nu, self.lam)
-        z = _randn(gen, shape, lam)
-        c = 2.0 * _rgamma(gen, shape, 0.5 * nu)
+    def sample(self, key, shape=()):
+        nu, lam = _on(key, self.nu, self.lam)
+        kz, kc = R.split(key)
+        z = _randn(kz, shape, lam)
+        c = 2.0 * _rgamma(kc, shape, 0.5 * nu)
         return (z + lam) / torch.sqrt(c / nu)
 
 
@@ -658,9 +666,9 @@ class Rayleigh(UnivariateDistribution):
         (s,) = _bc(self.sigma, like=x)
         return torch.log(x) - 2.0 * torch.log(s) - 0.5 * (x / s) ** 2
 
-    def sample(self, gen, shape=()):
-        (s,) = _on(gen, self.sigma)
-        return self.icdf(_rand(gen, shape, s))
+    def sample(self, key, shape=()):
+        (s,) = _on(key, self.sigma)
+        return self.icdf(_rand(key, shape, s))
 
     def in_support(self, x):
         return _support(self, x, x > 0)
@@ -709,9 +717,9 @@ class TriangularDist(UnivariateDistribution):
         hi = b - torch.sqrt((1.0 - q) * (b - a) * (b - c))
         return torch.where(q < fc, lo, hi)
 
-    def sample(self, gen, shape=()):
-        a, _, _ = _on(gen, self.a, self.b, self.c)
-        return self.icdf(_rand(gen, shape, a))
+    def sample(self, key, shape=()):
+        a, _, _ = _on(key, self.a, self.b, self.c)
+        return self.icdf(_rand(key, shape, a))
 
     def in_support(self, x):
         a, b, _ = _bc(self.a, self.b, self.c, like=x)
@@ -749,16 +757,20 @@ class VonMises(UnivariateDistribution):
         mu, k = _bc(self.mu, self.kappa, like=x)
         return k * torch.cos(x - mu) - math.log(2.0 * math.pi) - _log_i0(k)
 
-    def sample(self, gen, shape=()):
-        mu, kappa = _on(gen, self.mu, self.kappa)
+    def sample(self, key, shape=()):
+        mu, kappa = _on(key, self.mu, self.kappa)
         tau = 1.0 + torch.sqrt(1.0 + 4.0 * kappa * kappa)
         rho = (tau - torch.sqrt(2.0 * tau)) / (2.0 * kappa)
         r = (1.0 + rho * rho) / (2.0 * rho)
         theta = torch.zeros(tuple(shape) + tuple(mu.shape), dtype=mu.dtype,
-                            device=gen.device)
+                            device=key.device)
         accepted = torch.zeros_like(theta, dtype=torch.bool)
-        for _ in range(50):
-            u1, u2, u3 = (_rand(gen, shape, mu) for _ in range(3))
+        # every round's three uniforms in one draw, the keys' dims in front
+        per, _, back = _layout(key, shape, mu.shape)
+        nk = key.dim() - 1
+        us = R.uniform(key, (50, 3) + per, mu.dtype)
+        for i in range(50):
+            u1, u2, u3 = (back(us.select(nk, i).select(nk, j)) for j in range(3))
             z = torch.cos(math.pi * u1)
             f = (1.0 + r * z) / (r + z)
             c = kappa * (r - f)

@@ -52,7 +52,7 @@ import torch
 from ..utils import graphs
 from ..utils.roofline import H100_SXM
 from . import bijectors as bij
-from .distributions.base import Distribution, distribution
+from .distributions.base import Distribution, _rand, distribution
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_glmm.cu"
 #: build directory at the root of the checkout (listed in .gitignore)
@@ -348,11 +348,9 @@ class BernoulliLogitGLMM(Distribution):
                                                self.b[lo:hi])[0]
         return torch.where(self.in_support(y), lp, -torch.inf)
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         p = torch.sigmoid(self._logits())
-        u = torch.rand(tuple(shape) + tuple(p.shape), generator=gen,
-                       dtype=p.dtype, device=p.device)
-        return (u < p).to(p.dtype)
+        return (_rand(key, shape, p) < p).to(p.dtype)
 
     def bijector(self):
         return bij.Discrete()

@@ -4,7 +4,7 @@ Counterpart of reference src/output/fileio.jl.  The reference
 Julia-serializes whole ModelChains including closures (fileio.jl:3-11);
 Python lambdas don't pickle, so the split here is explicit: ``write_chains``
 persists draws + the resume state (the chain-stacked values, the sampler
-tunes and the random generator's state, every tensor moved to the CPU), and
+tunes and every chain's key, every tensor moved to the CPU), and
 ``read_chains`` re-binds a user-reconstructed Model on a device the caller
 names to restore restartability — the same information the reference's
 ModelState snapshots carry (src/Mamba.jl:152-155).
@@ -15,10 +15,11 @@ calls, and global rank 0 writes the draws (every rank holds them whole),
 the resume state as one device would hold it (every chain, every site at
 the unsharded run's shapes, the edge padding of a data axis dropped, every
 per-coordinate tune in the unsharded flat order: ``MeshComm.gather_leaf``)
-and every chain rank's generator state in rank
-order (``rngs``).  ``read_chains`` compiles the model unsharded from the
-whole inputs the caller passes, and ``mcmc(mc, iters)`` continues it on
-one device from chain rank 0's generator state, for every chain.
+with every chain's key in chain order.  ``read_chains`` compiles the model
+unsharded from the whole inputs the caller passes, and ``mcmc(mc, iters)``
+continues it on one device, every chain on its own key: the mesh's own
+continuation, as in the JAX package.  Keys are device-free, so a file
+restarts on any device.
 """
 
 from __future__ import annotations
@@ -61,9 +62,7 @@ def write_chains(path: str, c: Chains) -> None:
         if c.states is not None:
             states = c.states
             if sharded:
-                payload["rngs"] = c.compiled.comm.gather_generators(
-                    states["rng"])
-                states = {**_whole_states(c), "rng": payload["rngs"][0]}
+                states = _whole_states(c)
             payload["states"] = _tree_map(lambda t: t.detach().cpu(), states)
             payload["device"] = c.compiled.device.type
             payload["dtype"] = str(c.compiled.dtype).removeprefix("torch.")
@@ -89,8 +88,8 @@ def _whole_states(mc) -> dict:
     holds per coordinate of a block that holds slices (its type's
     ``COORD_LEAVES``) joined into the unsharded flat order, those it holds
     per chain (``CHAIN_LEAVES``) joined over the chain ranks, and every
-    other leaf, which every rank holds equally, kept once; not the
-    generator state."""
+    other leaf, which every rank holds equally, kept once; every chain's
+    key in chain order."""
     cm, st = mc.compiled, mc.states
     comm = cm.comm
     state = st["state"]
@@ -121,7 +120,8 @@ def _whole_states(mc) -> dict:
     tunes = tuple(
         tree(t, f"tunes[{i}]", coords=cm.block_coords(s.params))
         for i, (s, t) in enumerate(zip(cm.model.samplers, st["tunes"])))
-    return {"state": whole, "tunes": tunes, "burnin": st["burnin"]}
+    return {"key": comm.gather_leaf(st["key"], "key", chains), "state": whole,
+            "tunes": tunes, "burnin": st["burnin"]}
 
 
 def read_chains(path: str, model=None, inputs=None, *, device=None,
@@ -130,8 +130,7 @@ def read_chains(path: str, model=None, inputs=None, *, device=None,
     unpickling runs code).  Pass the Model, its inputs and a ``device`` to
     get a restartable ModelChains back; otherwise a plain Chains.  The file
     of a sharded run compiles unsharded here, from the whole inputs.
-    ``dtype`` defaults to the one the run was written with.  A generator
-    state only seeds a generator of the device type that wrote it."""
+    ``dtype`` defaults to the one the run was written with."""
     with open(path, "rb") as f:
         p = pickle.load(f)
     if model is None:
@@ -152,10 +151,6 @@ def read_chains(path: str, model=None, inputs=None, *, device=None,
             f"a model for its draws")
     if states is not None:
         device = torch.device(device)
-        if device.type != p["device"]:
-            raise ValueError(
-                f"the chains' generator state comes from a {p['device']} "
-                f"generator and cannot seed one on {device.type}")
         dtype = dtype or getattr(torch, p["dtype"])
         example = {k: v[0].numpy() for k, v in states["state"].items()}
         cm = compile_model(model, inputs, example, device=device, dtype=dtype)
@@ -164,9 +159,7 @@ def read_chains(path: str, model=None, inputs=None, *, device=None,
             return t.to(device=device, dtype=cm.dtype if t.is_floating_point()
                         else t.dtype)
 
-        # a generator's state stays a host tensor, whatever its device
-        states = {k: v if k == "rng" else _tree_map(move, v)
-                  for k, v in states.items()}
+        states = _tree_map(move, states)
     return ModelChains(p["value"], start=p["start"], thin=p["thin"],
                        names=p["names"], chains=p["chains"], model=model,
                        compiled=cm, states=states, iter=p.get("iter"))

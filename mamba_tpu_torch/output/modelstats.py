@@ -9,8 +9,8 @@ rebuilt from the stored columns on top of each chain's final state and
 evaluated by one ``torch.func.vmap`` over that batch.  One level of
 ``vmap``, never two, so a likelihood with a chain-batched ``vmap`` rule (the
 fused GLMM kernel) sees one batch of chains x draws.  Predictive draws come
-from ``forward_sample`` on the same flattened batch, from a generator of
-their own.
+from ``forward_sample`` on the same flattened batch, draw ``j`` of chain
+``i`` from ``fold_in(fold_in(key(seed), i), j)``, as in the JAX package.
 
 Requires every *sampled* stochastic node to be monitored (the reference has
 the same practical requirement: relist reads stored columns).
@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import random as R
 from .chains import Chains, ModelChains
 from .chainsummary import ChainSummary
 from .stats import _header
@@ -155,8 +156,9 @@ def dic(mc: ModelChains) -> ChainSummary:
 
 def predict(mc: ModelChains, nodekeys=None, seed: int = 0) -> ModelChains:
     """Posterior-predictive draws of observed output nodes for every stored
-    draw (reference modelstats.jl:71-102), from a ``torch.Generator`` on the
-    model's device seeded with ``seed`` (no global generator is touched)."""
+    draw (reference modelstats.jl:71-102): draw ``j`` of chain ``i`` from
+    the key ``fold_in(fold_in(key(seed), i), j)``, as the JAX package keys
+    it (no global generator is touched)."""
     cm = mc.compiled
     outputs = mc.model.keys("observed")
     if nodekeys is None:
@@ -175,9 +177,10 @@ def predict(mc: ModelChains, nodekeys=None, seed: int = 0) -> ModelChains:
 
     rows, bases = _flat_batch(mc)
     states = torch.func.vmap(draw_state)(rows, bases)
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(seed)
-    drawn = cm.forward_sample(gen, states, names=nodekeys)
+    m, n = mc.nchains, mc.niter
+    base = R.chain_keys(seed, range(m), cm.device)[:, None].expand(m, n, 2)
+    keys = R.fold_in(base, torch.arange(n, device=cm.device).expand(m, n))
+    drawn = cm.forward_sample(keys.reshape(m * n, 2), states, names=nodekeys)
     flat = []
     for n in nodekeys:
         v = cm.whole(n, drawn[n], 1)       # (C*n, *shape), column-major out

@@ -243,16 +243,6 @@ def data_block(x, dim: int, rank: int, size: int):
     return x[(slice(None),) * dim + (slice(rank * per, (rank + 1) * per),)]
 
 
-def rank_seed(seed: int, chain_rank: int) -> int:
-    """The generator seed of a chain rank: ``seed`` itself on chain rank 0
-    (so a one-rank mesh replays the run without a mesh), a seed derived
-    from ``(seed, chain_rank)`` on the others."""
-    if chain_rank == 0:
-        return int(seed)
-    words = np.random.SeedSequence([int(seed), int(chain_rank)]).generate_state(2)
-    return int(words[0]) | (int(words[1]) << 32)
-
-
 class MeshComm:
     """Collectives of one rank over a mesh's chain axis and its data axis.
     ``MeshComm()`` (no mesh) is one rank on both: every collective is the
@@ -266,9 +256,8 @@ class MeshComm:
       group;
     - ``gather_data``: the slices of the data group's ranks, joined in
       data-rank order: the whole value;
-    - ``gather_leaf``/``gather_generators``: a leaf of a resume state and
-      the chain ranks' generator states, as one device would hold them
-      (``output.fileio.write_chains``).
+    - ``gather_leaf``: a leaf of a resume state as one device would hold
+      it (``output.fileio.write_chains``).
 
     The chain axis's ranks hold the same number of chains."""
 
@@ -442,14 +431,6 @@ class MeshComm:
                              f"rank's {chains} chains")
         return self.gather_chains(x, 0)
 
-    def gather_generators(self, state: torch.Tensor) -> list:
-        """Every chain rank's generator state (a byte tensor), in chain-rank
-        order."""
-        if self.chain_size == 1:
-            return [state]
-        every = self._gather(self._chain_group, self.chain_size, state[None], 0)
-        return [s.cpu().clone() for s in every]
-
 
 class BlockCoords:
     """A sampler block's flat coordinates as one data rank holds them.
@@ -467,9 +448,10 @@ class BlockCoords:
       U-turn's dot products): the whole coordinates summed locally plus
       ``data_sum`` of the slice coordinates' local sums (one all-reduce
       for all), so every rank holds the same bits;
-    - ``randn``: a standard normal per coordinate, drawn at the unsharded
-      flat length from the run's generator and cut to ``index``, so every
-      rank draws the unsharded run's numbers;
+    - ``randn``: a standard normal per coordinate from the block's
+      per-chain keys, drawn only at the rank's counters ``index`` of the
+      unsharded flat vector (partitionable threefry, as GSPMD draws it), so
+      every rank draws the unsharded run's numbers;
     - ``cut``: a per-coordinate value of the unsharded flat vector (a
       warm-start inverse mass) cut to the rank's coordinates;
     - ``join``: a per-coordinate leaf of every data rank put back into the
@@ -505,15 +487,16 @@ class BlockCoords:
         """``x (..., rank dim)`` summed over the block's coordinates."""
         return self.sums(x)[0]
 
-    def randn(self, gen, x):
-        """Standard normals shaped like ``x (..., rank dim)``: the unsharded
-        run's draw, cut to this rank's coordinates."""
+    def randn(self, key, x, fold=None):
+        """Standard normals shaped like ``x (C, ..., rank dim)`` from the
+        per-chain keys ``key (C, 2)`` (folded with ``fold``): the unsharded
+        run's draw at this rank's coordinates."""
+        from ..ops import random as R
+        per = tuple(x.shape[key.dim() - 1:])
         if self.index is None:
-            return torch.randn(x.shape, generator=gen, dtype=x.dtype,
-                               device=x.device)
-        z = torch.randn(tuple(x.shape[:-1]) + (self.dim,), generator=gen,
-                        dtype=x.dtype, device=x.device)
-        return z.index_select(-1, self.index)
+            return R.normal(key, per, x.dtype, fold=fold)
+        return R.normal(key, per[:-1] + (self.dim,), x.dtype, fold=fold,
+                        index=self.index)
 
     def cut(self, x: torch.Tensor) -> torch.Tensor:
         """``x (..., dim)``, per coordinate of the unsharded flat vector,

@@ -19,9 +19,12 @@ graphs: the first holds the step's set-up and ``maxdraw``'s remainder
 ``DRAWS_PER_CALL``), each later one ``DRAWS_PER_CALL`` draws, so a block
 has at most two bodies.  The host tests a device flag once per batch, to
 stop when every chain has accepted (``graphs.until_done``).  A body draws
-from the run's generator, which the graph registers
-(``Captured.draw_from``): the simulations draw inside the distributions'
-``sample``.  The plain loop runs the same bodies eagerly.
+from the block's per-chain keys, which the step loads into the buffer
+``key``: batch ``j`` of a step draws from ``fold_in(key, j)``, ``j`` a
+counter on the device that the body advances in place, so a replay draws
+the next batch's numbers and a chain's numbers do not depend on how many
+batches the other chains need.  The simulations draw inside the
+distributions' ``sample``.  The plain loop runs the same bodies eagerly.
 
 Proposals are made in the block's link-transformed space, like the
 reference (unlist/relist with transform=true, abc.jl:45, 103-110).  On a
@@ -32,9 +35,11 @@ captured bodies: a user function that waits for the device or copies from
 the host fails the capture, with ``graphs``' message, which names
 ``utils.graphs.disabled()``.
 
-Random draws, in order: at init, the nsim simulations and, with
-``randeps``, the tolerances ``(C, nsim)`` (exponential); per batch of M
-draws in a step, the proposals ``(C, M, dim)``, the simulations, the
+Random draws, each from its own key (``ops/random.py``): at init, from
+the chain keys split in two, the nsim simulations and, with ``randeps``,
+the tolerances ``(C, nsim)`` (exponential); per batch of M draws in a
+step, from the batch's keys folded with 0 to 3, the proposals ``(C, M,
+dim)``, the simulations (a key split off per draw and per simulation), the
 tolerances ``(C, M, nsim)`` with ``randeps``, and the acceptance uniforms
 ``(C, M)``.
 """
@@ -46,6 +51,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ops import random as R
 from ..utils import graphs
 from .base import BlockKernel, SamplerSpec, drawing, replays, summed
 
@@ -145,11 +151,16 @@ class ABC(SamplerSpec):
             return vsummary({k: cm.whole(k, values[k], 1) for k in datakeys})
         distances = torch.func.vmap(torch.func.vmap(self.dist, in_dims=(0, None)))
 
-        def sim_batch(gen, state):
+        def per_row(key, m):
+            """``m`` keys per row of ``key (C, 2)``, as ``(C * m, 2)`` in
+            the order of ``repeat_interleave(m, 0)``."""
+            return R.split(key, m).transpose(0, 1).reshape(-1, 2)
+
+        def sim_batch(key, state):
             """(C, nsim, Tdim) summaries of nsim simulations per chain."""
             C = next(iter(state.values())).shape[0]
             rep = {k: v.repeat_interleave(nsim, 0) for k, v in state.items()}
-            sim = cm.forward_sample(gen, rep, names=datakeys)
+            sim = cm.forward_sample(per_row(key, nsim), rep, names=datakeys)
             T = summarize({k: sim[k] for k in datakeys})
             return T.reshape((C, nsim) + T.shape[1:])
 
@@ -159,27 +170,28 @@ class ABC(SamplerSpec):
                 logk = logk - epsp / eps - torch.log(eps)   # Exponential(eps) pdf
             return torch.sum(torch.exp(logk), -1)
 
-        def draw_epsprime(gen, eps):
+        def draw_epsprime(key, eps, fold=None):
             if not self.randeps:
                 return eps
-            u = torch.rand(eps.shape, generator=gen, **f)
+            u = R.uniform(key, eps.shape[1:], cm.dtype, fold=fold)
             return -eps * torch.log1p(-u)
 
-        def init(gen, state):
+        def init(key, state):
             Tobs = summarize({k: state[k] for k in datakeys})
-            Tsim = sim_batch(gen, state)
+            ks, ke = R.split(key)
+            Tsim = sim_batch(ks, state)
             d = distances(Tsim, Tobs)
             eps = (torch.maximum(eps_target, d) if decay > 0
                    else torch.full(d.shape, self.epsilon, **f))
             return ABCTune(Tsim=Tsim, epsilon=eps,
-                           epsilonprime=draw_epsprime(gen, eps))
+                           epsilonprime=draw_epsprime(ke, eps))
 
-        def noise(gen, shape):
-            u = (torch.randn if self.proposal == "normal" else torch.rand)(
-                shape, generator=gen, **f)
+        def noise(key, shape):
+            draw = R.normal if self.proposal == "normal" else R.uniform
+            u = draw(key, shape, cm.dtype, fold=0)
             return u if self.proposal == "normal" else 2.0 * u - 1.0
 
-        def first(b, state, gen, M):
+        def first(b, state, M):
             """The step's set-up, then its first batch, of ``M`` draws."""
             b["logprior0"].copy_(vprior(b["theta0"], state))
             Tobs = summarize({k: state[k] for k in datakeys})
@@ -189,30 +201,34 @@ class ABC(SamplerSpec):
             for k in ("theta", "Tsim", "eps", "epsp"):
                 b[k].copy_(b[k + "0"])
             b["done"].zero_()
-            batch(b, state, gen, M)
+            b["round"].zero_()
+            batch(b, state, M)
 
-        def batch(b, state, gen, M):
+        def batch(b, state, M):
             """``M`` draws of every chain, all proposed from theta0: a
             chain's draws share no state but theta0, so scoring them
             together and keeping the first accepted one is the reference's
             loop."""
             theta0, done = b["theta0"], b["done"]
             C, dim = theta0.shape
+            key = R.fold_in(b["key"], b["round"])
+            b["round"].add_(1)
             rep = {k: v.repeat_interleave(M, 0) for k, v in state.items()}
-            theta1 = (theta0[:, None] + scale * noise(gen, (C, M, dim))
+            theta1 = (theta0[:, None] + scale * noise(key, (M, dim))
                       ).reshape(C * M, dim)
             logprior1 = vprior(theta1, rep).reshape(C, M)
-            Tsim1 = sim_batch(gen, {**rep, **vunpack(theta1, rep)})
+            Tsim1 = sim_batch(per_row(R.fold_in(key, 1), M),
+                              {**rep, **vunpack(theta1, rep)})
             Tsim1 = Tsim1.reshape((C, M) + Tsim1.shape[1:])
             d1 = distances(Tsim1.flatten(0, 1), b["Tobs"].repeat_interleave(M, 0)
                            ).reshape(C, M, nsim)
             eps0 = b["eps0"][:, None]
             eps1 = ((1 - decay) * eps0
                     + decay * torch.maximum(eps_target, torch.minimum(d1, eps0)))
-            epsp1 = draw_epsprime(gen, eps1)
+            epsp1 = draw_epsprime(key, eps1, fold=2)
             ratio = (pi_epsilon(epsp1, eps1, d1) / b["pi0"][:, None]
                      * torch.exp(logprior1 - b["logprior0"][:, None]))
-            u = torch.rand((C, M), generator=gen, **f)
+            u = R.uniform(key, (M,), cm.dtype, fold=3)
             acc = torch.isfinite(logprior1) & (u < ratio)
             pick = torch.argmax(acc.to(torch.int8), 1)
             take = ~done & acc.any(1)
@@ -235,16 +251,13 @@ class ABC(SamplerSpec):
         batches = -(-self.maxdraw // DRAWS_PER_CALL)
         rest = self.maxdraw - DRAWS_PER_CALL * (batches - 1)
 
-        def bodies(gen_of):
-            return {"first": lambda b, s: first(b, s, gen_of(), rest),
-                    "more": lambda b, s: batch(b, s, gen_of(), DRAWS_PER_CALL)}
-
+        bodies = {"first": lambda b, s: first(b, s, rest),
+                  "more": lambda b, s: batch(b, s, DRAWS_PER_CALL)}
         cap = drawing(bodies, eager=not replays(cm, self.params, draws=True))
 
-        def step(gen, state, tune: ABCTune, adapt):
+        def step(key, state, tune: ABCTune, adapt):
             theta0 = vpack(state)
             C = theta0.shape[0]
-            cap.draw_from(gen)
             cap.load_state(state)
             if not cap.holds("Tsim0", tune.Tsim) or not cap.holds("theta0", theta0):
                 flag = dict(dtype=torch.bool, device=cm.device)
@@ -252,9 +265,11 @@ class ABC(SamplerSpec):
                          epsp=tune.epsilonprime, logprior0=theta0[:, 0],
                          pi0=theta0[:, 0], Tobs=tune.Tsim[:, 0],
                          done=torch.zeros(C, **flag),
-                         more=torch.zeros((), **flag))
+                         more=torch.zeros((), **flag),
+                         round=torch.zeros(1, dtype=torch.int64,
+                                           device=cm.device))
             cap.load(theta0=theta0, Tsim0=tune.Tsim, eps0=tune.epsilon,
-                     epsp0=tune.epsilonprime)
+                     epsp0=tune.epsilonprime, key=key)
             graphs.until_done(cap, "first", "more", batches)
             b = cap.bufs
             state = {**state, **vunpack(b["theta"].clone(), state)}

@@ -8,7 +8,8 @@ factor.  The reference guards rank deficiency with a pivoted Cholesky
 empirical covariance at once and reports per chain whether it was positive
 definite, and a chain whose covariance was not keeps its previous factor.
 
-Random draws per step, in order: the fixed proposal's normals ``(C, dim)``,
+Random draws per step, draw ``i`` of them from ``fold_in(key, i)`` of the
+block's per-chain keys: the fixed proposal's normals ``(C, dim)``,
 the adaptive proposal's normals ``(C, dim)``, the acceptance uniforms
 ``(C,)``, all drawn before the proposal and MH test, which are one body
 (``utils.graphs.Captured``): replayed from a CUDA graph in the engine, run
@@ -22,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as R
 from .base import SamplerSpec, captured, mh_select, plain
 
 
@@ -94,15 +96,14 @@ def step_bodies(logf_of, beta):
     return {"body": lambda b, s: _step(b, logf_of(s), beta)}
 
 
-def amm_step(gen, x, tune: AMMTune, logf, adapt: bool, graphed=None):
+def amm_step(key, x, tune: AMMTune, logf, adapt: bool, graphed=None):
     """One AMM step; ``graphed``: the captured proposal and MH test
     (``step_bodies``), by default the plain one."""
-    f = dict(dtype=x.dtype, device=x.device)
     cap = graphed or plain(functools.partial(step_bodies, beta=tune.beta), logf)
     cap.load(x=x, SigmaL=tune.SigmaL, SigmaLm=tune.SigmaLm, m=tune.m,
-             z=torch.randn(x.shape, generator=gen, **f),
-             z_m=torch.randn(x.shape, generator=gen, **f),
-             u=torch.rand(x.shape[:1], generator=gen, **f))
+             z=R.normal(key, x.shape[1:], x.dtype, fold=0),
+             z_m=R.normal(key, x.shape[1:], x.dtype, fold=1),
+             u=R.uniform(key, (), x.dtype, fold=2))
     cap.run()
     x2 = cap.bufs["x"].clone()
     return x2, (amm_adapt(x2, tune) if adapt else tune)
@@ -129,9 +130,9 @@ class AMM(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return amm_init(x0, self.Sigma, self.beta, self.scale)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
         isadapt = {"all": True, "none": False, "burnin": adapt}[self.adapt_mode]
-        return amm_step(gen, x, tune, logf, isadapt, graphed=graphed)
+        return amm_step(key, x, tune, logf, isadapt, graphed=graphed)

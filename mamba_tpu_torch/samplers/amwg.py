@@ -10,7 +10,8 @@ coordinate in batches toward a 0.44 acceptance target, as each of the
 reference's per-process chains does.  The iteration counter is the same for
 every chain, so it is a host integer.
 
-Random draws per step, in order: the proposal noise ``(C, dim)`` (normal)
+Random draws per step, draw ``i`` of them from ``fold_in(key, i)`` of the
+block's per-chain keys: the proposal noise ``(C, dim)`` (normal)
 and the acceptance uniforms ``(C, dim)``.
 """
 
@@ -20,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as R
 from .base import SamplerSpec, captured, plain
 
 
@@ -68,17 +70,16 @@ def sweep_bodies(logf_of):
     return {"body": lambda b, s: _sweep(b, logf_of(s))}
 
 
-def amwg_step(gen, x, tune: AMWGTune, logf, adapt: bool, graphed=None):
+def amwg_step(key, x, tune: AMWGTune, logf, adapt: bool, graphed=None):
     """One coordinate sweep and, on adaptation steps, the batch scale update
     (reference amwg.jl:68-115).  ``graphed``: the captured sweep
     (``sweep_bodies``), by default the plain loop."""
-    f = dict(dtype=x.dtype, device=x.device)
     cap = graphed or plain(sweep_bodies, logf)
     if not cap.holds("x", x):
         cap.load(accepted=torch.zeros(x.shape, dtype=torch.bool, device=x.device))
     cap.load(x=x, sigma=tune.sigma,
-             noise=torch.randn(x.shape, generator=gen, **f),
-             u=torch.rand(x.shape, generator=gen, **f))
+             noise=R.normal(key, x.shape[1:], x.dtype, fold=0),
+             u=R.uniform(key, x.shape[1:], x.dtype, fold=1))
     cap.run()
     x = cap.bufs["x"].clone()
     if not adapt:
@@ -114,9 +115,9 @@ class AMWG(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(sweep_bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return amwg_init(x0, self.sigma, self.batchsize, self.target)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
         isadapt = {"all": True, "none": False, "burnin": adapt}[self.adapt_mode]
-        return amwg_step(gen, x, tune, logf, isadapt, graphed=graphed)
+        return amwg_step(key, x, tune, logf, isadapt, graphed=graphed)

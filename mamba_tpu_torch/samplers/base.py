@@ -4,19 +4,23 @@ Counterpart of reference src/samplers/sampler.jl (Sampler, SamplingBlock,
 SamplerVariate).  Two levels, as in the JAX package:
 
 1. **Stand-alone kernels**: each sampler module exposes
-   ``<name>_init(gen, x0, ...) -> tune`` and ``<name>_step(gen, x, tune,
+   ``<name>_init(key, x0, ...) -> tune`` and ``<name>_step(key, x, tune,
    logf, adapt) -> (x', tune')`` on chain-stacked flat vectors ``x (C,
-   dim)`` with a user-supplied batched log-density — usable with no Model.
+   dim)`` and per-chain keys ``key (C, 2)`` (``ops/random.py``) with a user-supplied batched log-density — usable with no Model.
    ``logf(x (C, dim)) -> (C,)``; the kernels that score several candidate
    points per chain at once (DGS, BHMC, BIA, BMC3, BMG) also call it on
    ``(C, m, dim)`` and take ``(C, m)`` back.
 
 2. **Engine specs**: ``SamplerSpec`` subclasses bind a kernel to a block of
    model nodes.  ``build(compiled_model)`` returns a ``BlockKernel`` whose
-   ``step(gen, state, tune, adapt) -> (state, tune)`` updates chain-stacked
+   ``step(key, state, tune, adapt) -> (state, tune)`` updates chain-stacked
    state dicts.  The compiled model's per-chain functions are batched with
-   ``torch.func.vmap``; random draws come from the run's ``torch.Generator``
-   outside it.
+   ``torch.func.vmap``; random draws come from the block's per-chain keys
+   outside it.  A step draws its fixed draws from ``fold_in(key, i)`` and
+   a loop's round ``j`` (NUTS's doublings, a slice sampler's trip batches,
+   ABC's batches of draws, BHMC's wall hits) from keys folded with ``j``,
+   never from a stream that the rounds take turns on: a chain's numbers do
+   not depend on how many rounds the other chains on its rank take.
 
 ``adapt`` is a Python bool (``iter <= burnin`` in the reference, e.g.
 nuts.jl:52): the engine's loop runs on the host.  The samplers' inner
@@ -39,7 +43,7 @@ the rank's slice where the compiler allows it: its flat vector is the
 rank's coordinates, and ``bind`` gives the kernels the block's
 coordinates (``coords=``, a ``parallel.mesh.BlockCoords``), whose sums
 over coordinates are completed over the data group and whose normal draws
-are the unsharded run's, cut.  Such a block's all-reduce carries the value
+are the unsharded run's, at the rank's counters.  Such a block's all-reduce carries the value
 and the whole coordinates' gradient alone.  The stand-alone kernels sum
 with ``torch.sum`` over the last dim by default, so they take any
 ``logf``.
@@ -52,12 +56,13 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..utils import graphs
 
 
 class BlockKernel(NamedTuple):
-    init: Callable   # (gen, state) -> tune
-    step: Callable   # (gen, state, tune, adapt) -> (state, tune)
+    init: Callable   # (key, state) -> tune
+    step: Callable   # (key, state, tune, adapt) -> (state, tune)
 
 
 class SamplerSpec:
@@ -79,10 +84,10 @@ class SamplerSpec:
         self.params = tuple(params)
 
     # -- subclass hooks --------------------------------------------------
-    def kernel_init(self, gen, x0, logf) -> object:
+    def kernel_init(self, key, x0, logf) -> object:
         raise NotImplementedError
 
-    def kernel_step(self, gen, x, tune, logf, adapt):
+    def kernel_step(self, key, x, tune, logf, adapt):
         raise NotImplementedError
 
     # -- engine wiring ---------------------------------------------------
@@ -90,8 +95,8 @@ class SamplerSpec:
         return self.bind(cm, self.kernel_init, self.kernel_step)
 
     def bind(self, cm, kernel_init, kernel_step, graphed=None) -> BlockKernel:
-        """The block kernel that runs ``kernel_init(gen, x0, f)`` and
-        ``kernel_step(gen, x, tune, f, adapt)`` on the block's flat vectors,
+        """The block kernel that runs ``kernel_init(key, x0, f)`` and
+        ``kernel_step(key, x, tune, f, adapt)`` on the block's flat vectors,
         ``f`` being the batched density (and gradient).
 
         ``graphed(density)``, given the block's density on one state,
@@ -138,17 +143,17 @@ class SamplerSpec:
         if graphed is not None and replays(cm, self.params):
             captured = graphed(density)
 
-        def init(gen, state):
-            return kernel_init(gen, vpack(state), make_f(state), **kw)
+        def init(key, state):
+            return kernel_init(key, vpack(state), make_f(state), **kw)
 
-        def step(gen, state, tune, adapt):
+        def step(key, state, tune, adapt):
             x = vpack(state)
             if captured is None:
-                x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt,
+                x2, tune2 = kernel_step(key, x, tune, make_f(state), adapt,
                                         **kw)
             else:
                 captured.load_state(state)
-                x2, tune2 = kernel_step(gen, x, tune, make_f(state), adapt,
+                x2, tune2 = kernel_step(key, x, tune, make_f(state), adapt,
                                         graphed=captured)
             return {**state, **vunpack(x2, state)}, tune2
 
@@ -229,11 +234,11 @@ def validatesimplex(x, atol: float = 1e-8):
     return x
 
 
-def metropolis_accept(gen, log_ratio, x_new, x_old):
+def metropolis_accept(key, log_ratio, x_new, x_old, fold=None):
     """Per-chain MH accept: row ``c`` of ``x_new (C, dim)`` is taken with
-    probability ``exp(log_ratio[c])``; one uniform per chain."""
-    u = torch.rand(log_ratio.shape, generator=gen, dtype=log_ratio.dtype,
-                   device=log_ratio.device)
+    probability ``exp(log_ratio[c])``; one uniform per chain, from the
+    per-chain keys ``key (C, 2)`` folded with ``fold``."""
+    u = R.uniform(key, (), log_ratio.dtype, fold=fold)
     return mh_select(u, log_ratio, x_new, x_old)
 
 
@@ -255,13 +260,11 @@ def captured(bodies, density, grad: bool = False):
 
 
 def drawing(bodies, eager: bool = False):
-    """A ``Captured`` whose bodies draw from the generator given to its
-    ``draw_from`` (MISS, ABC): ``bodies(gen_of)``, ``gen_of()`` being that
-    generator.  With ``eager`` it is the plain loop, which runs the same
-    bodies eagerly."""
-    cap = graphs.Captured({}, eager=eager)
-    cap.bodies = bodies(lambda: cap.gen)
-    return cap
+    """The ``Captured`` of bodies that draw inside it (MISS, ABC): from the
+    per-chain keys in its buffer ``key``, which a step loads before it
+    runs.  With ``eager`` it is the plain loop, which runs the same bodies
+    eagerly.  (One place that makes them, which a test watches.)"""
+    return graphs.Captured(bodies, eager=eager)
 
 
 def plain(bodies, logf):

@@ -40,7 +40,8 @@ velocity ``(C, n)`` (normal); BIA — ``(C, n)`` then ``(C,)`` (uniform);
 BMC3 — the index draw, ``(C, n)`` whose ``argsort`` picks k coordinates or
 ``(C,)`` that picks a group, then the acceptance ``(C,)``; BMG — the index
 draw, the proposals ``(C, n)``, the acceptance ``(C,)`` (uniform; none
-with one coordinate).  Every draw is made before the step's body.
+with one coordinate).  Every draw is made before the step's body, draw
+``i`` of a step from ``fold_in(key, i)`` of the block's per-chain keys.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..utils import graphs
 from .base import SamplerSpec, captured, plain, validatebinary
 
@@ -62,12 +64,13 @@ CHECK_EVERY = 8
 MAX_HITS = 10000
 
 
-def _rand(gen, shape, like):
-    return torch.rand(shape, generator=gen, dtype=like.dtype, device=like.device)
+def _rand(key, shape, like, fold):
+    """Uniforms of per-chain ``shape`` from ``fold_in(key, fold)``."""
+    return R.uniform(key, shape, like.dtype, fold=fold)
 
 
-def _randn(gen, shape, like):
-    return torch.randn(shape, generator=gen, dtype=like.dtype, device=like.device)
+def _randn(key, shape, like, fold):
+    return R.normal(key, shape, like.dtype, fold=fold)
 
 
 def _pair(logf, y, x):
@@ -91,13 +94,13 @@ class BHMCTune(NamedTuple):
     CHAIN_LEAVES = ("position", "velocity", "wallhits", "wallcrosses")
 
 
-def bhmc_init(gen, x0, traveltime) -> BHMCTune:
+def bhmc_init(key, x0, traveltime) -> BHMCTune:
     validatebinary(x0)
     C = x0.shape[0]
     zeros = torch.zeros(C, dtype=torch.int32, device=x0.device)
     return BHMCTune(traveltime=float(traveltime),
-                    position=_randn(gen, x0.shape, x0),
-                    velocity=_randn(gen, x0.shape, x0),
+                    position=_randn(key, x0.shape[1:], x0, 0),
+                    velocity=_randn(key, x0.shape[1:], x0, 1),
                     wallhits=zeros, wallcrosses=zeros.clone())
 
 
@@ -179,7 +182,7 @@ def hit_bodies(logf_of, traveltime, max_hits=MAX_HITS):
             "more": lambda b, s: _hits(b, logf_of(s), traveltime, max_hits)}
 
 
-def bhmc_step(gen, x, tune: BHMCTune, logf, max_hits: int = MAX_HITS,
+def bhmc_step(key, x, tune: BHMCTune, logf, max_hits: int = MAX_HITS,
               graphed=None):
     """One particle trajectory of length ``traveltime`` per chain (reference
     sample!, bhmc.jl:50-122).  As in the JAX package, and unlike the
@@ -191,8 +194,8 @@ def bhmc_step(gen, x, tune: BHMCTune, logf, max_hits: int = MAX_HITS,
     plain loop."""
     cap = graphed or plain(functools.partial(
         hit_bodies, traveltime=tune.traveltime, max_hits=max_hits), logf)
-    pos_noise = _randn(gen, x.shape, x)
-    vel_noise = _randn(gen, x.shape, x)
+    pos_noise = _randn(key, x.shape[1:], x, 0)
+    vel_noise = _randn(key, x.shape[1:], x, 1)
     if not cap.holds("x", x):
         C, n = x.shape
         f = dict(dtype=x.dtype, device=x.device)
@@ -225,11 +228,11 @@ class BHMC(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
-        return bhmc_init(gen, x0, self.traveltime)
+    def kernel_init(self, key, x0, logf):
+        return bhmc_init(key, x0, self.traveltime)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
-        return bhmc_step(gen, x, tune, logf, graphed=graphed)
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
+        return bhmc_step(key, x, tune, logf, graphed=graphed)
 
 
 # ---------------------------------------------------------------------------
@@ -299,14 +302,14 @@ def bia_bodies(logf_of):
     return {"body": lambda b, s: _bia(b, logf_of(s))}
 
 
-def bia_step(gen, x, tune: BIATune, logf, graphed=None):
+def bia_step(key, x, tune: BIATune, logf, graphed=None):
     """Add/delete proposal and per-coordinate adaptation of every chain
     (reference sample!, bia.jl:70-119).  ``graphed``: the captured step
     (``bia_bodies``), by default the plain one."""
     cap = graphed or plain(bia_bodies, logf)
     it = tune.iter + 1
-    u = _rand(gen, x.shape, x)
-    ua = _rand(gen, x.shape[:1], x)
+    u = _rand(key, x.shape[1:], x, 0)
+    ua = _rand(key, (), x, 1)
     f = dict(dtype=x.dtype, device=x.device)
     cap.load(x=x, A=tune.A, D=tune.D, u=u, ua=ua,
              rate=torch.full((), float(it) ** -tune.decay, **f),
@@ -331,11 +334,11 @@ class BIA(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(bia_bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return bia_init(x0, **self.kwargs)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
-        return bia_step(gen, x, tune, logf, graphed=graphed)
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
+        return bia_step(key, x, tune, logf, graphed=graphed)
 
 
 # ---------------------------------------------------------------------------
@@ -381,14 +384,14 @@ def _index_mask(b, k):
     return b["groups"][torch.clamp((u * G).long(), max=G - 1)]
 
 
-def _index_load(cap, gen, x, tune: IndexSelect):
+def _index_load(cap, key, x, tune: IndexSelect):
     """Loads ``x``, the index draw and the groups (once) into ``cap``: the
     index draw is ``(C, n)`` uniforms, whose ``argsort`` picks k
     coordinates, or ``(C,)``, which pick a group."""
     if tune.groups_mask is None:
-        cap.load(x=x, idx=_rand(gen, x.shape, x))
+        cap.load(x=x, idx=_rand(key, x.shape[1:], x, 0))
         return
-    cap.load(x=x, idx=_rand(gen, x.shape[:1], x))
+    cap.load(x=x, idx=_rand(key, (), x, 0))
     if not cap.holds("groups", tune.groups_mask):
         cap.load(groups=tune.groups_mask)
 
@@ -411,13 +414,13 @@ def bmc3_bodies(logf_of, k):
     return {"body": lambda b, s: _bmc3(b, logf_of(s), k)}
 
 
-def bmc3_step(gen, x, tune: BMC3Tune, logf, graphed=None):
+def bmc3_step(key, x, tune: BMC3Tune, logf, graphed=None):
     """Flip the selected coordinates, MH accept (reference bmc3.jl:57-68).
     ``graphed``: the captured step (``bmc3_bodies`` of ``tune.k``), by
     default the plain one."""
     cap = graphed or plain(functools.partial(bmc3_bodies, k=tune.k), logf)
-    _index_load(cap, gen, x, tune)
-    cap.load(ua=_rand(gen, x.shape[:1], x))
+    _index_load(cap, key, x, tune)
+    cap.load(ua=_rand(key, (), x, 1))
     cap.run()
     return cap.bufs["x"].clone(), tune
 
@@ -439,11 +442,11 @@ class BMC3(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return bmc3_init(x0, self.k)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
-        return bmc3_step(gen, x, tune, logf, graphed=graphed)
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
+        return bmc3_step(key, x, tune, logf, graphed=graphed)
 
 
 # ---------------------------------------------------------------------------
@@ -493,16 +496,16 @@ def bmg_bodies(logf_of, k):
     return {"body": lambda b, s: _bmg(b, logf_of(s), k)}
 
 
-def bmg_step(gen, x, tune: BMGTune, logf, graphed=None):
+def bmg_step(key, x, tune: BMGTune, logf, graphed=None):
     """Metropolised Gibbs with conditional Bernoulli proposals (reference
     bmg.jl:57-104); with one coordinate the proposal is taken as it is.
     ``graphed``: the captured step (``bmg_bodies`` of ``tune.k``), by
     default the plain one."""
     cap = graphed or plain(functools.partial(bmg_bodies, k=tune.k), logf)
-    _index_load(cap, gen, x, tune)
-    cap.load(u=_rand(gen, x.shape, x))
+    _index_load(cap, key, x, tune)
+    cap.load(u=_rand(key, x.shape[1:], x, 1))
     if x.shape[1] > 1:
-        cap.load(ua=_rand(gen, x.shape[:1], x))
+        cap.load(ua=_rand(key, (), x, 2))
     cap.run()
     return cap.bufs["x"].clone(), tune
 
@@ -519,8 +522,8 @@ class BMG(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return bmg_init(x0, self.k)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
-        return bmg_step(gen, x, tune, logf, graphed=graphed)
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
+        return bmg_step(key, x, tune, logf, graphed=graphed)

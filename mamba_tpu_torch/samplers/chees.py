@@ -27,8 +27,10 @@ Warmup adapts the step size by Nesterov dual averaging on the cross-chain
 mean accept probability and the trajectory length by Adam ascent on the
 ChEES gradient estimate  E_accept[ (|x'-x̄|^2 - |x-x̄|^2) (x'-x̄)·p' ].
 
-Random draws per step, in order: the momentum noise ``(C, dim)`` and one
-acceptance uniform per chain.
+Random draws per step, from the block's per-chain keys (``ops/random.py``):
+the momentum noise ``(C, dim)`` from ``fold_in(key, 0)`` and one
+acceptance uniform per chain from ``fold_in(key, 1)``, which are the JAX
+package's ``kp, ka = split(key)``: a chain draws its numbers.
 
 On a mesh's data axis a block may hold some sites as the rank's slice
 (``coords``, a ``parallel.mesh.BlockCoords``): the momentum noise is drawn
@@ -51,6 +53,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as R
 from ..parallel.mesh import WHOLE, BlockCoords, MeshComm
 from ..utils.graphs import Captured
 from .base import SamplerSpec
@@ -101,7 +104,7 @@ def _halton2(m: int) -> float:
     return sum(0.5 ** (k + 1) for k in range(16) if (m >> k) & 1)
 
 
-def chees_init(gen, x0, logfgrad, epsilon: float | None = None,
+def chees_init(key, x0, logfgrad, epsilon: float | None = None,
                traj: float | None = None, target: float = 0.75,
                max_steps: int = 1024, minv0=None,
                mass_window: int = 0, comm: MeshComm | None = None,
@@ -120,7 +123,7 @@ def chees_init(gen, x0, logfgrad, epsilon: float | None = None,
         # per-chain doubling searches agree only in order of magnitude;
         # every chain starts (and stays) on their geometric mean
         eps = torch.exp(comm.chain_mean(torch.log(
-            nutsepsilon(gen, x0, logfgrad, coords))))
+            nutsepsilon(key, x0, logfgrad, coords))))
     else:
         eps = torch.as_tensor(float(epsilon), **f)
     dim = x0.shape[1:]
@@ -199,7 +202,7 @@ class GraphedTrajectory:
         return tuple(cap.bufs[k].clone() for k in ("x", "p", "logf", "grad"))
 
 
-def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
+def chees_step(key, x, tune: ChEESTune, logfgrad, adapt: bool,
                comm: MeshComm | None = None, trajectory=None,
                coords: BlockCoords = WHOLE):
     """One ChEES-HMC iteration for chains ``x (C, dim)``: jittered
@@ -219,7 +222,7 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
     # diagonal mass: p ~ N(0, M) with M = minv^-1, kinetic p' minv p / 2,
     # dx/dt = minv * p (Neal 2011 eq. 5.29-5.31)
     minv = tune.minv
-    p0 = coords.randn(gen, x) * torch.rsqrt(minv)
+    p0 = coords.randn(key, x, fold=0) * torch.rsqrt(minv)
     logf0, grad0 = logfgrad(x)
     x1, p1, logf1, grad1 = (trajectory or _trajectory)(
         x, p0, logf0, grad0, eps, minv, L, logfgrad)
@@ -228,7 +231,7 @@ def chees_step(gen, x, tune: ChEESTune, logfgrad, adapt: bool,
     dH = (logf1 - 0.5 * k1) - (logf0 - 0.5 * k0)
     dH = torch.where(torch.isnan(dH), -torch.inf, dH)
     alpha = torch.clamp(torch.exp(dH), max=1.0)
-    u = torch.rand(C, generator=gen, dtype=dt, device=x.device)
+    u = R.uniform(key, (), dt, fold=1)
     x2 = torch.where((u < alpha)[:, None], x1, x)
     if not adapt:
         return x2, tune._replace(it=tune.it + 1)
@@ -337,19 +340,19 @@ class ChEESHMC(SamplerSpec):
     def build(self, cm):
         # the cross-chain statistics pool every rank's chains
         return self.bind(
-            cm, lambda gen, x0, f, **kw: self.kernel_init(gen, x0, f, cm.comm,
+            cm, lambda key, x0, f, **kw: self.kernel_init(key, x0, f, cm.comm,
                                                           **kw),
-            lambda gen, x, tune, f, adapt, graphed=None, **kw: self.kernel_step(
-                gen, x, tune, f, adapt, cm.comm, graphed, **kw),
+            lambda key, x, tune, f, adapt, graphed=None, **kw: self.kernel_step(
+                key, x, tune, f, adapt, cm.comm, graphed, **kw),
             graphed=GraphedTrajectory)
 
-    def kernel_init(self, gen, x0, logfgrad, comm=None, coords=WHOLE):
-        return chees_init(gen, x0, logfgrad, self.epsilon, self.traj,
+    def kernel_init(self, key, x0, logfgrad, comm=None, coords=WHOLE):
+        return chees_init(key, x0, logfgrad, self.epsilon, self.traj,
                           self.target, self.max_steps, minv0=self.minv0,
                           mass_window=self.mass_window, comm=comm,
                           coords=coords)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, comm=None,
+    def kernel_step(self, key, x, tune, logfgrad, adapt, comm=None,
                     graphed=None, coords=WHOLE):
-        return chees_step(gen, x, tune, logfgrad, adapt, comm=comm,
+        return chees_step(key, x, tune, logfgrad, adapt, comm=comm,
                           trajectory=graphed, coords=coords)

@@ -16,14 +16,15 @@ from .base import BlockKernel, SamplerSpec
 
 
 class Gibbs(SamplerSpec):
-    """``Gibbs(params, fn)`` with ``fn(gen, env) -> {param: new_value}``.
+    """``Gibbs(params, fn)`` with ``fn(key, env) -> {param: new_value}``.
 
     ``env`` maps every node name to its current value, mirroring the
     reference's ``model[:node]`` accesses inside sampler closures: inputs
     as they are, stochastic and logical nodes chain-stacked with the chain
     axis first; whole, on a data axis too (``WholeValues``).  ``fn`` draws
-    from the ``torch.Generator`` ``gen`` and returns chain-stacked
-    values."""
+    from the block's per-chain keys ``key (C, 2)`` (``ops/random.py``, as
+    the JAX package's ``fn`` draws from its chain's key) and returns
+    chain-stacked values."""
 
     transform = False
 
@@ -35,11 +36,11 @@ class Gibbs(SamplerSpec):
         pset = set(self.params)
         nodes = torch.func.vmap(cm.eval_logicals)
 
-        def init(gen, state):
+        def init(key, state):
             return ()
 
-        def step(gen, state, tune, adapt):
-            new = self.fn(gen, WholeValues(cm, cm.inputs, nodes(state)))
+        def step(key, state, tune, adapt):
+            new = self.fn(key, WholeValues(cm, cm.inputs, nodes(state)))
             extra = set(new) - pset
             if extra:
                 raise ValueError(

@@ -13,7 +13,8 @@ the reference's ``psum <= 0`` branch (dgs.jl:118-122).  No host sync; on
 a CUDA device the engine replays the sweep from a CUDA graph.
 
 Random draws per step: the Gumbel noise of every element, ``(C, n, K)``
-(``-log(-log(u))`` of uniforms), at the start of the sweep.
+(``-log(-log(u))`` of uniforms), at the start of the sweep, from the
+block's per-chain keys (one split off per node in the engine).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import random as R
 from ..ops.distributions.base import param_like
 from ..utils import graphs
 from .base import BlockKernel, SamplerSpec, candidate_logf, replays, summed
@@ -51,16 +53,17 @@ def dgs_support(dist, shape, dtype=torch.float64, device=None) -> DGSTune:
                    mask=torch.as_tensor(grid <= hi[:, None], device=device))
 
 
-def _gumbel(gen, shape, like):
-    u = torch.rand(shape, generator=gen, dtype=like.dtype, device=like.device)
+def _gumbel(key, shape, like):
+    """Gumbel noise of per-key ``shape`` from the keys ``key``."""
+    u = R.uniform(key, shape, like.dtype)
     return -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
 
 
-def dgs_step(gen, x, tune: DGSTune, logf):
+def dgs_step(key, x, tune: DGSTune, logf):
     """One Gibbs sweep over the elements of ``x (C, n)``: each element is
     drawn from its exact conditional over the enumerated support."""
-    C, n = x.shape
-    noise = _gumbel(gen, (C, n, tune.support.shape[1]), x)
+    n = x.shape[1]
+    noise = _gumbel(key, (n, tune.support.shape[1]), x)
     return _sweep(x, noise, tune, logf), tune
 
 
@@ -102,13 +105,14 @@ class GraphedSweep:
         return self.cap.run().clone()
 
 
-def discrete_step(gen, support, mass):
+def discrete_step(key, support, mass):
     """The stand-alone DiscreteVariate form (reference sample!,
     dgs.jl:129-133): one draw from the masses ``mass (..., K)`` over
     ``support (K,)`` or rows ``(K, d)``, per leading index of ``mass``."""
     mass = torch.as_tensor(mass)
     logits = torch.log(mass)
-    idx = torch.argmax(logits + _gumbel(gen, logits.shape, logits), -1)
+    idx = torch.argmax(logits + _gumbel(key, logits.shape[key.dim() - 1:],
+                                        logits), -1)
     return torch.as_tensor(support, device=mass.device)[idx]
 
 
@@ -139,14 +143,14 @@ class DGS(SamplerSpec):
             kernels.append((tune0, torch.func.vmap(pack), torch.func.vmap(unpack),
                             GraphedSweep(sweep) if graphed else sweep))
 
-        def init(gen, state):
+        def init(key, state):
             return tuple(k[0] for k in kernels)
 
-        def step(gen, state, tunes, adapt):
-            for tune0, vpack, vunpack, sweep in kernels:
+        def step(key, state, tunes, adapt):
+            for (tune0, vpack, vunpack, sweep), k in zip(
+                    kernels, R.split(key, len(kernels))):
                 x = vpack(state)
-                noise = _gumbel(gen, (x.shape[0], x.shape[1],
-                                      tune0.support.shape[1]), x)
+                noise = _gumbel(k, (x.shape[1], tune0.support.shape[1]), x)
                 state = {**state, **vunpack(sweep(x, noise, state), state)}
             return state, tunes
 

@@ -7,7 +7,8 @@ tensors of their own (``utils.graphs.Captured``): the start (momentum,
 gradient, first half step), one leapfrog, run ``L`` times, and the end (the
 last half step undone and the MH test); the engine replays each from a
 CUDA graph, the stand-alone step runs them eagerly.  Random draws per step,
-in order, both before the start: the momentum noise ``(C, dim)`` and one
+draw ``i`` from ``fold_in(key, i)`` of the block's per-chain keys, both
+before the start: the momentum noise ``(C, dim)`` and one
 acceptance uniform per chain.
 
 With unit mass a block may hold some sites as a data rank's slice
@@ -24,6 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import random as R
 from ..parallel.mesh import WHOLE
 from .base import SamplerSpec, captured, mh_select, plain
 
@@ -103,7 +105,7 @@ def trajectory_bodies(logfgrad_of, coords=WHOLE):
             "end": lambda b, s: _end(b, coords)}
 
 
-def hmc_step(gen, x, tune: HMCTune, logfgrad, graphed=None, coords=WHOLE):
+def hmc_step(key, x, tune: HMCTune, logfgrad, graphed=None, coords=WHOLE):
     """Fixed-length leapfrog + MH accept (reference hmc.jl:72-111): momentum
     p = SigmaL z, z ~ N(0, I); kinetic energy 0.5 |SigmaL^-1 p|^2.
     ``graphed``: the captured bodies (``trajectory_bodies``), by default the
@@ -112,8 +114,8 @@ def hmc_step(gen, x, tune: HMCTune, logfgrad, graphed=None, coords=WHOLE):
     f = dict(dtype=x.dtype, device=x.device)
     cap = graphed or plain(functools.partial(trajectory_bodies, coords=coords),
                            logfgrad)
-    z = coords.randn(gen, x)
-    u = torch.rand(x.shape[:1], generator=gen, **f)
+    z = coords.randn(key, x, fold=0)
+    u = R.uniform(key, (), x.dtype, fold=1)
     if not cap.holds("x", x):
         zeros = torch.zeros(x.shape[:1], **f)
         cap.load(p0=x, p=x, x1=x, grad1=x, out=x, logf0=zeros, logf1=zeros)
@@ -147,9 +149,9 @@ class HMC(SamplerSpec):
                          graphed=lambda density: captured(
                              trajectory_bodies, density, grad=True))
 
-    def kernel_init(self, gen, x0, logfgrad, coords=WHOLE):
+    def kernel_init(self, key, x0, logfgrad, coords=WHOLE):
         return hmc_init(x0, self.epsilon, self.L, self.Sigma)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None,
+    def kernel_step(self, key, x, tune, logfgrad, adapt, graphed=None,
                     coords=WHOLE):
-        return hmc_step(gen, x, tune, logfgrad, graphed=graphed, coords=coords)
+        return hmc_step(key, x, tune, logfgrad, graphed=graphed, coords=coords)

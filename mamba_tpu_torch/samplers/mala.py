@@ -3,7 +3,8 @@ src/samplers/mala.jl).
 
 Gradients are exact autodiff of the compiled block density, where the
 reference takes finite differences (simulation.jl:47-51).  Random draws per
-step, in order: the proposal noise ``(C, dim)`` and one acceptance uniform
+step, draw ``i`` from ``fold_in(key, i)`` of the block's per-chain keys: the
+proposal noise ``(C, dim)`` and one acceptance uniform
 per chain, both drawn before the step, which is one body
 (``utils.graphs.Captured``): replayed from a CUDA graph in the engine, run
 eagerly by the stand-alone step.
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops import random as R
 from ..parallel.mesh import WHOLE
 from .base import SamplerSpec, captured, mh_select, plain
 from .hmc import _cholesky, _sqnorm_Linv
@@ -61,17 +63,16 @@ def step_bodies(logfgrad_of, coords=WHOLE):
     return {"body": lambda b, s: _step(b, logfgrad_of(s), coords)}
 
 
-def mala_step(gen, x, tune: MALATune, logfgrad, graphed=None, coords=WHOLE):
+def mala_step(key, x, tune: MALATune, logfgrad, graphed=None, coords=WHOLE):
     """Proposal y = x + (eps/2) Sigma grad + sqrt(eps) SigmaL z with the
     asymmetric-proposal MH correction (reference mala.jl:67-86).
     ``graphed``: the captured step (``step_bodies``), by default the plain
     one; ``coords``: the block's coordinates on a data rank (unit mass)."""
-    f = dict(dtype=x.dtype, device=x.device)
     cap = graphed or plain(functools.partial(step_bodies, coords=coords),
                            logfgrad)
-    z = coords.randn(gen, x)
+    z = coords.randn(key, x, fold=0)
     cap.load(x=x, eps=tune.epsilon, z=z,
-             u=torch.rand(x.shape[:1], generator=gen, **f))
+             u=R.uniform(key, (), x.dtype, fold=1))
     if tune.SigmaL is not None:
         cap.load(SigmaL=tune.SigmaL)
     cap.run()
@@ -98,10 +99,10 @@ class MALA(SamplerSpec):
                          graphed=lambda density: captured(step_bodies, density,
                                                           grad=True))
 
-    def kernel_init(self, gen, x0, logfgrad, coords=WHOLE):
+    def kernel_init(self, key, x0, logfgrad, coords=WHOLE):
         return mala_init(x0, self.epsilon, self.Sigma)
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None,
+    def kernel_step(self, key, x, tune, logfgrad, adapt, graphed=None,
                     coords=WHOLE):
-        return mala_step(gen, x, tune, logfgrad, graphed=graphed,
+        return mala_step(key, x, tune, logfgrad, graphed=graphed,
                          coords=coords)

@@ -14,9 +14,9 @@ iteration 1 before any likelihood-consuming block touches the node.
 Random draws per step: one ``forward_sample`` of each masked site, in the
 order of ``params``.  The step is one body (``utils.graphs.Captured``),
 which the engine replays from a CUDA graph: the draws are made inside it,
-from the run's generator, which the graph registers
-(``Captured.draw_from``), so that a replay draws the numbers the body run
-eagerly draws; the plain loop runs the same body eagerly.  On a mesh's
+from the block's per-chain keys, which the step loads into the buffer
+``key`` (one key split off per site), so that a replay draws the numbers
+the body run eagerly draws; the plain loop runs the same body eagerly.  On a mesh's
 data axis the draw is made at the site's whole shape (``forward_sample``),
 so every data rank takes the unsharded run's stream and keeps its slice;
 there the block takes its plain loop.
@@ -24,11 +24,10 @@ there the block takes its plain loop.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
+from ..ops import random as R
 from .base import BlockKernel, SamplerSpec, drawing, replays
 
 
@@ -59,17 +58,17 @@ class MISS(SamplerSpec):
         masks = {n: torch.as_tensor(cm.local(n, m), device=cm.device)
                  for n, m in missing_masks(cm, self.params).items()}
 
-        cap = drawing(functools.partial(impute_bodies, cm, masks),
+        cap = drawing(impute_bodies(cm, masks),
                       eager=not replays(cm, self.params, draws=True))
 
-        def init(gen, state):
+        def init(key, state):
             return ()
 
-        def step(gen, state, tune, adapt):
+        def step(key, state, tune, adapt):
             if not masks:
                 return state, tune
-            cap.draw_from(gen)
             cap.load_state(state)
+            cap.load(key=key)
             for name in masks:
                 if not cap.holds(name, state[name]):
                     cap.load(**{name: state[name]})
@@ -79,17 +78,18 @@ class MISS(SamplerSpec):
         return BlockKernel(init, step)
 
 
-def _impute(cm, masks, gen, b, state):
+def _impute(cm, masks, b, state):
     """Each masked site redrawn where its mask is set, in order, from its
-    predictive distribution at the state as it stands; written to
-    ``b[site]``."""
+    predictive distribution at the state as it stands, with a key split
+    off ``b["key"]`` per site; written to ``b[site]``."""
     state = dict(state)
-    for name, mask in masks.items():
-        draw = cm.forward_sample(gen, state, names=(name,))[name]
+    for (name, mask), key in zip(masks.items(), R.split(b["key"], len(masks))):
+        draw = cm.forward_sample(key, state, names=(name,))[name]
         state[name] = torch.where(mask, draw, state[name])
         b[name].copy_(state[name])
 
 
-def impute_bodies(cm, masks, gen_of):
-    """MISS's step on the compiled model ``cm``, drawing from ``gen_of()``."""
-    return {"body": lambda b, s: _impute(cm, masks, gen_of(), b, s)}
+def impute_bodies(cm, masks):
+    """MISS's step on the compiled model ``cm``, drawing from the keys in
+    its buffer ``key``."""
+    return {"body": lambda b, s: _impute(cm, masks, b, s)}

@@ -16,11 +16,14 @@ The host synchronizes once per doubling level (to stop when no chain is
 still building), never once per leapfrog step; a level's ``2**j`` leaves
 always all run, which costs only masked-out leapfrogs.
 
-Random draws per transition, in order: the momentum ``(C, dim)``, the slice
-uniform ``(C,)``, then per doubling level the direction ``(C,)``, the
-acceptance uniform ``(C,)`` and the level's leaf uniforms ``(2**j, C)``,
-row ``i`` for leaf ``i``'s proposal choice.  Drawn before the level runs,
-they let the leaf run without the generator: the stand-alone
+Random draws per transition, from the block's per-chain keys ``(C, 2)``
+(``ops/random.py``): the momentum ``(C, dim)`` from ``fold_in(key, 0)``,
+the slice uniform ``(C,)`` from ``fold_in(key, 1)``, then per doubling
+level ``j`` one uniform draw ``(C, 2 + 2**j)`` from ``fold_in(key, 2 +
+j)``: the direction, the acceptance uniform and the level's leaf uniforms,
+leaf ``i``'s proposal choice at column ``2 + i``.  So a chain's numbers do
+not depend on how deep the other chains' trees go.  Drawn before the level
+runs, they let the leaf run without drawing: the stand-alone
 ``nuts_step`` builds a level with the plain loop ``_build_subtree`` (one
 Python pass per leaf, host slot indices), and the engine with
 ``GraphedSubtree``, which replays one captured leaf step ``_leaf`` whose
@@ -30,8 +33,7 @@ a ``lax.while_loop``.  The two give the same draws.
 
 On a mesh's data axis a block may hold some sites as the rank's slice
 (``coords``, a ``parallel.mesh.BlockCoords``, which the engine passes): the
-momentum is drawn at the unsharded flat length and cut to the rank's
-coordinates, and the kinetic energy, the step-size search's and the U-turn
+momentum is drawn at the rank's counters of the unsharded flat vector, and the kinetic energy, the step-size search's and the U-turn
 checks' sums over coordinates are completed over the data group, so every
 rank takes the same tree.  Such a block takes the plain loop.
 
@@ -48,6 +50,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as R
 from ..parallel.mesh import WHOLE
 from ..utils.graphs import Captured
 from .base import SamplerSpec
@@ -107,11 +110,11 @@ def _kinetic(r, minv, coords=WHOLE):
     return 0.5 * coords.sum(r * r if minv is None else r * (minv * r))
 
 
-def nutsepsilon(gen, x, logfgrad, coords=WHOLE):
+def nutsepsilon(key, x, logfgrad, coords=WHOLE):
     """Initial step size per chain by doubling/halving search (reference
     nuts.jl:192-205); ``coords``: the block's coordinates on a data rank
     (module docstring)."""
-    return _epsilon_search(x, coords.randn(gen, x), logfgrad, coords)
+    return _epsilon_search(x, coords.randn(key, x), logfgrad, coords)
 
 
 def _epsilon_search(x, r0, logfgrad, coords=WHOLE):
@@ -138,7 +141,7 @@ def _epsilon_search(x, r0, logfgrad, coords=WHOLE):
     return eps
 
 
-def nuts_init(gen, x0, logfgrad, epsilon=None, target: float = 0.6,
+def nuts_init(key, x0, logfgrad, epsilon=None, target: float = 0.6,
               mass_window: int = 0, minv0=None, coords=WHOLE) -> NUTSTune:
     """Tune init for chains ``x0 (C, dim)`` (reference NUTSTune ctor,
     nuts.jl:22-27; epsilon search when not given, nuts.jl:29-30).
@@ -150,7 +153,7 @@ def nuts_init(gen, x0, logfgrad, epsilon=None, target: float = 0.6,
     C = x0.shape[0]
     f = dict(dtype=x0.dtype, device=x0.device)
     i32 = dict(dtype=torch.int32, device=x0.device)
-    eps = (nutsepsilon(gen, x0, logfgrad, coords) if epsilon is None
+    eps = (nutsepsilon(key, x0, logfgrad, coords) if epsilon is None
            else torch.full((C,), float(epsilon), **f))
     zeros = torch.zeros(C, **f)
     window = mass_window if (mass_window or minv0 is None) else 2**30
@@ -407,7 +410,7 @@ class GraphedSubtree:
         return tuple(cap.bufs[k].clone() for k in _LEAF_OUT)
 
 
-def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
+def nuts_sub(key, x, epsilon, logfgrad, max_depth=10, minv=None,
              subtree=None, coords=WHOLE):
     """One NUTS transition per chain at fixed step sizes ``epsilon (C,)``
     (reference nuts_sub!, nuts.jl:95-126).  With ``minv``, momenta are drawn
@@ -421,10 +424,10 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
     build = subtree or functools.partial(_build_subtree, coords=coords)
     if minv is None:
         minv = torch.ones_like(x)
-    r0 = coords.randn(gen, x) / torch.sqrt(minv)
+    r0 = coords.randn(key, x, fold=0) / torch.sqrt(minv)
     logf0, grad0 = logfgrad(x)
     logp0 = logf0 - _kinetic(r0, minv, coords)
-    logu0 = logp0 + torch.log(torch.rand(C, generator=gen, **f))
+    logu0 = logp0 + torch.log(R.uniform(key, (), x.dtype, fold=1))
 
     x_ck = torch.zeros(C, max_depth, dim, **f)
     r_ck = torch.zeros(C, max_depth, dim, **f)
@@ -439,9 +442,10 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
     for j in range(max_depth):
         if not bool(s.any()):       # the one host sync of a doubling level
             break
-        pm = torch.where(torch.rand(C, generator=gen, **f) > 0.5, 1.0, -1.0).to(x.dtype)
-        u_acc = torch.rand(C, generator=gen, **f)
-        us = torch.rand(2 ** j, C, generator=gen, **f)
+        u = R.uniform(key, (2 + 2 ** j,), x.dtype, fold=2 + j)
+        pm = torch.where(u[:, 0] > 0.5, 1.0, -1.0).to(x.dtype)
+        u_acc = u[:, 1]
+        us = u[:, 2:].T
         left = _col(pm < 0)
         (x_new, r_new, g_new, xprop, nprime, sprime, alpha2, nalpha2
          ) = build(torch.where(left, xm, xp), torch.where(left, rm, rp),
@@ -467,7 +471,7 @@ def nuts_sub(gen, x, epsilon, logfgrad, max_depth=10, minv=None,
     return xcur, alpha, nalpha, depth
 
 
-def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10,
+def nuts_step(key, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10,
               subtree=None, coords=WHOLE):
     """NUTS transition + dual-averaging update for every chain (reference
     sample!, nuts.jl:63-92).  ``adapt`` is the warmup flag; ``subtree``
@@ -486,7 +490,7 @@ def nuts_step(gen, x, tune: NUTSTune, logfgrad, adapt: bool, max_depth=10,
 
     use_mass = tune.window > 0
     minv = torch.where(_col(use_mass), tune.minv, torch.ones_like(tune.minv))
-    x2, alpha, nalpha, depth = nuts_sub(gen, x, eps_used, logfgrad,
+    x2, alpha, nalpha, depth = nuts_sub(key, x, eps_used, logfgrad,
                                         max_depth, minv=minv, subtree=subtree,
                                         coords=coords)
     if not adapt:
@@ -562,8 +566,8 @@ class NUTS(SamplerSpec):
         self.mass_window = int(mass_window)
         self.minv0 = minv0
 
-    def kernel_init(self, gen, x0, logfgrad, coords=WHOLE):
-        return nuts_init(gen, x0, logfgrad, epsilon=self.epsilon,
+    def kernel_init(self, key, x0, logfgrad, coords=WHOLE):
+        return nuts_init(key, x0, logfgrad, epsilon=self.epsilon,
                          target=self.target, mass_window=self.mass_window,
                          minv0=self.minv0, coords=coords)
 
@@ -572,7 +576,7 @@ class NUTS(SamplerSpec):
                          graphed=lambda density: GraphedSubtree(
                              density, self.max_depth))
 
-    def kernel_step(self, gen, x, tune, logfgrad, adapt, graphed=None,
+    def kernel_step(self, key, x, tune, logfgrad, adapt, graphed=None,
                     coords=WHOLE):
-        return nuts_step(gen, x, tune, logfgrad, adapt, self.max_depth,
+        return nuts_step(key, x, tune, logfgrad, adapt, self.max_depth,
                          subtree=graphed, coords=coords)

@@ -1,7 +1,8 @@
 """Random-walk Metropolis, batched over chains (reference
 src/samplers/rwm.jl).
 
-Random draws per step, in order: the proposal noise ``(C, dim)`` (normal,
+Random draws per step, draw ``i`` of them from ``fold_in(key, i)`` of the
+block's per-chain keys: the proposal noise ``(C, dim)`` (normal,
 or uniform on [-1, 1)) and one acceptance uniform per chain, both drawn
 before the step's body (``utils.graphs.Captured``), which the engine
 replays from a CUDA graph and the stand-alone step runs eagerly.
@@ -14,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as R
 from .base import SamplerSpec, captured, mh_select, plain
 
 
@@ -39,19 +41,17 @@ def step_bodies(logf_of, proposal="normal"):
     return {"body": lambda b, s: _step(b, logf_of(s), proposal)}
 
 
-def rwm_step(gen, x, tune: RWMTune, logf, proposal: str = "normal",
+def rwm_step(key, x, tune: RWMTune, logf, proposal: str = "normal",
              graphed=None):
     """One MH step with a symmetric proposal for chains ``x (C, dim)``
     (reference rwm.jl:65-71).  ``proposal``: 'normal' or 'uniform'
     (SymUniform), the reference's SymDistributionType argument.
     ``graphed``: the captured step (``step_bodies``), by default the plain
     one."""
-    f = dict(dtype=x.dtype, device=x.device)
     cap = graphed or plain(functools.partial(step_bodies, proposal=proposal), logf)
-    noise = (torch.rand(x.shape, generator=gen, **f) if proposal == "uniform"
-             else torch.randn(x.shape, generator=gen, **f))
-    cap.load(x=x, scale=tune.scale, noise=noise,
-             u=torch.rand(x.shape[:1], generator=gen, **f))
+    draw = R.uniform if proposal == "uniform" else R.normal
+    cap.load(x=x, scale=tune.scale, noise=draw(key, x.shape[1:], x.dtype, fold=0),
+             u=R.uniform(key, (), x.dtype, fold=1))
     cap.run()
     return cap.bufs["x"].clone(), tune
 
@@ -74,9 +74,9 @@ class RWM(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(bodies, density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return rwm_init(x0, self.scale)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
-        return rwm_step(gen, x, tune, logf, proposal=self.proposal,
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
+        return rwm_step(key, x, tune, logf, proposal=self.proposal,
                         graphed=graphed)

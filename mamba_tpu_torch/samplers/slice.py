@@ -19,13 +19,17 @@ of trips after it.  In the engine they are replayed from CUDA graphs, the
 coordinate index living on the device so that one graph serves every
 coordinate; the stand-alone steps run the same bodies eagerly.
 
-Random draws per step, in order (all uniform, from ``gen``): univariate —
-the bracket offsets ``(C, dim)``, then every coordinate's first batch
-``(dim, TRIPS + 2, C)`` (row 0 the slice level, row 1 the first candidate,
-then one row per trip), then for each coordinate in turn one ``(TRIPS, C)``
-per further batch; multivariate — the slice level ``(C,)``, the first batch
-``(TRIPS + 2, C, dim)`` (the bracket offsets, the first candidate, one row
-per trip), then one ``(TRIPS, C, dim)`` per further batch.
+Random draws per step, all uniform, from the block's per-chain keys
+``(C, 2)`` folded with a number that names the draw: univariate — the
+bracket offsets ``(C, dim)`` (fold 0), then every coordinate's first batch
+``(dim, TRIPS + 2, C)`` (fold 1; row 0 the slice level, row 1 the first
+candidate, then one row per trip), then coordinate ``i``'s further batch
+``j`` ``(TRIPS, C)`` (fold ``2 + i * _batches() + j``); multivariate — the
+slice level ``(C,)`` (fold 0), the first batch ``(TRIPS + 2, C, dim)``
+(fold 1; the bracket offsets, the first candidate, one row per trip), then
+further batch ``j`` ``(TRIPS, C, dim)`` (fold ``1 + j``).  Each chain's
+numbers come from its own key (``ops/random.py``), whatever batches the
+other chains need.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as R
 from ..utils import graphs
 from .base import SamplerSpec, captured, plain
 
@@ -65,10 +70,6 @@ def slice_init(x0, width) -> SliceTune:
     per coordinate."""
     return SliceTune(width=torch.as_tensor(width, dtype=x0.dtype, device=x0.device)
                      .expand(x0.shape[1:]).clone())
-
-
-def _rand(gen, shape, like):
-    return torch.rand(shape, generator=gen, dtype=like.dtype, device=like.device)
 
 
 def _batches():
@@ -164,15 +165,15 @@ def univariate_bodies(logf_of):
             "more": lambda b, s: _uni_batch(b, logf_of(s), b["ut"])}
 
 
-def slice_univariate_step(gen, x, tune: SliceTune, logf, graphed=None):
+def slice_univariate_step(key, x, tune: SliceTune, logf, graphed=None):
     """Coordinate-wise shrinkage sweep for chains ``x (C, dim)`` (reference
     slice.jl:66-92); ``logf(x) -> (C,)``.  ``graphed``: the captured
     bodies (``univariate_bodies``) to run, by default the plain loop."""
     cap = graphed or plain(univariate_bodies, logf)
     C, n = x.shape
     f = dict(dtype=x.dtype, device=x.device)
-    offsets = _rand(gen, x.shape, x)
-    u = _rand(gen, (n, TRIPS + 2, C), x)
+    offsets = R.uniform(key, (n,), x.dtype, fold=0)
+    u = R.uniform(key, (n, TRIPS + 2), x.dtype, fold=1).permute(1, 2, 0)
     if not cap.holds("x", x):
         zeros = torch.zeros(C, **f)
         flags = torch.zeros(C, dtype=torch.bool, device=x.device)
@@ -186,10 +187,11 @@ def slice_univariate_step(gen, x, tune: SliceTune, logf, graphed=None):
                  ut=torch.zeros(TRIPS, C, **f))
     cap.load(x=x, width=tune.width, offsets=offsets, u=u)
 
-    def draw():
-        cap.bufs["ut"].copy_(_rand(gen, (TRIPS, C), x))
-
     for i in range(n):
+        def draw(j, i=i):
+            cap.bufs["ut"].copy_(R.uniform(key, (TRIPS,), x.dtype,
+                                           fold=2 + i * _batches() + j).T)
+
         graphs.until_done(cap, "start" if i == 0 else "next", "more",
                           _batches(), draw)
     return cap.bufs["x"].clone(), None
@@ -252,15 +254,15 @@ def multivariate_bodies(logf_of):
             "more": lambda b, s: _multi_batch(b, logf_of(s), b["ut"])}
 
 
-def slice_multivariate_step(gen, x, tune: SliceTune, logf, graphed=None):
+def slice_multivariate_step(key, x, tune: SliceTune, logf, graphed=None):
     """Joint shrinkage step for chains ``x (C, dim)`` (reference
     slice.jl:95-117).  ``graphed``: the captured bodies
     (``multivariate_bodies``) to run, by default the plain loop."""
     cap = graphed or plain(multivariate_bodies, logf)
     C = x.shape[0]
     f = dict(dtype=x.dtype, device=x.device)
-    level = _rand(gen, (C,), x)
-    u = _rand(gen, (TRIPS + 2,) + x.shape, x)
+    level = R.uniform(key, (), x.dtype, fold=0)
+    u = R.uniform(key, (TRIPS + 2,) + x.shape[1:], x.dtype, fold=1).transpose(0, 1)
     if not cap.holds("x", x):
         zeros = torch.zeros(C, **f)
         cap.load(lo=x, hi=x, y=x, p0=zeros, lf=zeros,
@@ -270,8 +272,9 @@ def slice_multivariate_step(gen, x, tune: SliceTune, logf, graphed=None):
                  ut=torch.zeros((TRIPS,) + x.shape, **f))
     cap.load(x=x, width=tune.width, level=level, u=u)
 
-    def draw():
-        cap.bufs["ut"].copy_(_rand(gen, (TRIPS,) + x.shape, x))
+    def draw(j):
+        cap.bufs["ut"].copy_(R.uniform(key, (TRIPS,) + x.shape[1:], x.dtype,
+                                       fold=1 + j).transpose(0, 1))
 
     graphs.until_done(cap, "start", "more", _batches(), draw)
     return cap.bufs["y"].clone(), None
@@ -299,10 +302,10 @@ class Slice(SamplerSpec):
         return self.bind(cm, self.kernel_init, self.kernel_step,
                          graphed=lambda density: captured(self._bodies(), density))
 
-    def kernel_init(self, gen, x0, logf):
+    def kernel_init(self, key, x0, logf):
         return slice_init(x0, self.width)
 
-    def kernel_step(self, gen, x, tune, logf, adapt, graphed=None):
+    def kernel_step(self, key, x, tune, logf, adapt, graphed=None):
         step = (slice_univariate_step if self.form == "univariate"
                 else slice_multivariate_step)
-        return step(gen, x, tune, logf, graphed=graphed)[0], tune
+        return step(key, x, tune, logf, graphed=graphed)[0], tune

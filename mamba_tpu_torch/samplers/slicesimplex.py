@@ -24,10 +24,12 @@ from uniforms.  The accepted point is divided by its sum, which is 1 to a
 few units of rounding: in float32 the rounding of ``V @ xb`` would
 otherwise drift off the simplex over many iterations.
 
-Random draws per step of a node of R rows, in order (all uniform): the
-slice levels ``(R, C)``, every row's first batch ``(R, TRIPS + 2, C, K)``
-(the first simplex's Dirichlet weights, the first point's, one point per
-trip), then for each row in turn one ``(TRIPS, C, K)`` per further batch.
+Random draws per step of a node of R rows, all uniform, from the block's
+per-chain keys (one split off per node) folded with a number that names
+the draw: the slice levels ``(R, C)`` (fold 0), every row's first batch
+``(R, TRIPS + 2, C, K)`` (fold 1; the first simplex's Dirichlet weights,
+the first point's, one point per trip), then row ``r``'s further batch
+``j`` ``(TRIPS, C, K)`` (fold ``2 + r * batches + j``).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import random as rnd
 from ..utils import graphs
 from .base import (BlockKernel, SamplerSpec, candidate_logf, plain, replays,
                    summed, validatesimplex)
@@ -172,13 +175,13 @@ def simplex_bodies(logf_of, max_iter: int = MAX_ITER):
                                         max_iter)}
 
 
-def _rows_step(gen, x, scale, cap, max_iter):
+def _rows_step(key, x, scale, cap, max_iter):
     """One slice-simplex transition of every row of ``x (C, R, K)``, one
     row after another, with the bodies ``cap``; returns the new rows."""
     C, R, K = x.shape
     f = dict(dtype=x.dtype, device=x.device)
-    level = torch.rand((R, C), generator=gen, **f)
-    u = torch.rand((R, TRIPS + 2, C, K), generator=gen, **f)
+    level = rnd.uniform(key, (R,), x.dtype, fold=0).T
+    u = rnd.uniform(key, (R, TRIPS + 2, K), x.dtype, fold=1).permute(1, 2, 0, 3)
     if not cap.holds("x", x):
         zeros = torch.zeros(C, **f)
         rows = torch.zeros((C, K), **f)
@@ -194,21 +197,23 @@ def _rows_step(gen, x, scale, cap, max_iter):
     cap.load(x=x, scale=scale, level=level, u=u)
     cap.bufs["row"].fill_(-1)
 
-    def draw():
-        cap.bufs["ut"].copy_(torch.rand((TRIPS, C, K), generator=gen, **f))
+    batches = math.ceil(max_iter / TRIPS)
+    for r in range(R):
+        def draw(j, r=r):
+            cap.bufs["ut"].copy_(rnd.uniform(
+                key, (TRIPS, K), x.dtype, fold=2 + r * batches + j).transpose(0, 1))
 
-    for _ in range(R):
-        graphs.until_done(cap, "row", "more", math.ceil(max_iter / TRIPS), draw)
+        graphs.until_done(cap, "row", "more", batches, draw)
     return cap.bufs["x"].clone()
 
 
-def slicesimplex_step(gen, x, tune: SliceSimplexTune, logf,
+def slicesimplex_step(key, x, tune: SliceSimplexTune, logf,
                       max_iter: int = MAX_ITER):
     """One slice-simplex transition of chains on the simplex ``x (C, K)``
     (reference sample!, slicesimplex.jl:86-103).  A chain still rejecting
     after ``max_iter`` trips keeps its value."""
     cap = plain(functools.partial(simplex_bodies, max_iter=max_iter), logf)
-    return _rows_step(gen, x[:, None], tune.scale, cap, max_iter)[:, 0], tune
+    return _rows_step(key, x[:, None], tune.scale, cap, max_iter)[:, 0], tune
 
 
 class SliceSimplex(SamplerSpec):
@@ -240,16 +245,17 @@ class SliceSimplex(SamplerSpec):
                              graphs.Captured(bodies,
                                              eager=not replays(cm, (name,)))))
 
-        def init(gen, state):
+        def init(key, state):
             return SliceSimplexTune(scale=torch.tensor(self.scale, dtype=cm.dtype,
                                                        device=cm.device))
 
-        def step(gen, state, tune, adapt):
-            for K, vpack, vunpack, cap in per_site:
+        def step(key, state, tune, adapt):
+            for (K, vpack, vunpack, cap), k in zip(
+                    per_site, rnd.split(key, len(per_site))):
                 flat = vpack(state)
                 C = flat.shape[0]
                 cap.load_state(state)
-                x = _rows_step(gen, flat.reshape(C, -1, K), tune.scale, cap,
+                x = _rows_step(k, flat.reshape(C, -1, K), tune.scale, cap,
                                MAX_ITER)
                 state = {**state, **vunpack(x.reshape(C, -1), state)}
             return state, tune

@@ -111,9 +111,9 @@ def main(argv=None) -> int:
     model_g, inputs_g, inits_g, _ = glmm.build(10_000, fused=False)
     fit = advi(model_g, inputs_g, inits_g[0], steps=1000, nmc=4, seed=1,
                device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(5)
-    draws = {k: v.cpu().numpy() for k, v in fit.sample(gen, CHAINS).items()}
+    from ..ops import random as R
+    draws = {k: v.cpu().numpy()
+             for k, v in fit.sample(R.key(5, "cuda"), CHAINS).items()}
     warm = [dict(inits[0], **{k: draws[k][i] for k in ("beta", "z", "s2")})
             for i in range(CHAINS)]
     model.set_samplers([ChEESHMC(model.samplers[0].params, max_steps=256,

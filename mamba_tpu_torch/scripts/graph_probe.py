@@ -7,7 +7,7 @@ loop, for the rats NUTS headline at 1024 chains.
 Run from the root of a checkout on a machine with a CUDA device; without
 one it exits with status 2 and samples nothing.  It runs ``rats.build("nuts")`` for ``WARM`` iterations, then
 times ``ITERS`` iterations from the run's end (its state, tunes and
-generator state) two ways, in the turns plain, graphed, graphed, plain:
+chain keys) two ways, in the turns plain, graphed, graphed, plain:
 the plain loop (``utils.graphs.disabled()``) and the engine's captured
 leaf.  Each way builds its kernels, runs one iteration (so that the
 capture is outside the window), and times the window from the same start,
@@ -45,12 +45,11 @@ def _window(torch, sim, graphed, depths):
     cm, st = sim.compiled, sim.states
     with contextlib.nullcontext() if graphed else graphs.disabled():
         kernels = _build_kernels(cm)
-    gen = torch.Generator(device=cm.device)
     stats0 = dict(graphs.STATS)
 
     def run(n):
-        gen.set_state(st["rng"])
-        return _run(cm, kernels, gen, st["state"], st["tunes"], 0, n, 1, None)
+        return _run(cm, kernels, st["key"], st["state"], st["tunes"], 0, n, 1,
+                    None)
 
     run(1)                          # captures, outside the window
     del depths[:]

@@ -9,7 +9,7 @@ both at 1024 chains, it times on the card, through
   chains, the inner loop of every leapfrog;
 - ``logf``: the block density alone (what Slice and MH kernels call);
 - ``gibbs``: one Gibbs iteration of every block (adaptation off), replayed
-  from one generator state so that every timed call does the same work.
+  from the same chain keys so that every timed call does the same work.
 
 PyTorch has no cost analysis, so the work is counted while one call runs:
 a dispatch mode adds, for every aten op, one operation per output element
@@ -91,24 +91,21 @@ def profile_model(model, inputs, inits, chains, device, kernel_work=None,
     """grad, logf and gibbs of ``model``'s first (gradient) block."""
     from ..model.compile import compile_model
     from ..model.mcmc import _chain_inits
+    from ..ops import random as R
     from ..utils.roofline import roofline
     cm = compile_model(model, inputs, inits, device=device)
     kernels = [s.build(cm) for s in model.samplers]
     state = _chain_inits(cm, inits, chains)
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(0)
-    tunes = tuple(k.init(gen, state) for k in kernels)
+    keys = R.chain_keys(0, range(chains), cm.device)
+    tunes = tuple(k.init(keys, state) for k in kernels)
     params = tuple(model.samplers[0].params)
     pack, _, _, logf = cm.block_functions(params, True)
     x = torch.func.vmap(pack)(state)
     grad = torch.func.vmap(torch.func.grad_and_value(logf))
     vlogf = torch.func.vmap(logf)
-    g0 = gen.get_state()
-
     def gibbs(state, tunes):
-        gen.set_state(g0)             # the same draws, the same work
-        for k, tune in zip(kernels, tunes):
-            state, _ = k.step(gen, state, tune, False)
+        for k, tune in zip(kernels, tunes):   # the same keys, the same work
+            state, _ = k.step(keys, state, tune, False)
         return state
 
     out = {"chains": chains, "block_dim": int(x.shape[-1])}

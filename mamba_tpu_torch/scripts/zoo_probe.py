@@ -81,13 +81,12 @@ def _device_ms(torch, sim, iters, plain=False, trips=False):
     cm, st = sim.compiled, sim.states
     with graphs.disabled() if plain else contextlib.nullcontext():
         kernels = _build_kernels(cm)
-    gen = torch.Generator(device=cm.device)
-    gen.set_state(st["rng"])
-    state, tunes = st["state"], st["tunes"]
+    keys, state, tunes = st["key"], st["state"], st["tunes"]
 
     def window(n):
-        nonlocal state, tunes
-        state, tunes, *_ = _run(cm, kernels, gen, state, tunes, 0, n, 1, None)
+        nonlocal keys, state, tunes
+        keys, state, tunes, *_ = _run(cm, kernels, keys, state, tunes, 0, n, 1,
+                                      None)
 
     # builds what the kernels build at first use, and captures the bodies a
     # loop of trips needs only now and then (a second batch)
@@ -169,15 +168,15 @@ def _block_ms(torch, sim, iters):
     from ..model.mcmc import _build_kernels, _sync
     cm, st = sim.compiled, sim.states
     kernels = _build_kernels(cm)
-    gen = torch.Generator(device=cm.device)
-    gen.set_state(st["rng"])
-    state, tunes = st["state"], list(st["tunes"])
+    from ..ops import random as R
+    keys, state, tunes = st["key"], st["state"], list(st["tunes"])
     ms = [0.0] * len(kernels)
     for it in range(WARM + iters):
         for j, k in enumerate(kernels):
+            keys, sub = R.split(keys)
             _sync(cm.device)
             t0 = time.perf_counter()
-            state, tunes[j] = k.step(gen, state, tunes[j], False)
+            state, tunes[j] = k.step(sub, state, tunes[j], False)
             _sync(cm.device)
             if it >= WARM:
                 ms[j] += 1e3 * (time.perf_counter() - t0) / iters

@@ -232,25 +232,30 @@ def block_tune(spec, tune, device, dtype: torch.dtype):
 
 def model_chains(value, model, inputs: dict, state: dict, tunes=None, *,
                  start: int = 1, thin: int = 1, names=None, chains=None,
-                 iter=None, burnin: int = 0, seed: int = 0, device,
-                 dtype=None):
+                 iter=None, burnin: int = 0, seed: int = 0, key=None,
+                 device, dtype=None):
     """Another implementation's run of ``model`` — its kept draws ``value``
     ``(iterations, params, chains)``, its final chain-stacked ``state``
     ``{site: (chains, ...)}`` and, optionally, its blocks' ``tunes`` (one
     per sampler block, numpy fields, as the block converters take them) —
     as this package's ``ModelChains`` on ``device``, to compute model-based
     statistics over the same draws or to continue the run.  Without
-    ``tunes`` each block's tune is its ``init`` at ``state``; the random
-    generator is seeded with ``seed``."""
+    ``tunes`` each block's tune is its ``init`` at ``state``.  ``key`` is
+    the run's per-chain key data ``(chains, 2)`` uint32 (the JAX package's
+    ``jax.random.key_data(states["key"])``), which a restart goes on from;
+    without it chain ``i`` takes ``fold_in(key(seed), i)``."""
     from ..model.compile import compile_model
     from ..output.chains import ModelChains
     cm = compile_model(model, inputs, {k: np.asarray(v)[0] for k, v in state.items()},
                        device=device, dtype=dtype)
     st = {k: cm.tensor(np.asarray(v)) for k, v in state.items()}
-    gen = torch.Generator(device=cm.device)
-    gen.manual_seed(seed)
+    from ..ops import random as R
+    chains_n = list(st.values())[0].shape[0]   # (``iter`` is an argument)
+    keys = (R.chain_keys(seed, range(chains_n), cm.device) if key is None
+            else torch.as_tensor(np.asarray(key, dtype=np.int64),
+                                 device=cm.device))
     if tunes is None:
-        tunes = tuple(s.build(cm).init(gen, st) for s in model.samplers)
+        tunes = tuple(s.build(cm).init(keys, st) for s in model.samplers)
     else:
         tunes = tuple(block_tune(s, t, cm.device, cm.dtype)
                       for s, t in zip(model.samplers, tunes, strict=True))
@@ -258,6 +263,6 @@ def model_chains(value, model, inputs: dict, state: dict, tunes=None, *,
     return ModelChains(
         value, start=start, thin=thin, names=names, chains=chains,
         model=model, compiled=cm,
-        states={"rng": gen.get_state(), "state": st, "tunes": tunes,
+        states={"key": keys, "state": st, "tunes": tunes,
                 "burnin": burnin},
         iter=iter)

@@ -40,15 +40,13 @@ with ``eager=True`` runs its bodies eagerly on every device: the samplers'
 plain loops run the same bodies that way, so the two give the same
 numbers.
 
-A body may draw from the run's generator (MISS's imputations, ABC's
-simulations: a distribution's ``sample`` draws inside it): ``draw_from``
-names the generator, the warm-ups put its state back as they put the
-tensors back, and the capture registers it with the graph
-(``torch.cuda.CUDAGraph.register_generator_state``), so that each replay
-reads the generator's Philox offset on the device and advances it by the
-graph's draws, as the body run eagerly would: the same numbers, and the
-same generator state after.  The other samplers make every draw before
-their replay.
+A body may draw inside it (MISS's imputations, ABC's simulations: a
+distribution's ``sample`` draws there): from per-chain keys held in its
+buffers (``ops/random.py``; each draw is a launch of the threefry kernel,
+which the graph captures), folded with a round counter that the body
+advances in place, so that a replay draws the next numbers, as the body
+run eagerly would.  The warm-ups put the counter back with the other
+tensors.  The other samplers make every draw before their replay.
 
 A kernel wrapper counts its launches with ``count_launch``: a launch made
 while a graph is being captured goes to that graph's tally, and every
@@ -160,8 +158,6 @@ class Captured:
         self._loaded: dict[str, torch.Tensor] = {}
         self.graphs: dict = {}              # name -> (graph, out, tally)
         self.replays = 0
-        #: the generator the bodies draw from (``draw_from``), or None
-        self.gen = None
 
     def _put(self, store: dict, name: str, value: torch.Tensor) -> None:
         held = store.get(name)
@@ -176,13 +172,6 @@ class Captured:
         use or when the layout changes)."""
         for name, value in values.items():
             self._put(self.bufs, name, value)
-
-    def draw_from(self, gen) -> None:
-        """The bodies draw from ``gen``: a graph captured for another
-        generator is dropped (it advances that one's state)."""
-        if gen is not self.gen:
-            self.graphs.clear()
-            self.gen = gen
 
     def holds(self, name: str, like: torch.Tensor) -> bool:
         """Whether the buffer ``name`` exists with ``like``'s shape, dtype
@@ -228,19 +217,16 @@ class Captured:
 
     def warm_up(self, body) -> None:
         """Run ``body`` twice, each time from the tensors as they stand (as
-        its replay will: a body that advances an index on the device must
-        not run past its range), then put the tensors back, and the state
-        of the generator the bodies draw from."""
+        its replay will: a body that advances an index or a round counter
+        on the device must not run past its range), then put the tensors
+        back."""
         saved = {k: v.clone() for k, v in self.bufs.items()}
-        rng = None if self.gen is None else self.gen.get_state()
         for _ in range(2):
             for k, v in saved.items():
                 self.bufs[k].copy_(v)
             body(self.bufs, self.state)
         for k, v in saved.items():
             self.bufs[k].copy_(v)
-        if rng is not None:
-            self.gen.set_state(rng)
 
     def _capture(self, name: str) -> None:
         t0 = time.perf_counter()
@@ -253,15 +239,6 @@ class Captured:
             self.warm_up(body)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        if self.gen is not None:
-            register = getattr(graph, "register_generator_state", None)
-            if register is None:
-                raise RuntimeError(
-                    f"torch {torch.__version__} cannot capture draws from a "
-                    f"generator of its own in a CUDA graph (no "
-                    f"CUDAGraph.register_generator_state); run under "
-                    f"mamba_tpu_torch.utils.graphs.disabled()")
-            register(self.gen)
         tally: dict = {}
         with _collector_paused():
             _CAPTURING.append(tally)
@@ -287,8 +264,9 @@ class Captured:
 def until_done(cap: Captured, first: str, more: str, limit: int,
                draw=None) -> int:
     """Run ``cap``'s body ``first`` once, then, while the device flag
-    ``cap.bufs["more"]`` is set, ``draw()`` (which loads the next batch's
-    random numbers) and the body ``more``, at most ``limit`` bodies in all.
+    ``cap.bufs["more"]`` is set, ``draw(j)`` (which loads the random
+    numbers of batch ``j``, 1 for the first ``more``) and the body ``more``,
+    at most ``limit`` bodies in all.
     Each read of the flag is one host test.  Returns the bodies run."""
     cap.run(1, first)
     runs = 1
@@ -297,7 +275,7 @@ def until_done(cap: Captured, first: str, more: str, limit: int,
         if not bool(cap.bufs["more"]):
             break
         if draw is not None:
-            draw()
+            draw(runs)
         cap.run(1, more)
         runs += 1
     return runs

@@ -16,6 +16,7 @@ import torch
 
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.models import line as tline
 from mamba_tpu_torch.utils import convert
 
@@ -59,7 +60,7 @@ def test_advi_matches_given_the_same_noise(monkeypatch):
         np.testing.assert_allclose(v, jres.mean_state()[k], rtol=RTOL)
 
 
-def test_jax_fit_carried_into_the_port_samples_the_same(monkeypatch):
+def test_jax_fit_carried_into_the_port_samples_the_same():
     jmodel, jinputs, jinits = jmt.models.line.build()
     jres = jadvi.advi(jmodel, jinputs, jinits[0], steps=300, nmc=4, lr=0.05)
     model, inputs, inits = tline.build()
@@ -69,11 +70,9 @@ def test_jax_fit_carried_into_the_port_samples_the_same(monkeypatch):
         np.testing.assert_allclose(v, jres.mean_state()[k], rtol=1e-12)
     for k, v in res.unconstrained_variances().items():
         np.testing.assert_allclose(v, jres.unconstrained_variances()[k], rtol=1e-12)
-    key = jax.random.key(9)
-    jdraws = jres.sample(key, 50)
-    z = np.asarray(jax.random.normal(key, (50, 3), jnp.float64))
-    monkeypatch.setattr(torch, "randn", lambda *a, **k: torch.tensor(z))
-    draws = res.sample(torch.Generator(), 50)
+    # the same key: the port's normals are the JAX package's (to 1e-12)
+    jdraws = jres.sample(jax.random.key(9), 50)
+    draws = res.sample(R.key(9), 50)
     assert set(draws) == set(jdraws) == {"beta", "s2"}
     for k in draws:
         np.testing.assert_allclose(draws[k].numpy(), np.asarray(jdraws[k]), rtol=1e-12)
@@ -90,16 +89,18 @@ def conjugate_model():
 
 
 def test_advi_conjugate():
-    # the last Adam iterate is noisy: its sd misses the exact one by up to
-    # ~0.04 over seeds in both packages (seeds 0-5, CPU)
+    # the last Adam iterate is noisy: with 8 draws a step its mean misses
+    # the exact one by up to 0.116 over seeds 0-5 in both packages (the port
+    # draws the JAX package's noise: seed 1 is that miss), its sd by ~0.04;
+    # with 32 draws a step by up to 0.028 and 0.034
     model, y, m_exact, sd_exact = conjugate_model()
-    a = tmt.advi(model, {}, {"y": y, "mu": 0.0}, steps=3000, lr=0.05, seed=1,
-                 device="cpu")
+    a = tmt.advi(model, {}, {"y": y, "mu": 0.0}, steps=3000, nmc=32, lr=0.05,
+                 seed=1, device="cpu")
     assert a.params == ("mu",)
     assert abs(float(a.mu[0]) - m_exact) < 0.05
     assert abs(float(torch.exp(a.log_sigma[0])) - sd_exact) < 0.06
     assert a.elbo_trace[-50:].mean() > a.elbo_trace[:50].mean()
-    draws = a.sample(torch.Generator().manual_seed(0), 4000)
+    draws = a.sample(R.key(0), 4000)
     assert draws["mu"].shape == (4000,)
     assert abs(draws["mu"].numpy().mean() - m_exact) < 0.05
 

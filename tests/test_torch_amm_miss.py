@@ -9,7 +9,7 @@ rtol 1e-9 in float64, step after step, across the switch to the adaptive
 mixture (the same arithmetic, but the Cholesky factors of the empirical
 covariance come from two libraries, and their last bits feed the next
 proposals).  MISS, ``forward_sample`` and the imputation of NaN inits draw from
-the run's generator, so they are held to their contracts: observed entries
+the chains' own keys, so they are held to their contracts: observed entries
 bit-identical, exactly the masked ones redrawn inside their support, missing
 lead dims drawn iid, one imputation per chain."""
 
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu.samplers import amm as jamm
 from mamba_tpu_torch.model.mcmc import _chain_inits
 from mamba_tpu_torch.models import glmm as tglmm
@@ -56,19 +57,20 @@ def _jax_draws(key):
 
 
 def _feed(monkeypatch, randn, rand):
-    """``torch.randn`` / ``torch.rand`` hand out the given arrays in order,
-    each checked against the shape asked for."""
+    """``ops.random.normal`` / ``uniform`` hand out the given arrays in
+    order, each checked against the shape asked for (chain first)."""
     queues = {"randn": list(randn), "rand": list(rand)}
 
     def feeder(kind):
-        def draw(size, generator=None, dtype=None, device=None):
+        def draw(key, shape=(), dtype=torch.float64, *a, index=None, **k):
+            full = tuple(key.shape[:-1]) + R._out_shape(shape, index)
             v = queues[kind].pop(0)
-            assert v.shape == tuple(size), (kind, v.shape, tuple(size))
+            assert v.shape == full, (kind, v.shape, full)
             return torch.as_tensor(v, dtype=dtype)
         return draw
 
-    monkeypatch.setattr(torch, "randn", feeder("randn"))
-    monkeypatch.setattr(torch, "rand", feeder("rand"))
+    monkeypatch.setattr(R, "normal", feeder("randn"))
+    monkeypatch.setattr(R, "uniform", feeder("rand"))
     return queues
 
 
@@ -118,7 +120,7 @@ def test_amm_steps_match_given_the_same_draws(monkeypatch, adapt):
             q = _feed(m, [np.stack([d[0] for d in draws]),
                           np.stack([d[1] for d in draws])],
                       [np.stack([d[2] for d in draws])])
-            tx, tt = tamm.amm_step(None, tx, tt, t_logf, adapt)
+            tx, tt = tamm.amm_step(R.chain_keys(0, range(C)), tx, tt, t_logf, adapt)
             assert not q["randn"] and not q["rand"]
         np.testing.assert_allclose(tx.numpy(), np.stack(jx), rtol=RTOL,
                                    err_msg=f"x at step {step}")
@@ -228,7 +230,7 @@ def test_nan_inits_are_imputed_per_chain():
 def test_miss_redraws_exactly_the_masked_entries():
     cm, state = _mice()
     kernel = tmt.MISS("t").build(cm)
-    gen = torch.Generator().manual_seed(1)
+    gen = R.chain_keys(1, range(state["t"].shape[0]))
     tune = kernel.init(gen, state)
     new, _ = kernel.step(gen, state, tune, True)
     mask = torch.as_tensor(np.isnan(tmice.T))
@@ -267,7 +269,7 @@ def test_forward_sample_draws_missing_lead_dims_iid():
     cm, inits = _toy()
     chains = 4
     state = _chain_inits(cm, inits, chains)
-    gen = torch.Generator().manual_seed(0)
+    gen = R.chain_keys(0, range(chains))
     out = cm.forward_sample(gen, state)
     assert {k: tuple(v.shape) for k, v in out.items()} == {
         "s": (chains,), "a": (chains, 7), "b": (chains, 3, 7),
@@ -283,6 +285,13 @@ def test_forward_sample_draws_missing_lead_dims_iid():
     # ancestral order: a is drawn at the new s
     assert (out["a"].abs().amax(dim=1) < 6 * out["s"]).all()
     assert cm.example_dists["p"].in_support(out["p"]).all()
+    # each chain's draws are its own key's, the Mixed node's unstacked
+    # elements too: the run of that chain alone
+    for c in range(chains):
+        one = cm.forward_sample(gen[c:c + 1],
+                                {k: v[c:c + 1] for k, v in state.items()})
+        for k, v in out.items():
+            assert torch.equal(v[c], one[k][0]), (k, c)
     # names restrict what is redrawn
     only = cm.forward_sample(gen, state, names=("a",))
     assert only["s"] is state["s"] and not torch.equal(only["a"], state["a"])
@@ -292,7 +301,7 @@ def test_forward_sample_follows_the_model_in_distribution():
     from scipy import stats
     cm, inits = _toy()
     state = _chain_inits(cm, inits, 4000)
-    out = cm.forward_sample(torch.Generator().manual_seed(2), state)
+    out = cm.forward_sample(R.chain_keys(2, range(4000)), state)
     assert stats.kstest(out["s"].numpy(), stats.gamma(2.0).cdf).pvalue > 1e-3
     z = (out["a"] / out["s"][:, None]).numpy().ravel()
     assert stats.kstest(z, stats.norm.cdf).pvalue > 1e-3

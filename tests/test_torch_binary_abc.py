@@ -11,7 +11,6 @@ coordinates as the ``argsort`` of uniforms, so a recorded permutation
 in distribution to a 3-bit target with known marginals, and ABC to a
 conjugate normal posterior."""
 
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_feed import fed
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu.samplers import binary as jbin
 from mamba_tpu_torch.samplers import binary as tbin
 from mamba_tpu_torch.samplers.base import candidate_logf
@@ -30,6 +31,8 @@ torch.set_num_threads(2)
 
 RTOL = 1e-12
 C = 4
+#: the port's per-chain keys where a test feeds the draws
+KEYS = R.chain_keys(0, range(C))
 P1 = np.array([0.8, 0.5, 0.2])
 
 
@@ -44,29 +47,6 @@ def t_logf(x):
 
 def _t(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.float64)
-
-
-@contextlib.contextmanager
-def fed(monkeypatch, rand=(), randn=()):
-    """The port's ``torch.rand`` / ``torch.randn`` return the given arrays
-    in order, each checked against the shape asked for."""
-    queues = {"rand": list(rand), "randn": list(randn)}
-
-    def feeder(kind):
-        def draw(*size, generator=None, dtype=None, device=None):
-            shape = tuple(size[0]) if len(size) == 1 and not isinstance(
-                size[0], int) else tuple(size)
-            assert queues[kind], f"unexpected torch.{kind}{shape}"
-            v = np.asarray(queues[kind].pop(0), dtype=np.float64)
-            assert v.shape == shape, (kind, v.shape, shape)
-            return torch.as_tensor(v, dtype=dtype or torch.float64)
-        return draw
-
-    with monkeypatch.context() as m:
-        m.setattr(torch, "rand", feeder("rand"))
-        m.setattr(torch, "randn", feeder("randn"))
-        yield
-    assert not queues["rand"] and not queues["randn"], "draws left unused"
 
 
 def _recorded(monkeypatch, fn):
@@ -124,7 +104,7 @@ def test_bhmc_step_matches_given_the_same_draws(monkeypatch):
     tt = convert.bhmc_tune(stacked, "cpu", torch.float64)
     with fed(monkeypatch, randn=[np.stack([n[0] for n in normals]),
                                  np.stack([n[1] for n in normals])]):
-        x2, t2 = tbin.bhmc_step(None, _t(x0), tt, t_logf)
+        x2, t2 = tbin.bhmc_step(KEYS, _t(x0), tt, t_logf)
     np.testing.assert_array_equal(x2.numpy(), np.stack([np.asarray(o[0]) for o in outs]))
     for f in ("position", "velocity"):
         np.testing.assert_allclose(getattr(t2, f).numpy(),
@@ -150,7 +130,7 @@ def test_bia_step_matches_given_the_same_draws(monkeypatch):
     tt = convert.bia_tune(stacked, "cpu", torch.float64)
     with fed(monkeypatch, rand=[np.stack([u[0] for u in us]),
                                 np.array([u[1] for u in us])]):
-        x2, t2 = tbin.bia_step(None, _t(x0), tt, t_logf)
+        x2, t2 = tbin.bia_step(KEYS, _t(x0), tt, t_logf)
     np.testing.assert_array_equal(x2.numpy(), np.stack([np.asarray(o[0]) for o in outs]))
     for f in ("A", "D"):
         np.testing.assert_allclose(getattr(t2, f).numpy(),
@@ -180,18 +160,18 @@ def test_index_kernels_match_given_the_same_draws(kernel, k, monkeypatch):
     tt = convert.index_tune(jt, "cpu", torch.float64)
     assert tt.k == (k if G is None else 0)
     with fed(monkeypatch, rand=feed):
-        x2, _ = tstep(None, _t(x0), tt, t_logf)
+        x2, _ = tstep(KEYS, _t(x0), tt, t_logf)
     np.testing.assert_array_equal(x2.numpy(), np.stack([np.asarray(o[0]) for o in outs]))
 
 
 # ---- in distribution: the 3-bit target of the JAX package's tests ---------
 
 def _run(step, tune, n=150, chains=64, seed=0, burn=30):
-    gen = torch.Generator().manual_seed(seed)
+    keys = R.chain_keys(seed, range(chains))
     x = torch.zeros(chains, 3, dtype=torch.float64)
     draws = []
     for i in range(n):
-        x, tune = step(gen, x, tune)
+        x, tune = step(R.fold_in(keys, i), x, tune)
         if i >= burn:
             draws.append(x.numpy())
     d = np.concatenate(draws)
@@ -212,7 +192,7 @@ def test_binary_kernels_reach_the_marginals(name):
         "bmg": (tbin.bmg_step, tbin.bmg_init(_x(), 1)),
         "bmg_k2": (tbin.bmg_step, tbin.bmg_init(_x(), 2)),
         "bia": (tbin.bia_step, tbin.bia_init(_x())),
-        "bhmc": (tbin.bhmc_step, tbin.bhmc_init(torch.Generator().manual_seed(42),
+        "bhmc": (tbin.bhmc_step, tbin.bhmc_init(R.chain_keys(42, range(64)),
                                                 _x(), 1.5 * np.pi)),
     }[name]
     d, tune = _run(lambda g, x, t: step(g, x, t, t_logf), tune,
@@ -258,9 +238,9 @@ def test_bhmc_walls_hit_at_the_same_instant(monkeypatch):
 
     x = torch.ones(C, 2, dtype=torch.float64)
     for dtype in (torch.float64, torch.float32):
-        tt = tbin.bhmc_init(torch.Generator().manual_seed(0), x.to(dtype), 2.0)
+        tt = tbin.bhmc_init(KEYS, x.to(dtype), 2.0)
         with fed(monkeypatch, randn=[np.zeros((C, 2)), np.ones((C, 2))]):
-            x2, t2 = tbin.bhmc_step(None, x.to(dtype), tt, tlf, max_hits=60)
+            x2, t2 = tbin.bhmc_step(KEYS, x.to(dtype), tt, tlf, max_hits=60)
         assert (t2.wallhits <= 3).all() and torch.isfinite(t2.velocity).all()
 
 
@@ -276,15 +256,16 @@ def test_bhmc_float32_trajectories_stay_below_max_hits():
     state = _chain_inits(cm, inits, 8)
     block = model.samplers[0]
     kern = block.build(cm)
-    gen = torch.Generator().manual_seed(0)
+    gen = R.chain_keys(0, range(8))
     tune = kern.init(gen, state)
     max_hits = 2000
     _, _, _, logf = cm.block_functions(("gamma",), False)
     f = candidate_logf(torch.func.vmap(logf), state)
     x = state["gamma"]
-    for _ in range(3):
+    for i in range(3):
         before = tune.wallhits.clone()
-        x, tune = tbin.bhmc_step(gen, x, tune, f, max_hits=max_hits)
+        x, tune = tbin.bhmc_step(R.fold_in(gen, i), x, tune, f,
+                                 max_hits=max_hits)
         hits = (tune.wallhits - before).numpy()
         assert x.dtype == torch.float32 and set(np.unique(x.numpy())) <= {0.0, 1.0}
         assert (hits > 100).all() and (hits < max_hits // 2).all(), hits

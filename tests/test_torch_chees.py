@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu.samplers import chees as jchees
 from mamba_tpu_torch.models import glmm as tglmm
 from mamba_tpu_torch.models import line as tline
@@ -26,6 +27,8 @@ RTOL = 1e-10
 C, DIM = 6, 3
 MEAN = np.array([0.5, -1.0, 2.0])
 SD = np.array([0.4, 1.2, 0.8])
+#: the port's per-chain keys where a test feeds the draws
+KEYS = R.chain_keys(0, range(C))
 
 
 def j_logfgrad(x):
@@ -61,16 +64,15 @@ def _feed(monkeypatch, normals=(), uniforms=()):
     queues = {"randn": list(normals), "rand": list(uniforms)}
 
     def feeder(kind):
-        def draw(*size, generator=None, dtype=None, device=None):
-            shape = tuple(size[0]) if len(size) == 1 and not isinstance(
-                size[0], int) else tuple(size)
+        def draw(key, shape=(), dtype=torch.float64, *a, index=None, **k):
+            full = tuple(key.shape[:-1]) + R._out_shape(shape, index)
             v = np.asarray(queues[kind].pop(0), dtype=np.float64)
-            assert v.shape == shape, (kind, v.shape, shape)
-            return torch.as_tensor(v, dtype=dtype or torch.float64)
+            assert v.shape == full, (kind, v.shape, full)
+            return torch.as_tensor(v, dtype=dtype)
         return draw
 
-    monkeypatch.setattr(torch, "randn", feeder("randn"))
-    monkeypatch.setattr(torch, "rand", feeder("rand"))
+    monkeypatch.setattr(R, "normal", feeder("randn"))
+    monkeypatch.setattr(R, "uniform", feeder("rand"))
     return queues
 
 
@@ -126,7 +128,7 @@ def test_chees_step_matches_given_the_same_draws(case, monkeypatch):
     tt = convert.chees_tune(jax.tree_util.tree_map(np.asarray, jt._asdict()),
                             "cpu", torch.float64)
     q = _feed(monkeypatch, [normals], [uniforms])
-    tx2, tt2 = tchees.chees_step(None, _t(xs), tt, t_logfgrad, adapt)
+    tx2, tt2 = tchees.chees_step(KEYS, _t(xs), tt, t_logfgrad, adapt)
     assert not q["randn"] and not q["rand"]
     np.testing.assert_allclose(tx2.numpy(), np.asarray(jx2), rtol=RTOL)
     accepted = ~np.all(tx2.numpy() == xs, axis=1)
@@ -145,7 +147,7 @@ def test_chees_init_matches_given_the_same_search_momenta(monkeypatch):
     r0 = np.stack([np.asarray(jax.random.normal(k, (DIM,), jnp.float64))
                    for k in keys])
     _feed(monkeypatch, [r0])
-    tt = tchees.chees_init(None, _t(xs), t_logfgrad, mass_window=10)
+    tt = tchees.chees_init(KEYS, _t(xs), t_logfgrad, mass_window=10)
     _compare(tt, jt)
 
 
@@ -162,7 +164,7 @@ def test_port_continues_from_a_jax_tune(monkeypatch):
     assert tt.m == 6 and tt.w_n == 1          # a window closed at step 5
     normals, uniforms = _draws(keys)
     _feed(monkeypatch, [normals], [uniforms])
-    tx2, tt2 = tchees.chees_step(None, _t(np.asarray(xs)), tt, t_logfgrad, True)
+    tx2, tt2 = tchees.chees_step(KEYS, _t(np.asarray(xs)), tt, t_logfgrad, True)
     np.testing.assert_allclose(tx2.numpy(), np.asarray(jx2), rtol=RTOL)
     _compare(tt2, jt2)
 
@@ -209,12 +211,13 @@ def test_glmm_chees_calls_the_likelihood_once_per_gradient(monkeypatch):
 # ---------------------------------------------------------------------------
 
 def _run(logfgrad, x0, warm, keep, seed=0, **init_kw):
-    gen = torch.Generator().manual_seed(seed)
+    keys = R.chain_keys(seed, range(x0.shape[0]))
     x = x0.clone()
-    tune = tchees.chees_init(gen, x, logfgrad, **init_kw)
+    tune = tchees.chees_init(keys, x, logfgrad, **init_kw)
     draws = []
     for i in range(warm + keep):
-        x, tune = tchees.chees_step(gen, x, tune, logfgrad, i < warm)
+        x, tune = tchees.chees_step(R.fold_in(keys, i), x, tune, logfgrad,
+                                    i < warm)
         if i >= warm:
             draws.append(x)
     return torch.stack(draws).reshape(-1, x.shape[1]).numpy(), tune
@@ -244,12 +247,12 @@ def test_chees_mass_seeded_badly_scaled_gaussian():
     def logfgrad(x):
         return -0.5 * torch.sum(x * x / var, dim=-1), -x / var
 
-    gen = torch.Generator().manual_seed(0)
+    keys = R.chain_keys(0, range(16))
     x = torch.zeros(16, 3, dtype=torch.float64)
-    tune = tchees.chees_init(gen, x, logfgrad, minv0=var, max_steps=64)
+    tune = tchees.chees_init(keys, x, logfgrad, minv0=var, max_steps=64)
     draws = []
     for i in range(1200):
-        x, tune = tchees.chees_step(gen, x, tune, logfgrad, True)
+        x, tune = tchees.chees_step(R.fold_in(keys, i), x, tune, logfgrad, True)
         if i >= 400:
             draws.append(x)
     d = torch.stack(draws).reshape(-1, 3).numpy()

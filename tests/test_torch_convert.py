@@ -19,6 +19,7 @@ import torch
 
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.model.mcmc import _chain_inits
 from mamba_tpu_torch.utils import convert
 
@@ -78,7 +79,8 @@ def test_tune_goes_from_jax_to_the_port_and_back(name, scheme, index, conv, shar
     tblock = tm.samplers[index].build(tcm)
     if conv == "dgs_tune":
         ttune = (ttune,)
-    st, t2 = tblock.step(torch.Generator().manual_seed(0), state, ttune, True)
+    keys = R.chain_keys(0, range(next(iter(state.values())).shape[0]))
+    st, t2 = tblock.step(keys, state, ttune, True)
     for v in st.values():
         assert torch.isfinite(v).all()
     assert type(t2) is type(ttune)
@@ -94,7 +96,9 @@ def test_a_shared_field_that_differs_across_chains_is_refused():
 def test_restart_carries_the_tunes(scheme):
     from mamba_tpu_torch.models import pollution
     model, inputs, inits = pollution.build(scheme)
-    sim = tmt.mcmc(model, inputs, inits, 4, burnin=2, chains=2, verbose=False,
+    # BIA's A moves only where an indicator was proposed from 0 to 1; eight
+    # chains make sure some chain proposes one in the three steps
+    sim = tmt.mcmc(model, inputs, inits, 4, burnin=2, chains=8, verbose=False,
                    device="cpu")
     t0 = sim.states["tunes"][0]
     sim2 = tmt.mcmc(sim, 3, verbose=False)

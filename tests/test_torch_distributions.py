@@ -30,6 +30,7 @@ from scipy import stats
 
 import mamba_tpu.ops.distributions as jd
 import mamba_tpu_torch.ops.distributions as td
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.utils.math import betainc
 
 torch.set_num_threads(2)
@@ -201,14 +202,14 @@ def check_sampling(case: Case):
     p = {k: (np.asarray(v) if isinstance(v, np.generic) else v)
          for k, v in p.items()}
     tdist, jdist = case.make(td, _tp(p)), case.make(jd, _jp(p))
-    gen = torch.Generator().manual_seed(_seed(case.name))
+    gen = R.key(_seed(case.name))
     before = torch.random.get_rng_state()
     d = tdist.sample(gen, (NDRAWS,))
     assert torch.equal(before, torch.random.get_rng_state()), \
         "a draw came from the global generator"
     assert d.shape[0] == NDRAWS and torch.isfinite(d).all()
     assert tuple(d.shape[1:]) == tuple(tdist.batch_shape) + tuple(tdist.event_shape)
-    again = tdist.sample(torch.Generator().manual_seed(_seed(case.name)), (NDRAWS,))
+    again = tdist.sample(R.key(_seed(case.name)), (NDRAWS,))
     assert torch.equal(d, again), "the draws must follow from the generator"
     assert tdist.in_support(d).all()
     d = d.reshape(NDRAWS, -1).numpy().astype(np.float64)
@@ -440,7 +441,7 @@ def test_blockwise_parity():
 
 
 def test_mixed_sampling_in_distribution():
-    gen = torch.Generator().manual_seed(5)
+    gen = R.key(5)
     before = torch.random.get_rng_state()
     d = _mixed(td).sample(gen, (NDRAWS,))
     assert torch.equal(before, torch.random.get_rng_state())

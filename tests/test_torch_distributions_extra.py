@@ -24,6 +24,7 @@ import torch
 from scipy import stats
 
 import mamba_tpu_torch.ops.distributions as td
+from mamba_tpu_torch.ops import random as R
 from test_torch_distributions import (N, RTOL_SERIES, Case, U, _pos, _real,
                                       _unit, check_density, check_sampling)
 

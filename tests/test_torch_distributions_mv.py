@@ -27,6 +27,7 @@ from scipy import stats
 
 import mamba_tpu.ops.distributions as jd
 import mamba_tpu_torch.ops.distributions as td
+from mamba_tpu_torch.ops import random as R
 
 torch.set_num_threads(2)
 
@@ -271,14 +272,14 @@ def test_sampling_in_distribution(case):
     p = _sample_params(case, rng)
     tdist = case.make(td, {k: _t(v) for k, v in p.items()})
     jdist = case.make(jd, {k: _j(v) for k, v in p.items()})
-    gen = torch.Generator().manual_seed(_seed(case.name))
+    gen = R.key(_seed(case.name))
     before = torch.random.get_rng_state()
     d = tdist.sample(gen, (NDRAWS,))
     assert torch.equal(before, torch.random.get_rng_state()), \
         "a draw came from the global generator"
     assert tuple(d.shape) == (NDRAWS,) + tuple(tdist.batch_shape) + tuple(tdist.event_shape)
     assert torch.isfinite(d).all() and tdist.in_support(d).all()
-    again = tdist.sample(torch.Generator().manual_seed(_seed(case.name)), (NDRAWS,))
+    again = tdist.sample(R.key(_seed(case.name)), (NDRAWS,))
     assert torch.equal(d, again), "the draws must follow from the generator"
     assert tuple(tdist.sample(gen, (2, 3)).shape[:2]) == (2, 3)
 
@@ -308,7 +309,7 @@ def test_sampling_in_distribution(case):
 def test_sampling_with_chain_stacked_parameters():
     # forward_sample hands every parameter over with a leading chain axis
     rng = np.random.default_rng(7)
-    gen = torch.Generator().manual_seed(7)
+    gen = R.key(7)
     C = 4
     S = _t(np.stack([_spd(rng, D) for _ in range(C)]))
     cases = [

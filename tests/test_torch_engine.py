@@ -21,7 +21,9 @@ import torch
 
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.ops import bijectors as bij
+from mamba_tpu_torch.ops.distributions.base import _randn
 from mamba_tpu_torch.ops.distributions import (Distribution,
                                                UnivariateDistribution,
                                                distribution)
@@ -159,11 +161,9 @@ class NewUnivarDist(UnivariateDistribution):
         z = (x - self.mu) / self.sigma
         return -0.5 * z * z - torch.log(self.sigma) - 0.5 * math.log(2 * math.pi)
 
-    def sample(self, gen, shape=()):
+    def sample(self, key, shape=()):
         mu = torch.as_tensor(self.mu).expand(self.batch_shape)
-        return mu + self.sigma * torch.randn(tuple(shape) + tuple(mu.shape),
-                                             generator=gen, dtype=mu.dtype,
-                                             device=mu.device)
+        return mu + self.sigma * _randn(key, shape, mu)
 
 
 @distribution
@@ -278,7 +278,7 @@ def test_validators():
 def test_validators_wired_into_inits():
     bad = torch.tensor([[0.0, 3.0]])
     with pytest.raises(ValueError):
-        bhmc_init(torch.Generator().manual_seed(0), bad, 1.0)
+        bhmc_init(R.chain_keys(0, range(1)), bad, 1.0)
     with pytest.raises(ValueError):
         bia_init(bad)
     with pytest.raises(ValueError):

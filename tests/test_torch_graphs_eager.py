@@ -1,9 +1,9 @@
 """The last samplers that ran eagerly, on captured steps (``utils/graphs.py``)
 on the CPU: BIA, BMC3 and BMG, whose draws are made before their step's
-body, and ABC and MISS, whose bodies draw from the run's generator
-(``Captured.draw_from``: the simulations and imputations draw inside the
+body, and ABC and MISS, whose bodies draw from the chains' keys held in
+their buffers (the simulations and imputations draw inside the
 distributions' ``sample``).  Each captured step against its plain loop, bit
-for bit, generator state included: the stand-alone binary steps through one
+for bit: the stand-alone binary steps through one
 ``Captured`` reused step after step; the ABC and MISS block kernels built
 by the engine, through the plain loop (``graphs.disabled()``), through the
 captured form on the CPU (the bodies run eagerly on the ``Captured``'s own
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.model.mcmc import _chain_inits
 from mamba_tpu_torch.models import bones, kidney, mice
 from mamba_tpu_torch.samplers import abc as tabc
@@ -53,8 +54,8 @@ def test_bia_captured_step_equals_the_plain_step():
     tune0 = tbin.bia_init(x0)
     tunes = {}
 
-    def step(gen, x, cap, f):
-        x2, t2 = tbin.bia_step(gen, x, tunes.get(cap is None, tune0), f,
+    def step(key, x, cap, f):
+        x2, t2 = tbin.bia_step(key, x, tunes.get(cap is None, tune0), f,
                                graphed=cap)
         tunes[cap is None] = t2
         return x2
@@ -78,24 +79,26 @@ def test_index_captured_steps_equal_the_plain_steps(kernel, k):
         "bmg": (tbin.bmg_init, tbin.bmg_step, tbin.bmg_bodies)}[kernel]
     tune = init(x0, INDEX_K[k])
     assert tune.k == (0 if k == "groups" else INDEX_K[k])
-    _both(lambda gen, x, cap, f: step_fn(gen, x, tune, f, graphed=cap)[0],
+    _both(lambda key, x, cap, f: step_fn(key, x, tune, f, graphed=cap)[0],
           functools.partial(bodies, k=tune.k), _binary_density, x0, state,
           steps=5)
 
 
-def test_bmg_captured_step_of_one_coordinate_equals_the_plain_step():
+def test_bmg_captured_step_of_one_coordinate_equals_the_plain_step(
+        monkeypatch):
     # n == 1: the proposal is taken as it is, and no acceptance is drawn
     x0, state = _binary_case(1, 3)
     tune = tbin.bmg_init(x0, 1)
-    _both(lambda gen, x, cap, f: tbin.bmg_step(gen, x, tune, f, graphed=cap)[0],
+    _both(lambda key, x, cap, f: tbin.bmg_step(key, x, tune, f, graphed=cap)[0],
           functools.partial(tbin.bmg_bodies, k=1), _binary_density, x0, state,
           steps=4)
-    gen = torch.Generator().manual_seed(7)
-    tbin.bmg_step(gen, x0, tune, base.candidate_logf(_binary_density, state))
-    ref = torch.Generator().manual_seed(7)
-    for _ in range(2):                   # the index draw, the proposals
-        torch.rand((C, 1), generator=ref, dtype=x0.dtype)
-    assert torch.equal(gen.get_state(), ref.get_state())
+    draws = []
+    inner = R.uniform
+    monkeypatch.setattr(R, "uniform", lambda *a, **k: draws.append(a[1]) or
+                        inner(*a, **k))
+    tbin.bmg_step(R.chain_keys(7, range(C)), x0, tune,
+                  base.candidate_logf(_binary_density, state))
+    assert draws == [(1,), (1,)]         # the index draw, the proposals
 
 
 # ---------------------------------------------------------------------------
@@ -106,8 +109,9 @@ def _block_ways(monkeypatch, build, block=0, steps=3, chains=3, seed=3):
     """``steps`` steps of block ``block`` of the model ``build()`` gives,
     built by the engine three ways: its plain loop (``graphs.disabled()``),
     its captured step on the CPU and the card's path emulated.  Checks that
-    all three give the same states, tunes and generator state and test the
-    host as often; returns the host tests and the card way's replays."""
+    all three give the same states and tunes, step ``i`` from the same
+    keys, and test the host as often; returns the host tests and the card
+    way's replays."""
     out = {}
     for way in ("plain", "captured", "card"):
         model, inputs, inits = build()
@@ -118,28 +122,28 @@ def _block_ways(monkeypatch, build, block=0, steps=3, chains=3, seed=3):
             with graphs.disabled() if way == "plain" else contextlib.nullcontext():
                 kernel = model.samplers[block].build(cm)
             state = _chain_inits(cm, inits, chains)
-            gen = torch.Generator().manual_seed(seed)
-            tune = kernel.init(gen, state)
+            keys = R.chain_keys(seed, range(chains))
+            tune = kernel.init(keys, state)
             before = dict(graphs.STATS)
             seq = []
-            for _ in range(steps):
-                state, tune = kernel.step(gen, state, tune, True)
+            for i in range(steps):
+                state, tune = kernel.step(R.fold_in(keys, i), state, tune,
+                                          True)
                 seq.append({k: v.clone() for k, v in state.items()})
-            out[way] = (seq, tune, gen.get_state(),
+            out[way] = (seq, tune,
                         graphs.STATS["host_tests"] - before["host_tests"],
                         graphs.STATS["replays"] - before["replays"])
     plain = out["plain"]
     for way in ("captured", "card"):
-        seq, tune, rng, tests, _ = out[way]
+        seq, tune, tests, _ = out[way]
         for a, b in zip(seq, plain[0]):
             assert a.keys() == b.keys()
             for k in a:
                 assert torch.equal(a[k], b[k]), (way, k)
         _assert_tunes_equal((tune,), (plain[1],))
-        assert torch.equal(rng, plain[2]), way
-        assert tests == plain[3], (way, tests, plain[3])
-    assert out["card"][4] > 0 and out["plain"][4] == out["captured"][4] == 0
-    return plain[3], out["card"][4]
+        assert tests == plain[2], (way, tests, plain[2])
+    assert out["card"][3] > 0 and out["plain"][3] == out["captured"][3] == 0
+    return plain[2], out["card"][3]
 
 
 def _abc_model(maxdraw, randeps):
@@ -165,8 +169,9 @@ ABC_MAXDRAW = [10, tabc.DRAWS_PER_CALL, 60]
 @pytest.mark.parametrize("randeps", [False, True])
 @pytest.mark.parametrize("maxdraw", ABC_MAXDRAW)
 def test_abc_captured_batches_equal_the_plain_loop(maxdraw, randeps, monkeypatch):
+    # eight chains, so that in some step a chain rejects a whole batch
     tests, replays = _block_ways(
-        monkeypatch, lambda: _abc_model(maxdraw, randeps), steps=4, chains=4)
+        monkeypatch, lambda: _abc_model(maxdraw, randeps), steps=4, chains=8)
     batches = -(-maxdraw // tabc.DRAWS_PER_CALL)
     if batches == 1:
         assert tests == 0 and replays == 4

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.models import line
 from mamba_tpu_torch.samplers import abc as tabc
 from mamba_tpu_torch.samplers import amm as tamm
@@ -70,29 +71,29 @@ def _host_tests(fn):
 
 
 def _both(step, bodies, density, x0, state, grad=False, steps=STEPS):
-    """``steps`` steps of ``step(gen, x, graphed)`` through one captured
-    step and through the plain loop, from one seed; checks that the two
-    give the same values and leave the generators in the same state, and
-    returns the plain steps' host tests."""
+    """``steps`` steps of ``step(key, x, graphed)`` through one captured
+    step and through the plain loop, step ``i`` from the same per-chain
+    keys; checks that the two give the same values, and returns the plain
+    steps' host tests."""
     cap = base.captured(bodies, density, grad=grad)
     cap.load_state(state)
     f = ((lambda x: density(x, state)) if grad
          else base.candidate_logf(density, state))
     outs, tests = {}, 0
+    keys = R.chain_keys(7, range(x0.shape[0]))
     for way in ("captured", "plain"):
-        gen = torch.Generator().manual_seed(7)
         x, seq = x0, []
-        for _ in range(steps):
+        for i in range(steps):
+            key = R.fold_in(keys, i)
             if way == "captured":
-                x = step(gen, x, cap, f)
+                x = step(key, x, cap, f)
             else:
-                x, n = _host_tests(lambda x=x: step(gen, x, None, f))
+                x, n = _host_tests(lambda x=x: step(key, x, None, f))
                 tests += n
             seq.append(x.clone())
-        outs[way] = (seq, gen.get_state())
-    for a, b in zip(outs["captured"][0], outs["plain"][0]):
+        outs[way] = seq
+    for a, b in zip(outs["captured"], outs["plain"]):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert torch.equal(outs["captured"][1], outs["plain"][1])
     assert cap.graphs == {} and not cap.eager       # nothing captured on the CPU
     return tests
 
@@ -116,7 +117,7 @@ def test_slice_captured_step_equals_the_plain_loop(form, case):
           else tslice.slice_multivariate_step)
     bodies = (tslice.univariate_bodies if form == "univariate"
               else tslice.multivariate_bodies)
-    tests = _both(lambda gen, x, g, f: fn(gen, x, tune, f, graphed=g)[0],
+    tests = _both(lambda key, x, g, f: fn(key, x, tune, f, graphed=g)[0],
                   bodies, _gauss, x0, state)
     batches = STEPS * (DIM if form == "univariate" else 1)
     # one host test per coordinate (or step) within one batch, more else
@@ -142,10 +143,10 @@ def test_slicesimplex_captured_rows_equal_the_plain_loop(case):
     x0 = _t(np.random.default_rng(4).dirichlet(np.ones(K) * 3, (C, R)))
     scale = torch.tensor(0.9, **F64)
 
-    def step(gen, x, cap, f):
+    def step(key, x, cap, f):
         if cap is None:
             cap = base.plain(tss.simplex_bodies, f)
-        return tss._rows_step(gen, x, scale, cap, 1000)
+        return tss._rows_step(key, x, scale, cap, 1000)
 
     tests = _both(step, tss.simplex_bodies, density, x0, state)
     assert (tests == STEPS * R) == (case == "one_batch"), tests
@@ -162,11 +163,11 @@ def test_bhmc_captured_trajectory_equals_the_plain_loop(case):
     # a quarter turn hits a wall or two; ten turns hit dozens
     T = 0.25 * np.pi if case == "one_batch" else 10 * np.pi
     x0 = _t(np.random.default_rng(6).integers(0, 2, (C, n)))
-    tune = tbin.bhmc_init(torch.Generator().manual_seed(0), x0, T)
+    tune = tbin.bhmc_init(R.chain_keys(0, range(C)), x0, T)
     tunes = {}
 
-    def step(gen, x, cap, f):
-        x2, t2 = tbin.bhmc_step(gen, x, tune, f, graphed=cap)
+    def step(key, x, cap, f):
+        x2, t2 = tbin.bhmc_step(key, x, tune, f, graphed=cap)
         tunes.setdefault(cap is None, []).append(t2)
         return x2
 
@@ -184,8 +185,8 @@ def test_amwg_captured_sweep_equals_the_plain_sweep(adapt):
     tune = tamwg.amwg_init(x0, [0.5, 1.0, 2.0], batchsize=2)
     tunes = {}
 
-    def step(gen, x, cap, f):
-        x2, t2 = tamwg.amwg_step(gen, x, tunes.get(cap is None, tune), f, adapt,
+    def step(key, x, cap, f):
+        x2, t2 = tamwg.amwg_step(key, x, tunes.get(cap is None, tune), f, adapt,
                                  graphed=cap)
         tunes[cap is None] = t2
         return x2
@@ -201,8 +202,8 @@ def test_amm_captured_step_equals_the_plain_step():
     tune0 = tamm.amm_init(x0, 0.3 * np.eye(DIM), beta=0.2)
     tunes = {}
 
-    def step(gen, x, cap, f):
-        x2, t2 = tamm.amm_step(gen, x, tunes.get(cap is None, tune0), f, True,
+    def step(key, x, cap, f):
+        x2, t2 = tamm.amm_step(key, x, tunes.get(cap is None, tune0), f, True,
                                graphed=cap)
         tunes[cap is None] = t2
         return x2
@@ -218,7 +219,7 @@ def test_amm_captured_step_equals_the_plain_step():
 def test_rwm_captured_step_equals_the_plain_step(proposal):
     x0 = _t(np.random.default_rng(11).normal(size=(C, DIM)))
     tune = trwm.rwm_init(x0, [0.5, 1.0, 0.3])
-    _both(lambda gen, x, cap, f: trwm.rwm_step(gen, x, tune, f, proposal, cap)[0],
+    _both(lambda key, x, cap, f: trwm.rwm_step(key, x, tune, f, proposal, cap)[0],
           functools.partial(trwm.step_bodies, proposal=proposal), _gauss, x0,
           _state(12))
 
@@ -233,7 +234,7 @@ def _sigma():
 def test_hmc_captured_trajectory_equals_the_plain_loop(with_sigma, L):
     x0 = _t(np.random.default_rng(13).normal(size=(C, DIM)))
     tune = thmc.hmc_init(x0, 0.2, L, _sigma() if with_sigma else None)
-    _both(lambda gen, x, cap, f: thmc.hmc_step(gen, x, tune, f, cap)[0],
+    _both(lambda key, x, cap, f: thmc.hmc_step(key, x, tune, f, cap)[0],
           thmc.trajectory_bodies, _gauss_grad, x0, _state(14), grad=True)
 
 
@@ -241,7 +242,7 @@ def test_hmc_captured_trajectory_equals_the_plain_loop(with_sigma, L):
 def test_mala_captured_step_equals_the_plain_step(with_sigma):
     x0 = _t(np.random.default_rng(15).normal(size=(C, DIM)))
     tune = tmala.mala_init(x0, 0.1, _sigma() if with_sigma else None)
-    _both(lambda gen, x, cap, f: tmala.mala_step(gen, x, tune, f, cap)[0],
+    _both(lambda key, x, cap, f: tmala.mala_step(key, x, tune, f, cap)[0],
           tmala.step_bodies, _gauss_grad, x0, _state(16), grad=True)
 
 
@@ -309,7 +310,7 @@ def _assert_same_run(a, b):
     _assert_tunes_equal(a.states["tunes"], b.states["tunes"])
     for k in a.states["state"]:
         assert torch.equal(a.states["state"][k], b.states["state"][k]), k
-    assert torch.equal(a.states["rng"], b.states["rng"])
+    assert torch.equal(a.states["key"], b.states["key"])
 
 
 #: models (and schemes) that hold every sampler the engine captures:
@@ -341,7 +342,7 @@ def test_engine_restart_through_the_captured_steps_is_exact():
                     2, verbose=False)
     np.testing.assert_array_equal(part.value, whole.value)
     _assert_tunes_equal(part.states["tunes"], whole.states["tunes"])
-    assert torch.equal(part.states["rng"], whole.states["rng"])
+    assert torch.equal(part.states["key"], whole.states["key"])
 
 
 def test_engine_counts_a_host_test_per_batch_of_trips():
@@ -416,13 +417,12 @@ class _FakeGraph:
 def _fake_capture(self, name):
     """``Captured._capture`` without a card: the same warm-up, then a
     capture that records the body without running it (the body's launches
-    go to the tally, and the tensors and the state of the generator the
-    body draws from are put back: a capture advances neither)."""
+    go to the tally, and the tensors, round counters among them, are put
+    back: a capture advances nothing)."""
     body = self.bodies[name]
     self.warm_up(body)
     tally = {}
     saved = {k: v.clone() for k, v in self.bufs.items()}
-    rng = None if self.gen is None else self.gen.get_state()
     graphs._CAPTURING.append(tally)
     try:
         out = body(self.bufs, self.state)
@@ -430,8 +430,6 @@ def _fake_capture(self, name):
         graphs._CAPTURING.pop()
     for k, v in saved.items():
         self.bufs[k].copy_(v)
-    if rng is not None:
-        self.gen.set_state(rng)
 
     def replay():
         graphs._CAPTURING.append({})      # the launches count from the tally
@@ -485,9 +483,9 @@ def test_until_done_counts_replays_host_tests_and_launches(monkeypatch):
     cap.load_state({"stop": torch.tensor(8)})
     drawn = []
     runs = graphs.until_done(cap, "first", "more", limit=10,
-                             draw=lambda: drawn.append(1))
+                             draw=lambda j: drawn.append(j))
     # 3 trips, then 2 per batch until 8: 3, 5, 7, 9; a test after each
-    assert runs == 4 and len(drawn) == 3 and int(cap.bufs["n"]) == 9
+    assert runs == 4 and drawn == [1, 2, 3] and int(cap.bufs["n"]) == 9
     delta = {k: graphs.STATS[k] - before[k] for k in before}
     assert delta["host_tests"] == 4 and delta["replays"] == 4 == cap.replays
     assert delta["graphs"] == 2
@@ -504,7 +502,7 @@ def test_until_done_counts_replays_host_tests_and_launches(monkeypatch):
 def test_an_eager_batch_ends_at_its_first_idle_trip(form, monkeypatch):
     # the plain loop ends a batch at the first trip that finds every chain
     # accepted; the card's path runs the batch's every trip, masked, and
-    # both end on the same values and generator state
+    # both end on the same values
     _emulate_the_card(monkeypatch)
     calls = []
 
@@ -524,17 +522,16 @@ def test_an_eager_batch_ends_at_its_first_idle_trip(form, monkeypatch):
     f = base.candidate_logf(density, state)
     outs = {}
     for way, graphed in (("card", cap), ("plain", None)):
-        gen = torch.Generator().manual_seed(7)
         del calls[:]
-        outs[way] = fn(gen, x0, tune, f, graphed=graphed)[0], gen.get_state()
+        outs[way] = fn(R.chain_keys(7, range(C)), x0, tune, f,
+                       graphed=graphed)[0]
         if way == "plain":
             # the entry density, per coordinate (or step) a first candidate
             # and fewer trips than a whole batch
             loops = DIM if form == "univariate" else 1
             assert loops < len(calls) - 1 < loops * (1 + tslice.TRIPS)
     assert cap.replays > 0
-    assert torch.equal(outs["card"][0], outs["plain"][0])
-    assert torch.equal(outs["card"][1], outs["plain"][1])
+    assert torch.equal(outs["card"], outs["plain"])
 
 
 def test_idle_reads_the_flags_only_in_an_eager_run():

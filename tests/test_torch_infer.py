@@ -20,6 +20,7 @@ import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
 from mamba_tpu.models import glmm as jglmm, line as jline
 from mamba_tpu_torch.infer.smc import systematic_resample
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.models import glmm as tglmm, line as tline
 
 torch.set_num_threads(2)
@@ -217,14 +218,13 @@ def test_systematic_resample_clamps_to_the_last_particle(monkeypatch):
     u0 = torch.tensor(1.0 - 2 ** -24)        # the largest float32 below 1
     pts = (u0 + torch.arange(n, dtype=torch.float32)) / n
     assert int(torch.searchsorted(cum, pts)[-1]) == n
-    monkeypatch.setattr(torch, "rand", lambda *a, **k: u0)
-    idx = systematic_resample(None, logw, n)
+    monkeypatch.setattr(R, "uniform", lambda *a, **k: u0)
+    idx = systematic_resample(R.key(0), logw, n)
     assert int(idx[-1]) == n - 1 and int(idx.max()) == n - 1
 
 
 def test_systematic_resample_draws_by_weight():
-    gen = torch.Generator().manual_seed(1)
     w = torch.tensor([0.5, 0.25, 0.125, 0.125], dtype=torch.float64)
-    idx = systematic_resample(gen, torch.log(w), 4096)
+    idx = systematic_resample(R.key(1), torch.log(w), 4096)
     counts = torch.bincount(idx, minlength=4).double() / 4096
     torch.testing.assert_close(counts, w, rtol=0, atol=1 / 4096)

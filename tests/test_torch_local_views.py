@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.model.mcmc import _chain_inits
 from mamba_tpu_torch.model.nodes import StochasticNode
 from mamba_tpu_torch.models import glmm as tglmm, line as tline, rats as trats
@@ -635,7 +636,7 @@ def test_forward_sample_keeps_the_slice_of_the_unsharded_draw():
     whole = tmt.compile_model(model, {}, init, device="cpu")
     state = _chain_inits(whole, init, 5)
     state["mu"] = torch.linspace(-1.0, 1.0, 5, dtype=torch.float64)
-    gen = torch.Generator().manual_seed(11)
+    gen = R.chain_keys(11, range(5))
     want = whole.forward_sample(gen, state, names=("y", "mu"))
     for r in (0, 1):
         cm = _compile_rank(model, {}, init, {"y": ("data",)}, r)
@@ -643,7 +644,6 @@ def test_forward_sample_keeps_the_slice_of_the_unsharded_draw():
         assert local["y"].shape == (5, 4)
         np.testing.assert_array_equal(_chain_inits(cm, init, 5)["y"],
                                       local["y"])
-        gen = torch.Generator().manual_seed(11)
         got = cm.forward_sample(gen, local, names=("y", "mu"))
         assert got["y"].shape == (5, 4) and got["y"].is_contiguous()
         np.testing.assert_array_equal(got["y"], want["y"][:, 4 * r:4 * r + 4])
@@ -728,7 +728,7 @@ def _rats_gibbs(mesh=None):
                            comm=tmt.parallel.mesh.MeshComm(mesh),
                            site_specs=RATS_SPECS if mesh else None)
     state = _chain_inits(cm, inits, 4)
-    gen = torch.Generator().manual_seed(9)
+    gen = R.chain_keys(9, range(4))
     new, _ = model.samplers[1].build(cm).step(gen, state, (), False)
     return {"s2": torch.stack([new[k] for k in
                                ("s2_c", "s2_alpha", "s2_beta")]).numpy(),
@@ -742,11 +742,10 @@ def _line_ss():
     model, inputs, init, _ = _six(tmt, lambda pkg: dict(
         ss=tmt.Logical(lambda y, mu: torch.sum((y - mu) ** 2))))
 
-    def s2_gibbs(gen, env):
+    def s2_gibbs(key, env):
         ss = env["ss"]                                    # (chains,)
-        shape = torch.full_like(ss, 0.001 + 3.0)
-        return {"s2": (0.001 + 0.5 * ss)
-                / torch._standard_gamma(shape, generator=gen)}
+        return {"s2": R.inverse_gamma_bounded(key, 0.001 + 3.0,
+                                              0.001 + 0.5 * ss)}
     model.set_samplers([tmt.NUTS("beta"), tmt.Gibbs("s2", s2_gibbs)])
     return model, inputs, init
 

@@ -4,14 +4,13 @@ started by ``parallel.launch.run_ranks`` under one deadline (killed when
 it passes) with a 60 s process-group timeout.
 
 Counterpart of tests/test_multihost.py and the JAX package's mesh tests.
-The JAX package folds every chain's index into its key, so its layouts
-agree to rounding; the port's generator is one per chain rank, seeded from
-``(seed, chain rank)``, so the exact checks here are the ones that layout
-allows:
+Both packages fold every chain's global index into its key
+(``ops/random.py``), so a chain draws the same numbers on any layout:
 
-- a chain mesh: rank r's chains are bit for bit an unsharded run of its
-  chains seeded as rank r, gathered in global order, and restart on the
-  mesh the same way;
+- a chain mesh: every rank's chains are the unsharded run's chains, to
+  1e-8, gathered in global order, and restart on the mesh the same way
+  (line under NUTS, line under HMC + Slice as tests/test_multihost.py runs
+  it, rats NUTS and the G = 64 GLMM under ChEES, two chains a rank);
 - a (1, 2) data mesh: the same random stream as the unsharded run, each
   rank holding its slice of the named inputs and observed sites and the
   density split between the two ranks: equal to 1e-8;
@@ -33,7 +32,7 @@ import torch.distributed as dist
 import mamba_tpu_torch as tmt
 from mamba_tpu_torch.models import glmm as tglmm, line as tline
 from mamba_tpu_torch.parallel.launch import run_ranks
-from mamba_tpu_torch.parallel.mesh import MeshComm, make_mesh, rank_seed
+from mamba_tpu_torch.parallel.mesh import MeshComm, make_mesh
 
 #: seconds a two-rank test may take, and a collective may wait
 RANKS_TIMEOUT, GROUP_TIMEOUT = 120, 60
@@ -92,6 +91,58 @@ def _chains(rank):
     return {"value": sim.value, "restart": more.value,
             "file_beta": back.states["state"]["beta"],
             "read_back": drawn, "local_beta": sim.states["state"]["beta"]}
+
+
+def _line_hmc():
+    """tests/test_multihost.py's line: HMC on beta, Slice on s2."""
+    model, inputs, inits = tline.build()
+    model.set_samplers([tmt.HMC("beta", 0.1, 10), tmt.Slice("s2", 2.0)])
+    return model, inputs, inits
+
+
+def _rats_nuts():
+    from mamba_tpu_torch.models import rats
+    return rats.build("nuts")
+
+
+def _glmm_chees():
+    model, inputs, inits, _ = tglmm.build(G=64, n=10, seed=2, fused=True,
+                                          mass_window=50)
+    model.set_samplers([tmt.ChEESHMC(model.samplers[0].params),
+                        *model.samplers[1:]])
+    return model, inputs, inits
+
+
+def _line_constant_prior():
+    """line with a node of four entries under a prior of constants, every
+    entry missing and imputed by MISS: a batch of the unsharded run's chain
+    count (four), drawn with the chains' keys leading the draw."""
+    model, inputs, inits = tline.build()
+    model.nodes["w"] = tmt.Stochastic(1, lambda: tmt.Normal(0.0, 1.0))
+    model = tmt.Model(**model.nodes)
+    model.set_samplers([tmt.HMC("beta", 0.1, 10), tmt.Slice("s2", 2.0),
+                        tmt.MISS("w")])
+    return model, inputs, [dict(i, w=np.full(4, np.nan)) for i in inits]
+
+
+#: the runs held to their unsharded runs on a (2, 1) chain mesh: (build,
+#: iterations, burnin, seed), four chains
+LAYOUT_RUNS = {"line_hmc": (_line_hmc, 120, 60, 19),
+               "rats_nuts": (_rats_nuts, 12, 6, 11),
+               "glmm_chees": (_glmm_chees, 16, 8, 5),
+               "line_constant_prior": (_line_constant_prior, 20, 10, 7)}
+
+
+def _layouts(rank):
+    mesh = make_mesh({"chains": 2}, "cpu")
+    out = {}
+    for name, (build, iters, burnin, seed) in LAYOUT_RUNS.items():
+        model, inputs, inits = build()
+        sim = tmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
+                       seed=seed, mesh=mesh, device="cpu", verbose=False)
+        out[name] = sim.value
+        out[f"{name}_key"] = sim.states["key"].numpy()
+    return out
 
 
 def _data(rank):
@@ -198,7 +249,13 @@ def _rats(rank):
 RESTART_LAYOUTS = {"chains": ({"chains": 2}, None),
                    "data": ({"chains": 1, "data": 2}, LINE_SPECS)}
 #: line's sharded run (iterations, burnin) and the restart's iterations
-RESTART_RUN, RESTART_ITERS = (100, 50), 200
+RESTART_RUN, RESTART_ITERS = (100, 20), 200
+#: the mesh's own continuation's iterations per layout.  The data layout's
+#: sums differ from one device's in their last bits (9e-15 in beta after
+#: the first NUTS step) and NUTS amplifies that without flipping a
+#: decision: this run stays within 1e-9 of the unsharded one for its
+#: first 190 iterations and first passes 1e-8 at iteration 208 (PERF.md)
+CONTINUED = {"chains": RESTART_ITERS, "data": 90}
 #: ChEES's tunes of beta's length that every rank holds equally
 CHEES_SHARED = ("minv", "w_mean", "w_m2", "w_sw")
 
@@ -222,11 +279,15 @@ def _restart(layout, chees=False):
     out = Path(os.environ["MULTIPROC_OUT"])
     fileio.write_chains(str(out / "file.pkl"), sim)
     memory = fileio._whole_states(sim)
-    rngs = sim.compiled.comm.gather_generators(sim.states["rng"])
     if dist.get_rank() == 0:
         with open(out / "memory.pkl", "wb") as f:
-            pickle.dump({**memory, "rng": rngs[0]}, f)
+            pickle.dump(memory, f)
     out = {"value": sim.value, "shapes": _local_shapes(sim, ("y", "beta"))}
+    if not chees:
+        # the mesh's own continuation, which the file's one-device restart
+        # is held to (on the data layout over its first iterations)
+        out["continued"] = tmt.mcmc(sim, CONTINUED[layout],
+                                    verbose=False).value
     if chees:
         tune = sim.states["tunes"][0]
         out.update({f: getattr(tune, f).numpy() for f in CHEES_SHARED},
@@ -234,7 +295,7 @@ def _restart(layout, chees=False):
     return out
 
 
-MODES = {"chains": _chains, "data": _data, "chees": _chees, "smc": _smc,
+MODES = {"chains": _chains, "layouts": _layouts, "data": _data, "chees": _chees, "smc": _smc,
          "glmm": _glmm, "dgs": _dgs, "rats": _rats,
          "restart_chains": lambda rank: _restart("chains"),
          "restart_data": lambda rank: _restart("data"),
@@ -250,28 +311,50 @@ def _ranks(mode, tmp_path, n=2, timeout=RANKS_TIMEOUT):
 
 
 # ---- the tests -----------------------------------------------------------
-def test_chain_mesh_ranks_are_unsharded_runs_seeded_by_rank(tmp_path):
+def test_chain_mesh_ranks_are_slices_of_the_unsharded_run(tmp_path):
     r0, r1 = _ranks("chains", tmp_path)
     model, inputs, inits = tline.build()
     assert r0["value"].shape == (30, 3, 4)
     np.testing.assert_array_equal(r0["value"], r1["value"])
     np.testing.assert_array_equal(r0["restart"], r1["restart"])
+    # every chain keyed by its global index: the unsharded run's chains
+    ref = tmt.mcmc(model, inputs, inits, 40, burnin=10, chains=4, seed=3,
+                   device="cpu", verbose=False)
+    np.testing.assert_allclose(r0["value"], ref.value, rtol=1e-8)
+    more = tmt.mcmc(ref, 10, verbose=False)
+    np.testing.assert_allclose(r0["restart"], more.value, rtol=1e-8)
+    beta = ref.states["state"]["beta"].numpy()
     for r, res in enumerate((r0, r1)):
-        # the inits recycle by global chain index; rank r holds 2r, 2r + 1
-        own = [inits[k % len(inits)] for k in (2 * r, 2 * r + 1)]
-        ref = tmt.mcmc(model, inputs, own, 40, burnin=10, chains=2,
-                       seed=rank_seed(3, r), device="cpu", verbose=False)
-        np.testing.assert_array_equal(res["value"][:, :, 2 * r:2 * r + 2],
-                                      ref.value)
-        np.testing.assert_array_equal(res["local_beta"],
-                                      ref.states["state"]["beta"].numpy())
-        more = tmt.mcmc(ref, 10, verbose=False)
-        np.testing.assert_array_equal(res["restart"][:, :, 2 * r:2 * r + 2],
-                                      more.value)
+        np.testing.assert_allclose(res["local_beta"], beta[2 * r:2 * r + 2],
+                                   rtol=1e-8)
         # the run's one chain file holds every draw and every chain's state
         np.testing.assert_array_equal(res["read_back"], r0["value"])
-        np.testing.assert_array_equal(res["file_beta"][2 * r:2 * r + 2],
-                                      ref.states["state"]["beta"].numpy())
+        np.testing.assert_allclose(res["file_beta"], beta, rtol=1e-8)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_RUNS))
+def test_two_chain_ranks_equal_the_unsharded_run(tmp_path_factory, name,
+                                                 layout_ranks):
+    """Two gloo chain ranks of two chains each, against the four-chain run
+    without a mesh, in float64: the draws at 1e-8, every chain's final key
+    exactly."""
+    r0, r1 = layout_ranks
+    build, iters, burnin, seed = LAYOUT_RUNS[name]
+    model, inputs, inits = build()
+    ref = tmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
+                   seed=seed, device="cpu", verbose=False)
+    np.testing.assert_array_equal(r0[name], r1[name])
+    np.testing.assert_allclose(r0[name], ref.value, rtol=1e-8, atol=1e-12)
+    keys = ref.states["key"].numpy()
+    np.testing.assert_array_equal(r0[f"{name}_key"], keys[:2])
+    np.testing.assert_array_equal(r1[f"{name}_key"], keys[2:])
+
+
+@pytest.fixture(scope="module")
+def layout_ranks(tmp_path_factory):
+    """``LAYOUT_RUNS`` on two gloo chain ranks, once for the module."""
+    return _ranks("layouts", tmp_path_factory.mktemp("layouts"),
+                  timeout=2 * RANKS_TIMEOUT)
 
 
 def test_data_mesh_matches_the_unsharded_run(tmp_path):
@@ -377,7 +460,8 @@ def test_a_sharded_run_s_file_restarts_on_one_device(tmp_path, layout,
     (1, 2) data mesh (y padded 5 -> 6 there).  Read back on the CPU it is
     the unsharded run's layout, as the JAX package's file is; it restarts
     on one device equal to the restart from the gathered in-memory state
-    (1e-12), its state is the ranks' runs', and its restart's posterior
+    (1e-12) and to the mesh's own continuation (1e-8), its draws, state
+    and keys are the unsharded run's (1e-8), and its restart's posterior
     means agree with the JAX package's restart from its own file."""
     import pickle
     from mamba_tpu_torch.output import fileio
@@ -395,12 +479,12 @@ def test_a_sharded_run_s_file_restarts_on_one_device(tmp_path, layout,
     assert {k: tuple(v.shape) for k, v in state.items()} == {
         "beta": (4, 2), "s2": (4,), "y": (4, 5)}          # padding dropped
     np.testing.assert_array_equal(state["y"], np.broadcast_to(inits[0]["y"], (4, 5)))
-    assert len(payload["rngs"]) == (2 if layout == "chains" else 1)
+    assert payload["states"]["key"].shape == (4, 2)
 
     # the JAX package's file for the same model and mesh shape
     jp = jax_files[layout]
-    assert set(payload) - {"device", "dtype", "rngs"} == set(jp)
-    assert set(payload["states"]) - {"rng"} == set(jp["states"]) - {"key"}
+    assert set(payload) - {"device", "dtype"} == set(jp)
+    assert set(payload["states"]) == set(jp["states"])
     for k in ("names", "start", "thin", "iter", "chains"):
         assert payload[k] == (list(jp[k]) if k == "names" else jp[k]), k
     assert payload["value"].shape == jp["value"].shape
@@ -418,22 +502,19 @@ def test_a_sharded_run_s_file_restarts_on_one_device(tmp_path, layout,
     # the restart from the file, against the one-device restart from the
     # resume state gathered in memory
     more = _restarts_as_in_memory(tmp_path, mc, model, inputs, r0["value"])
+    # every chain continues its own stream: the mesh's own continuation
+    # (``CONTINUED``: on the data layout its first 90 iterations)
+    kept = r0["continued"].shape[0]
+    assert kept == RESTART_RUN[0] - RESTART_RUN[1] + CONTINUED[layout]
+    np.testing.assert_allclose(more.value[:kept], r0["continued"], rtol=1e-8)
 
-    # the file's state is the ranks' runs'
-    if layout == "data":      # one stream; the density's sums differ
-        ref = tmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
-                       seed=3, device="cpu", verbose=False)
-        for k, v in ref.states["state"].items():
-            np.testing.assert_allclose(state[k], v, rtol=1e-8, err_msg=k)
-        assert torch.equal(payload["rngs"][0], ref.states["rng"])
-    else:                     # rank r: an unsharded run seeded as rank r
-        for r in range(2):
-            own = [inits[k % len(inits)] for k in (2 * r, 2 * r + 1)]
-            ref = tmt.mcmc(model, inputs, own, iters, burnin=burnin, chains=2,
-                           seed=rank_seed(3, r), device="cpu", verbose=False)
-            for k, v in ref.states["state"].items():
-                np.testing.assert_array_equal(state[k][2 * r:2 * r + 2], v)
-            assert torch.equal(payload["rngs"][r], ref.states["rng"])
+    # the file's keys and state are the unsharded run's on either layout
+    ref = tmt.mcmc(model, inputs, inits, iters, burnin=burnin, chains=4,
+                   seed=3, device="cpu", verbose=False)
+    assert torch.equal(payload["states"]["key"], ref.states["key"])
+    np.testing.assert_allclose(mc.value, ref.value, rtol=1e-8)
+    for k, v in ref.states["state"].items():
+        np.testing.assert_allclose(state[k], v, rtol=1e-8, err_msg=k)
 
     # tests/test_torch_multiproc.py's rats criterion: posterior means
     # within 0.75 posterior SDs of the JAX package's restart from its file

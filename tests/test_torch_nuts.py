@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mamba_tpu.samplers import nuts as jnuts
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.samplers import nuts as tnuts
 from mamba_tpu_torch.utils import convert
 
@@ -149,13 +150,14 @@ def test_frozen_phase_uses_epsilonbar_even_when_it_is_one(monkeypatch):
 
 
 def _run(C, n, adapt_iters, target=0.6, seed=0):
-    gen = torch.Generator().manual_seed(seed)
+    keys = R.chain_keys(seed, range(C))
     x = torch.zeros(C, 2, dtype=torch.float64)
-    tune = tnuts.nuts_init(gen, x, t_logfgrad, target=target)
+    tune = tnuts.nuts_init(keys, x, t_logfgrad, target=target)
     assert (tune.epsilon > 0).all()
     xs, accept = [], []
     for i in range(n):
-        x, tune = tnuts.nuts_step(gen, x, tune, t_logfgrad, adapt=i < adapt_iters)
+        x, tune = tnuts.nuts_step(R.fold_in(keys, i), x, tune, t_logfgrad,
+                                  adapt=i < adapt_iters)
         xs.append(x)
         accept.append(tune.alpha / tune.nalpha.clamp(min=1))
     return torch.stack(xs).numpy(), torch.stack(accept).numpy(), tune

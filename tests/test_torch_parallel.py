@@ -15,6 +15,7 @@ from jax.sharding import PartitionSpec as P
 
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu.models import glmm as jglmm, line as jline
 from mamba_tpu.parallel import make_mesh as jmake_mesh
 from mamba_tpu.parallel.mesh import pad_axes as jpad_axes, pad_mask as jpad_mask
@@ -23,8 +24,7 @@ from mamba_tpu_torch.model.mcmc import _pad_sharded
 from mamba_tpu_torch.models import glmm as tglmm, line as tline
 from mamba_tpu_torch.parallel import (chain_sharding, make_mesh,
                                       shard_chain_tree)
-from mamba_tpu_torch.parallel.mesh import (MeshComm, pad_axes, pad_mask,
-                                           rank_seed)
+from mamba_tpu_torch.parallel.mesh import (MeshComm, pad_axes, pad_mask)
 from mamba_tpu_torch.utils import convert
 
 torch.set_num_threads(2)
@@ -275,9 +275,12 @@ def test_chain_sharding_of_one_rank_and_the_rank_seeds():
     out = shard_chain_tree(tree, mesh, 8)
     assert out["x"].shape == (8, 3) and out["k"] == 3
     assert out["t"][1].shape == (2,)
-    assert rank_seed(3, 0) == 3
-    assert len({rank_seed(3, r) for r in range(4)}) == 4
-    assert rank_seed(3, 1) == rank_seed(3, 1) != rank_seed(4, 1)
+    # a rank's streams: its chains' keys, by their global indices, are its
+    # rows of every chain's keys, and no two chains share one
+    every = R.chain_keys(3, range(8))
+    np.testing.assert_array_equal(R.chain_keys(3, range(4, 8)), every[4:])
+    assert len({tuple(k) for k in every.tolist()}) == 8
+    assert not torch.equal(R.chain_keys(4, range(8)), every)
 
 
 @pytest.mark.parametrize("scheme", ["nuts", "chees", "nuts-specs"])
@@ -360,7 +363,8 @@ def test_mesh_run_matches_the_reference_mesh_run():
 # ---- the graft entry ----------------------------------------------------
 def test_entry_is_one_gibbs_iteration():
     fn, args = entry("cpu")
-    gen, state, tunes = fn(*args)
+    keys, state, tunes = fn(*args)
+    assert keys.shape == (1, 2)
     assert state["alpha"].shape == (1, 30) and state["y"].shape == (1, 30, 5)
     assert all(torch.isfinite(v).all() for v in state.values())
     assert len(tunes) == 2

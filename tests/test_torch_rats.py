@@ -13,6 +13,7 @@ import torch
 
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu.models import rats as jrats
 from mamba_tpu_torch.models import rats as trats
 from mamba_tpu_torch.utils import convert
@@ -102,24 +103,12 @@ def test_untransformed_variance_block_is_minus_inf_off_support():
     assert torch.isneginf(lp[0]) and torch.isfinite(lp[1:]).all()
 
 
-def test_var_gibbs_matches_given_the_same_gamma_draws(monkeypatch):
+def test_var_gibbs_matches_given_the_same_gamma_draws():
+    # the same keys per chain give the same three inverse-gamma draws: the
+    # port's block splits each chain's key in three and draws with the
+    # ported inverse_gamma_bounded, as the JAX block does
     states = _states(4)
-    rng = np.random.default_rng(5)
-    gammas = {k: rng.gamma(a, 1.0, C) for k, a in
-              (("s2_c", 75.001), ("s2_alpha", 15.001), ("s2_beta", 15.001))}
     order = ["s2_c", "s2_alpha", "s2_beta"]
-
-    # JAX: its bounded-rounds inverse-gamma sampler, replaced by b / g
-    from mamba_tpu.ops import rng as jrng
-    calls = []
-
-    def j_ig(key, a, b):
-        name = order[len(calls) % 3]
-        c = len(calls) // 3
-        calls.append((name, float(a)))
-        return b / gammas[name][c]
-
-    monkeypatch.setattr(jrng, "inverse_gamma_bounded", j_ig)
     jm, jin, _ = jrats.build("nuts")
     j_gibbs = jm.samplers[1]
     jout = []
@@ -128,20 +117,11 @@ def test_var_gibbs_matches_given_the_same_gamma_draws(monkeypatch):
         env.update({k: jnp.asarray(v) for k, v in jin.items()})
         jout.append({k: float(v) for k, v in
                      j_gibbs.fn(jax.random.key(c), env).items()})
-    assert [a for _, a in calls[:3]] == [75.001, 15.001, 15.001]
-
-    # the port: one chain-batched draw per variance, in the same order
-    shapes = []
-
-    def t_ig(gen, a, scale):
-        shapes.append(a)
-        return scale / torch.as_tensor(gammas[order[len(shapes) - 1]])
-
-    monkeypatch.setattr(trats, "_inverse_gamma", t_ig)
+    keys = torch.as_tensor(np.stack([np.asarray(jax.random.key_data(
+        jax.random.key(c))) for c in range(C)]).astype(np.int64))
     env = convert.to_tensors(states, "cpu", torch.float64)
     env.update(convert.to_tensors(trats.build("nuts")[1], "cpu", torch.float64))
-    out = trats.var_gibbs(None, env)
-    assert shapes == [75.001, 15.001, 15.001]
+    out = trats.var_gibbs(keys, env)
     for k in order:
         np.testing.assert_allclose(out[k].numpy(), [j[k] for j in jout], rtol=RTOL)
 
@@ -149,9 +129,9 @@ def test_var_gibbs_matches_given_the_same_gamma_draws(monkeypatch):
 def test_inverse_gamma_draws_follow_their_law():
     # the port's gamma draw on the shapes the model uses: KS against scipy
     from scipy import stats
-    gen = torch.Generator().manual_seed(3)
+    keys = R.chain_keys(3, range(20000))
     scale = torch.full((20000,), 40.0, dtype=torch.float64)
-    d = trats._inverse_gamma(gen, 75.001, scale).numpy()
+    d = R.inverse_gamma_bounded(keys, 75.001, scale).numpy()
     assert stats.kstest(d, stats.invgamma(75.001, scale=40.0).cdf).pvalue > 1e-3
 
 
@@ -190,7 +170,7 @@ def test_rats_chees_from_advi_golden():
                    device="cpu")
     chains = 64
     draws = {k: v.numpy() for k, v in
-             res.sample(torch.Generator().manual_seed(5), chains).items()}
+             res.sample(R.key(5), chains).items()}
     warm = [dict(inits[0], **{k: d[i] for k, d in draws.items()})
             for i in range(chains)]
     sim = tmt.mcmc(model, inputs, warm, 1000, burnin=300, chains=chains,

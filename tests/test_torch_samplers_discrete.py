@@ -11,7 +11,6 @@ replays as ``u = 1 - exp(-w)``; it draws Gumbel noise as ``-log(-log u)``,
 so a recorded ``g`` replays as ``u = exp(-exp(-g))``.  Tolerance: rtol 1e-12
 in float64."""
 
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_feed import fed
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu.samplers import dgs as jdgs
 from mamba_tpu.samplers import slicesimplex as jss
 from mamba_tpu_torch.samplers import dgs as tdgs
@@ -31,30 +32,12 @@ torch.set_num_threads(2)
 
 RTOL = 1e-12
 C = 4
+#: the port's per-chain keys where a test feeds the draws
+KEYS = R.chain_keys(0, range(C))
 
 
 def _t(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.float64)
-
-
-@contextlib.contextmanager
-def fed(monkeypatch, rand=()):
-    """The port's ``torch.rand`` returns the given arrays in order, each
-    checked against the shape asked for; every array must be used."""
-    queue = list(rand)
-
-    def draw(*size, generator=None, dtype=None, device=None):
-        shape = tuple(size[0]) if len(size) == 1 and not isinstance(
-            size[0], int) else tuple(size)
-        assert queue, f"unexpected torch.rand{shape}"
-        v = np.asarray(queue.pop(0), dtype=np.float64)
-        assert v.shape == shape, (v.shape, shape)
-        return torch.as_tensor(v, dtype=dtype or torch.float64)
-
-    with monkeypatch.context() as m:
-        m.setattr(torch, "rand", draw)
-        yield
-    assert not queue, "draws left unused"
 
 
 def _recorded(monkeypatch, fn, kinds=("uniform", "dirichlet", "gumbel")):
@@ -113,11 +96,13 @@ def _simplex_row(per_chain, K):
 
 def _simplex_feed(rows_per_chain, K):
     """The draws of a node's rows, one list of per-chain events per row, in
-    the port's order: levels (R, C), first batches (R, TRIPS + 2, C, K),
-    then each row's further batches."""
+    the port's order, chain first: levels (C, R), first batches (C, R,
+    TRIPS + 2, K), then each row's further batches (C, TRIPS, K)."""
     rows = [_simplex_row(per_chain, K) for per_chain in rows_per_chain]
-    return ([np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows])]
-            + [b for r in rows for b in r[2]])
+    # chain first, as the port's keyed draws come
+    return ([np.stack([r[0] for r in rows]).T,
+             np.stack([r[1] for r in rows]).transpose(2, 0, 1, 3)]
+            + [b.transpose(1, 0, 2) for r in rows for b in r[2]])
 
 
 @pytest.mark.parametrize("scale", [1.0, 0.3])
@@ -136,8 +121,8 @@ def test_slicesimplex_step_matches_given_the_same_draws(scale, monkeypatch):
     assert max(trips) >= 1, trips              # the shrink loop ran
     ttune = convert.slicesimplex_tune({"scale": np.full(C, scale)}, "cpu",
                                       torch.float64)
-    with fed(monkeypatch, _simplex_feed([events], K)):
-        x2, _ = tss.slicesimplex_step(None, _t(x0), ttune, t_dirichlet_logf)
+    with fed(monkeypatch, rand=_simplex_feed([events], K)):
+        x2, _ = tss.slicesimplex_step(KEYS, _t(x0), ttune, t_dirichlet_logf)
     np.testing.assert_allclose(x2.numpy(), np.stack(j_out), rtol=RTOL, atol=1e-15)
 
 
@@ -167,8 +152,8 @@ def test_slicesimplex_step_matches_over_several_batches(monkeypatch):
         return torch.sum(torch.as_tensor(alpha - 1) * torch.log(
             torch.clamp(x, min=1e-12)), -1)
 
-    with fed(monkeypatch, feed):
-        x2, _ = tss.slicesimplex_step(None, _t(x0), ttune, t_logf)
+    with fed(monkeypatch, rand=feed):
+        x2, _ = tss.slicesimplex_step(KEYS, _t(x0), ttune, t_logf)
     np.testing.assert_allclose(x2.numpy(), np.stack(j_out), rtol=RTOL, atol=1e-15)
 
 
@@ -180,12 +165,12 @@ def test_slicesimplex_targets_dirichlet():
         return torch.sum(torch.as_tensor(alpha - 1) * torch.log(
             torch.clamp(x, min=1e-12)), -1)
 
-    gen = torch.Generator().manual_seed(3)
+    gen = R.chain_keys(3, range(16))
     x = torch.full((16, 3), 1.0 / 3, dtype=torch.float64)
     tune = tss.slicesimplex_init(x, 0.7)
     draws = []
     for i in range(400):
-        x, _ = tss.slicesimplex_step(gen, x, tune, logf)
+        x, _ = tss.slicesimplex_step(R.fold_in(gen, i), x, tune, logf)
         if i >= 100:
             draws.append(x.numpy())
     d = np.concatenate(draws)
@@ -235,8 +220,8 @@ def test_slicesimplex_row_sweep_matches_the_jax_block(monkeypatch):
     feed = _simplex_feed([[rows[c][r] for c in range(C)] for r in range(3)], 5)
     tblock = tm.samplers[0].build(tcm)
     tstate = convert.to_tensors(state, "cpu", torch.float64)
-    with fed(monkeypatch, feed):
-        st, _ = tblock.step(None, tstate, tblock.init(None, tstate), False)
+    with fed(monkeypatch, rand=feed):
+        st, _ = tblock.step(KEYS, tstate, tblock.init(KEYS, tstate), False)
     np.testing.assert_allclose(st["q"].numpy(), np.stack(j_q), rtol=RTOL, atol=1e-15)
 
 
@@ -274,8 +259,8 @@ def test_dgs_step_matches_given_the_same_draws(monkeypatch):
     ttune = convert.dgs_tune({"support": np.broadcast_to(grid, (C, 3, 3)),
                               "mask": np.broadcast_to(mask, (C, 3, 3))},
                              "cpu", torch.float64)
-    with fed(monkeypatch, feed):
-        x2, _ = tdgs.dgs_step(None, _t(x0), ttune, t_table_logf)
+    with fed(monkeypatch, rand=feed):
+        x2, _ = tdgs.dgs_step(KEYS, _t(x0), ttune, t_table_logf)
     np.testing.assert_array_equal(x2.numpy(), np.stack(j_out))
     assert (x2[:, 1] != 2).all()                       # masked out
 
@@ -289,7 +274,7 @@ def test_dgs_draws_the_exact_conditionals():
     def logf(x):
         return logp[0, x[..., 0].long()] + logp[1, x[..., 1].long()]
 
-    x, _ = tdgs.dgs_step(torch.Generator().manual_seed(1),
+    x, _ = tdgs.dgs_step(R.chain_keys(1, range(8000)),
                          torch.zeros(8000, 2, dtype=torch.float64), tune, logf)
     np.testing.assert_allclose(x.mean(0).numpy(), [0.9, 0.3], atol=0.03)
 
@@ -299,7 +284,7 @@ def test_dgs_ragged_support_and_the_uniform_fallback():
     # falls back to a uniform draw over each element's valid support
     tune = tdgs.DGSTune(support=_t([[0.0, 1.0, 2.0], [0.0, 1.0, 0.0]]),
                         mask=torch.tensor([[True, True, True], [True, True, False]]))
-    gen = torch.Generator().manual_seed(2)
+    gen = R.chain_keys(2, range(6000))
     x0 = torch.zeros(6000, 2, dtype=torch.float64)
     for logf in (lambda x: torch.zeros(x.shape[:-1], dtype=x.dtype),
                  lambda x: torch.full(x.shape[:-1], -torch.inf, dtype=x.dtype)):
@@ -339,12 +324,12 @@ def test_dgs_requires_a_discrete_node():
 def test_discrete_step_exact_masses():
     # the stand-alone DiscreteVariate form (reference dgs.jl:129-133)
     mass = torch.tensor([0.2, 0.5, 0.3], dtype=torch.float64).expand(6000, 3)
-    draws = tmt.samplers.discrete_step(torch.Generator().manual_seed(0),
+    draws = tmt.samplers.discrete_step(R.key(0),
                                        _t([0.0, 1.0, 2.0]), mass).numpy()
     assert draws.shape == (6000,)
     freqs = [(draws == v).mean() for v in (0.0, 1.0, 2.0)]
     np.testing.assert_allclose(freqs, [0.2, 0.5, 0.3], atol=0.02)
-    rows = tmt.samplers.discrete_step(torch.Generator().manual_seed(1),
+    rows = tmt.samplers.discrete_step(R.key(1),
                                       _t([[0.0, 1.0], [2.0, 3.0]]),
                                       _t([0.0, 1.0]))
     assert rows.tolist() == [2.0, 3.0]

@@ -8,7 +8,6 @@ port draws them (each module's docstring lists that order).  Tolerance:
 rtol 1e-12 in float64 — the same arithmetic in the same order, up to
 summation order in the block density."""
 
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_feed import fed
 import mamba_tpu as jmt
 import mamba_tpu_torch as tmt
 from mamba_tpu.models import line as jline
@@ -26,6 +26,7 @@ from mamba_tpu.samplers import mala as jmala
 from mamba_tpu.samplers import rwm as jrwm
 from mamba_tpu.samplers import slice as jslice
 from mamba_tpu_torch.models import line as tline
+from mamba_tpu_torch.ops import random as R
 from mamba_tpu_torch.samplers import amwg as tamwg
 from mamba_tpu_torch.samplers import hmc as thmc
 from mamba_tpu_torch.samplers import mala as tmala
@@ -67,32 +68,12 @@ def _x0(seed=0):
     return np.random.default_rng(seed).normal(0.0, 1.0, (C, DIM))
 
 
+#: the port's per-chain keys where a test feeds the draws
+KEYS = R.chain_keys(0, range(C))
+
+
 def _keys(seed):
     return [jax.random.key(seed + c) for c in range(C)]
-
-
-@contextlib.contextmanager
-def fed(monkeypatch, rand=(), randn=()):
-    """The port's ``torch.rand`` / ``torch.randn`` return the given arrays in
-    order, each checked against the shape asked for; every array must be
-    used."""
-    queues = {"rand": list(rand), "randn": list(randn)}
-
-    def feeder(kind):
-        def draw(*size, generator=None, dtype=None, device=None):
-            shape = tuple(size[0]) if len(size) == 1 and not isinstance(
-                size[0], int) else tuple(size)
-            assert queues[kind], f"unexpected torch.{kind}{shape}"
-            v = np.asarray(queues[kind].pop(0), dtype=np.float64)
-            assert v.shape == shape, (kind, v.shape, shape)
-            return torch.as_tensor(v, dtype=dtype or torch.float64)
-        return draw
-
-    with monkeypatch.context() as m:
-        m.setattr(torch, "rand", feeder("rand"))
-        m.setattr(torch, "randn", feeder("randn"))
-        yield
-    assert not queues["rand"] and not queues["randn"], "draws left unused"
 
 
 def _recorded(monkeypatch, fn):
@@ -145,10 +126,11 @@ def _batched(trips, fill):
 
 
 def _univariate_feed(per_chain_events):
-    """JAX's univariate draws per chain -> the port's batched draw order:
-    offsets (C, dim); every coordinate's first batch (dim, TRIPS + 2, C):
-    level, candidate and its first ``TRIPS`` trips; then per coordinate one
-    (TRIPS, C) per further batch (chains already accepted get filler)."""
+    """JAX's univariate draws per chain -> the port's batched draws, chain
+    first: offsets (C, dim); every coordinate's first batch (C, dim,
+    TRIPS + 2): level, candidate and its first ``TRIPS`` trips; then per
+    coordinate one (C, TRIPS) per further batch (chains already accepted
+    get filler)."""
     coords = []
     for ev in per_chain_events:
         lower = None
@@ -169,18 +151,22 @@ def _univariate_feed(per_chain_events):
         first.append(np.stack([np.array([p["p0"] for p in per]),
                                np.array([p["x"][0] for p in per])] + head))
         later += rest
-    return [np.stack([lo for lo, _ in coords]), np.stack(first)] + later
+    # chain first, as the port's keyed draws come
+    return ([np.stack([lo for lo, _ in coords]),
+             np.stack(first).transpose(2, 0, 1)] + [r.T for r in later])
 
 
 def _multivariate_feed(per_chain_events):
-    """JAX's multivariate draws per chain -> the port's order: level (C,),
-    the first batch (TRIPS + 2, C, dim): offsets, candidate and the first
-    ``TRIPS`` trips; then one (TRIPS, C, dim) per further batch."""
+    """JAX's multivariate draws per chain -> the port's draws, chain first:
+    level (C,), the first batch (C, TRIPS + 2, dim): offsets, candidate and
+    the first ``TRIPS`` trips; then one (C, TRIPS, dim) per further
+    batch."""
     us = [_draws(ev, "u") for ev in per_chain_events]
     head, rest = _batched([u[3:] for u in us], np.full(DIM, 0.5))
     return [np.array([u[0] for u in us]),
             np.stack([np.stack([u[1] for u in us]),
-                      np.stack([u[2] for u in us])] + head)] + rest
+                      np.stack([u[2] for u in us])] + head).transpose(1, 0, 2)
+            ] + [r.transpose(1, 0, 2) for r in rest]
 
 
 #: bracket widths of the parity cases, and whether every chain stops
@@ -220,7 +206,7 @@ def test_slice_step_matches_given_the_same_uniforms(form, monkeypatch):
     tstep = {"univariate": tslice.slice_univariate_step,
              "multivariate": tslice.slice_multivariate_step}[form]
     with fed(monkeypatch, rand=feed):
-        x2, _ = tstep(None, _t(x0), ttune, t_logf)
+        x2, _ = tstep(KEYS, _t(x0), ttune, t_logf)
     np.testing.assert_allclose(x2.numpy(), np.stack(j_out), rtol=RTOL)
 
 
@@ -236,12 +222,11 @@ def test_slice_cap_rejects_and_restores_the_entry_density(form):
         lp = torch.zeros(x.shape[0], dtype=x.dtype)
         return lp if len(calls) == 1 else lp - torch.inf
 
-    gen = torch.Generator().manual_seed(0)
     x = _t(_x0(2))[:, :1] if form == "univariate" else _t(_x0(2))
     tune = tslice.slice_init(x, 2.0)
     step = (tslice.slice_univariate_step if form == "univariate"
             else tslice.slice_multivariate_step)
-    x2, _ = step(gen, x, tune, logf)
+    x2, _ = step(KEYS, x, tune, logf)
     torch.testing.assert_close(x2, x, rtol=0, atol=0)     # the move is rejected
     # the entry evaluation, the first candidate and one per shrink trip; no
     # evaluation to restore the entry value
@@ -296,7 +281,7 @@ def test_amwg_step_matches_given_the_same_draws(adapt, m, monkeypatch):
                for f in ("sigma", "accept", "m", "batchsize", "target")}
     ttune = convert.amwg_tune(stacked, "cpu", torch.float64)
     with fed(monkeypatch, rand=[np.stack(uniforms)], randn=[np.stack(normals)]):
-        x2, t2 = tamwg.amwg_step(None, _t(x0), ttune, t_logf, adapt)
+        x2, t2 = tamwg.amwg_step(KEYS, _t(x0), ttune, t_logf, adapt)
     np.testing.assert_allclose(x2.numpy(), np.stack(j_x), rtol=RTOL)
     np.testing.assert_allclose(t2.sigma.numpy(),
                                np.stack([np.asarray(t.sigma) for t in j_t]), rtol=RTOL)
@@ -307,7 +292,7 @@ def test_amwg_step_matches_given_the_same_draws(adapt, m, monkeypatch):
 
 def test_amwg_adapt_modes():
     spec = tmt.AMWG("beta", 1.0, adapt="burnin")
-    gen = torch.Generator().manual_seed(1)
+    gen = R.chain_keys(1, range(C))
     tune = spec.kernel_init(gen, _t(_x0()), t_logf)
     _, t1 = spec.kernel_step(gen, _t(_x0()), tune, t_logf, False)
     assert t1.m == 0
@@ -352,7 +337,7 @@ def test_rwm_step_matches(monkeypatch):
     jt = jrwm.rwm_init(jnp.zeros(DIM), jnp.asarray(scale))
     tt = trwm.rwm_init(_t(_x0()), scale)
     moved = _compare_mh(monkeypatch, lambda k, x: jrwm.rwm_step(k, x, jt, j_logf),
-                        lambda x: trwm.rwm_step(None, x, tt, t_logf), 7)
+                        lambda x: trwm.rwm_step(KEYS, x, tt, t_logf), 7)
     assert moved.any() and not moved.all()
 
 
@@ -364,7 +349,7 @@ def test_hmc_step_matches(with_sigma, monkeypatch):
     if with_sigma:
         np.testing.assert_allclose(tt.SigmaL.numpy(), np.asarray(jt.SigmaL), rtol=RTOL)
     moved = _compare_mh(monkeypatch, lambda k, x: jhmc.hmc_step(k, x, jt, j_logfgrad),
-                        lambda x: thmc.hmc_step(None, x, tt, t_logfgrad), 8)
+                        lambda x: thmc.hmc_step(KEYS, x, tt, t_logfgrad), 8)
     assert moved.any()
 
 
@@ -374,7 +359,7 @@ def test_mala_step_matches(with_sigma, monkeypatch):
     jt = jmala.mala_init(jnp.zeros(DIM), 0.15, None if Sigma is None else jnp.asarray(Sigma))
     tt = tmala.mala_init(_t(_x0()), 0.15, Sigma)
     moved = _compare_mh(monkeypatch, lambda k, x: jmala.mala_step(k, x, jt, j_logfgrad),
-                        lambda x: tmala.mala_step(None, x, tt, t_logfgrad), 9)
+                        lambda x: tmala.mala_step(KEYS, x, tt, t_logfgrad), 9)
     assert moved.any()
 
 
