@@ -143,15 +143,32 @@ through the port's public entry points (``mcmc``, ``advi``,
     run on the (2, 1) chain mesh, 512 chains a rank, each chain keyed by its
     global index: the gathered draws held chain by chain to phase 6's
     (``RATS_CHAIN_IDENTICAL_MIN``, ``RATS_CHAIN_MAX_DIFF``), the share of
-    bit-identical chains and the largest difference printed; then the
+    bit-identical chains and the largest difference printed; (j) in the
+    same two processes, the GLMM with only its data named (y and xt, or y
+    and x for the generic form: ``DATA_SPECS``), so z and b stay whole and
+    y reads the rank's slice of b: both forms' block density and gradient
+    at phase 10's warm starts against the whole under phase 3's gates (the
+    fused kernel once per call over the rank's 5,000 groups), the fused
+    form under ChEES cut to ``MESH_CHEES_RUN`` (draws finite and equal on
+    both ranks, its wall per gradient, its all-reduce of (1024,) and
+    (1024, 10,005) timed, its kernel launches counted in the kernels
+    line), then small fixtures (``_fixture_models``: line with a prior on
+    ss = sum((y - mu)**2), gathered per density call; mean(y) under MISS,
+    gathered per step; line's own five points padded to six; the rows of
+    v ~ MvNormal(stack([w, w]), I); birats' law recycled over its rows)
+    at their inits against the unsharded model (density, a block's
+    density and gradient, monitored rows; 1024 chains) and run a few
+    iterations at ``FIXTURE_CHAINS``, draws finite and equal on both
+    ranks; then the
     kernel at a rank's shares (C = 512; G = 5,000;
     C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
     plain version, the first two timed with their bounds.  Both ranks share
-    the one card: no number of (c)-(g) is a scaling figure.
+    the one card: no number of (c)-(j) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
-runs one rank of (c), (d), (e), (g), (h) and (i), and writes (f)'s files.
+runs one rank of (c), (d), (e), (g), (h), (i) and (j), and writes (f)'s
+files.
 
 The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
@@ -342,7 +359,7 @@ SMC_GLMM_STEPS = 20
 #: the profile phase: full-width gradients traced, and how far
 #: time_compiled's time may lie from phase 3's CUDA-event time
 PROFILE_GRADIENTS, PROFILE_TIME_RTOL = 5, 0.2
-#: the mesh phase: the two processes of (c)-(h) must end within this
+#: the mesh phase: the two processes of (c)-(j) must end within this
 #: many seconds, and a collective may wait this many
 MESH_RANKS_TIMEOUT, MESH_GROUP_TIMEOUT = 700, 120
 #: the mesh phase's model width (phase 10's)
@@ -1558,6 +1575,266 @@ def _resolved_cases(torch, mt, glmm, fg, warm, mesh, rank, outdir):
     return res
 
 
+#: (j)'s layouts: the GLMM with only its data named (y and the
+#: covariates), so z and b stay whole, as GSPMD replicates them
+DATA_SPECS = {"y": (None, "data"), "xt": (None, None, "data")}
+DATA_SPECS_GENERIC = {"y": ("data", None), "x": ("data", None, None)}
+#: (j)'s small fixtures' runs (iterations, burnin; birats' is RESOLVED_RUN)
+#: and their chains: a split block runs the plain loops, a per-call gather
+#: adds an all-gather to each leapfrog, and the deepest of 1024 chains'
+#: NUTS trees sets an iteration's leapfrogs, so the runs are cut
+FIXTURE_RUN, FIXTURE_CHAINS = (10, 5), 64
+#: the whole coordinates of the GLMM's (beta, z, s2) block: z's, beta's, s2's
+GLMM_WHOLE_DIM = MESH_G + 5
+
+
+def _data_only(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
+    """(j): the GLMM at full width with only its data named
+    (``DATA_SPECS``, ``DATA_SPECS_GENERIC``): y reads the rank's slice of
+    the whole b.  Both forms' (beta, z, s2) block density and gradient at
+    the warm starts against the whole; the fused form under ChEES on the
+    mesh (``MESH_CHEES_RUN``), its wall per gradient and one call's
+    all-reduce of the value and the whole gradient, timed; then the small
+    fixtures (``_fixtures``)."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    res = {}
+    for fused, specs in ((True, DATA_SPECS), (False, DATA_SPECS_GENERIC)):
+        model, inputs, inits, _ = glmm.build(MESH_G, fused=fused)
+        starts = [dict(w, y=inits[0]["y"]) for w in warm]
+        whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+        split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                                 comm=MeshComm(mesh), site_specs=specs)
+        d = _split_against_whole(torch, fg, whole, split,
+                                 _chain_inits(whole, starts, CHAINS))
+        d["cuts"] = split._cuts
+        d["groups_split"] = (split.inputs["xt"].shape[-1] if fused
+                             else split.inputs["x"].shape[0])
+        res["fused" if fused else "generic"] = d
+        del whole, split
+    run, sim, tunes = _glmm_chees_run(
+        torch, mt, glmm, fg, chees, warm,
+        f"(j) rank {rank}, the GLMM with only its data named", mesh=mesh,
+        site_specs=DATA_SPECS)
+    np.save(Path(outdir) / f"data_only_draws{rank}.npy", sim.value)
+    run["tunes"] = tunes
+    run["z_shape"] = list(sim.states["state"]["z"].shape)
+    params = ("beta", "z", "s2")
+    run["data_sum_shape"], run["data_sum_ms"] = _data_sum_timed(
+        torch, sim.compiled, params, GLMM_WHOLE_DIM)
+    res["chees"] = run
+    del sim
+    res["fixtures"] = _fixtures(torch, mt, mesh, rank, outdir)
+    return res
+
+
+def _data_sum_timed(torch, cm, params, dim):
+    """The shapes of the tensors of the one all-reduce that completes a
+    density call of the block on ``cm`` (the value and the gradient of
+    ``dim`` coordinates), and its ms, staged through the host under gloo."""
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    v = torch.zeros(CHAINS, device=DEVICE)
+    g = torch.zeros(CHAINS, dim, device=DEVICE)
+    shapes = []
+    inner = MeshComm.data_sum
+
+    def counted(comm, *tensors):
+        shapes.append([list(t.shape) for t in tensors])
+        return inner(comm, *tensors)
+    MeshComm.data_sum = counted
+    try:
+        cm.block_sum(params)(v, g)
+    finally:
+        MeshComm.data_sum = inner
+    total = cm.block_sum(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DATA_SUM_REPS):
+        total(v, g)
+    torch.cuda.synchronize()
+    return shapes[0], 1e3 * (time.perf_counter() - t0) / DATA_SUM_REPS
+
+
+def _fixture_models(mt, torch):
+    """(j)'s small fixtures: name -> ((model, inputs, inits), site_specs,
+    the gradient block held to the whole, the run).  Line with a prior on
+    ss = sum((y - mu)**2) (gathered per density call of beta's block),
+    with a prior on mean(y) under MISS (gathered once per step of tau's),
+    on its own five points padded to six (mean(y) a constant from the
+    five, a monitored ss computed whole from them), the rows of v ~
+    MvNormal(stack([w, w]), I) with w and v named, and birats with one
+    law recycled over its rows."""
+    from mamba_tpu_torch.models import birats, line
+    six = np.array([1.0, 3.0, 3.0, 3.0, 5.0, 6.0])
+
+    def line_with(extra, sampled, y=six, miss=False):
+        model, inputs, inits = line.build()
+        model = mt.Model(**{**model.nodes, **extra})
+        model.set_samplers([mt.NUTS("beta"), mt.Slice("s2", 3.0)]
+                           + [mt.Slice(n, 1.0) for n in sampled]
+                           + ([mt.MISS("y")] if miss else []))
+        if y is not None:
+            inputs = {"xmat": np.stack([np.ones(6), np.arange(1.0, 7.0)], 1),
+                      "w": np.linspace(-0.6, 0.9, 6)}
+        return model, inputs, [dict(i, tau=0.5, v=np.linspace(
+            -1.0, 1.2, 12).reshape(6, 2), **({} if y is None else {"y": y}))
+            for i in inits]
+
+    def ss(monitor=False):
+        return mt.Logical(lambda y, mu: torch.sum((y - mu) ** 2),
+                          monitor=monitor)
+
+    def ybar():
+        return mt.Logical(lambda y: torch.mean(y), monitor=False)
+
+    model, inputs, inits = birats.build()
+    nodes = dict(model.nodes, beta=mt.Stochastic(
+        2, lambda mu_beta, Sigma: mt.MvNormal(mu_beta, Sigma), monitor=False))
+    recycled = mt.Model(**nodes)
+    recycled.set_samplers(model.samplers)
+    line_block = ("beta", "s2", "tau")
+    return {
+        "line_ss_tau": (line_with(
+            {"ss": ss(), "tau": mt.Stochastic(
+                lambda ss: mt.Normal(0.1 * ss, 1.0))}, ["tau"]),
+            LINE6_SPECS, line_block, FIXTURE_RUN),
+        "line_miss_ybar": (line_with(
+            {"ybar": ybar(), "tau": mt.Stochastic(
+                lambda ybar: mt.Normal(ybar, 1.0))}, ["tau"],
+            y=np.array([1.0, np.nan, 3.0, 3.0, np.nan, 6.0]), miss=True),
+            LINE6_SPECS, line_block, FIXTURE_RUN),
+        "line_pad": (line_with(
+            {"ybar": ybar(), "ss": ss(True), "tau": mt.Stochastic(
+                lambda ybar: mt.Normal(ybar, 1.0))}, ["tau"], y=None),
+            LINE6_SPECS, line_block, FIXTURE_RUN),
+        "line_v": (line_with(
+            {"v": mt.Stochastic(2, lambda w: mt.MvNormal(
+                torch.stack([w, w], 1), torch.eye(2, dtype=w.dtype)),
+                monitor=False)}, ["v"]),
+            {**LINE6_SPECS, "w": ("data",), "v": ("data", None)},
+            ("beta", "s2", "v"), FIXTURE_RUN),
+        "birats_recycled": ((recycled, inputs, inits), BIRATS_SPECS,
+                            ("beta", "mu_beta", "Sigma"), RESOLVED_RUN),
+    }
+
+
+def _fixture_at_inits(torch, mt, mesh, model, inputs, inits, specs, block):
+    """A fixture at its inits: the unsharded model's log density, its
+    ``block`` density and gradient and its monitored rows, against this
+    rank's parts completed over the data group (the arrays padded as
+    ``mcmc`` pads them) and its rows gathered: their relative errors."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits, _pad_sharded
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    p_in, p_inits, masks, pads = _pad_sharded(model, mesh, specs, inputs,
+                                              inits)
+    split = mt.compile_model(model, p_in, p_inits[0], device=DEVICE,
+                             masks=masks, comm=MeshComm(mesh),
+                             site_specs=specs, pads=pads)
+    state = _chain_inits(whole, inits, CHAINS)
+    local = _chain_inits(split, p_inits, CHAINS)
+    lp = torch.func.vmap(whole.logpdf)(state).double()
+    (part,) = split.comm.data_sum(torch.func.vmap(split.logpdf_part)(
+        split.with_wholes(local)))
+    rows = whole.monitor_rows()(state).T[None].double()
+    got = split.gather_monitored(
+        split.monitor_rows()(local).T[None]).double()
+    pack, _, _, logf = whole.block_functions(block, True)
+    gw, vw = torch.func.vmap(torch.func.grad_and_value(logf))(
+        torch.func.vmap(pack)(state), state)
+    st = split.block_prepare(block)(local)
+    x = split.block_maps(block, True)[0](st)
+    v, g = split.block_density(block, True, grad=True)(x, st)
+    coords = split.block_coords(block)
+    if coords.index is not None:
+        gw = gw[:, coords.index]
+    vw, gw, v, g = vw.double(), gw.double(), v.double(), g.double()
+    return {"lp_rel_err": float(((part.double() - lp).abs() / lp.abs()).max()),
+            "block_lp_rel_err": float(((v - vw).abs() / vw.abs()).max()),
+            "grad_rel_err": float((g - gw).abs().max()
+                                  / gw.abs().max().clamp_min(1e-30)),
+            "rows_rel_err": float((got - rows).abs().max()
+                                  / rows.abs().max().clamp_min(1.0)),
+            "gathers": split.block_gathers(block),
+            "gathered": sorted(split._gathered), "mixed": sorted(split.mixed),
+            "cuts": split._cuts, "pads": split.pads}
+
+
+def _fixtures(torch, mt, mesh, rank, outdir):
+    """(j)'s fixtures on the (1, 2) data mesh in this rank: each at its
+    inits against the unsharded model (1024 chains), then a short run
+    (``FIXTURE_CHAINS``) whose draws are saved for the parent's check that
+    both ranks agree."""
+    out = {}
+    for name, ((model, inputs, inits), specs, block, run) in _fixture_models(
+            mt, torch).items():
+        res = _fixture_at_inits(torch, mt, mesh, model, inputs, inits, specs,
+                                block)
+        iters, burnin = run
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=FIXTURE_CHAINS, verbose=False, device=DEVICE,
+                      mesh=mesh, site_specs=specs)
+        res["sample_s"] = sim.timing["sample_s"]
+        np.save(Path(outdir) / f"fixture_{name}_draws{rank}.npy", sim.value)
+        out[name] = res
+    return out
+
+
+#: (j)'s fixtures, in order
+FIXTURES = ("line_ss_tau", "line_miss_ybar", "line_pad", "line_v",
+            "birats_recycled")
+#: what each fixture's block must do with gathered nodes (``block_gathers``)
+FIXTURE_GATHERS = {"line_ss_tau": "call", "line_miss_ybar": "step",
+                   "line_pad": "", "line_v": "", "birats_recycled": ""}
+
+
+def _data_only_gates(data_only, chees_draws, fixture_draws, failed):
+    """(j)'s gates on both ranks' results (``_data_only``): both forms'
+    density and gradient against the whole, y reading the rank's slice of
+    b (the fused kernel once per call over the rank's G/2 groups); the
+    ChEES run's draws finite and equal on both ranks and its all-reduce
+    of (C, 1 + whole dim); each fixture against the unsharded model, its
+    draws finite and equal on both ranks.  Appends what fails to
+    ``failed``."""
+    half = MESH_G // 2
+    a, b = chees_draws
+    iters, burnin = MESH_CHEES_RUN
+    if not (np.array_equal(a, b) and np.isfinite(a).all()
+            and a.shape == (iters - burnin, 5, CHAINS)):
+        failed.append("(j) ChEES: finite draws, equal on both ranks")
+    if data_only[0]["chees"]["tunes"] != data_only[1]["chees"]["tunes"]:
+        failed.append("(j) ChEES: (epsilon, traj) equal on both ranks")
+    for r, res in enumerate(data_only):
+        for form in ("fused", "generic"):
+            d = res[form]
+            if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL
+                    and d["cuts"] == {"y": {"b": 0}} and d["held"] == []
+                    and d["groups_split"] == half
+                    and d["launches_split"] == (1 if form == "fused" else 0)):
+                failed.append(f"(j) rank {r} {form}: {d}")
+        run = res["chees"]
+        if (run["data_sum_shape"] != [[CHAINS], [CHAINS, GLMM_WHOLE_DIM]]
+                or run["z_shape"] != [CHAINS, MESH_G]):
+            failed.append(f"(j) rank {r}: all-reduce {run['data_sum_shape']}, "
+                          f"z {run['z_shape']}")
+        for name in FIXTURES:
+            f = res["fixtures"][name]
+            if not (f["lp_rel_err"] <= LP_RTOL and f["block_lp_rel_err"] <= LP_RTOL
+                    and f["grad_rel_err"] <= GRAD_RTOL
+                    and f["rows_rel_err"] <= LP_RTOL
+                    and f["gathers"] == FIXTURE_GATHERS[name]):
+                failed.append(f"(j) rank {r} {name}: {f}")
+    for name, (a, b) in fixture_draws.items():
+        if not (np.array_equal(a, b) and np.isfinite(a).all()):
+            failed.append(f"(j) {name}: finite draws, equal on both ranks")
+    return {"fused": [r["fused"] for r in data_only],
+            "generic": [r["generic"] for r in data_only],
+            "chees": [{k: v for k, v in r["chees"].items() if k != "tunes"}
+                      for r in data_only],
+            "fixtures": [r["fixtures"] for r in data_only],
+            "wall_s": [r["wall_s"] for r in data_only]}
+
+
 #: (h)'s layout: the JAX package's own data-mesh setup of rats
 #: (__graft_entry__.py:57)
 RATS_SPECS = {"y": ("data",), "alpha": ("data",), "beta": ("data",)}
@@ -1643,8 +1920,8 @@ def _rats_chains_gates(draws, want, failed):
 
 
 def mesh_rank(init, rank, outdir):
-    """One rank of the mesh phase's (c), (d), (e), (g) and (h): two
-    processes over gloo, both on this process's card."""
+    """One rank of the mesh phase's (c), (d), (e), (g), (h), (i) and (j):
+    two processes over gloo, both on this process's card."""
     import torch
     import torch.distributed as dist
     import mamba_tpu_torch as mt
@@ -1686,6 +1963,10 @@ def mesh_rank(init, rank, outdir):
         t0 = time.perf_counter()
         res["rats_chains"] = _rats_chain_mesh(torch, mt, mesh, rank, outdir)
         res["rats_chains"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["data_only"] = _data_only(torch, mt, glmm, fg, chees, warm,
+                                      data_mesh, rank, outdir)
+        res["data_only"]["wall_s"] = time.perf_counter() - t0
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -1847,6 +2128,10 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
                       for r in range(2)]
         rats_chain_draws = [np.load(Path(tmp) / f"rats_chain_draws{r}.npy")
                             for r in range(2)]
+        data_only_draws = [np.load(Path(tmp) / f"data_only_draws{r}.npy")
+                           for r in range(2)]
+        fixture_draws = {k: [np.load(Path(tmp) / f"fixture_{k}_draws{r}.npy")
+                             for r in range(2)] for k in FIXTURES}
         failed = []
         t0 = time.perf_counter()                                  # (f)
         res["restart"] = {
@@ -1875,10 +2160,22 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
                                       resolved_draws, failed)
     log("mesh (g), data-axis cases the compiler resolves: "
         + json.dumps(res["resolved"]))
+    res["data_only"] = _data_only_gates([r["data_only"] for r in ranks],
+                                        data_only_draws, fixture_draws, failed)
+    log("mesh (j), the GLMM with only its data named and the fixtures: "
+        + json.dumps(res["data_only"]))
+    log("mesh (j), fused ChEES: " + json.dumps([{k: r[k] for k in (
+        "sample_s", "leapfrog_steps", "wall_ms_per_gradient", "kernel_launches",
+        "data_sum_shape", "data_sum_ms")} for r in res["data_only"]["chees"]]))
     res["launches"] = one["kernel_launches"] + sum(
         r["kernel_launches"] + r["local"]["kernel_launches"]
-        + r["resolved"]["glmm_w"]["kernel_launches"] for r in ranks) + sum(
+        + r["resolved"]["glmm_w"]["kernel_launches"]
+        + r["data_only"]["chees"]["kernel_launches"] for r in ranks) + sum(
         res["restart"][k]["kernel_launches"] for k in ("chain_mesh", "local"))
+    res["launches_j"] = sum(r["data_only"]["chees"]["kernel_launches"]
+                            for r in ranks)
+    if res["launches_j"] <= 0:
+        failed.append("(j) the fused kernel's launches")
     res["rats"] = _rats_gates_h([r["rats"] for r in ranks], rats_draws, failed)
     log("mesh (h), rats NUTS on a (1, 2) data mesh: " + json.dumps(res["rats"]))
     res["rats_chains"] = _rats_chains_gates(rats_chain_draws, rats_draws_6,

@@ -52,7 +52,8 @@ know the parts are right, the compiler evaluates the graph at a probe
 state once whole and once on every slice, all on this host (every rank is
 given whole inputs), and refuses, naming the node, a model whose named
 terms' parts do not sum to the term or whose unnamed terms change on a
-slice (a prior that reads ``mean(y)``); a named sampled site is held in
+slice, where none of the resolutions below confirms them; a named
+sampled site is held in
 part only if each slice's bijector maps its slice as the whole bijector
 maps the whole and their Jacobians sum to the whole's.  The probe state
 draws every
@@ -68,6 +69,13 @@ and keeps the slice.
 What GSPMD computes whole and a slice cannot, the compiler resolves where
 it can, in topo order on the slices:
 
+- a node or term that fails on the slices, or whose parts the probe does
+  not confirm, may read a whole parent that the rank computes from whole
+  state values and constants as the rank's slice of it (``_cuts``): each
+  way of cutting such parents along a dim whose length is the whole
+  length of a data dim the node reads is tried, fewest cuts first, and
+  kept where the parts hold at the probe (the GLMM with only y and its
+  covariates named: y reads the rank's slice of the whole b);
 - a logical that comes out neither whole nor a slice ("mixed") but reads
   only constants (inputs, data with no missing entry: ``mean(y)``) is
   evaluated whole once, before the rank drops its slices (``_consts``);
@@ -76,29 +84,53 @@ it can, in topo order on the slices:
   from the whole values (``_recut``), so such a site stays whole in the
   state.  Each is then whole on the rank, or cut where the slices' shape
   says a reader wants its slice;
+- a mixed node that a density term reads and that reads the chain state
+  and slices (``ss = sum((y - mu)**2)``, ``mean(y)`` of a y that MISS
+  imputes) is gathered (``_gathered``): every rank computes it whole from
+  the parents it holds in part, gathered over the data group with their
+  padded tails dropped (``with_wholes``).  A block that does not move
+  those parents gathers them once per step, before it (``block_prepare``),
+  and a captured step loads them with the state; a block that moves them
+  gathers them once per density call (``block_density``): the rank's
+  slices from the flat vector, one all-gather, the density's gradient in
+  the gathered parents (the same on every rank: the reading terms count
+  on data rank 0 alone, the other ranks add their gradient and nothing
+  else), and the rank's own slice of it pulled back to the flat vector;
+  such a block is split and keeps its plain loop;
 - a named sampled site whose prior reads a slice: each rank's part is its
   slice's ``log_prob`` and the Jacobian of its slice under the slice's
-  bijector.  Held in part, it is the rank's slice; whole in the state
-  (``_part_sites``: a sampler that cannot hold slices), its pack and
+  bijector, where the data dim is a batch dim of its law (its rows) and
+  the probe confirms that the slice's bijector maps the slice as the whole
+  maps the whole.  Held in part, it is the rank's slice; whole in the
+  state (``_part_sites``: a sampler that cannot hold slices), its pack and
   unpack map the slice and ``block_maps`` joins the slices over the data
   group;
 - a named site with a law per row (a multivariate distribution whose
   batch dims hold the data dim) is cut along its batch (``_cut_dist``);
+  one whose law's batch does not reach the data dim (birats' ``MvNormal(
+  mu_beta, Sigma)`` recycled over the rows) is the law on the rank's rows;
 - a mixed node read outside the vmapped density (a monitor, a Gibbs or
   custom block) is computed again from its parents' whole values
   (``monitor_rows``, ``WholeValues``).
 
-A density term that reads a mixed node computed from the chain state and
-data held in part together stays refused by name: inside the vmapped
-density it would need a collective per call.  So does a resolved node, or
-a monitored mixed one, that reads an array the data axis pads (``pads``):
-its whole value would count the padded entries, and ``WholeValues``
-refuses to compute such a node.
+A node resolved or gathered whole from an array that the data axis pads
+(``pads``) is computed from the array as given, its padded tail dropped
+(``_unpadded``, ``WholeValues``): its value is the unsharded run's, not
+a count of the padding.
+
+What stays refused, each by a ValueError that names it: a dim of a spec
+that names the chain axis (and a second data axis: ``MeshComm``); a
+named sampled site whose data dim is an event dim of a law that reads a
+slice; a named term that reads a node its block gathers per density call
+(each rank's part would need every rank's gradient); a node gathered
+from another gathered node; and anything whose parts the probe cannot
+confirm against the whole, whatever the evaluation raised.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any
 
 import numpy as np
@@ -117,6 +149,26 @@ from .whole import WholeValues
 
 #: the seed of the generator that draws ``_plan_views``' probe state
 PROBE_SEED = 0
+#: the most ways ``_cut_options`` tries of reading whole parents cut
+_MAX_CUTS = 64
+#: what evaluating a node on a data slice may raise
+_EVAL_ERRORS = (RuntimeError, ValueError, IndexError, TypeError)
+
+
+class _Failed(Exception):
+    """A reading of a term on the data slices that the probe does not
+    confirm; ``error`` is the ValueError, naming the term, to raise if no
+    other reading holds."""
+
+    def __init__(self, error: ValueError):
+        super().__init__(str(error))
+        self.error = error
+
+
+def _wkey(name: str) -> str:
+    """The state key under which a data rank's state carries the whole
+    (unpadded) value of ``name``, a parent of a gathered node."""
+    return f"{name}@whole"
 
 
 def default_dtype(device: torch.device) -> torch.dtype:
@@ -202,6 +254,25 @@ class CompiledModel:
         #: the data sites a constant reads: every chain's init must hold
         #: the example's value (``mcmc``'s ``_chain_inits`` checks)
         self.const_data: frozenset = frozenset()
+        #: per node or term, the whole parents it reads as the rank's slice
+        #: of them: the dim each is cut along
+        self._cuts: dict[str, dict[str, int]] = {}
+        #: mixed nodes that a density term reads, computed whole on every
+        #: rank from parents gathered over the data group: per node, the
+        #: parents it reads in part and their data dims
+        self._gathered: dict[str, dict[str, int]] = {}
+        #: every gathered node's parents read in part: their data dims
+        self._gather_dims: dict[str, int] = {}
+        #: each padded length of a data dim: its length as given
+        self._given: dict[int, int] = {}
+        #: padded lengths that are padded from two lengths, or real for
+        #: another array
+        self._ambiguous: set = set()
+        #: mixed nodes computed from unpadded parents and padded back: the
+        #: dim padded
+        self._padded_back: dict[str, int] = {}
+        #: the gathered parents' whole values at the example inits
+        self._example_wholes: dict = {}
         # --- resolve shapes / bijectors with one eager forward pass -------
         state = {}
         for name in self.stochastic:
@@ -241,7 +312,11 @@ class CompiledModel:
 
     # ---- graph evaluation ---------------------------------------------
     def _call(self, node, env):
+        cut = self._cuts.get(node.name)
         with torch.device(self.device):
+            if cut:
+                return node.fn(*[self._block(env[d], cut[d]) if d in cut
+                                 else env[d] for d in node.deps])
             return node.fn(*[env[d] for d in node.deps])
 
     def _eval_env(self, state: dict) -> dict:
@@ -268,8 +343,15 @@ class CompiledModel:
     def _logical(self, name: str, node, env: dict, wenv):
         """A logical node's value in a rank's env (module docstring): a
         constant's stored value; a recut node computed from the whole
-        values ``wenv`` and cut; any other from ``env``.  Keeps in ``wenv``
-        the whole value of a constant or recut node."""
+        values ``wenv`` and cut; a gathered node computed whole from its
+        parents' whole values where the env carries them (``_wkey``); any
+        other from ``env``.  Keeps in ``wenv`` the whole value of a
+        constant or recut node."""
+        parents = self._gathered.get(name)
+        if parents and _wkey(next(iter(parents))) in env:
+            with torch.device(self.device):
+                return node.fn(*[env[_wkey(d)] if d in parents else env[d]
+                                 for d in node.deps])
         if name in self._consts:
             value, whole = self._consts[name]
             if wenv is not None:
@@ -381,43 +463,65 @@ class CompiledModel:
         if not dims:
             return
         self._data_dims = dims
+        self._given = self._given_lengths(dims, example)
         tol = torch.finfo(self.dtype).eps ** 0.5
+        example_env = self._eval_env(example)
         state = self._probe_state(example)
-        env = self._eval_env(state)
-        dists = {n: self._node_dist(n, env) for n in self.stochastic}
         arrays = {**self.inputs, **state}
 
         def cut(name, x, k):
             return data_block(x, dims[name], k, size)
 
-        # the graph on every slice, on this host, in topo order: how each
-        # node's slices relate to its whole value (``_classify``).  A node
-        # that is neither whole nor a slice ("mixed") but reads only
-        # constants (``const``) or only whole state values and constants
-        # (``run_whole``) is resolved: its whole value, cut where the
-        # slices' shape says (``_cut_dim``), as the rank will hold it
+        # the graph whole and on every slice, on this host, in topo order:
+        # how each node's slices relate to its whole value (``_classify``).
+        # ``whole`` holds the unsharded run's values: a node that is neither
+        # whole nor a slice ("mixed") is computed from its parents with the
+        # padded tails dropped (``_unpadded``).  A mixed node that reads
+        # only constants (``const``) or only whole state values and
+        # constants (``run_whole``) is resolved: its whole value, cut where
+        # the slices' shape says (``_cut_dim``), as the rank will hold it.
+        # Any other that a density term reads is gathered: every rank
+        # computes it whole from its parents gathered over the data group.
+        # A node or term that fails on the slices, or comes out mixed, may
+        # read a whole parent as the rank's slice of it (``_cut_options``)
         data = self._data_sites()
         observed = set(self.model.keys("observed"))
+        read_by_terms = _reads(self.model, self.stochastic)
         const = {n: True for n in self.inputs}
         run_whole = {n: n not in dims for n in self.inputs}
+        whole = dict(arrays)
         envs = [{n: cut(n, v, k) if n in dims else v
                  for n, v in arrays.items()} for k in range(size)]
         sliced, mixed, resolved, reads = dict(dims), set(), {}, {}
+        cuts, gathered, plans, dists = {}, {}, {}, {}
+        part_dists = [{} for _ in range(size)]
         for name in self.model.topo:
             node = nodes[name]
+            options = self._cut_options(name, node, whole, sliced, run_whole,
+                                        gathered)
             if isinstance(node, LogicalNode):
                 const[name] = all(const[d] for d in node.deps)
                 run_whole[name] = all(run_whole[d] for d in node.deps)
-                parts = [self._call_on_slice(name, e) for e in envs]
-                how = _classify(env[name], parts, tol)
-                if how == "mixed" and (const[name] or run_whole[name]):
-                    d = _cut_dim(env[name], parts)
-                    if d is not False:
-                        resolved[name] = d
-                        how = d
-                        parts = [env[name] if d is None else
-                                 data_block(env[name], d, k, size)
-                                 for k in range(size)]
+                value = self._call(node, whole)
+                parts, how, cut_ = self._slices_of(name, node, value, envs,
+                                                   options, tol)
+                if cut_:
+                    cuts[name] = cut_
+                if how == "mixed":
+                    value = self._unpadded(node, whole, sliced, value)
+                    if const[name] or run_whole[name]:
+                        d = _cut_dim(value, parts)
+                        if d is not False:
+                            resolved[name] = d
+                            how = d
+                            parts = [value if d is None else
+                                     data_block(value, d, k, size)
+                                     for k in range(size)]
+                    if how == "mixed" and name in read_by_terms:
+                        gathered[name] = self._gathered_parents(
+                            name, node, sliced, gathered)
+                        parts = [value] * size
+                whole[name] = value
                 for e, part in zip(envs, parts):
                     e[name] = part
                 if how == "mixed":
@@ -427,54 +531,28 @@ class CompiledModel:
                 continue
             reads[name] = sorted(d for d in node.deps
                                  if d in sliced or d in mixed)
+            dists[name] = self._call(node, whole)
+            pds, plan, cut_ = self._check_term(
+                name, node, dists[name], state[name], envs, options,
+                reads[name], data, tol)
+            if cut_:
+                cuts[name] = cut_
+                reads[name] = sorted(set(reads[name]) | set(cut_))
+            if plan is not None:
+                plans[name] = plan
+            for k, pd in enumerate(pds):
+                part_dists[k][name] = pd
             const[name] = (name in observed
                            and not bool(torch.isnan(example[name]).any()))
             run_whole[name] = not (name in dims
                                    and (name in data or reads[name]))
-        self._refuse_padded(mixed | set(resolved), resolved)
-        part_dists = [{n: self._call_on_slice(n, e) for n in self.stochastic}
-                      for e in envs]
         observed = data
-
-        # every term's parts against the whole, at the probe state
-        plans = {}
-        for name in self.stochastic:
-            whole_lp = self._site_lp(name, dists[name], state[name])
-            if not torch.isfinite(whole_lp):
-                raise ValueError(
-                    f"the density of {name!r} is {float(whole_lp)} at the "
-                    f"probe state (module docstring), so the data ranks' "
-                    f"parts of the model cannot be checked there")
-            if name not in dims:
-                for k in range(size):
-                    lp = self._site_lp(name, part_dists[k][name], state[name])
-                    if not _lp_close([lp], whole_lp, tol):
-                        raise ValueError(
-                            f"the density of {name!r}, which site_specs does "
-                            f"not name, changes on a data slice: it reads "
-                            f"{reads[name]}, which a data rank holds in part "
-                            f"(or computes from a part).  Name {name!r} in "
-                            f"site_specs, or compute what it reads from "
-                            f"whole values")
-                continue
-            plans[name] = [self._part_plan(name, k, part_dists[k][name],
-                                           dists[name], reads[name], observed)
-                           for k in range(size)]
-            parts = [self._part_lp(plans[name][k], part_dists[k][name],
-                                   cut(name, state[name], k))
-                     for k in range(size)]
-            if not _lp_close(parts, whole_lp, tol):
-                raise ValueError(
-                    f"the parts of {name!r}'s density on the data slices do "
-                    f"not sum to its density: its distribution reads "
-                    f"{reads[name]}, which a data rank holds in part (or "
-                    f"computes from a part)")
         # keep this rank's slices, as copies that own their memory
         r = comm.data_rank
         owned = {n: d for n, d in resolved.items() if const[n]}
         self._consts = {
-            n: (env[n] if d is None else data_block(env[n], d, r, size)
-                .clone(memory_format=torch.contiguous_format), env[n])
+            n: (whole[n] if d is None else data_block(whole[n], d, r, size)
+                .clone(memory_format=torch.contiguous_format), whole[n])
             for n, d in owned.items()}
         recut = {n: d for n, d in resolved.items() if n not in owned}
         # a slice that a recut logical reads is computed from whole state
@@ -490,6 +568,18 @@ class CompiledModel:
         self._part_sites = {n: dims[n] for n in dims
                             if n in self.sites and n not in data and reads[n]
                             and n not in self._held}
+        for n, d in self._part_sites.items():
+            why = self._maps_slices(d, plans[n], state[n], dists[n],
+                                    [p[n] for p in part_dists], tol)
+            if why:
+                raise ValueError(
+                    f"sampled site {n!r} is named on the data axis and its "
+                    f"{type(dists[n]).__name__} reads {reads[n]}, which a "
+                    f"data rank holds in part, but {why}")
+        self._cuts = cuts
+        self._gathered = gathered
+        self._gather_dims = {p: d for g in gathered.values()
+                             for p, d in g.items()}
         self.inputs = {n: cut(n, v, r).clone(memory_format=torch.contiguous_format)
                        if n in dims else v for n, v in self.inputs.items()}
         self.local_dims = {n: d for n, d in sliced.items()
@@ -498,7 +588,12 @@ class CompiledModel:
         self._env_dims = {n: d for n, d in sliced.items()
                           if n in self.sites and n not in self.local_dims}
         self.mixed = frozenset(mixed)
-        local_env = self._eval_env(self.cut_state(example, lead=0))
+        self._example_wholes = {
+            _wkey(p): self._trim(example_env[p], d,
+                                 what=f"{p!r}, which a gathered node reads,")
+            for p, d in self._gather_dims.items()}
+        local_env = self._eval_env({**self.cut_state(example, lead=0),
+                                    **self._example_wholes})
         self.example_dists = {n: self._node_dist(n, local_env)
                               for n in self.stochastic}
         self._local_plans = {n: self._part_plan(n, r, self.example_dists[n],
@@ -509,6 +604,249 @@ class CompiledModel:
             for n in (*self.local_state, *self._part_sites) if reads[n]}
         # the whole-mask plans of named sites hold whole constants
         self._plans = {n: p for n, p in self._plans.items() if n not in dims}
+
+    def _given_lengths(self, dims: dict, example: dict) -> dict:
+        """Each padded length of a dim that the data axis shards, and its
+        length as given (``pads``).  A length padded from two lengths, or
+        padded for one array and real for another, is ambiguous
+        (``_ambiguous``): ``_trim`` refuses to cut it."""
+        given, real = {}, set()
+        for n, d in dims.items():
+            length = tuple((self.inputs.get(n, example.get(n))).shape)[d]
+            g = self.pads.get(n, {}).get(d)
+            if g is None or g == length:
+                real.add(length)
+            else:
+                given.setdefault(length, set()).add(g)
+        self._ambiguous = {n for n, g in given.items()
+                           if len(g) > 1 or n in real}
+        return {n: min(g) for n, g in given.items() if n not in self._ambiguous}
+
+    def _trim(self, x, dim, lead: int = 0, what: str = "a value"):
+        """``x`` with the padded tail of its data dim ``dim`` dropped (the
+        length as given, ``_given``): the unsharded run's value.  ``x``
+        itself where ``dim`` is None or is not padded.  ``what`` names
+        ``x`` in the refusal of an ambiguous length."""
+        if dim is None:
+            return x
+        n = x.shape[lead + dim]
+        if n in self._ambiguous:
+            raise ValueError(
+                f"{what} has {n} entries along the data axis, a length that "
+                f"the axis pads for one array and another array has as "
+                f"given: its padded tail cannot be told apart.  Give the "
+                f"data axis lengths it divides")
+        g = self._given.get(n)
+        return x if g is None else x.narrow(lead + dim, 0, g)
+
+    def trim(self, name: str, x, lead: int = 0):
+        """The whole value ``x`` of node ``name`` without the entries the
+        data axis padded (``lead`` dims before the node's own)."""
+        return self._trim(x, self.local_dims.get(
+            name, self._padded_back.get(name)), lead, f"node {name!r}")
+
+    def pad_back(self, name: str, x, lead: int = 0):
+        """A logical's whole value ``x`` computed from unpadded parents
+        (``lead`` dims before its own), padded back to its shape."""
+        return self._pad_back(name, x, self.logical_shapes[name], lead)
+
+    def _pad_back(self, name: str, t, shape: tuple, lead: int = 0):
+        """``t``, a node's value computed from unpadded parents, edge-padded
+        back to its padded ``shape`` (``lead`` dims before the node's own),
+        as a padded array holds its tail; records the dim."""
+        have = tuple(t.shape[lead:])
+        if have == tuple(shape):
+            return t
+        diff = [d for d in range(len(shape)) if len(have) == len(shape)
+                and have[d] != shape[d]]
+        if len(diff) != 1 or self._given.get(shape[diff[0]]) != have[diff[0]]:
+            raise ValueError(
+                f"node {name!r} is computed from arrays the data axis pads, "
+                f"and its value without their padding is shaped {have}, "
+                f"not its padded shape {tuple(shape)} less the padding")
+        d = diff[0]
+        self._padded_back[name] = d
+        ax = lead + d
+        tail = t.narrow(ax, have[d] - 1, 1)
+        more = list(t.shape)
+        more[ax] = shape[d] - have[d]
+        return torch.cat([t, tail.expand(more)], dim=ax)
+
+    def _unpadded(self, node, whole: dict, sliced: dict, value):
+        """A mixed node's whole value as the unsharded run has it: computed
+        from its parents with the padded tails dropped (``_trim``), and
+        padded back to ``value``'s shape (the padded run's)."""
+        if not self.padded_reads(node.name):
+            return value
+        args = [self._trim(whole[d], sliced.get(d, self._padded_back.get(d)),
+                           what=f"{d!r}, which node {node.name!r} reads whole,")
+                for d in node.deps]
+        with torch.device(self.device):
+            out = node.fn(*args)
+        return self._pad_back(node.name, out, tuple(value.shape))
+
+    def _cut_options(self, name, node, whole, sliced, run_whole,
+                     gathered) -> list:
+        """The ways a node or term may read whole parents as the rank's
+        slice of them, fewest cuts first: each parent that the rank
+        computes whole from whole state values and constants
+        (``run_whole``) or gathers, cut along one of its dims whose length
+        is the whole length of a data dim the node reads (its own, for a
+        named site)."""
+        lengths = {tuple(whole[d].shape)[sliced[d]] for d in node.deps
+                   if d in sliced}
+        if name in self._data_dims and name in whole:
+            lengths.add(tuple(whole[name].shape)[self._data_dims[name]])
+        opts = []
+        for d in node.deps:
+            if d in sliced or not (run_whole.get(d) or d in gathered):
+                continue
+            at = [i for i, n in enumerate(tuple(whole[d].shape)) if n in lengths]
+            if at:
+                opts.append((d, at))
+        out = []
+        for choice in itertools.product(*[[None] + at for _, at in opts]):
+            combo = {d: i for (d, _), i in zip(opts, choice) if i is not None}
+            if combo:
+                out.append(combo)
+        return sorted(out, key=len)[:_MAX_CUTS]
+
+    def _call_cut(self, node, env: dict, combo: dict, k: int):
+        """``node`` on slice ``k``'s env, each parent of ``combo`` read as
+        its block ``k`` along the dim ``combo`` gives."""
+        size = self.comm.data_size
+        with torch.device(self.device):
+            return node.fn(*[data_block(env[d], combo[d], k, size)
+                             if d in combo else env[d] for d in node.deps])
+
+    def _slices_of(self, name, node, value, envs, options, tol):
+        """A logical's values on the slices, how they relate to its whole
+        ``value`` (``_classify``) and the parents it reads cut (``{}``:
+        none).  Uncut first; where that fails or comes out mixed, each of
+        ``options`` in turn, kept if it comes out whole or a slice."""
+        error, parts = None, None
+        try:
+            parts = [self._call_cut(node, e, {}, k) for k, e in enumerate(envs)]
+            how = _classify(value, parts, tol)
+            if how != "mixed":
+                return parts, how, {}
+        except _EVAL_ERRORS as e:
+            error = e
+        for combo in options:
+            try:
+                got = [self._call_cut(node, e, combo, k)
+                       for k, e in enumerate(envs)]
+            except _EVAL_ERRORS:
+                continue
+            how = _classify(value, got, tol)
+            if how != "mixed":
+                return got, how, combo
+        if parts is None:
+            raise ValueError(
+                f"node {name!r} cannot be evaluated on a data slice of the "
+                f"arrays that site_specs names: {error}") from error
+        return parts, "mixed", {}
+
+    def _check_term(self, name, node, dist, value, envs, options, reads,
+                    data, tol):
+        """Check stochastic ``name``'s term on the slices against the whole
+        at the probe state: a named term's parts sum to it, an unnamed one
+        is the same on every slice.  Uncut first, then each of ``options``
+        (``_cut_options``).  Returns the slices' distributions, a named
+        term's plan per rank (``_part_plan``) and the parents read cut; if
+        none holds, raises the uncut reading's error, naming ``name``."""
+        size = self.comm.data_size
+        whole_lp = self._site_lp(name, dist, value)
+        if not torch.isfinite(whole_lp):
+            raise ValueError(
+                f"the density of {name!r} is {float(whole_lp)} at the "
+                f"probe state (module docstring), so the data ranks' "
+                f"parts of the model cannot be checked there")
+        named = name in self._data_dims
+
+        def attempt(combo):
+            r = sorted(set(reads) | set(combo))
+            try:
+                pds = [self._call_cut(node, e, combo, k)
+                       for k, e in enumerate(envs)]
+            except _EVAL_ERRORS as e:
+                raise _Failed(ValueError(
+                    f"the density of {name!r} cannot be evaluated on a data "
+                    f"slice of the arrays that site_specs names: {e}")) from e
+            if not named:
+                try:
+                    same = all(_lp_close([self._site_lp(name, pd, value)],
+                                         whole_lp, tol) for pd in pds)
+                except _EVAL_ERRORS:
+                    same = False
+                if not same:
+                    raise _Failed(ValueError(
+                        f"the density of {name!r}, which site_specs does "
+                        f"not name, changes on a data slice: it reads "
+                        f"{r}, which a data rank holds in part (or "
+                        f"computes from a part).  Name {name!r} in "
+                        f"site_specs, or compute what it reads from "
+                        f"whole values"))
+                return pds, None
+            try:
+                plans = [self._part_plan(name, k, pds[k], dist, r, data)
+                         for k in range(size)]
+            except ValueError as e:
+                raise _Failed(e) from e
+            try:
+                parts = [self._part_lp(plans[k], pds[k],
+                                       data_block(value, self._data_dims[name],
+                                                  k, size))
+                         for k in range(size)]
+            except _EVAL_ERRORS as e:
+                raise _Failed(ValueError(
+                    f"the density of {name!r} cannot be evaluated on a data "
+                    f"slice of the arrays that site_specs names: {e}")) from e
+            if not _lp_close(parts, whole_lp, tol):
+                raise _Failed(ValueError(
+                    f"the parts of {name!r}'s density on the data slices do "
+                    f"not sum to its density: its distribution reads {r}, "
+                    f"which a data rank holds in part (or computes from a "
+                    f"part)"))
+            return pds, plans
+
+        try:
+            pds, plans = attempt({})
+            return pds, plans, {}
+        except _Failed as f:
+            first = f.error
+        for combo in options:
+            try:
+                pds, plans = attempt(combo)
+            except _Failed:
+                continue
+            return pds, plans, combo
+        raise first
+
+    def _gathered_parents(self, name, node, sliced, gathered) -> dict:
+        """The parents that a gathered node reads in part (each with its
+        data dim): every rank gathers them over the data group and computes
+        the node whole.  Refused by name where such a parent is computed
+        from another gathered node, or where the node's whole value has the
+        shape of a padded array (its padded tail would be read whole)."""
+        parents = {d: sliced[d] for d in node.deps if d in sliced}
+        for d in parents:
+            if d in self.model.nodes and isinstance(self.model.nodes[d],
+                                                    LogicalNode):
+                inner = sorted(_reads(self.model, [d]) & set(gathered))
+                if inner:
+                    raise ValueError(
+                        f"node {name!r} reads {d!r}, a data rank's slice "
+                        f"computed from {inner}, which every rank gathers "
+                        f"whole: a node gathered from another gathered node "
+                        f"is not supported")
+        if name in self._padded_back:
+            raise ValueError(
+                f"node {name!r} is computed from the whole of "
+                f"{self.padded_reads(name)}, which the data axis pads, and "
+                f"keeps their padded shape: a density term would read its "
+                f"padded tail whole")
+        return parents
 
     def _held_sites(self, dims, data, recut, plans, state, dists, part_dists,
                     tol) -> tuple[dict, dict]:
@@ -566,23 +904,28 @@ class CompiledModel:
         does not cut) does not map it."""
         size = self.comm.data_size
         ev = max(whole.event_ndim, 0)
-        b = whole.bijector()
-        u = b.inverse(value)
-        logdets = []
-        for k, (plan, part) in enumerate(zip(plans, parts)):
-            dk = self._slice_dist(plan, part)
-            uk, vk = data_block(u, dim, k, size), data_block(value, dim, k, size)
-            shape = tuple(dk.batch_shape) + tuple(dk.event_shape)
-            if not _fits(shape, tuple(vk.shape)):
-                return (f"data rank {k}'s distribution is shaped {shape}, "
-                        f"beyond its slice's {tuple(vk.shape)}")
-            bk = dk.bijector()
-            if not (_close(bk.forward(uk), vk, tol)
-                    and _close(bk.inverse(vk), uk, tol)):
-                return f"its bijector on data rank {k}'s slice is not the whole's"
-            logdets.append(torch.sum(bk.event_log_det(uk, ev)))
-        if not _lp_close(logdets, torch.sum(b.event_log_det(u, ev)), tol):
-            return "its slices' Jacobians do not sum to the whole's"
+        try:
+            b = whole.bijector()
+            u = b.inverse(value)
+            logdets = []
+            for k, (plan, part) in enumerate(zip(plans, parts)):
+                dk = self._slice_dist(plan, part)
+                uk = data_block(u, dim, k, size)
+                vk = data_block(value, dim, k, size)
+                shape = tuple(dk.batch_shape) + tuple(dk.event_shape)
+                if not _fits(shape, tuple(vk.shape)):
+                    return (f"data rank {k}'s distribution is shaped {shape}, "
+                            f"beyond its slice's {tuple(vk.shape)}")
+                bk = dk.bijector()
+                if not (_close(bk.forward(uk), vk, tol)
+                        and _close(bk.inverse(vk), uk, tol)):
+                    return (f"its bijector on data rank {k}'s slice is not "
+                            f"the whole's")
+                logdets.append(torch.sum(bk.event_log_det(uk, ev)))
+            if not _lp_close(logdets, torch.sum(b.event_log_det(u, ev)), tol):
+                return "its slices' Jacobians do not sum to the whole's"
+        except _EVAL_ERRORS as e:
+            return f"its bijector cannot map a data rank's slice alone ({e})"
         return ""
 
     def _slice_dist(self, plan, dist):
@@ -602,23 +945,6 @@ class CompiledModel:
         """The arrays that the data axis pads (``pads``) which node ``name``
         reads, directly or through another logical."""
         return sorted(n for n in _reads(self.model, [name]) if n in self.pads)
-
-    def _refuse_padded(self, nodes: set, resolved: dict) -> None:
-        """Raise, naming the node, for a node of ``nodes`` (neither whole
-        nor a slice on a data rank) that reads an array the data axis pads
-        and that the rank would compute whole: a resolved one, or one that
-        is monitored.  Its whole value would count the padded entries,
-        where the unsharded run has none."""
-        monitored = set(self.model.keys("monitor"))
-        for name in sorted(nodes):
-            padded = self.padded_reads(name)
-            if padded and (name in resolved or name in monitored):
-                raise ValueError(
-                    f"node {name!r} is computed from the whole of {padded}, "
-                    f"which the data axis pads to a length it divides: its "
-                    f"value would count the padded entries.  Give the data "
-                    f"axis a length it divides, or compute {name!r} from "
-                    f"whole values")
 
     def _probe_state(self, example: dict) -> dict:
         """The state at which ``_plan_views`` checks the parts: every
@@ -668,20 +994,16 @@ class CompiledModel:
                 data.update(s.params)
         return data
 
-    def _call_on_slice(self, name: str, env: dict):
-        try:
-            return self._call(self.model.nodes[name], env)
-        except (RuntimeError, ValueError, IndexError, TypeError) as e:
-            raise ValueError(
-                f"node {name!r} cannot be evaluated on a data slice of the "
-                f"arrays that site_specs names: {e}") from e
-
     def _part_plan(self, name: str, k: int, part, whole, reads, observed):
         """Data rank ``k``'s part of the named term ``name``, given its
         distribution on the slice (``part``) and whole (``whole``):
 
         - ``("local", mask_plan)``: the distribution reads sliced values,
-          so it is the slice's own; ``log_prob`` of the slice;
+          so it is the slice's own (a law whose batch dims hold the data
+          dim: its rows); or its batch does not reach the data dim, which
+          recycles it over the value's leading dims (a law per row read
+          whole: birats' ``MvNormal(mu_beta, Sigma)``); ``log_prob`` of
+          the slice;
         - ``("cut", from_right, lo, hi, length, mask_plan, rows)``: a
           distribution with whole parameters, each parameter cut to entries
           lo..hi-1 of the site's data dim (``from_right`` dims from its
@@ -702,25 +1024,27 @@ class CompiledModel:
         part_mask = None if mask is None else data_block(mask, dim, k, size)
         if part_mask is not None and not part_mask.any():
             return ("zero",)
+        rows = len(shape) - max(whole.event_ndim, 0)
         if reads:
-            if name not in observed and whole.event_ndim > 0:
+            if name not in observed and dim >= rows:
                 raise ValueError(
-                    f"sampled site {name!r} is named on the data axis and "
-                    f"its {type(whole).__name__} reads {reads}, which a data "
-                    f"rank holds in part: a sampled site whose prior reads "
-                    f"a slice needs an elementwise distribution, whose "
-                    f"bijector maps its slice alone")
+                    f"sampled site {name!r} is named on the data axis at dim "
+                    f"{dim}, an event dim of its {type(whole).__name__}, "
+                    f"which reads {reads}, which a data rank holds in part: "
+                    f"a slice of an event is not that event's density")
             return ("local", self._mask_plan(name, part, part_mask))
         if whole.event_ndim <= 0:
             return ("cut", len(shape) - dim, lo, hi, shape[dim],
                     self._mask_plan(name, whole, part_mask), False)
-        # a law per row: its batch dims hold the data dim, its events whole
-        rows = len(shape) - whole.event_ndim
+        # a law per row: its batch dims hold the data dim, its events whole;
+        # a batch that does not reach the data dim recycles the law over it
         batch = tuple(whole.batch_shape)
-        if (dim < rows and len(batch) >= rows - dim
-                and batch[len(batch) - (rows - dim)] == shape[dim]):
+        at = len(batch) - (rows - dim)
+        if dim < rows and at >= 0 and batch[at] == shape[dim]:
             return ("cut", len(shape) - dim, lo, hi, shape[dim],
                     self._mask_plan(name, whole, part_mask), True)
+        if dim < rows and (at < 0 or batch[at] == 1):
+            return ("local", self._mask_plan(name, whole, part_mask))
         if (len(shape) == whole.event_ndim
                 and getattr(whole, "event_split_dim", None) == dim):
             take = np.zeros(shape, dtype=bool)
@@ -738,9 +1062,34 @@ class CompiledModel:
     def block_split(self, params: tuple[str, ...], prior_only: bool = False) -> bool:
         """Whether the block's density is split over the data axis: its
         ``logf`` on this rank is a part, and the data group's parts sum to
-        the density."""
+        the density.  A block that gathers a node once per density call
+        (``block_gathers``) is split too: each rank's gradient holds its
+        slice's share of the whole coordinates."""
         terms = tuple(params) if prior_only else self.block_terms(tuple(params))
-        return any(n in self._local_plans for n in terms)
+        return (any(n in self._local_plans for n in terms)
+                or self.block_gathers(params, prior_only) == "call")
+
+    def block_gathers(self, params: tuple[str, ...],
+                      prior_only: bool = False) -> str:
+        """How the block's density gets the gathered nodes it reads
+        (``_gathered``): ``""`` if it reads none; ``"step"`` if the block
+        moves none of their parents, which are then gathered once per block
+        step, before it (``block_prepare``); ``"call"`` if it moves some,
+        which are then gathered once per density call (``block_density``)."""
+        if not self._gathered:
+            return ""
+        params = tuple(params)
+        terms = params if prior_only else self.block_terms(params)
+        read = _reads(self.model, terms) & set(self._gathered)
+        if not read:
+            return ""
+        pset = set(params)
+
+        def moves(p):
+            return p in pset or (isinstance(self.model.nodes.get(p), LogicalNode)
+                                 and bool(pset & _reads(self.model, [p])))
+        return ("call" if any(moves(p) for g in read for p in self._gathered[g])
+                else "step")
 
     def block_sum(self, params: tuple[str, ...], prior_only: bool = False):
         """``f(value, grad=None) -> tuple`` that completes the block's
@@ -882,7 +1231,11 @@ class CompiledModel:
         of ONE chain's state, summed over the data group.  ``terms``
         restricts to a subset (reference block logpdf, simulation.jl:54-58).
         On a data axis of more than one rank it is a collective: call it
-        outside ``vmap`` (there, ``logpdf_part``)."""
+        outside ``vmap`` (there, ``logpdf_part``, given the state that
+        ``with_wholes`` completes where the model gathers nodes)."""
+        if self._gather_dims:
+            state = {k: v[0] for k, v in self.with_wholes(
+                {k: v[None] for k, v in state.items()}).items()}
         return self.comm.data_sum(self.logpdf_part(state, terms))[0]
 
     def eval_logicals(self, state: dict) -> dict:
@@ -1004,6 +1357,26 @@ class CompiledModel:
         # term, and data rank 0 alone every other term and the Jacobian
         split = self.block_split(params, prior_only)
         lead = not split or self.comm.data_rank == 0
+        # a node gathered per call: the density's gradient in the gathered
+        # parents is the same on every rank, and each rank pulls its own
+        # slice of it back (``block_density``).  The terms that read it count
+        # on data rank 0 alone, so the other ranks add their gradient in
+        # the gathered parents and nothing else (``logf``)
+        per_call = self.block_gathers(params, prior_only) == "call"
+        if per_call:
+            wdep = {n for n in self.model.topo
+                    if n in self._gathered or (n in self.logical_shapes and
+                                               _reads(self.model, [n])
+                                               & set(self._gathered))}
+            named = sorted(n for n in terms if n in self._local_plans and
+                           (_reads(self.model, [n]) & wdep))
+            if named:
+                raise ValueError(
+                    f"the terms {named}, which a data rank holds in part, "
+                    f"read {sorted(set(self._gathered) & wdep)}, which every "
+                    f"rank gathers whole for each density call of the block "
+                    f"of {list(params)}: only a term that a data rank does "
+                    f"not hold in part may read such a node")
 
         def pack(state):
             return spec.ravel(self._flat_parts(params, transform, state))
@@ -1058,9 +1431,19 @@ class CompiledModel:
         def unpack(flat, state):
             return _decode(flat, state)[4]
 
+        def whole_terms(env, dists, logdet):
+            """The terms a rank counts on data rank 0 alone, and the
+            Jacobian of the whole sites."""
+            lp = logdet
+            for n in terms:
+                if n not in self._local_plans:
+                    lp = lp + self._site_lp(n, dists[n], env[n],
+                                            not (transform and n in pset))
+            return lp
+
         def logf(flat, state):
             env, dists, logdet, part_logdet, _ = _decode(flat, state)
-            lp = (logdet if lead else torch.zeros_like(logdet)) + part_logdet
+            lp = part_logdet
             for n in terms:
                 # a block site is in its support by construction in
                 # unconstrained space: no masking (keeps autodiff clean)
@@ -1068,8 +1451,15 @@ class CompiledModel:
                 if n in self._local_plans:
                     lp = lp + self._part_lp(self._local_plans[n], dists[n],
                                             env[n], support)
-                elif lead:
-                    lp = lp + self._site_lp(n, dists[n], env[n], support)
+            if lead:
+                lp = lp + whole_terms(env, dists, logdet)
+            elif per_call:
+                # the gradient in the gathered parents alone: the flat
+                # vector held fixed, a value of exactly 0
+                env, dists, logdet, _, _ = _decode(flat.detach(), state)
+                u = whole_terms(env, dists, logdet)
+                u = torch.where(torch.isfinite(u), u, torch.zeros_like(u))
+                lp = lp + (u - u.detach())
             if not transform:
                 # Reference early -Inf exit (simulation.jl:77-90): when block
                 # params leave their support, downstream terms may evaluate to
@@ -1080,7 +1470,143 @@ class CompiledModel:
 
         out = (pack, unpack, spec, logf)
         self._block_cache[key] = out
+        self._block_cache[("decode",) + key] = _decode
         return out
+
+    def block_density(self, params: tuple[str, ...], transform: bool,
+                      prior_only: bool = False, grad: bool = False):
+        """``density(x, state)``: the block's ``logf`` on chain-stacked
+        flat vectors ``x (C, dim)`` (or candidates folded into the chain
+        axis) and states, vmapped and completed over the data group
+        (``block_sum``): ``(value, grad)`` with ``grad``, else the value.
+        Called outside ``vmap``.
+
+        A block that moves the parents of a gathered node it reads
+        (``block_gathers``: ``"call"``) gathers them once per call, in four
+        steps: the rank's slices of the parents from ``x`` (vmapped); one
+        all-gather of them, outside ``vmap``, the padded tails dropped; the
+        density and its gradient in ``x`` and in the gathered parents
+        (every rank evaluates the reading terms on the same whole value,
+        whose value counts on data rank 0 alone); and each rank's own slice
+        of the parents' cotangent pulled back through the first step (a
+        vjp).  The whole coordinates' shares join ``block_sum``'s
+        all-reduce."""
+        _, _, _, logf = self.block_functions(params, transform, prior_only)
+        total = self.block_sum(params, prior_only)
+        if self.block_gathers(params, prior_only) != "call":
+            if not grad:
+                vlogf = torch.func.vmap(logf)
+                return lambda x, state: total(vlogf(x, state))[0]
+            gv = torch.func.vmap(torch.func.grad_and_value(logf))
+
+            def density(x, state):
+                g, v = gv(x, state)
+                return total(v, g)
+            return density
+        parents = torch.func.vmap(self.block_parents(params, transform,
+                                                     prior_only))
+
+        def wlogf(x, state, wholes):
+            return logf(x, {**state, **wholes})
+        if not grad:
+            vlogf = torch.func.vmap(wlogf)
+            return lambda x, state: total(vlogf(
+                x, state, self._gathered_from(parents(x, state))))[0]
+        gv = torch.func.vmap(torch.func.grad_and_value(wlogf, argnums=(0, 2)))
+        pull = torch.func.vmap(self.block_pull(params, transform, prior_only))
+
+        def density(x, state):
+            wholes = self._gathered_from(parents(x, state))
+            (gx, gw), v = gv(x, state, wholes)
+            return total(v, gx + pull(x, state, gw))
+        return density
+
+    def block_parents(self, params: tuple[str, ...], transform: bool,
+                      prior_only: bool = False):
+        """``parents(flat, state) -> {name: value}``: this rank's slices of
+        the gathered nodes' parents (``_gather_dims``) at ONE chain's flat
+        vector, as the block's density computes them."""
+        self.block_functions(params, transform, prior_only)
+        decode = self._block_cache[("decode", tuple(params), bool(transform),
+                                    bool(prior_only))]
+
+        def parents(flat, state):
+            env = decode(flat, state)[0]
+            return {p: env[p] for p in self._gather_dims}
+        return parents
+
+    def block_pull(self, params: tuple[str, ...], transform: bool,
+                   prior_only: bool = False):
+        """``pull(flat, state, gw) -> (dim,)``: ONE chain's gradient in the
+        gathered parents' whole values ``gw`` (keyed by ``_wkey``), this
+        rank's slice of it (zero in the padded tail) pulled back to its
+        flat vector through ``block_parents``."""
+        parents = self.block_parents(params, transform, prior_only)
+
+        def pull(flat, state, gw):
+            ct = {p: self._rank_slice(gw[_wkey(p)], d)
+                  for p, d in self._gather_dims.items()}
+            _, vjp = torch.func.vjp(lambda x: parents(x, state), flat)
+            return vjp(ct)[0]
+        return pull
+
+    def _rank_slice(self, x, dim: int, lead: int = 0):
+        """This rank's block of a whole value without its padded tail:
+        ``x`` zero-padded to its padded length along ``dim``, then cut."""
+        ax = lead + dim
+        n = x.shape[ax]
+        padded = next((length for length, g in self._given.items()
+                       if g == n), n)
+        if padded != n:
+            more = list(x.shape)
+            more[ax] = padded - n
+            x = torch.cat([x, x.new_zeros(more)], dim=ax)
+        return self._block(x, ax)
+
+    def block_prepare(self, params: tuple[str, ...], prior_only: bool = False):
+        """``prepare(state) -> state``: the chain-stacked state a block step
+        hands its density, pack and unpack.  For a block that reads a
+        gathered node it carries the whole values of the node's parents
+        (``with_wholes``, a collective, outside any CUDA graph): once per
+        step, and in a block that gathers per call too where its sites'
+        priors read such a node (their bijectors).  The identity
+        otherwise."""
+        mode = self.block_gathers(params, prior_only)
+        if mode == "call" and not (_reads(self.model, tuple(params))
+                                   & set(self._gathered)):
+            mode = ""
+        return self.with_wholes if mode else _same
+
+    def with_wholes(self, state: dict) -> dict:
+        """A chain-stacked ``state`` with the whole values of the gathered
+        nodes' parents (``_gather_dims``), each under ``_wkey``: the rank's
+        slices, computed under ``vmap``, gathered over the data group (one
+        all-gather for all) with their padded tails dropped.  ``state``
+        itself without gathered nodes.  A collective, outside ``vmap``."""
+        if not self._gather_dims:
+            return state
+        return {**state, **self._gathered_from(
+            torch.func.vmap(self._parent_values)(state))}
+
+    def _parent_values(self, state: dict) -> dict:
+        env = self._eval_env(state)
+        return {p: env[p] for p in self._gather_dims}
+
+    def _gathered_from(self, slices: dict) -> dict:
+        """The whole values of the gathered parents from this rank's
+        chain-stacked ``slices`` (one all-gather over the data group)."""
+        names = list(self._gather_dims)
+        every = self.comm.gather_data_many([slices[p] for p in names])
+        return self.join_wholes([dict(zip(names, ts)) for ts in every])
+
+    def join_wholes(self, per_rank: list) -> dict:
+        """Every data rank's chain-stacked slices of the gathered parents,
+        in data-rank order, joined into their whole values without the
+        padded tails, keyed by ``_wkey``."""
+        return {_wkey(p): self._trim(torch.cat([r[p] for r in per_rank],
+                                               dim=1 + d), d, lead=1,
+                                     what=f"{p!r}, which a gathered node reads,")
+                for p, d in self._gather_dims.items()}
 
     def _flat_parts(self, params, transform: bool, state: dict) -> dict:
         """The block's values as its flat vector holds them, per site, from
@@ -1140,14 +1666,19 @@ class CompiledModel:
         made once, chain-stacked, outside.  A site this data rank holds in
         part is drawn at its whole shape, from the distribution's
         parameters gathered over the data group, so that the numbers are
-        the unsharded run's; the rank keeps its slice."""
+        the unsharded run's; the rank keeps its slice.  A site whose
+        distribution reads a gathered node reads it whole
+        (``with_wholes``)."""
         names = set(self.stochastic if names is None else names)
         out = dict(state)
         chains = next(iter(state.values())).shape[0]
         for name in self.model.topo:
             if name not in names:
                 continue
-            dist = self.stacked_node_dist(name, out)
+            if _reads(self.model, [name]) & set(self._gathered):
+                dist = self.stacked_node_dist(name, self.with_wholes(out))
+            else:
+                dist = self.stacked_node_dist(name, out)
             part = name in self.local_dims
             if part or name in self._leaf_dims:
                 dist = self._whole_stacked(name, dist)
@@ -1250,14 +1781,19 @@ class CompiledModel:
         of a chain-stacked state.  A monitored node that is neither whole
         nor a slice on a data rank (``mixed``) is computed again whole from
         its parents' whole values outside ``vmap`` (``WholeValues``, a
-        collective), in the unsharded run's columns."""
+        collective), in the unsharded run's columns.  Where the model
+        gathers nodes, the state carries their parents' whole values first
+        (``with_wholes``)."""
         selections = self._monitor_selections()
         _, _, pack = self.monitor_spec()
         vpack = torch.func.vmap(pack)
         if not any(s[0] in self.mixed for s in selections):
+            if self._gather_dims:
+                return lambda state: vpack(self.with_wholes(state))
             return vpack
 
         def rows(state):
+            state = self.with_wholes(state)
             out = vpack(state)
             values = WholeValues(self, self.inputs,
                                  torch.func.vmap(self.eval_logicals)(state))
@@ -1401,6 +1937,10 @@ def _lp_close(parts, whole, tol: float) -> bool:
 
 def _identity(*tensors):
     return tensors
+
+
+def _same(state):
+    return state
 
 
 def compile_model(model: Model, inputs: dict, inits: dict, *, device,

@@ -218,7 +218,16 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     a block that samples it cannot hold slices, or the compiler finds it
     read whole: ``model/compile.py``); a dim the
     axis does not divide is edge-padded and masked out (reference
-    semantics)."""
+    semantics).  The data axis takes what GSPMD takes: a node that reads
+    a whole value as the rank's slice of it (the GLMM with only y and its
+    covariates named reads its slice of the whole b), a density term that
+    reads a node computed from the chain state and slices (each rank
+    gathers that node's parents and computes it whole: once per step, or
+    once per density call of a block that moves them), and a value
+    computed from an array the axis pads, which is computed from the
+    array as given, so the run is the unsharded run's.  What the compiler
+    cannot confirm at its probe state it refuses with a ValueError that
+    names the node."""
     if isinstance(model_or_mc, ModelChains):
         return _mcmc_restart(model_or_mc, inputs if inputs is not None else iters,
                              verbose=verbose, progress=progress)

@@ -14,8 +14,9 @@ class WholeValues(Mapping):
     rank holds in part (``cm.local_dims``) is gathered over the data group
     when it is first read; one that is neither whole nor a slice
     (``cm.mixed``) is computed again from its parents' whole values, each
-    gathered or computed again in turn, and raises, naming it, where it
-    reads an array the data axis pads (``cm.pads``).  These are
+    gathered or computed again in turn, their padded tails dropped
+    (``cm.trim``: an array the data axis pads, ``cm.pads``, is read as it
+    was given), so that it is the unsharded run's value.  These are
     collectives: every data rank runs the same reader on the same stream,
     so all read the same keys in the same order.  Inputs are unstacked,
     every other value chain-stacked."""
@@ -28,18 +29,14 @@ class WholeValues(Mapping):
         if name not in self._whole:
             cm = self._cm
             if name in cm.mixed:
-                padded = cm.padded_reads(name)
-                if padded:
-                    raise ValueError(
-                        f"node {name!r} is computed from the whole of "
-                        f"{padded}, which the data axis pads: its whole value "
-                        f"would count the padded entries")
                 node = cm.model.nodes[name]
-                args = [self[d] for d in node.deps]
                 dims = tuple(None if d in self._inputs and d not in self._nodes
                              else 0 for d in node.deps)
+                args = [cm.trim(d, self[d], 0 if at is None else 1)
+                        for d, at in zip(node.deps, dims)]
                 with torch.device(cm.device):
                     value = torch.func.vmap(node.fn, in_dims=dims)(*args)
+                value = cm.pad_back(name, value, lead=1)
             elif name in self._nodes:
                 value = cm.whole(name, self._nodes[name], 1)
             else:

@@ -120,9 +120,8 @@ def logpdf_chains(mc: ModelChains, nodekeys=None) -> Chains:
     draw_state = _draw_state_fn(mc)
     terms = tuple(nodekeys)
     rows, bases = _flat_batch(mc)
-    parts = torch.func.vmap(
-        lambda row, base: cm.logpdf_part(draw_state(row, base), terms=terms))(
-        rows, bases)
+    states = cm.with_wholes(torch.func.vmap(draw_state)(rows, bases))
+    parts = torch.func.vmap(lambda st: cm.logpdf_part(st, terms=terms))(states)
     (vals,) = cm.comm.data_sum(parts)
     vals = vals.reshape(mc.nchains, mc.niter).detach().cpu().numpy()
     return Chains(vals.T[:, None, :], start=mc.start, thin=mc.thin,

@@ -255,7 +255,8 @@ class MeshComm:
     - ``data_sum``: the parts of a split density, summed over the data
       group;
     - ``gather_data``: the slices of the data group's ranks, joined in
-      data-rank order: the whole value;
+      data-rank order: the whole value; ``gather_data_many``: several
+      tensors of every data rank in one all-gather;
     - ``gather_leaf``: a leaf of a resume state as one device would hold
       it (``output.fileio.write_chains``).
 
@@ -365,6 +366,29 @@ class MeshComm:
         if self.data_size == 1:
             return x
         return self._gather(self._data_group, self.data_size, x, dim)
+
+    def gather_data_many(self, tensors) -> list:
+        """Every data rank's ``tensors`` (a list), in data-rank order: one
+        all-gather for all those of one dtype (a gathered node's parents,
+        ``CompiledModel.with_wholes``).  Returns a list per rank of lists
+        shaped as ``tensors``."""
+        tensors = list(tensors)
+        if self.data_size == 1:
+            return [tensors]
+        out = [[None] * len(tensors) for _ in range(self.data_size)]
+        groups: dict = {}
+        for i, t in enumerate(tensors):
+            groups.setdefault(t.dtype, []).append(i)
+        for ids in groups.values():
+            flat = torch.cat([tensors[i].reshape(-1) for i in ids])
+            every = self._gather(self._data_group, self.data_size, flat[None], 0)
+            for r in range(self.data_size):
+                at = 0
+                for i in ids:
+                    n = tensors[i].numel()
+                    out[r][i] = every[r, at:at + n].reshape(tensors[i].shape)
+                    at += n
+        return out
 
     def chain_broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """Chain rank 0's ``x`` on every chain rank."""

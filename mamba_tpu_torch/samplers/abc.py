@@ -53,7 +53,7 @@ import torch
 
 from ..ops import random as R
 from ..utils import graphs
-from .base import BlockKernel, SamplerSpec, drawing, replays, summed
+from .base import BlockKernel, SamplerSpec, drawing, replays
 
 #: draws of the ``maxdraw`` loop scored together, per chain
 DRAWS_PER_CALL = 25
@@ -122,11 +122,9 @@ class ABC(SamplerSpec):
         self.randeps = bool(randeps)
 
     def build(self, cm) -> BlockKernel:
-        _, _, _, logf_prior = cm.block_functions(
-            self.params, True, prior_only=True)
         vpack, vunpack = cm.block_maps(self.params, True, prior_only=True)
-        vprior = summed(torch.func.vmap(logf_prior),
-                        cm.block_sum(self.params, prior_only=True))
+        vprior = cm.block_density(self.params, True, prior_only=True)
+        prepare = cm.block_prepare(self.params, prior_only=True)
         # data nodes: the block's stochastic targets, minus the block
         targets = cm.model.keys("target", list(self.params))
         stoch = set(cm.stochastic)
@@ -258,7 +256,7 @@ class ABC(SamplerSpec):
         def step(key, state, tune: ABCTune, adapt):
             theta0 = vpack(state)
             C = theta0.shape[0]
-            cap.load_state(state)
+            cap.load_state(prepare(state))
             if not cap.holds("Tsim0", tune.Tsim) or not cap.holds("theta0", theta0):
                 flag = dict(dtype=torch.bool, device=cm.device)
                 cap.load(theta=theta0, Tsim=tune.Tsim, eps=tune.epsilon,

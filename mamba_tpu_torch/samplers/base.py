@@ -112,30 +112,27 @@ class SamplerSpec:
         (``load_state``), not once per leapfrog.  A sampler that can hold
         slices (``holds_slices``) gives both kernels the block's
         coordinates, ``coords=cm.block_coords(params)`` (``WHOLE`` where
-        the block holds no slice).  A block whose density is
+        the block holds no slice).  A block whose density reads a node that
+        every data rank gathers whole (``cm.block_gathers``) takes the
+        state with that node's parents' whole values (``cm.block_prepare``,
+        once per step, before a captured step loads it), or gathers them in
+        each density call (``cm.block_density``).  A block whose density is
         summed over a mesh's data group (``cm.block_split``) takes the
         plain loop: that sum is an all-reduce, which a CUDA graph does not
         capture (DGS's rule).  So does every block built under
         ``utils.graphs.disabled()``.  A chain-axis-only mesh has no
         collective inside a leapfrog, and replays."""
-        _, _, _, logf = cm.block_functions(self.params, self.transform)
         vpack, vunpack = cm.block_maps(self.params, self.transform)
-        total = cm.block_sum(self.params)
+        density = cm.block_density(self.params, self.transform,
+                                   grad=self.needs_grad)
+        prepare = cm.block_prepare(self.params)
         kw = ({"coords": cm.block_coords(self.params)} if self.holds_slices
               else {})
 
         if self.needs_grad:
-            grad_value = torch.func.vmap(torch.func.grad_and_value(logf))
-
-            def density(x, state):
-                g, v = grad_value(x, state)
-                return total(v, g)
-
             def make_f(state):
                 return lambda x: density(x, state)
         else:
-            density = summed(torch.func.vmap(logf), total)
-
             def make_f(state):
                 return candidate_logf(density, state)
 
@@ -144,18 +141,20 @@ class SamplerSpec:
             captured = graphed(density)
 
         def init(key, state):
+            state = prepare(state)
             return kernel_init(key, vpack(state), make_f(state), **kw)
 
         def step(key, state, tune, adapt):
-            x = vpack(state)
+            st = prepare(state)
+            x = vpack(st)
             if captured is None:
-                x2, tune2 = kernel_step(key, x, tune, make_f(state), adapt,
+                x2, tune2 = kernel_step(key, x, tune, make_f(st), adapt,
                                         **kw)
             else:
-                captured.load_state(state)
-                x2, tune2 = kernel_step(key, x, tune, make_f(state), adapt,
+                captured.load_state(st)
+                x2, tune2 = kernel_step(key, x, tune, make_f(st), adapt,
                                         graphed=captured)
-            return {**state, **vunpack(x2, state)}, tune2
+            return {**state, **vunpack(x2, st)}, tune2
 
         return BlockKernel(init, step)
 
@@ -173,13 +172,6 @@ def replays(cm, params, draws: bool = False) -> bool:
     data group (``cm.forward_sample``)."""
     return (graphs.enabled() and not cm.block_split(params)
             and not (draws and cm.comm.data_size > 1))
-
-
-def summed(vlogf, total):
-    """``vlogf`` followed by ``total`` (``cm.block_sum``) on its value."""
-    def f(x, state):
-        return total(vlogf(x, state))[0]
-    return f
 
 
 def candidate_logf(vlogf, state):

@@ -40,7 +40,8 @@ class Gibbs(SamplerSpec):
             return ()
 
         def step(key, state, tune, adapt):
-            new = self.fn(key, WholeValues(cm, cm.inputs, nodes(state)))
+            new = self.fn(key, WholeValues(cm, cm.inputs,
+                                           nodes(cm.with_wholes(state))))
             extra = set(new) - pset
             if extra:
                 raise ValueError(

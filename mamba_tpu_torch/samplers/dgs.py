@@ -27,7 +27,7 @@ import torch
 from ..ops import random as R
 from ..ops.distributions.base import param_like
 from ..utils import graphs
-from .base import BlockKernel, SamplerSpec, candidate_logf, replays, summed
+from .base import BlockKernel, SamplerSpec, candidate_logf, replays
 
 
 class DGSTune(NamedTuple):
@@ -133,25 +133,27 @@ class DGS(SamplerSpec):
             if not getattr(dist, "is_discrete", False):
                 raise ValueError(f"DGS needs a discrete node, got {name!r}")
             tune0 = dgs_support(dist, cm.sites[name].shape, cm.dtype, cm.device)
-            pack, unpack, _, logf = cm.block_functions((name,), False)
-            vlogf = summed(torch.func.vmap(logf), cm.block_sum((name,)))
+            pack, unpack, _, _ = cm.block_functions((name,), False)
+            vlogf = cm.block_density((name,), False)
             graphed = cm.device.type == "cuda" and replays(cm, (name,))
 
             def sweep(x, noise, state, tune0=tune0, vlogf=vlogf):
                 return _sweep(x, noise, tune0, candidate_logf(vlogf, state))
 
             kernels.append((tune0, torch.func.vmap(pack), torch.func.vmap(unpack),
-                            GraphedSweep(sweep) if graphed else sweep))
+                            GraphedSweep(sweep) if graphed else sweep,
+                            cm.block_prepare((name,))))
 
         def init(key, state):
             return tuple(k[0] for k in kernels)
 
         def step(key, state, tunes, adapt):
-            for (tune0, vpack, vunpack, sweep), k in zip(
+            for (tune0, vpack, vunpack, sweep, prepare), k in zip(
                     kernels, R.split(key, len(kernels))):
                 x = vpack(state)
                 noise = _gumbel(k, (x.shape[1], tune0.support.shape[1]), x)
-                state = {**state, **vunpack(sweep(x, noise, state), state)}
+                state = {**state, **vunpack(sweep(x, noise, prepare(state)),
+                                            state)}
             return state, tunes
 
         return BlockKernel(init, step)

@@ -43,7 +43,7 @@ import torch
 from ..ops import random as rnd
 from ..utils import graphs
 from .base import (BlockKernel, SamplerSpec, candidate_logf, plain, replays,
-                   summed, validatesimplex)
+                   validatesimplex)
 
 #: simplex trips per batch of a captured step, between two host tests: of
 #: the lengths 8, 12, 16 and 24, 8 gave the shortest wall on asthma and
@@ -237,24 +237,25 @@ class SliceSimplex(SamplerSpec):
         for name in self.params:
             shape = cm.sites[name].shape
             K = shape[-1] if shape else 1
-            pack, unpack, _, logf = cm.block_functions((name,), False)
-            density = summed(torch.func.vmap(logf), cm.block_sum((name,)))
+            pack, unpack, _, _ = cm.block_functions((name,), False)
+            density = cm.block_density((name,), False)
             bodies = simplex_bodies(lambda state, density=density:
                                     candidate_logf(density, state))
             per_site.append((K, torch.func.vmap(pack), torch.func.vmap(unpack),
                              graphs.Captured(bodies,
-                                             eager=not replays(cm, (name,)))))
+                                             eager=not replays(cm, (name,))),
+                             cm.block_prepare((name,))))
 
         def init(key, state):
             return SliceSimplexTune(scale=torch.tensor(self.scale, dtype=cm.dtype,
                                                        device=cm.device))
 
         def step(key, state, tune, adapt):
-            for (K, vpack, vunpack, cap), k in zip(
+            for (K, vpack, vunpack, cap, prepare), k in zip(
                     per_site, rnd.split(key, len(per_site))):
                 flat = vpack(state)
                 C = flat.shape[0]
-                cap.load_state(state)
+                cap.load_state(prepare(state))
                 x = _rows_step(k, flat.reshape(C, -1, K), tune.scale, cap,
                                MAX_ITER)
                 state = {**state, **vunpack(x.reshape(C, -1), state)}

@@ -7,7 +7,8 @@ In one process, rank by rank (``_DataRank``: no collective is called):
 the shapes each rank holds, its parts of every block density and gradient
 and of ``logpdf``, summed over the ranks against the port's whole model
 (rtol 1e-12) and the JAX package's compiled density at the same state
-(rtol 1e-10); what the compiler refuses, naming the node; and
+(rtol 1e-10), the padded cases held to the unsharded model on the
+points as given; what the compiler refuses, naming the node; and
 ``forward_sample``'s slice of the unsharded draw.  Across two gloo ranks
 (this file run as a script, started by ``parallel.launch.run_ranks``, as
 tests/test_torch_multiproc.py does): whatever reads whole values, a Gibbs
@@ -98,6 +99,10 @@ GLMM_GENERIC = {"y": ("data", None), "x": ("data", None, None), "z": ("data",)}
 LINE6_SPECS = {"y": ("data",), "xmat": ("data", None)}
 U_SPECS = {**LINE6_SPECS, "w": ("data",), "lo": ("data",), "u": ("data",)}
 BIRATS_SPECS = {"Y": ("data", None), "beta": ("data", None)}
+#: the GLMM with only its data named: z (and so b) stays whole
+GLMM_DATA = {"y": (None, "data"), "xt": (None, None, "data")}
+GLMM_GENERIC_DATA = {"y": ("data", None), "x": ("data", None, None)}
+V_SPECS = {**LINE6_SPECS, "w": ("data",), "v": ("data", None)}
 G, C = 40, 3
 
 
@@ -123,17 +128,19 @@ def _xp(pkg):
     return jnp
 
 
-def _six(pkg, extra=None, inits=None, samplers=()):
+def _six(pkg, extra=None, inits=None, samplers=(), y=(1.0, 3.0, 3.0, 3.0,
+                                                      5.0, 6.0)):
     """line on six points (the data axis divides them, no padding), with
-    ``extra(pkg)``'s nodes added, their inits and Slice samplers."""
+    ``extra(pkg)``'s nodes added, their inits and Slice samplers; MISS
+    imputes y where ``y`` has missing (NaN) entries."""
     model, inputs, init = pkg.models.line.build()
-    init = dict(init[0], y=np.array([1.0, 3.0, 3.0, 3.0, 5.0, 6.0]),
-                **(inits or {}))
+    init = dict(init[0], y=np.array(y, dtype=float), **(inits or {}))
     inputs = dict(inputs, xmat=np.stack([np.ones(6), np.arange(1.0, 7.0)], 1),
                   w=np.linspace(-0.6, 0.9, 6), lo=np.linspace(-1.0, 0.5, 6))
     model = pkg.Model(**{**model.nodes, **(extra(pkg) if extra else {})})
     model.set_samplers([pkg.NUTS("beta"), pkg.Slice("s2", 3.0)]
-                       + [pkg.Slice(n, 1.0) for n in samplers])
+                       + [pkg.Slice(n, 1.0) for n in samplers]
+                       + ([pkg.MISS("y")] if np.isnan(y).any() else []))
     return model, inputs, init, None
 
 
@@ -184,6 +191,78 @@ def _birats(pkg):
     return model, inputs, inits[0], None
 
 
+def _ss_prior(pkg):
+    """(a) tau's prior reads ss = sum((y - mu)**2), computed from the chain
+    state (beta, through mu) and the data held in part: every rank gathers
+    y's and mu's slices and computes ss whole, once per density call of
+    beta's block (which moves mu), once per step of tau's."""
+    xp = _xp(pkg)
+    return dict(ss=pkg.Logical(lambda y, mu: xp.sum((y - mu) ** 2),
+                               monitor=False),
+                tau=pkg.Stochastic(lambda ss: pkg.Normal(0.1 * ss, 1.0)))
+
+
+def _ybar_prior_pkg(pkg):
+    xp = _xp(pkg)
+    return dict(ybar=pkg.Logical(lambda y: xp.mean(y), monitor=False),
+                tau=pkg.Stochastic(lambda ybar: pkg.Normal(ybar, 1.0)))
+
+
+def _line_ss_tau(pkg):
+    return _six(pkg, _ss_prior, {"tau": 0.5}, ["tau"])
+
+
+def _line_miss_ybar(pkg):
+    """(a) mean(y) with MISS imputing y's two missing entries: ybar moves
+    with the chain state, so every rank gathers y and computes it whole,
+    once per step of the blocks that read it."""
+    return _six(pkg, _ybar_prior_pkg, {"tau": 0.5}, ["tau"], y=MISSING_Y)
+
+
+def _line_v(pkg):
+    """(c) v (6, 2) named at dim 0, its rows' law MvNormal(stack([w, w]),
+    I) reading the slice of w: the data dim is a batch dim of the law."""
+    xp = _xp(pkg)
+
+    def v(pkg):
+        return dict(v=pkg.Stochastic(2, lambda w: pkg.MvNormal(
+            xp.stack([w, w], 1), xp.eye(2, dtype=w.dtype)), monitor=False))
+    return _six(pkg, v, {"v": np.linspace(-1.0, 1.2, 12).reshape(6, 2)},
+                ["v"])
+
+
+def _birats_recycled(pkg):
+    """(d) birats with one law for every row, beta ~ MvNormal(mu_beta,
+    Sigma) recycled over the 30 rows: beta's value is cut along its rows."""
+    model, inputs, inits = pkg.models.birats.build()
+    nodes = dict(model.nodes)
+    nodes["beta"] = pkg.Stochastic(2, lambda mu_beta, Sigma: pkg.MvNormal(
+        mu_beta, Sigma), monitor=False)
+    recycled = pkg.Model(**nodes)
+    recycled.set_samplers(model.samplers)
+    return recycled, inputs, inits[0], None
+
+
+def _pad5(extra):
+    """line's own five points padded to six over a data axis of two, with
+    ``extra(pkg)``'s nodes added; the unsharded model's five points under
+    ``UNPADDED``."""
+    def build(pkg, unpadded=False):
+        model, inputs, inits = pkg.models.line.build()
+        model = pkg.Model(**{**model.nodes, **extra(pkg)})
+        model.set_samplers([pkg.NUTS("beta"), pkg.Slice("s2", 3.0),
+                            pkg.Slice("tau", 1.0)])
+        init = dict(inits[0], tau=0.5)
+        if unpadded:
+            return model, inputs, init, None
+        axes = {"chains": 1, "data": 2}
+        p_in, _ = pad_axes(axes, LINE_SPECS, inputs)
+        p_init, pads = pad_axes(axes, LINE_SPECS, init)
+        return model, p_in, p_init, {"y": pad_mask(p_init["y"].shape,
+                                                   pads["y"])}
+    return build
+
+
 def _glmm(fused):
     def build(pkg):
         model, inputs, inits, _ = pkg.models.glmm.build(G=G, n=10, seed=2,
@@ -194,12 +273,15 @@ def _glmm(fused):
 
 def _states(init, rng):
     """C chains around ``init``: each continuous sampled site moved by a
-    standard normal step (variances by a factor), data as it is."""
+    standard normal step (variances by a factor), data as it is (a missing
+    entry imputed per chain)."""
     out = {}
     for k, v in init.items():
         v = np.asarray(v, dtype=float)
         if k in ("y", "Y"):
             out[k] = np.broadcast_to(v, (C,) + v.shape).copy()
+            gap = np.isnan(out[k])
+            out[k][gap] = 3.0 + rng.normal(size=int(gap.sum()))
         elif k.startswith("s2") or k in ("Sigma", "sigma2C"):
             out[k] = v * rng.gamma(4.0, 0.25, size=(C,) + (1,) * v.ndim)
         else:
@@ -235,20 +317,117 @@ CASES = {
                      {"y": (C, 15, 5), "alpha": (C, 30), "beta": (C, 15)}),
     "birats": (_birats, BIRATS_SPECS, ("beta", "mu_beta", "Sigma"),
                {"Y": (C, 15, 5), "beta": (C, 15, 2)}),
+    # what the compiler refused before this and now takes: the GLMM with
+    # only its data named (y reads its slice of the whole b), a prior that
+    # reads a node gathered per density call (ss) or per step (mean(y)
+    # under MISS), the same on line's own five points padded to six, rows
+    # of a law with event dims whose prior reads a slice, and a law per
+    # row recycled over the rows
+    "glmm_fused_data": (_glmm(True), GLMM_DATA, ("beta", "z", "s2"),
+                        {"y": (C, 10, 20), "xt": (4, 10, 20), "z": (C, G)}),
+    "glmm_generic_data": (_glmm(False), GLMM_GENERIC_DATA, ("beta", "z", "s2"),
+                          {"y": (C, 20, 10), "x": (20, 10, 4), "z": (C, G)}),
+    "line_ss_tau": (_line_ss_tau, LINE6_SPECS, ("beta", "s2", "tau"),
+                    {"y": (C, 3), "tau": (C,)}),
+    "line_miss_ybar": (_line_miss_ybar, LINE6_SPECS, ("beta", "s2", "tau"),
+                       {"y": (C, 3), "tau": (C,)}),
+    "line_pad_ybar": (_pad5(_ybar_prior_pkg), LINE_SPECS, ("beta", "s2", "tau"),
+                      {"y": (C, 3), "xmat": (3, 2), "tau": (C,)}),
+    "line_pad_ss": (_pad5(_ss_prior), LINE_SPECS, ("beta", "s2", "tau"),
+                    {"y": (C, 3), "xmat": (3, 2), "tau": (C,)}),
+    "line_v": (_line_v, V_SPECS, ("beta", "s2", "v"),
+               {"y": (C, 3), "w": (3,), "v": (C, 6, 2)}),
+    "birats_recycled": (_birats_recycled, BIRATS_SPECS,
+                        ("beta", "mu_beta", "Sigma"),
+                        {"Y": (C, 15, 5), "beta": (C, 15, 2)}),
 }
+#: the padded cases: the unsharded model (line's own five points), which
+#: the data ranks' parts are held to, and so is the JAX package's
+UNPADDED = {"line_pad_ybar", "line_pad_ss"}
+
+
+def _reference(case, pkg):
+    """The unsharded model a case's parts are held to: the case itself, or
+    for a padded case its model on the points as given."""
+    build = CASES[case][0]
+    return build(pkg, unpadded=True) if case in UNPADDED else build(pkg)
+
+
+def _unpad(case, state, lead=1):
+    """A case's state as its unsharded model holds it: each site cut to
+    the shape the unpadded init gives (the padded tail dropped)."""
+    if case not in UNPADDED:
+        return state
+    init = _reference(case, tmt)[2]
+    return {k: v[(slice(None),) * lead + tuple(
+        slice(0, n) for n in np.shape(init[k]))] for k, v in state.items()}
 
 
 def _port(case):
-    """The port's whole model, each data rank's, and a whole state."""
+    """The port's unsharded model, each data rank's, and a whole state as
+    the ranks take it (padded, for a padded case: ``_unpad`` gives the
+    unsharded model's)."""
     build, specs, block, _ = CASES[case]
     model, inputs, init, masks = build(tmt)
-    whole = tmt.compile_model(model, inputs, init, device="cpu", masks=masks)
+    ref = _reference(case, tmt)
+    whole = tmt.compile_model(ref[0], ref[1], ref[2], device="cpu",
+                              masks=ref[3])
+    given = None
+    if case in UNPADDED:
+        given = {n: {d: g for d, (g, _) in p.items()}
+                 for n, p in {**pad_axes({"chains": 1, "data": 2}, specs,
+                                         ref[1])[1],
+                              **pad_axes({"chains": 1, "data": 2}, specs,
+                                         ref[2])[1]}.items()}
     ranks = [tmt.compile_model(model, inputs, init, device="cpu", masks=masks,
-                               comm=_DataRank(r), site_specs=specs)
+                               comm=_DataRank(r), site_specs=specs, pads=given)
              for r in (0, 1)]
     np_state = _states(init, np.random.default_rng(5))
     state = {k: torch.as_tensor(v) for k, v in np_state.items()}
     return whole, ranks, state, np_state
+
+
+def _locals(ranks, state, xs=None, block=None, transform=True):
+    """Each rank's local view of the whole ``state``, with the whole values
+    of the gathered nodes' parents (``with_wholes``, its gather done by
+    hand over the ranks): from the state, or from each rank's flat vector
+    ``xs`` of ``block`` where given."""
+    locals_ = [cm.cut_state(state) for cm in ranks]
+    if not ranks[0]._gather_dims:
+        return locals_
+    if xs is None:
+        slices = [torch.func.vmap(cm._parent_values)(st)
+                  for cm, st in zip(ranks, locals_)]
+    else:
+        slices = [torch.func.vmap(cm.block_parents(block, transform))(x, st)
+                  for cm, x, st in zip(ranks, xs, locals_)]
+    wholes = ranks[0].join_wholes(slices)
+    return [{**st, **wholes} for st in locals_]
+
+
+def _rank_blocks(ranks, block, state, transform, xs):
+    """Each rank's block value and gradient at its flat vector: a block
+    that gathers per call (``block_gathers``) evaluates its density on the
+    parents gathered from every rank's ``x``, and adds its slice of their
+    cotangent pulled back (``block_pull``), as ``block_density`` does with
+    its collectives."""
+    per_call = ranks[0].block_gathers(block) == "call"
+    locals_ = _locals(ranks, state, xs if per_call else None, block,
+                      transform)
+    out = []
+    for cm, x, st in zip(ranks, xs, locals_):
+        if not per_call:
+            out.append(_block(cm, block, st, transform, x))
+            continue
+        logf = cm.block_functions(block, transform)[3]
+        wholes = {k: v for k, v in st.items() if k.endswith("@whole")}
+        base = {k: v for k, v in st.items() if k not in wholes}
+        (gx, gw), v = torch.func.vmap(torch.func.grad_and_value(
+            lambda x, s, w: logf(x, {**s, **w}), argnums=(0, 2)))(
+            x, base, wholes)
+        gx = gx + torch.func.vmap(cm.block_pull(block, transform))(x, base, gw)
+        out.append((x, v, gx))
+    return out
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -262,11 +441,13 @@ def test_each_rank_holds_only_its_slices(case):
         assert cm.local_state <= set(cm.sites)
         for k in cm.local_state:     # the rank's slice of the whole value
             np.testing.assert_array_equal(local[k], cm.local(k, state[k], 1))
-    # the slices of the two ranks are the whole, in data-rank order
+    # the slices of the two ranks are the whole, in data-rank order (a
+    # padded case's: the unsharded input and its padded tail)
     for k, d in ranks[0].local_dims.items():
         if k in ranks[0].inputs:
-            np.testing.assert_array_equal(
-                torch.cat([cm.inputs[k] for cm in ranks], d), whole.inputs[k])
+            joined = torch.cat([cm.inputs[k] for cm in ranks], d)
+            np.testing.assert_array_equal(joined[tuple(
+                slice(0, n) for n in whole.inputs[k].shape)], whole.inputs[k])
 
 
 def _block(cm, block, state, transform, x=None):
@@ -317,21 +498,23 @@ def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
     whole gradient."""
     whole, ranks, state, np_state = _port(case)
     block = CASES[case][2]
-    x, v, g = _block(whole, block, state, transform)
-    parts = []
+    x, v, g = _block(whole, block, _unpad(case, state), transform)
+    xs = []
     for cm in ranks:
         coords = cm.block_coords(block)
         xr = x if coords.index is None else x[:, coords.index]
-        parts.append(_block(cm, block, cm.cut_state(state), transform, xr))
+        xs.append(xr)
         if coords.index is not None:    # the rank packs its coordinates
             np.testing.assert_array_equal(_block(
                 cm, block, cm.cut_state(state), transform)[0], xr)
+    parts = _rank_blocks(ranks, block, state, transform, xs)
     spec = whole.block_ravel_spec(block, transform)
     packed = _joined(ranks, [
         torch.func.vmap(lambda st, cm=cm: cm._flat_parts(block, transform, st))(
             cm.cut_state(state)) for cm in ranks], transform)
     np.testing.assert_array_equal(torch.func.vmap(spec.ravel)(packed), x)
-    want = torch.func.vmap(whole.block_functions(block, transform)[1])(x, state)
+    want = torch.func.vmap(whole.block_functions(block, transform)[1])(
+        x, _unpad(case, state))
     got = _joined(ranks, [torch.func.vmap(
         cm.block_functions(block, transform)[1])(xr, cm.cut_state(state))
         for cm, (xr, _, _) in zip(ranks, parts)], transform)
@@ -343,11 +526,13 @@ def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
     scale = float(g.abs().max())
     np.testing.assert_allclose(v_sum, v, rtol=1e-12)
     np.testing.assert_allclose(g_sum, g, rtol=1e-12, atol=1e-12 * scale)
-    # the JAX package at the same state, chain by chain
+    # the JAX package at the same state, chain by chain (a padded case: its
+    # run without a mesh on the points as given)
     jax, jmt = _jax()
-    model, inputs, init, masks = CASES[case][0](jmt)
+    model, inputs, init, masks = _reference(case, jmt)
     jcm = jmt.compile_model(model, inputs, init, masks=masks)
     jpack, _, _, jlogf = jcm.block_functions(block, transform)
+    np_state = _unpad(case, np_state)
     for c in range(C):
         jst = {k: np.asarray(a[c]) for k, a in np_state.items()}
         jv, jg = jax.value_and_grad(jlogf)(jpack(jst), jst)
@@ -359,13 +544,14 @@ def test_block_parts_sum_to_the_whole_and_to_the_reference(case, transform):
 @pytest.mark.parametrize("case", list(CASES))
 def test_logpdf_parts_sum_to_the_whole_and_to_the_reference(case):
     whole, ranks, state, np_state = _port(case)
-    want = torch.func.vmap(whole.logpdf)(state)
-    got = sum(torch.func.vmap(cm.logpdf_part)(cm.cut_state(state))
-              for cm in ranks)
+    want = torch.func.vmap(whole.logpdf)(_unpad(case, state))
+    got = sum(torch.func.vmap(cm.logpdf_part)(st)
+              for cm, st in zip(ranks, _locals(ranks, state)))
     np.testing.assert_allclose(got, want, rtol=1e-12)
     _, jmt = _jax()
-    model, inputs, init, masks = CASES[case][0](jmt)
+    model, inputs, init, masks = _reference(case, jmt)
     jcm = jmt.compile_model(model, inputs, init, masks=masks)
+    np_state = _unpad(case, np_state)
     for c in range(C):
         jst = {k: np.asarray(a[c]) for k, a in np_state.items()}
         np.testing.assert_allclose(float(got[c]), float(jcm.logpdf(jst)),
@@ -386,6 +572,15 @@ def test_the_plans_of_the_fused_glmm():
     assert ranks[1]._local_plans["z"][0] == "cut"
     assert ranks[1].local_dims == {"y": 1, "xt": 2, "z": 0, "b": 0}
     assert ranks[1]._held == {"z": 0}
+    # with only y and xt named, z and b stay whole, and y reads the rank's
+    # slice of b: the kernel runs over the rank's groups
+    for case in ("glmm_fused_data", "glmm_generic_data"):
+        _, ranks, _, _ = _port(case)
+        for cm in ranks:
+            assert cm._cuts == {"y": {"b": 0}}, case
+            assert cm._local_plans["y"][0] == "local" and not cm._held
+            assert "b" not in cm.local_dims and "z" not in cm.local_dims
+            assert cm.block_coords(("beta", "z", "s2")).index is None
 
 
 # ---- what the compiler refuses ------------------------------------------
@@ -424,13 +619,21 @@ def test_a_term_that_reads_mean_y_is_refused_by_name():
         _chain_inits(cm, [init, init], 2)
         with pytest.raises(ValueError, match="chain 1: the data 'y' differ"):
             _chain_inits(cm, [init, dict(init, y=init["y"] + 1.0)], 2)
-    model, inputs, init, _ = _six(tmt, lambda pkg: dict(
-        ss=tmt.Logical(lambda y, mu: torch.sum((y - mu) ** 2),
-                       monitor=False),
-        tau=tmt.Stochastic(lambda ss: tmt.Normal(ss, 1.0))),
-        {"tau": 0.5}, ["tau"])
-    with pytest.raises(ValueError, match=r"density of 'tau'.*\['ss'\]"):
-        _compile_rank(model, inputs, init, LINE6_SPECS)
+    # a prior that reads ss = sum((y - mu)**2), computed from the chain
+    # state and the data held in part: every rank computes ss whole from y
+    # and mu gathered over the data group, once per density call of beta's
+    # block (which moves mu), once per step of tau's (its parts against the
+    # whole: ``CASES["line_ss_tau"]``)
+    model, inputs, init, _ = _line_ss_tau(tmt)
+    for r in (0, 1):
+        cm = _compile_rank(model, inputs, init, LINE6_SPECS, r)
+        assert cm._gathered == {"ss": {"y": 0, "mu": 0}} and cm.mixed == {"ss"}
+        assert cm.block_gathers(("beta",)) == "call"
+        assert cm.block_gathers(("tau",)) == "step"
+        assert cm.block_gathers(("s2",)) == ""
+        assert cm.block_split(("beta",)) and not cm.block_split(("tau",))
+        np.testing.assert_array_equal(
+            cm._example_wholes["y@whole"], init["y"])
     # unsharded, and over a data axis with y whole, the model compiles
     _compile_rank(model, inputs, init, {})
 
@@ -476,7 +679,10 @@ def test_a_centering_logical_at_symmetric_inits_is_refused_by_name():
 def test_a_term_that_reads_mean_y_is_refused_when_y_has_missing_entries():
     """y with missing entries under MISS: mean(y) at the example inits is
     NaN whole and on each slice.  The probe state draws the missing
-    entries, and tau's prior, which reads mean(y), is refused."""
+    entries, where mean(y) differs on each slice: it moves with the chain
+    state, so every rank gathers y and computes it whole, once per step of
+    tau's block, which does not move y (the parts against the whole:
+    ``CASES["line_miss_ybar"]``)."""
     model, inputs, inits = _line6("miss", MISSING_Y)
     with_tau = tmt.Model(**{
         **model.nodes,
@@ -484,8 +690,15 @@ def test_a_term_that_reads_mean_y_is_refused_when_y_has_missing_entries():
         "tau": tmt.Stochastic(lambda ybar: tmt.Normal(ybar, 1.0))})
     with_tau.set_samplers(model.samplers + [tmt.Slice("tau", 1.0)])
     init = dict(inits[0], tau=0.0)
-    with pytest.raises(ValueError, match=r"density of 'tau'.*\['ybar'\]"):
-        _compile_rank(with_tau, inputs, init, LINE6_SPECS)
+    for r in (0, 1):
+        cm = _compile_rank(with_tau, inputs, init, LINE6_SPECS, r)
+        assert cm._gathered == {"ybar": {"y": 0}} and not cm._consts
+        # MISS moves y, so a density of its block would gather per call;
+        # it draws y from y's law, which does not read ybar
+        assert [cm.block_gathers(s.params) for s in with_tau.samplers] == [
+            "", "", "call", "step"]
+        assert cm.block_prepare(("tau",)) == cm.with_wholes
+        assert cm.block_prepare(("beta",))({"beta": 1}) == {"beta": 1}
     _compile_rank(with_tau, inputs, init, {})
 
 
@@ -532,24 +745,25 @@ def test_what_reads_a_slice_where_it_cannot_is_refused_by_name():
     # a sampled site on the data axis whose prior reads a slice
     cm = _compile_rank(*_line_u(True)(tmt)[:3], U_SPECS)
     assert cm._part_sites == {"u": 0}
-    # ... but not one whose law has event dims
-    model, inputs, init = _line_with(v=tmt.Stochastic(2, lambda w: tmt.MvNormal(
-        torch.stack([w, w], 1), torch.eye(2, dtype=w.dtype)), monitor=False))
-    inputs["w"] = np.arange(1.0, 7.0)
-    init = dict(init, v=np.zeros((6, 2)))
-    with pytest.raises(ValueError, match=r"sampled site 'v'.*elementwise"):
-        _compile_rank(model, inputs, init, {"w": ("data",), "v": ("data", None)})
-    # a law per row cuts only where its batch holds the data dim
-    model, inputs, inits = tmt.models.birats.build()
-    model.nodes["beta"] = tmt.Stochastic(2, lambda mu_beta, Sigma: tmt.MvNormal(
-        mu_beta, Sigma), monitor=False)
-    with pytest.raises(ValueError, match=r"site 'beta'.*cannot be cut there"):
-        _compile_rank(model, inputs, inits[0], BIRATS_SPECS)
-    # the generic GLMM with y and x named but not z: b stays whole
+    # ... one whose law has event dims too, where the data dim is a batch
+    # dim of its law: its rows (``CASES["line_v"]``)
+    for r in (0, 1):
+        cm = _compile_rank(*_line_v(tmt)[:3], V_SPECS, r)
+        assert cm._part_sites == {"v": 0}
+        assert cm._local_plans["v"][0] == "local"
+    # a law per row whose batch does not hold the data dim is recycled over
+    # the rows: each rank's part is the law on its rows
+    # (``CASES["birats_recycled"]``)
+    model, inputs, init, _ = _birats_recycled(tmt)
+    for r in (0, 1):
+        cm = _compile_rank(model, inputs, init, BIRATS_SPECS, r)
+        assert cm._local_plans["beta"][0] == "local"
+        assert cm._held == {"beta": 0}
+    # the generic GLMM with y and x named but not z: b stays whole, and y
+    # reads the rank's slice of it (``CASES["glmm_generic_data"]``)
     model, inputs, inits, _ = tglmm.build(G=G, n=10, seed=2)
-    with pytest.raises(ValueError, match="node 'y' cannot be evaluated"):
-        _compile_rank(model, inputs, inits[0],
-                      {"y": ("data", None), "x": ("data", None, None)})
+    cm = _compile_rank(model, inputs, inits[0], GLMM_GENERIC_DATA)
+    assert cm._cuts == {"y": {"b": 0}}
     # a spec that names the chain axis, or a length that does not divide
     with pytest.raises(ValueError, match="names the chain axis"):
         _compile_rank(model, inputs, inits[0], {"y": ("chains", None)})
@@ -582,41 +796,153 @@ def _ss(monitor):
                                monitor=monitor))
 
 
-#: nodes that read the whole of a padded array: (nodes, the node refused,
-#: the padded arrays it reads, whether the compiler refuses it)
-PADDED = {"prior": (_ybar_prior, "ybar", "'y'", True),
-          "monitor": (lambda: _ss(True), "ss", "'xmat', 'y'", True),
-          "gibbs": (lambda: _ss(False), "ss", "'xmat', 'y'", False)}
+#: nodes that read the whole of a padded array: (nodes, the node, the
+#: padded arrays it reads, whether it is a constant)
+PADDED = {"prior": (_ybar_prior, "ybar", ["y"], True),
+          "monitor": (lambda: _ss(True), "ss", ["xmat", "y"], False),
+          "gibbs": (lambda: _ss(False), "ss", ["xmat", "y"], False)}
 
 
 @pytest.mark.parametrize("case", list(PADDED))
 def test_what_reads_the_whole_of_a_padded_array_is_refused_by_name(case):
     """line's own five points on a data axis of two: y and xmat padded to
-    six.  mean(y) read by a prior (a constant) and a monitored ss = sum((y
-    - mu)**2) would count the padded row, which the unsharded run does
-    not have: the compiler refuses both by name.  An ss that only a Gibbs
-    block reads compiles, and ``WholeValues`` refuses to compute it.
-    Without the padding each compiles."""
-    nodes, name, padded, at_compile = PADDED[case]
+    six.  mean(y) read by a prior (a constant) and ss = sum((y - mu)**2),
+    monitored or read by a Gibbs block, are computed from the arrays as
+    given, their padded tails dropped: each is the unsharded model's value
+    (the compiler refused them before).  ss is computed by ``WholeValues``
+    from the whole (padded) values that each rank gathers, here handed
+    over as ``cm.whole`` would gather them."""
+    nodes, name, padded, is_const = PADDED[case]
     model, inputs, init, (p_in, p_init, masks, given) = _padded(**nodes())
-    want = rf"node '{name}' is computed from the whole of \[{padded}\]"
 
-    def rank(r):
-        return tmt.compile_model(model, p_in, p_init, device="cpu",
-                                 masks=masks, comm=_DataRank(r),
-                                 site_specs=LINE_SPECS, pads=given)
+    def stacked(values):
+        return {k: torch.as_tensor(np.asarray(v, float))[None]
+                for k, v in values.items()}
+    whole = tmt.compile_model(model, inputs, init, device="cpu")
+    want = torch.func.vmap(whole.eval_logicals)(stacked(init))[name]
+    padded_cm = tmt.compile_model(model, p_in, p_init, device="cpu",
+                                  masks=masks)
+    full = {**padded_cm.inputs,
+            **torch.func.vmap(padded_cm.eval_logicals)(stacked(p_init))}
     for r in (0, 1):
-        if at_compile:
-            with pytest.raises(ValueError, match=want):
-                rank(r)
+        cm = tmt.compile_model(model, p_in, p_init, device="cpu",
+                               masks=masks, comm=_DataRank(r),
+                               site_specs=LINE_SPECS, pads=given)
+        assert cm.padded_reads(name) == padded
+        if is_const:
+            assert set(cm._consts) == {name} and not cm.mixed
+            np.testing.assert_allclose(cm._consts[name][1], want[0],
+                                       rtol=1e-15)
             continue
-        cm = rank(r)
-        assert cm.mixed == {name} and cm.padded_reads(name) == ["xmat", "y"]
+        assert cm.mixed == {name} and not cm._gathered
         nodes_r = torch.func.vmap(cm.eval_logicals)(cm.cut_state(
-            {k: torch.as_tensor(np.asarray(v, float))[None]
-             for k, v in p_init.items()}))
-        with pytest.raises(ValueError, match=want):
-            WholeValues(cm, cm.inputs, nodes_r)[name]
+            stacked(p_init)))
+        cm.whole = lambda n, x, lead=0: full[n]
+        np.testing.assert_allclose(WholeValues(cm, cm.inputs, nodes_r)[name],
+                                   want, rtol=1e-14)
+    tmt.compile_model(model, inputs, init, device="cpu")
+
+
+def test_a_padded_length_that_another_array_has_as_given_is_refused_by_name():
+    """line's own five points padded to six, and w named with six entries
+    as given: the compiler cannot tell y's padded tail from w's last
+    entry, so mean(y), which it computes from y as given, is refused,
+    naming y and the node; without mean(y) the model compiles."""
+    for extra, refused in ((_ybar_prior_pkg, True), (lambda pkg: dict(
+            tau=pkg.Stochastic(lambda: pkg.Normal(0.0, 1.0))), False)):
+        model, inputs, init, masks = _pad5(extra)(tmt)
+        ref = _pad5(extra)(tmt, True)
+        model = tmt.Model(**{**model.nodes, "u": tmt.Stochastic(
+            1, lambda w: tmt.Normal(w, 1.0), monitor=False)})
+        model.set_samplers(ref[0].samplers + [tmt.Slice("u", 1.0)])
+        inputs = dict(inputs, w=np.linspace(-0.6, 0.9, 6))
+        init = dict(init, u=np.zeros(6))
+        specs = {**LINE_SPECS, "w": ("data",), "u": ("data",)}
+        pads = {"y": {0: 5}, "xmat": {0: 5}}
+
+        def rank(r):
+            return tmt.compile_model(model, inputs, init, device="cpu",
+                                     masks=masks, comm=_DataRank(r),
+                                     site_specs=specs, pads=pads)
+        if refused:
+            with pytest.raises(ValueError, match=r"'y', which node 'ybar' "
+                               r"reads whole, has 6 entries along the data "
+                               r"axis"):
+                rank(0)
+        else:
+            assert rank(1)._ambiguous == {6}
+
+
+def _rolled_glmm(fused):
+    """The GLMM with only its data named, whose y reads b moved by one
+    group: no cut of b gives a data rank the groups its slice needs."""
+    model, inputs, inits, _ = tglmm.build(G=G, n=10, seed=2, fused=fused)
+    if fused:
+        from mamba_tpu_torch.ops.fused_glmm import BernoulliLogitGLMM
+        y = tmt.Stochastic(2, lambda xt, beta, b: BernoulliLogitGLMM(
+            xt, beta, torch.roll(b, 1)), monitor=False)
+    else:
+        y = tmt.Stochastic(2, lambda x, beta, b: tmt.Bernoulli(torch.sigmoid(
+            torch.einsum("gnp,p->gn", x, beta)
+            + torch.roll(b, 1)[:, None])), monitor=False)
+    rolled = tmt.Model(**{**model.nodes, "y": y})
+    rolled.set_samplers(model.samplers)
+    return rolled, inputs, inits[0]
+
+
+def _named_reader():
+    """line_ss_tau with a second observed site y2, named, whose law reads
+    ss: beta's block gathers ss per call and y2's parts would each need
+    the gradient of every rank's part."""
+    model, inputs, init, _ = _line_ss_tau(tmt)
+    nodes = dict(model.nodes, y2=tmt.Stochastic(1, lambda mu, ss: tmt.Normal(
+        mu + 0.01 * ss, 1.0), monitor=False))
+    named = tmt.Model(**nodes)
+    named.set_samplers(model.samplers)
+    return named, inputs, dict(init, y2=init["y"] + 0.5)
+
+
+#: what stays refused: (model, inputs, init), site_specs, the message, and
+#: whether the compiler refuses it (else the block of beta, when built)
+STAYS_REFUSED = {
+    "fused_glmm_probe_mismatch": (lambda: _rolled_glmm(True), GLMM_DATA,
+                                  r"the density of 'y' cannot be evaluated",
+                                  True),
+    "generic_glmm_probe_mismatch": (lambda: _rolled_glmm(False),
+                                    GLMM_GENERIC_DATA,
+                                    r"the density of 'y' cannot be evaluated",
+                                    True),
+    "event_dim": (lambda: _line_v(tmt)[:3],
+                  {**LINE6_SPECS, "w": ("data",), "v": (None, "data")},
+                  r"sampled site 'v' is named on the data axis at dim 1, an "
+                  r"event dim of its MvNormal", True),
+    "chain_axis": (lambda: _line_v(tmt)[:3], {"y": ("chains",)},
+                   r"names the chain axis 'chains'", True),
+    "named_term_reads_a_node_gathered_per_call": (
+        _named_reader, {**LINE6_SPECS, "y2": ("data",)},
+        r"the terms \['y2'\].*read \['ss'\]", False),
+}
+
+
+@pytest.mark.parametrize("case", list(STAYS_REFUSED))
+def test_what_stays_refused_raises_a_value_error_that_names_it(case):
+    """What the data axis still refuses, each by a ValueError that names
+    the node or the axis, never a raw error of the evaluation: the GLMM
+    whose parts no cut of its whole b confirms at the probe (the fused
+    kernel's shape error, the generic form's broadcast), a named site
+    whose data dim is an event dim of the law that reads a slice, a spec
+    that names the chain axis, and a named term that reads a node its
+    block gathers per density call.  (A second data axis:
+    tests/test_torch_parallel.py.)"""
+    build, specs, message, at_compile = STAYS_REFUSED[case]
+    model, inputs, init = build()
+    if at_compile:
+        with pytest.raises(ValueError, match=message):
+            _compile_rank(model, inputs, init, specs)
+    else:
+        cm = _compile_rank(model, inputs, init, specs)
+        with pytest.raises(ValueError, match=message):
+            cm.block_functions(("beta",), True)
     tmt.compile_model(model, inputs, init, device="cpu")
 
 
@@ -750,41 +1076,89 @@ def _line_ss():
     return model, inputs, init
 
 
-#: the resolved cases' runs: (build, site_specs, iterations, burnin)
+#: the resolved cases' runs: (build, site_specs, iterations, burnin); a
+#: padded case is given line's own five points, which mcmc pads
 CASE_RUNS = {"line_tau": (lambda: _line_tau(tmt)[:3], LINE6_SPECS, 30, 10),
              "line_u_trunc": (lambda: _line_u(True)(tmt)[:3], U_SPECS, 30, 10),
              "rats_centred": (lambda: _rats_centred(tmt)[:3], RATS_SPECS, 4, 2),
              "birats": (lambda: _birats(tmt)[:3], BIRATS_SPECS, 6, 3),
              "line_ss": (_line_ss, LINE6_SPECS, 30, 10)}
+#: the same for the cases the compiler refused before it read whole parents
+#: cut, gathered nodes and dropped padded tails
+TAKEN_RUNS = {"glmm_fused_data": (lambda: _glmm(True)(tmt)[:3], GLMM_DATA, 8, 4),
+             "glmm_generic_data": (lambda: _glmm(False)(tmt)[:3],
+                                   GLMM_GENERIC_DATA, 8, 4),
+             "line_ss_tau": (lambda: _line_ss_tau(tmt)[:3], LINE6_SPECS, 30,
+                             10),
+             "line_miss_ybar": (lambda: _line_miss_ybar(tmt)[:3], LINE6_SPECS,
+                                30, 10),
+             "line_pad_ybar": (lambda: _pad5(_ybar_prior_pkg)(tmt, True)[:3],
+                               LINE_SPECS, 30, 10),
+             "line_pad_ss": (lambda: _pad5(_ss_prior)(tmt, True)[:3],
+                             LINE_SPECS, 30, 10),
+             "line_v": (lambda: _line_v(tmt)[:3], V_SPECS, 20, 10),
+             "birats_recycled": (lambda: _birats_recycled(tmt)[:3],
+                                 BIRATS_SPECS, 6, 3)}
+#: the cases whose beta block gathers ss once per density call: their
+#: block density and gradient are held to the unsharded grad_and_value
+PER_CALL = ("line_ss_tau", "line_pad_ss")
+PER_CALL_BLOCK = ("beta", "s2", "tau")
 
 
-def _case_runs(mesh=None):
+def _case_runs(mesh=None, runs=CASE_RUNS):
     out = {}
-    for name, (build, specs, iters, burnin) in CASE_RUNS.items():
+    for name, (build, specs, iters, burnin) in runs.items():
         model, inputs, init = build()
         sim = tmt.mcmc(model, inputs, [init], iters, burnin=burnin,
                        site_specs=specs if mesh else None,
                        **dict(RUN, mesh=mesh))
         out[name] = sim.value
-    out["ss_names"] = np.array(sim.names)
+        if name == "line_ss":
+            out["ss_names"] = np.array(sim.names)
     return out
 
 
-def _padded_refusal(mesh):
-    """mcmc of line_tau on line's own five points over ``mesh``'s data
-    axis, which pads them to six: the message it raises with."""
-    model, inputs, init, _ = _padded(**_ybar_prior())
-    try:
-        tmt.mcmc(model, inputs, [init], 4, site_specs=LINE_SPECS,
-                 **dict(RUN, mesh=mesh))
-    except ValueError as e:
-        return str(e)
-    return ""
+def _spread(init):
+    """Four chains' inits around ``init``: beta and tau moved."""
+    return [dict(init, beta=np.asarray(init["beta"]) + 0.3 * i,
+                 tau=0.5 + 0.2 * i) for i in range(4)]
+
+
+def _per_call_density(name, mesh=None):
+    """The block density and gradient of ``PER_CALL_BLOCK`` at four chains:
+    on ``mesh``'s data rank through ``block_density`` (its gather and
+    all-reduce), else the unsharded model's ``grad_and_value``."""
+    from mamba_tpu_torch.model.mcmc import _pad_sharded
+    model, inputs, init = TAKEN_RUNS[name][0]()
+    specs = TAKEN_RUNS[name][1]
+    if mesh is None:
+        cm = tmt.compile_model(model, inputs, init, device="cpu")
+        state = _chain_inits(cm, _spread(init), 4)
+        pack, _, _, logf = cm.block_functions(PER_CALL_BLOCK, True)
+        g, v = torch.func.vmap(torch.func.grad_and_value(logf))(
+            torch.func.vmap(pack)(state), state)
+        return v, g
+    inputs, inits, masks, pads = _pad_sharded(model, mesh, specs, inputs,
+                                              _spread(init))
+    cm = tmt.compile_model(model, inputs, inits[0], device="cpu", masks=masks,
+                           comm=tmt.parallel.mesh.MeshComm(mesh),
+                           site_specs=specs, pads=pads)
+    assert cm.block_gathers(PER_CALL_BLOCK) == "call"
+    state = _chain_inits(cm, inits, 4)
+    x = cm.block_maps(PER_CALL_BLOCK, True)[0](state)
+    return cm.block_density(PER_CALL_BLOCK, True, grad=True)(x, state)
 
 
 def _mode_cases(rank):
+    return _case_runs(make_mesh({"chains": 1, "data": 2}, "cpu"))
+
+
+def _mode_taken(rank):
     mesh = make_mesh({"chains": 1, "data": 2}, "cpu")
-    return {**_case_runs(mesh), "padded": _padded_refusal(mesh)}
+    out = _case_runs(mesh, TAKEN_RUNS)
+    for name in PER_CALL:
+        out[f"{name}_v"], out[f"{name}_g"] = _per_call_density(name, mesh)
+    return out
 
 
 def _mode_readers(rank):
@@ -828,14 +1202,11 @@ def test_resolved_cases_on_two_data_ranks_match_the_unsharded_runs(tmp_path):
     """(i)-(iv) across two gloo ranks against the runs without a mesh: a
     prior reading mean(y), a sampled site whose truncated prior reads
     slices, rats' centring logical, birats' law per row, and line's
-    monitored ss that a Gibbs block reads whole (1e-8).  On line's own
-    five points, which the data axis pads, mcmc refuses mean(y) by name."""
+    monitored ss that a Gibbs block reads whole (1e-8).  (On line's own
+    five points, padded by the data axis, mean(y) read by a prior is now
+    the unsharded run's: ``TAKEN_RUNS["line_pad_ybar"]``.)"""
     r0, r1 = _ranks("cases", tmp_path)
     ref = _case_runs()
-    # line_tau on line's own five points, padded: refused by name
-    for res in (r0, r1):
-        assert str(res["padded"]).startswith(
-            "node 'ybar' is computed from the whole of ['y']"), res["padded"]
     assert list(r0["ss_names"]) == list(ref["ss_names"]) == [
         "beta[1]", "beta[2]", "s2", "ss"]
     for k in CASE_RUNS:
@@ -846,13 +1217,40 @@ def test_resolved_cases_on_two_data_ranks_match_the_unsharded_runs(tmp_path):
     assert ss.std() > 0
 
 
+def test_taken_cases_on_two_data_ranks_match_the_unsharded_runs(tmp_path):
+    """Across two gloo ranks against the runs without a mesh (1e-8): the
+    GLMM with only its data named (fused and generic), a prior reading ss
+    gathered per density call, one reading mean(y) gathered per step under
+    MISS, both priors on line's own five points, which the data axis pads
+    (held to the unsharded run on the five points, not to a count of the
+    padding), the v rows and birats' recycled law; draws equal on both
+    ranks.  The block density and gradient of a block that gathers per
+    call (its all-gather, its vjp and its all-reduce), against the
+    unsharded grad_and_value (1e-10)."""
+    r0, r1 = _ranks("taken", tmp_path)
+    ref = _case_runs(runs=TAKEN_RUNS)
+    for name in PER_CALL:
+        v, g = _per_call_density(name)
+        for res in (r0, r1):
+            np.testing.assert_allclose(res[f"{name}_v"], v, rtol=1e-10)
+            np.testing.assert_allclose(res[f"{name}_g"], g, rtol=1e-10,
+                                       atol=1e-10 * float(g.abs().max()))
+    for k in TAKEN_RUNS:
+        np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
+        assert np.isfinite(r0[k]).all(), k
+        np.testing.assert_allclose(r0[k], ref[k], rtol=1e-8, err_msg=k)
+    for k in ("line_ss_tau", "line_miss_ybar", "line_pad_ybar", "line_pad_ss"):
+        assert r0[k][:, 3].std() > 0, k          # tau moves
+
+
 def _main(argv) -> int:
     from mamba_tpu_torch.parallel import distributed_init
     init, n, rank, mode = argv[0], int(argv[1]), int(argv[2]), argv[3]
     torch.set_num_threads(1)
     distributed_init(init, n, rank, device_type="cpu", timeout=GROUP_TIMEOUT)
     try:
-        out = {"readers": _mode_readers, "cases": _mode_cases}[mode](rank)
+        out = {"readers": _mode_readers, "cases": _mode_cases,
+               "taken": _mode_taken}[mode](rank)
         np.savez(Path(os.environ["MULTIPROC_OUT"]) / f"{mode}{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
