@@ -30,7 +30,9 @@ through the port's public entry points (``mcmc``, ``advi``,
    as the samplers draw them, beside the plain version and ``torch.randn``
    of the same shape, with its bound;
 3b. graphs: the engine replays its samplers' steps from CUDA graphs
-   (``utils/graphs.py``); rats NUTS and GLMM ChEES at full width, and the
+   (``utils/graphs.py``); rats NUTS with its Gibbs block, GLMM ChEES and
+   the centered GLMM (NUTS through the fused kernel, then a Gibbs draw of
+   s2) at full width, and the
    zoo's samplers at 1024 chains (``GRAPH_ZOO_ARMS``: univariate Slice on
    pumps, AMWG with both forms of Slice on inhalers, AMWG with univariate
    Slice on magnesium, SliceSimplex on asthma, BHMC, BIA, BMC3 and BMG on
@@ -40,7 +42,8 @@ through the port's public entry points (``mcmc``, ``advi``,
    (``graphs.disabled()``) from one seed, held bit-identical (draws, tunes,
    final state and every chain's key, NUTS's tree depths), with the fused
    kernel's launches counted through the replays at least the gradient
-   evaluations;
+   evaluations, and every Gibbs block (rats', the centered GLMM's and
+   pollution's two) replayed once an iteration;
 4. GLMM recovery: ``glmm.build(G=64, fused=True)`` under NUTS, 4 chains,
    ``z`` monitored for the post phase;
 5. GLMM NUTS at full width: G = 10,000, 1024 chains, a short run;
@@ -135,12 +138,12 @@ through the port's public entry points (``mcmc``, ``advi``,
     (a constant and a node computed again from whole values), each held
     to the unsharded model at its inits (density, monitored rows) and run
     a few iterations, draws finite and equal on both ranks; (h) in the same
-    two processes, the rats NUTS headline cut as phase 6 at 1024 chains on
-    the (1, 2) data mesh with y, alpha and beta named (the JAX package's own
-    data-mesh setup, __graft_entry__.py:57): each rank holds 15 rats of
-    each, draws finite and equal on both ranks, phase 6's mu_beta gate, its
-    wall per leapfrog; (i) in the same two processes, phase 6's rats NUTS
-    run on the (2, 1) chain mesh, 512 chains a rank, each chain keyed by its
+    two processes, the rats NUTS headline cut to ``RATS_DATA_MESH_RUN`` at
+    1024 chains on the (1, 2) data mesh with y, alpha and beta named (the
+    JAX package's own data-mesh setup, __graft_entry__.py:57): each rank
+    holds 15 rats of each, draws finite and equal on both ranks, phase 6's
+    mu_beta gate, its wall per leapfrog; (i) in the same two processes,
+    phase 6's rats NUTS run on the (2, 1) chain mesh, 512 chains a rank, each chain keyed by its
     global index: the gathered draws held chain by chain to phase 6's
     (``RATS_CHAIN_IDENTICAL_MIN``, ``RATS_CHAIN_MAX_DIFF``), the share of
     bit-identical chains and the largest difference printed; (j) in the
@@ -170,7 +173,7 @@ through the port's public entry points (``mcmc``, ``advi``,
 runs one rank of (c), (d), (e), (g), (h), (i) and (j), and writes (f)'s
 files.
 
-The kernel's paths (phases 3b, 5, 10, 12, 13 and 15's runs) each set its launch
+The kernel's paths (phases 3b's ChEES and centered GLMM arms, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
 in a CUDA graph counts once per replay.  So does the threefry kernel's
 count around every phase from 3b on that draws (all but map), and the
@@ -232,6 +235,14 @@ GLMM_NUTS_RUN = (10, 5)
 #: seed: 1.0156, five such chains).  ``python3 -m mamba_tpu_torch.scripts.rats_headline``
 #: runs the full headline under its three gates (PERF.md §6)
 RATS_NUTS_RUN = (30, 15)
+#: mesh part (h), rats NUTS on the (1, 2) data mesh on the plain loops
+#: (15.8 ms per leapfrog there, 0.35-0.46 captured without a mesh), cut
+#: from phase 6's 30/15 to the least depth at which phase 6's mu_beta gate
+#: held at every seed probed: ``scripts/gate_probe.py rats-nuts`` on an
+#: H100 at seeds 123 and 1-4, without a mesh, gave margins 0.029-0.076 at
+#: 12/6 (0.072 at this script's seed 123); at 10/5 seed 1 failed by 0.041
+#: and at 8/4 three seeds failed (PERF.md §6)
+RATS_DATA_MESH_RUN = (12, 6)
 #: the graphs phase: iterations and burnin of the rats NUTS and GLMM ChEES
 #: runs made with the engine's captured steps and with the plain loops
 GRAPH_CHECK_RUN = (3, 2)
@@ -705,32 +716,62 @@ def _graph_zoo(torch, mt, graphs):
     for name, scheme in GRAPH_ZOO_ARMS:
         def run(name=name, scheme=scheme):
             model, inputs, inits = _zoo_build(mt, name, scheme)
-            return mt.mcmc(model, inputs, inits, iters, burnin=burnin,
-                           chains=CHAINS, verbose=False, device=DEVICE)
+            return _gibbs_replayed(mt, model, lambda: mt.mcmc(
+                model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
+                verbose=False, device=DEVICE))
         pair = _graph_pair(torch, mt, graphs, run)
-        (g_sim, g_s), (p_sim, p_s) = pair["graphed"], pair["plain"]
+        (g_sim, g_gibbs), g_s = pair["graphed"]
+        (p_sim, p_gibbs), p_s = pair["plain"]
         label = name if scheme is None else f"{name}:{scheme}"
         out[label] = {
             "equal": _same_run(torch, g_sim, p_sim),
             "graphed_s": g_s, "plain_s": p_s,
             **{k: g_sim.timing.get(k, 0)
                for k in ("graphs", "capture_s", "replays", "host_tests")},
-            "plain_host_tests": p_sim.timing.get("host_tests", 0)}
+            "plain_host_tests": p_sim.timing.get("host_tests", 0),
+            **_gibbs_gate(g_gibbs, p_gibbs, iters)}
         log(f"graphs: zoo {label}, captured against plain: "
             + json.dumps(out[label]))
     return out
 
 
+def _gibbs_replayed(mt, model, run):
+    """``run()`` with every captured Gibbs step recorded
+    (``samplers.custom.drawing``): its result, and the model's Gibbs blocks
+    with the replays of their captured steps (a plain run makes none)."""
+    from mamba_tpu_torch.samplers import custom
+    caps, restore = _recording(custom, "drawing", lambda cap: cap)
+    try:
+        res = run()
+    finally:
+        restore()
+    blocks = sum(isinstance(s, mt.Gibbs) for s in model.samplers)
+    return res, {"blocks": blocks, "captured": len(caps),
+                 "replays": sum(c.replays for c in caps)}
+
+
+def _gibbs_gate(graphed, plain, iters):
+    """The Gibbs keys of a graphs-phase arm: its blocks, their replays in
+    the captured run, and whether every block replayed once an iteration
+    there and captured nothing in the plain run."""
+    return {"gibbs_blocks": graphed["blocks"],
+            "gibbs_replays": graphed["replays"],
+            "gibbs_replayed": (graphed["captured"] == graphed["blocks"]
+                               and graphed["replays"] == graphed["blocks"] * iters
+                               and plain["captured"] == 0)}
+
+
 def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
     """The engine's captured steps against the samplers' plain loops, from
     one seed at full width: rats NUTS (draws, tunes, final state and every
-    transition's tree depths) and GLMM ChEES through the fused kernel
+    transition's tree depths), GLMM ChEES through the fused kernel
     (draws, tunes, final state; the kernel's launches counted through the
     graph's replays at least the gradient evaluations, and at least the
-    plain loop's, which launches once per evaluation), and the zoo's
-    samplers (``GRAPH_ZOO_ARMS``: draws, tunes, final state and generator
-    state).  Bit-identical, and every zoo arm replayed, or the phase
-    fails."""
+    plain loop's, which launches once per evaluation), the centered GLMM
+    (``_graph_glmm_centered``) and the zoo's samplers
+    (``GRAPH_ZOO_ARMS``: draws, tunes, final state and every chain's key).
+    Bit-identical, every zoo arm replayed and every Gibbs block replayed
+    once an iteration, or the phase fails."""
     from mamba_tpu_torch.utils import graphs
     iters, burnin = GRAPH_CHECK_RUN
     res = {}
@@ -740,15 +781,16 @@ def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
     def rats_run():
         depths, restore = _record_depths(nuts)
         try:
-            sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
-                          chains=CHAINS, verbose=False, device=DEVICE)
+            sim, gibbs = _gibbs_replayed(mt, model, lambda: mt.mcmc(
+                model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
+                verbose=False, device=DEVICE))
         finally:
             restore()
-        return sim, depths
+        return sim, depths, gibbs
 
     pair = _graph_pair(torch, mt, graphs, rats_run)
-    (g_sim, g_d), g_s = pair["graphed"]
-    (p_sim, p_d), p_s = pair["plain"]
+    (g_sim, g_d, g_gibbs), g_s = pair["graphed"]
+    (p_sim, p_d, p_gibbs), p_s = pair["plain"]
     work = _nuts_work(torch, g_d)
     res["rats_nuts"] = {
         "equal": _same_run(torch, g_sim, p_sim) and len(g_d) == len(p_d)
@@ -756,9 +798,12 @@ def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
         **work, "graphed_s": g_s, "plain_s": p_s,
         "graphed_ms_per_leapfrog": 1e3 * g_s / work["leapfrog_steps"],
         "plain_ms_per_leapfrog": 1e3 * p_s / work["leapfrog_steps"],
-        **{k: g_sim.timing.get(k, 0) for k in ("graphs", "capture_s", "replays")}}
+        **{k: g_sim.timing.get(k, 0) for k in ("graphs", "capture_s", "replays")},
+        **_gibbs_gate(g_gibbs, p_gibbs, iters)}
     log("graphs: rats NUTS, captured against plain: "
         + json.dumps(res["rats_nuts"]))
+    res["glmm_centered"] = _graph_glmm_centered(torch, mt, glmm, fg, nuts,
+                                                graphs)
 
     model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
     # a trajectory of 0.2 from the start (phase 10's grows from one step),
@@ -791,13 +836,59 @@ def phase_graphs(torch, mt, rats, glmm, fg, nuts, chees):
     zoo = _graph_zoo(torch, mt, graphs)
     failed = [k for k, v in {**res, **zoo}.items() if not v["equal"]]
     failed += [f"{k}: no replay" for k, v in zoo.items() if not v["replays"] > 0]
+    failed += [f"{k}: Gibbs blocks not replayed"
+               for k, v in {**res, **zoo}.items()
+               if "gibbs_replayed" in v and not v["gibbs_replayed"]]
     res["zoo"] = zoo
     if not (g_launch >= need and g_launch >= p_launch and g_launch > 0):
         failed.append("GLMM ChEES: fused kernel launches through replays")
+    centered = res["glmm_centered"]
+    if not centered["launches_graphed"] >= centered["leapfrog_steps"] > 0:
+        failed.append("centered GLMM: fused kernel launches through replays")
     if failed:
         raise AssertionError(f"graphs: captured steps against plain loops "
                              f"failed: {failed}: {res}")
     return res
+
+
+def _graph_glmm_centered(torch, mt, glmm, fg, nuts, graphs):
+    """The centered GLMM at full width (``glmm.build(MESH_G, fused=True,
+    centered=True)``): NUTS over beta and b through the fused kernel, then
+    the conjugate Gibbs draw of s2, ``GRAPH_CHECK_RUN`` at 1024 chains,
+    captured and plain from one seed.  Equal bit for bit (draws, tunes,
+    final state, keys, every transition's tree depths), the kernel's
+    launches counted through the replays, the Gibbs block's replays, both
+    walls."""
+    iters, burnin = GRAPH_CHECK_RUN
+    model, inputs, inits, _ = glmm.build(MESH_G, fused=True, centered=True)
+
+    def run():
+        depths, restore = _record_depths(nuts)
+        fg.glmm_loglik_grads.launches = 0          # count this path only
+        try:
+            sim, gibbs = _gibbs_replayed(mt, model, lambda: mt.mcmc(
+                model, inputs, inits, iters, burnin=burnin, chains=CHAINS,
+                verbose=False, device=DEVICE))
+        finally:
+            restore()
+        return sim, depths, gibbs, fg.glmm_loglik_grads.launches
+
+    pair = _graph_pair(torch, mt, graphs, run)
+    (g_sim, g_d, g_gibbs, g_launch), g_s = pair["graphed"]
+    (p_sim, p_d, p_gibbs, p_launch), p_s = pair["plain"]
+    work = _nuts_work(torch, g_d)
+    out = {"equal": _same_run(torch, g_sim, p_sim) and len(g_d) == len(p_d)
+           and all(torch.equal(a, b) for a, b in zip(g_d, p_d)),
+           **work, "launches_graphed": g_launch, "launches_plain": p_launch,
+           "graphed_s": g_s, "plain_s": p_s,
+           "graphed_ms_per_iteration": 1e3 * g_s / iters,
+           "plain_ms_per_iteration": 1e3 * p_s / iters,
+           **{k: g_sim.timing.get(k, 0)
+              for k in ("graphs", "capture_s", "replays")},
+           **_gibbs_gate(g_gibbs, p_gibbs, iters)}
+    log(f"graphs: centered GLMM at full width (NUTS through the fused "
+        f"kernel, s2 by Gibbs), captured against plain: " + json.dumps(out))
+    return out
 
 
 def phase_recovery(mt, glmm):
@@ -1841,14 +1932,14 @@ RATS_SPECS = {"y": ("data",), "alpha": ("data",), "beta": ("data",)}
 
 
 def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
-    """(h): the rats NUTS headline, cut as phase 6 (``RATS_NUTS_RUN``), at
+    """(h): the rats NUTS headline, cut to ``RATS_DATA_MESH_RUN``, at
     1024 chains on a (1, 2) data mesh with y, alpha and beta named: each
     rank holds 15 of the 30 rats' y, alpha and beta, and its NUTS block
     sums over its coordinates across the two ranks (the plain loops).  The
     golden mu_beta gate of phase 6; its wall per leapfrog; the draws saved
     for the parent's check that both ranks agree."""
     from mamba_tpu_torch.models import rats
-    iters, burnin = RATS_NUTS_RUN
+    iters, burnin = RATS_DATA_MESH_RUN
     model, inputs, inits = rats.build("nuts")
     depths, restore = _record_depths(nuts)
     try:
@@ -2300,7 +2391,7 @@ def _rats_gates_h(rats_res, draws, failed):
     raised on the mu_beta gate already): finite draws, equal on both
     ranks, of the run's shape; each rank holding 15 rats of y, alpha and
     beta.  Appends what fails to ``failed``."""
-    iters, burnin = RATS_NUTS_RUN
+    iters, burnin = RATS_DATA_MESH_RUN
     if not (np.array_equal(draws[0], draws[1]) and np.isfinite(draws[0]).all()
             and draws[0].shape[0] == iters - burnin
             and draws[0].shape[2] == CHAINS):
@@ -2744,7 +2835,8 @@ def main() -> int:
     idle = [k for k, v in draws.items() if v == 0]
     if idle:
         raise AssertionError(f"the threefry kernel was not launched in {idle}")
-    launches = {"graphs": graph_res["glmm_chees"]["launches_graphed"],
+    launches = {"graphs": graph_res["glmm_chees"]["launches_graphed"]
+                + graph_res["glmm_centered"]["launches_graphed"],
                 "glmm_nuts": glmm_nuts["kernel_launches"],
                 "glmm_chees": glmm_chees["kernel_launches"],
                 "map": map_res["kernel_launches"],

@@ -11,13 +11,16 @@ host, and the samplers' steps are replayed from CUDA graphs
 (``utils/graphs.py``), captured at their first step: NUTS's leaves, the
 leapfrogs of ChEES and HMC, DGS's sweeps, the shrink trips of Slice (both
 forms) and SliceSimplex, AMWG's sweeps, BHMC's wall hits, the whole step
-of RWM, AMM, MALA, BIA, BMC3 and BMG, ABC's batches of draws and MISS's
-imputations.  A loop that runs until no chain is left (a slice sampler's
-shrink trips, BHMC's wall hits, ABC's retries) tests a device flag on the
-host once per batch.  The Gibbs and custom blocks run eagerly.  On a CUDA
-device ``timing`` reports the graphs a run captured (``graphs``), the
-seconds their captures took (``capture_s``, part of ``sample_s``), the
-replays and the host tests (``host_tests``).
+of RWM, AMM, MALA, BIA, BMC3 and BMG, ABC's batches of draws, MISS's
+imputations and a Gibbs block's call of its user ``fn``, as the JAX engine
+traces that ``fn`` into its program (a ``fn`` that cannot be captured
+raises; ``utils.graphs.disabled()`` runs it eagerly).  A loop that runs
+until no chain is left (a slice sampler's shrink trips, BHMC's wall hits,
+ABC's retries) tests a device flag on the host once per batch.  On a CUDA
+device ``timing`` reports the graphs a run captured (``graphs``, the
+Gibbs blocks' among them), the seconds their captures took
+(``capture_s``, part of ``sample_s``), the replays and the host tests
+(``host_tests``).
 
 Random numbers come from per-chain threefry keys (``ops/random.py``), as
 in the JAX package: chain ``i`` (its global index) starts from

@@ -19,7 +19,10 @@ class WholeValues(Mapping):
     was given), so that it is the unsharded run's value.  These are
     collectives: every data rank runs the same reader on the same stream,
     so all read the same keys in the same order.  Inputs are unstacked,
-    every other value chain-stacked."""
+    every other value chain-stacked.  Without a data axis nothing is
+    gathered or computed again (``cm.whole`` returns the value,
+    ``cm.mixed`` is empty): a read neither waits for the device nor copies
+    from the host, so a captured Gibbs body may read it."""
 
     def __init__(self, cm, inputs: dict, nodes: dict):
         self._cm, self._inputs, self._nodes = cm, inputs, nodes

@@ -107,7 +107,11 @@ def alphabeta_moments(env, dtype=torch.float64):
     prec = M.transpose(1, 2) @ M / sigma2[:, None, None] + eye / PRIOR_VAR
     L = torch.linalg.cholesky_ex(prec).L
     rhs = (M.transpose(1, 2) @ y[..., None]) / sigma2[:, None, None]
-    return torch.cholesky_solve(rhs, L)[..., 0], L
+    # prec^-1 rhs as two triangular solves: a batched ``cholesky_solve``
+    # goes through MAGMA on the card, which a CUDA graph does not capture
+    z = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(1, 2), z,
+                                         upper=True)[..., 0], L
 
 
 def gibbs_alphabeta(key, env):

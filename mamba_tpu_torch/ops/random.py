@@ -412,11 +412,14 @@ def gamma_bounded(keys, a, shape=(), dtype=None, rounds: int = 8):
 
 def inverse_gamma_bounded(keys, a, b, shape=(), dtype=None, rounds: int = 8):
     """InverseGamma(a, b) through ``gamma_bounded``: ``b / Gamma(a)``, in
-    ``b``'s dtype where ``a`` is a Python number."""
+    ``b``'s dtype where ``a`` is a Python number.  A number ``b`` is filled
+    on the device (no copy from the host: a captured body may draw)."""
     if dtype is None and not isinstance(a, torch.Tensor) \
             and isinstance(b, torch.Tensor) and b.is_floating_point():
         dtype = b.dtype
     g = gamma_bounded(keys, a, shape=shape, dtype=dtype, rounds=rounds)
+    if isinstance(b, (int, float)):
+        return torch.full_like(g, b) / g
     return torch.as_tensor(b, dtype=g.dtype, device=g.device) / g
 
 

@@ -26,13 +26,15 @@ SamplerVariate).  Two levels, as in the JAX package:
 nuts.jl:52): the engine's loop runs on the host.  The samplers' inner
 loops (NUTS's leaves, ChEES's and HMC's leapfrogs, the slice samplers'
 shrink trips, AMWG's sweep, BHMC's wall hits, the whole step of RWM,
-AMM, MALA, BIA, BMC3 and BMG, ABC's batches of draws and MISS's
-imputations) are replayed from CUDA graphs in the engine
-(``SamplerSpec.bind``'s ``graphed``, ``utils/graphs.py``); the
-stand-alone kernels run their plain loops, so they take any ``logf``,
-capturable or not.  Both forms run the same bodies and draw the same
-numbers in the same layout.  Gibbs and custom blocks run eagerly: they
-call user functions that may read the host.
+AMM, MALA, BIA, BMC3 and BMG, ABC's batches of draws, MISS's
+imputations and a Gibbs block's call of its user ``fn``) are replayed
+from CUDA graphs in the engine (``SamplerSpec.bind``'s ``graphed``,
+``utils/graphs.py``); the stand-alone kernels run their plain loops, so
+they take any ``logf``, capturable or not.  Both forms run the same
+bodies and draw the same numbers in the same layout.  A Gibbs ``fn`` must
+be capturable, as the JAX package's must be jit-compatible: one that reads
+the host fails its capture, which raises with ``graphs.disabled()`` as
+the way out (``samplers/custom.py``).
 
 Under a mesh's data axis a block's ``logf`` on one rank is a part of its
 density; every vmapped value and gradient is completed over the data group
@@ -169,7 +171,9 @@ def replays(cm, params, draws: bool = False) -> bool:
     graph does not capture.  A block whose bodies draw from the model
     (``draws``: MISS, ABC) also takes its plain loop on a mesh with a data
     axis, where a site is drawn whole from parameters gathered over the
-    data group (``cm.forward_sample``)."""
+    data group (``cm.forward_sample``); so does a Gibbs block, whose
+    ``fn`` reads whole values gathered over the group (``WholeValues``).
+    On a chain-axis-only mesh every block replays."""
     return (graphs.enabled() and not cm.block_split(params)
             and not (draws and cm.comm.data_size > 1))
 
@@ -252,10 +256,11 @@ def captured(bodies, density, grad: bool = False):
 
 
 def drawing(bodies, eager: bool = False):
-    """The ``Captured`` of bodies that draw inside it (MISS, ABC): from the
-    per-chain keys in its buffer ``key``, which a step loads before it
-    runs.  With ``eager`` it is the plain loop, which runs the same bodies
-    eagerly.  (One place that makes them, which a test watches.)"""
+    """The ``Captured`` of bodies that draw inside it (MISS, ABC, Gibbs):
+    from the per-chain keys in its buffer ``key``, which a step loads
+    before it runs.  With ``eager`` it is the plain loop, which runs the
+    same bodies eagerly.  (One place that makes them, which a test
+    watches.)"""
     return graphs.Captured(bodies, eager=eager)
 
 

@@ -3,6 +3,19 @@
 Counterpart of the reference's user-supplied ``Sampler(params, f)`` closures
 (sampler.jl:20-24), e.g. the closed-form Normal/InverseGamma Gibbs updates
 in the tutorial (doc/tutorial/line.jl:27-45).
+
+The JAX engine traces a Gibbs block's ``fn`` into the one compiled program
+of each phase (``mamba_tpu/model/mcmc.py``'s ``gibbs_iter``); here the
+engine replays it from a CUDA graph (``utils/graphs.py``): the block's step
+is one body on a ``Captured``, which reads the per-chain keys from its
+buffer ``key`` and the model state from the ``Captured``'s state, calls
+``fn`` and writes the new values into buffers of the body, which the step
+then copies out (the engine never writes a state tensor in place, and
+``Captured.load_state`` skips a tensor it loaded before, so every value a
+step returns is a fresh tensor: a copy of the block's few values).  The
+plain step calls ``fn`` eagerly: under ``utils.graphs.disabled()`` and on
+a mesh with a data axis, where ``WholeValues`` gathers over the data group
+(``base.replays(..., draws=True)``).
 """
 
 from __future__ import annotations
@@ -12,7 +25,7 @@ from typing import Callable
 import torch
 
 from ..model.whole import WholeValues
-from .base import BlockKernel, SamplerSpec
+from .base import BlockKernel, SamplerSpec, drawing, replays
 
 
 class Gibbs(SamplerSpec):
@@ -24,7 +37,16 @@ class Gibbs(SamplerSpec):
     axis first; whole, on a data axis too (``WholeValues``).  ``fn`` draws
     from the block's per-chain keys ``key (C, 2)`` (``ops/random.py``, as
     the JAX package's ``fn`` draws from its chain's key) and returns
-    chain-stacked values."""
+    chain-stacked values, cast to the model's dtype and written in the
+    shape of the node's state.
+
+    As the JAX package's ``fn`` must be jit-compatible, this one must be
+    capturable in a CUDA graph: it must not wait for the device
+    (``.item()``, ``bool(t)``, ``nonzero``) nor copy host data to it
+    (``torch.tensor(x, device=...)``).  A capture that fails raises, naming
+    ``fn``; nothing falls back to the eager step.  Build the model's
+    kernels under ``mamba_tpu_torch.utils.graphs.disabled()`` to run such a
+    ``fn`` eagerly."""
 
     transform = False
 
@@ -32,23 +54,49 @@ class Gibbs(SamplerSpec):
         super().__init__(params)
         self.fn = fn
 
-    def build(self, cm) -> BlockKernel:
-        pset = set(self.params)
-        nodes = torch.func.vmap(cm.eval_logicals)
+    def _values(self, cm, key, state):
+        """``fn``'s new values at ``state``, checked to be block nodes."""
+        new = self.fn(key, WholeValues(cm, cm.inputs,
+                                       torch.func.vmap(cm.eval_logicals)(
+                                           cm.with_wholes(state))))
+        extra = set(new) - set(self.params)
+        if extra:
+            raise ValueError(
+                f"Gibbs block for {self.params} returned values for "
+                f"non-block nodes {sorted(extra)}")
+        return new
 
+    def build(self, cm) -> BlockKernel:
         def init(key, state):
             return ()
 
+        if not replays(cm, self.params, draws=True):
+            def step(key, state, tune, adapt):
+                new = self._values(cm, key, state)
+                return {**state, **{k: torch.as_tensor(v, dtype=cm.dtype,
+                                                       device=cm.device)
+                                    for k, v in new.items()}}, tune
+            return BlockKernel(init, step)
+
+        def body(b, s):
+            new = self._values(cm, b["key"], s)
+            for k, v in new.items():
+                if isinstance(v, torch.Tensor):
+                    b[k].copy_(v)
+                else:
+                    b[k].fill_(v)
+            return tuple(new)
+
+        body.func = self.fn            # the capture's error names ``fn``
+        cap = drawing(body)
+
         def step(key, state, tune, adapt):
-            new = self.fn(key, WholeValues(cm, cm.inputs,
-                                           nodes(cm.with_wholes(state))))
-            extra = set(new) - pset
-            if extra:
-                raise ValueError(
-                    f"Gibbs block for {self.params} returned values for "
-                    f"non-block nodes {sorted(extra)}")
-            return {**state, **{k: torch.as_tensor(v, dtype=cm.dtype,
-                                                   device=cm.device)
-                                for k, v in new.items()}}, tune
+            cap.load(key=key)
+            for k in self.params:
+                if not cap.holds(k, state[k]):
+                    cap.load(**{k: state[k]})
+            cap.load_state(state)
+            names = cap.run()
+            return {**state, **{k: cap.bufs[k].clone() for k in names}}, tune
 
         return BlockKernel(init, step)

@@ -5,6 +5,7 @@
     python3 -m mamba_tpu_torch.scripts.gate_probe recovery 150 75
     python3 -m mamba_tpu_torch.scripts.gate_probe smc-glmm --seeds 0 1 2 3 --steps 20
     python3 -m mamba_tpu_torch.scripts.gate_probe map-glmm --dtype float32
+    python3 -m mamba_tpu_torch.scripts.gate_probe rats-nuts 12/6 16/8 --seeds 123 1
 
 Run from the root of a checkout (the zoo gates are ``chip_smoke.py``'s
 ``ZOO_RUNS``/``ZOO_MV_RUNS``).  ``zoo`` runs one model at ITERS/BURNIN and
@@ -12,8 +13,11 @@ prints, per gated label, the mean, the golden mean, the tolerance and the
 margin (tolerance - |mean - golden|; negative fails); ``recovery`` prints
 the GLMM recovery run's largest beta error (gate 0.35); ``smc-glmm`` the
 largest beta error of SMC on the G = 64 GLMM per seed; ``map-glmm`` the MAP
-beta at G = 10,000 and its largest error against the truth.  One JSON line
-per run.  ``--device`` defaults to cuda.
+beta at G = 10,000 and its largest error against the truth; ``rats-nuts``
+the rats NUTS headline at 1024 chains cut to each ITERS/BURNIN, per seed:
+the kept mean of mu_beta, its margin on ``chip_smoke.py``'s gate
+(``MU_BETA_TOL`` - |mean - ``MU_BETA``|) and the sampling seconds.  One JSON
+line per run.  ``--device`` defaults to cuda.
 """
 
 from __future__ import annotations
@@ -93,6 +97,25 @@ def _map_glmm(args):
                       "converged": r.converged}))
 
 
+def _rats_nuts(args):
+    import chip_smoke
+    import mamba_tpu_torch as mt
+    from mamba_tpu_torch.models import rats
+    for cut in args.runs:
+        iters, burnin = (int(v) for v in cut.split("/"))
+        for seed in args.seeds:
+            model, inputs, inits = rats.build("nuts")
+            sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                          chains=args.chains, seed=seed, verbose=False,
+                          device=args.device)
+            mean = mt.summarystats(sim).to_dict()["mu_beta"]["Mean"]
+            print(json.dumps({
+                "iters": iters, "burnin": burnin, "chains": args.chains,
+                "seed": seed, "mu_beta_mean": mean,
+                "margin": chip_smoke.MU_BETA_TOL - abs(mean - chip_smoke.MU_BETA),
+                "sample_s": sim.timing["sample_s"]}), flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
@@ -114,9 +137,13 @@ def main(argv=None):
     m = sub.add_parser("map-glmm")
     m.add_argument("--dtype", default="float32")
     m.add_argument("--generic", action="store_true")
+    n = sub.add_parser("rats-nuts")
+    n.add_argument("runs", nargs="+")
+    n.add_argument("--seeds", type=int, nargs="+", default=[123])
+    n.add_argument("--chains", type=int, default=1024)
     args = p.parse_args(argv)
     {"zoo": _zoo, "recovery": _recovery, "smc-glmm": _smc_glmm,
-     "map-glmm": _map_glmm}[args.what](args)
+     "map-glmm": _map_glmm, "rats-nuts": _rats_nuts}[args.what](args)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,12 @@ device back, at a given number of chains.
         [--chains 1024] [--iters 30] [--burnin 10] [--profile-iters 2]
         [--block-iters 3] [--device cuda] [--out build/lab]
 
-Run from the root of a checkout.  For every model (all of the zoo unless
-``--models`` names some; ``name:scheme`` picks a scheme, and by default
-pollution runs each of its five) it runs the model's
+Run from the root of a checkout.  For every model (all of the zoo but
+``SKIP`` unless ``--models`` names some, which may name those too:
+``rats:nuts`` is the bench's headline scheme, ``glmm:centered`` the centered
+GLMM through the fused kernel at the bench's width, NUTS with a conjugate
+Gibbs block; ``name:scheme`` picks a scheme, and by default pollution runs
+each of its five) it runs the model's
 own sampling scheme through ``mcmc`` and prints one JSON line: set-up and
 sampling seconds, wall ms per iteration, chain-iterations per second, the
 posterior means of the model's ``GOLDEN`` entries beside the golden values,
@@ -44,7 +47,8 @@ import numpy as np
 from .. import mcmc, rhat_rank, summarystats
 from ..models import __all__ as ALL_MODELS
 
-#: models that take arguments of their own and are probed by chip_smoke.py
+#: models that take arguments of their own and are probed by chip_smoke.py;
+#: left out of the default list only
 SKIP = ("glmm", "line", "rats")
 #: iterations that continue a run before its timed windows
 WARM = 3
@@ -189,7 +193,11 @@ def probe(torch, spec, chains, iters, burnin, profile_iters, device, seed=123,
           block_iters=0):
     name, _, scheme = spec.partition(":")
     mod = importlib.import_module(f"mamba_tpu_torch.models.{name}")
-    model, inputs, inits = mod.build(scheme) if scheme else mod.build()
+    if name == "glmm":
+        model, inputs, inits, _ = mod.build(fused=True,
+                                            centered=scheme == "centered")
+    else:
+        model, inputs, inits = mod.build(scheme) if scheme else mod.build()
     sim = mcmc(model, inputs, inits, iters, burnin=burnin, chains=chains,
                verbose=False, device=device, seed=seed)
     s = summarystats(sim).to_dict()
