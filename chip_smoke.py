@@ -165,13 +165,26 @@ through the port's public entry points (``mcmc``, ``advi``,
     ranks; then the
     kernel at a rank's shares (C = 512; G = 5,000;
     C = 513, G = 5,000, not a multiple of its 4-chain tile) against its
-    plain version, the first two timed with their bounds.  Both ranks share
-    the one card: no number of (c)-(j) is a scaling figure.
+    plain version, the first two timed with their bounds; (k) in the same
+    two processes, three arms on the (1, 2) data mesh for
+    ``MESH_GRAPH_RUN``, each through the engine's captured steps and under
+    ``graphs.disabled()`` from one seed: (h)'s rats NUTS layout, (e)'s
+    GLMM ChEES and (j)'s fused data-only GLMM under ChEES; equal bit for
+    bit (draws, tunes, final state, keys, tree depths or trajectory
+    lengths), the captured draws equal on both ranks, each way's wall per
+    leapfrog or gradient, the segments replayed and collectives run per
+    leapfrog or gradient and their host ms, the fused kernel's launches
+    inside the captured segments (counted in the kernels line).  Since
+    the data axis replays, (e), (g), (h) and (j) run captured too: a body
+    that reaches a collective is cut there, and the collective runs
+    between the segments' replays (``utils/graphs.py``); a block that
+    cannot capture fails its phase.  Both ranks share the one card: no
+    number of (c)-(k) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
-runs one rank of (c), (d), (e), (g), (h), (i) and (j), and writes (f)'s
-files.
+runs one rank of (c), (d), (e), (g), (h), (i), (j) and (k), and writes
+(f)'s files.
 
 The kernel's paths (phases 3b's ChEES and centered GLMM arms, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
@@ -235,9 +248,11 @@ GLMM_NUTS_RUN = (10, 5)
 #: seed: 1.0156, five such chains).  ``python3 -m mamba_tpu_torch.scripts.rats_headline``
 #: runs the full headline under its three gates (PERF.md §6)
 RATS_NUTS_RUN = (30, 15)
-#: mesh part (h), rats NUTS on the (1, 2) data mesh on the plain loops
-#: (15.8 ms per leapfrog there, 0.35-0.46 captured without a mesh), cut
-#: from phase 6's 30/15 to the least depth at which phase 6's mu_beta gate
+#: mesh part (h), rats NUTS on the (1, 2) data mesh, captured: its leaf
+#: cut at the density's all-reduce and at the leaf's sums, both staged
+#: through the host under gloo (on the plain loops, before the data axis
+#: replayed, 10.38-15.8 ms per leapfrog; 0.35-0.46 captured without a
+#: mesh).  Cut from phase 6's 30/15 to the least depth at which its mu_beta gate
 #: held at every seed probed: ``scripts/gate_probe.py rats-nuts`` on an
 #: H100 at seeds 123 and 1-4, without a mesh, gave margins 0.029-0.076 at
 #: 12/6 (0.072 at this script's seed 123); at 10/5 seed 1 failed by 0.041
@@ -246,6 +261,12 @@ RATS_DATA_MESH_RUN = (12, 6)
 #: the graphs phase: iterations and burnin of the rats NUTS and GLMM ChEES
 #: runs made with the engine's captured steps and with the plain loops
 GRAPH_CHECK_RUN = (3, 2)
+#: mesh part (k): the same for each data-mesh arm, in the mesh processes,
+#: and its ChEES arms' initial trajectory length: long enough that each
+#: iteration replays the leapfrog several times (at the graphs phase's 0.2
+#: the first iterations take one or two)
+MESH_GRAPH_RUN = (3, 2)
+MESH_GRAPH_CHEES_TRAJ = 2.0
 #: the graphs phase's initial ChEES trajectory length
 GRAPH_CHEES_TRAJ = 0.2
 #: the graphs phase's zoo arms: model, scheme (for line, the samplers of
@@ -637,11 +658,15 @@ def _timing(sim, chains, iters):
     return {"setup_s": t["setup_s"], "sample_s": t["sample_s"],
             "fetch_s": t["fetch_s"],
             "chain_iters_per_s": chains * iters / t["sample_s"],
-            # graphs captured in the run, their capture time (inside
-            # sample_s), graph replays and host tests of a device flag;
+            # graphs captured in the run (one per segment of a body cut at
+            # its collectives), their capture time (inside sample_s), graph
+            # replays (one per segment), host tests of a device flag, and
+            # the collectives run between replays with their host seconds;
             # reported on a CUDA device
             "graphs": t.get("graphs", 0), "capture_s": t.get("capture_s", 0.0),
-            "replays": t.get("replays", 0), "host_tests": t.get("host_tests", 0)}
+            "replays": t.get("replays", 0), "host_tests": t.get("host_tests", 0),
+            "collectives": t.get("collectives", 0),
+            "collective_s": t.get("collective_s", 0.0)}
 
 
 def _monitor(model, name):
@@ -1469,13 +1494,12 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
     """(e): the GLMM at full width on a (1, 2) data mesh with local views
     (``LOCAL_SPECS``): each rank holds its half of y's and the covariates'
     groups.  (b)'s run on the mesh, then (rank 0) the same steps
-    without one under the plain loops the mesh run takes, each's peak
-    memory rise; the block density and gradient at the warm starts against
+    without one, captured as the mesh run's are, each's peak memory
+    rise; the block density and gradient at the warm starts against
     the whole, with the kernel's launches and groups per call; the gloo
     all-reduce of a density's value and gradient, timed."""
     from mamba_tpu_torch.model.mcmc import _chain_inits
     from mamba_tpu_torch.parallel.mesh import MeshComm
-    from mamba_tpu_torch.utils import graphs
     res, sim, tunes = _glmm_chees_run(
         torch, mt, glmm, fg, chees, warm,
         f"(e) rank {rank}, local views on a (1, 2) data mesh", mesh=mesh,
@@ -1489,10 +1513,9 @@ def _local_views(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
     res["write_s"] = _write_sharded(torch, mt, sim, outdir, "local", rank)
     del sim, state
     if rank == 0:
-        with graphs.disabled():
-            whole, _, _ = _glmm_chees_run(
-                torch, mt, glmm, fg, chees, warm,
-                "(e) the same steps without a mesh (plain loops)")
+        whole, _, _ = _glmm_chees_run(
+            torch, mt, glmm, fg, chees, warm,
+            "(e) the same steps without a mesh (captured)")
         res["whole_peak_rise_bytes"] = whole["peak_rise_bytes"]
     model, inputs, inits, _ = glmm.build(MESH_G, fused=True)
     whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
@@ -1671,9 +1694,10 @@ def _resolved_cases(torch, mt, glmm, fg, warm, mesh, rank, outdir):
 DATA_SPECS = {"y": (None, "data"), "xt": (None, None, "data")}
 DATA_SPECS_GENERIC = {"y": ("data", None), "x": ("data", None, None)}
 #: (j)'s small fixtures' runs (iterations, burnin; birats' is RESOLVED_RUN)
-#: and their chains: a split block runs the plain loops, a per-call gather
-#: adds an all-gather to each leapfrog, and the deepest of 1024 chains'
-#: NUTS trees sets an iteration's leapfrogs, so the runs are cut
+#: and their chains: a split block's leapfrog is cut at its all-reduce, a
+#: per-call gather adds an all-gather to each leapfrog, and the deepest of
+#: 1024 chains' NUTS trees sets an iteration's leapfrogs, so the runs are
+#: cut
 FIXTURE_RUN, FIXTURE_CHAINS = (10, 5), 64
 #: the whole coordinates of the GLMM's (beta, z, s2) block: z's, beta's, s2's
 GLMM_WHOLE_DIM = MESH_G + 5
@@ -1935,7 +1959,8 @@ def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
     """(h): the rats NUTS headline, cut to ``RATS_DATA_MESH_RUN``, at
     1024 chains on a (1, 2) data mesh with y, alpha and beta named: each
     rank holds 15 of the 30 rats' y, alpha and beta, and its NUTS block
-    sums over its coordinates across the two ranks (the plain loops).  The
+    sums over its coordinates across the two ranks (its captured leaf cut
+    at the density's all-reduce and at the leaf's sums).  The
     golden mu_beta gate of phase 6; its wall per leapfrog; the draws saved
     for the parent's check that both ranks agree."""
     from mamba_tpu_torch.models import rats
@@ -2010,8 +2035,106 @@ def _rats_chains_gates(draws, want, failed):
     return res
 
 
+def _mesh_graph_arms(mt, glmm, warm):
+    """(k)'s arms, each ``() -> (model, inputs, inits, site_specs, work)``
+    (``work``: "leapfrogs" for NUTS, "gradients" for ChEES, whose
+    gradient at the start of an iteration is eager and outside the
+    capture): (h)'s rats NUTS layout, (e)'s GLMM ChEES with y, xt and z
+    named, and (j)'s fused GLMM with only its data named, from (e)'s warm
+    starts."""
+    from mamba_tpu_torch.models import rats
+
+    def rats_nuts():
+        model, inputs, inits = rats.build("nuts")
+        return model, inputs, inits, RATS_SPECS, "leapfrogs"
+
+    def glmm_chees(specs):
+        def build():
+            model, inputs, _, _ = glmm.build(MESH_G, fused=True)
+            model = _chees_block(mt, model, max_steps=256, mass_window=40,
+                                 traj=MESH_GRAPH_CHEES_TRAJ)
+            return model, inputs, warm, specs, "gradients"
+        return build
+    return {"rats_nuts": rats_nuts, "glmm_chees_local": glmm_chees(LOCAL_SPECS),
+            "glmm_chees_data": glmm_chees(DATA_SPECS)}
+
+
+def _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank, outdir):
+    """(k): each of ``_mesh_graph_arms`` on the (1, 2) data mesh for
+    ``MESH_GRAPH_RUN``, through the engine's captured steps (each body cut
+    at its collectives, which run between the segments' replays) and under
+    ``graphs.disabled()`` (the plain loops), from one seed: draws, tunes,
+    final state and keys equal bit for bit, and every transition's tree
+    depths or trajectory lengths; each way's wall per leapfrog or
+    gradient, with the capture and without it, the segments replayed and
+    the collectives run per leapfrog or gradient and their host ms; the
+    fused kernel's launches, through the segments' replays.  The captured
+    draws are saved for the parent's check that both ranks agree."""
+    import contextlib
+    from mamba_tpu_torch.utils import graphs
+    iters, burnin = MESH_GRAPH_RUN
+    res = {}
+    for name, build in _mesh_graph_arms(mt, glmm, warm).items():
+        out, sims, seen = {}, {}, {}
+        for way in ("captured", "plain"):
+            model, inputs, inits, specs, unit = build()
+            if unit == "leapfrogs":
+                record, restore = _record_depths(nuts)
+            else:
+                record, restore = _recording(chees, "_steps", lambda L: L)
+            fg.glmm_loglik_grads.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                with (graphs.disabled() if way == "plain"
+                      else contextlib.nullcontext()):
+                    sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                                  chains=CHAINS, verbose=False, device=DEVICE,
+                                  mesh=mesh, site_specs=specs)
+            finally:
+                restore()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            work = (_nuts_work(torch, record)["leapfrog_steps"]
+                    if unit == "leapfrogs" else sum(L + 1 for L in record))
+            t = _timing(sim, CHAINS, iters)
+            out[way] = {
+                "wall_s": wall, "sample_s": t["sample_s"], unit: work,
+                f"wall_ms_per_{unit[:-1]}": 1e3 * t["sample_s"] / work,
+                f"net_ms_per_{unit[:-1]}":
+                    1e3 * (t["sample_s"] - t["capture_s"]) / work,
+                "capture_s": t["capture_s"], "graphs": t["graphs"],
+                f"replays_per_{unit[:-1]}": t["replays"] / work,
+                f"collectives_per_{unit[:-1]}": t["collectives"] / work,
+                "collective_ms": 1e3 * t["collective_s"],
+                f"collective_ms_per_{unit[:-1]}":
+                    1e3 * t["collective_s"] / work,
+                "kernel_launches": fg.glmm_loglik_grads.launches}
+            sims[way], seen[way] = sim, [
+                r.tolist() if hasattr(r, "tolist") else r for r in record]
+        cap, plain = out["captured"], out["plain"]
+        cap["equal"] = (_same_run(torch, sims["captured"], sims["plain"])
+                        and seen["captured"] == seen["plain"])
+        if not cap["equal"]:
+            raise AssertionError(f"(k) rank {rank} {name}: the captured run "
+                                 f"differs from the plain loops")
+        u = unit[:-1]
+        if not (cap["graphs"] > 0 and cap[f"collectives_per_{u}"] > 0
+                and plain["graphs"] == 0):
+            raise AssertionError(f"(k) rank {rank} {name}: not captured, "
+                                 f"or no collective between replays: {out}")
+        np.save(Path(outdir) / f"graph_{name}_draws{rank}.npy",
+                sims["captured"].value)
+        del sims
+        log(f"(k) rank {rank}, {name} captured against plain on a (1, 2) "
+            f"data mesh ({CHAINS} chains, {iters} iters, {burnin} burnin): "
+            + json.dumps(out))
+        res[name] = out
+    return res
+
+
 def mesh_rank(init, rank, outdir):
-    """One rank of the mesh phase's (c), (d), (e), (g), (h), (i) and (j):
+    """One rank of the mesh phase's (c), (d), (e), (g), (h), (i), (j) and (k):
     two processes over gloo, both on this process's card."""
     import torch
     import torch.distributed as dist
@@ -2058,6 +2181,10 @@ def mesh_rank(init, rank, outdir):
         res["data_only"] = _data_only(torch, mt, glmm, fg, chees, warm,
                                       data_mesh, rank, outdir)
         res["data_only"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["graphs"] = _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm,
+                                     data_mesh, rank, outdir)
+        res["graphs"]["wall_s"] = time.perf_counter() - t0
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2223,6 +2350,8 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
                            for r in range(2)]
         fixture_draws = {k: [np.load(Path(tmp) / f"fixture_{k}_draws{r}.npy")
                              for r in range(2)] for k in FIXTURES}
+        graph_draws = {k: [np.load(Path(tmp) / f"graph_{k}_draws{r}.npy")
+                           for r in range(2)] for k in MESH_GRAPH_ARMS}
         failed = []
         t0 = time.perf_counter()                                  # (f)
         res["restart"] = {
@@ -2265,6 +2394,18 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
         res["restart"][k]["kernel_launches"] for k in ("chain_mesh", "local"))
     res["launches_j"] = sum(r["data_only"]["chees"]["kernel_launches"]
                             for r in ranks)
+    res["graphs"] = _mesh_graphs_gates([r["graphs"] for r in ranks],
+                                       graph_draws, failed)
+    log("mesh (k), captured against plain on the data mesh: "
+        + json.dumps(res["graphs"]))
+    # the fused kernel inside (k)'s captured segments (its plain runs are
+    # the comparison), through the segments' replays
+    res["launches_k"] = sum(r["graphs"][k]["captured"]["kernel_launches"]
+                            for r in ranks for k in ("glmm_chees_local",
+                                                     "glmm_chees_data"))
+    res["launches"] += res["launches_k"]
+    if res["launches_k"] <= 0:
+        failed.append("(k) the fused kernel's launches in captured segments")
     if res["launches_j"] <= 0:
         failed.append("(j) the fused kernel's launches")
     res["rats"] = _rats_gates_h([r["rats"] for r in ranks], rats_draws, failed)
@@ -2384,6 +2525,25 @@ def _resolved_gates(resolved, draws, failed):
             "birats": [r["birats"] for r in resolved],
             "line_ss": [r["line_ss"] for r in resolved],
             "wall_s": [r["wall_s"] for r in resolved]}
+
+
+#: (k)'s arms (``_mesh_graph_arms``)
+MESH_GRAPH_ARMS = ("rats_nuts", "glmm_chees_local", "glmm_chees_data")
+
+
+def _mesh_graphs_gates(graph_res, draws, failed):
+    """(k)'s gates on both ranks' results (``_mesh_graphs``, which raised
+    on a captured run that differs from its plain loops already): each
+    arm's captured draws finite and equal on both ranks.  Returns each
+    arm's numbers, rank by rank."""
+    out = {}
+    for name in MESH_GRAPH_ARMS:
+        a, b = draws[name]
+        if not (np.array_equal(a, b) and np.isfinite(a).all()):
+            failed.append(f"(k) {name}: finite draws, equal on both ranks")
+        out[name] = [r[name] for r in graph_res]
+    out["wall_s"] = [r["wall_s"] for r in graph_res]
+    return out
 
 
 def _rats_gates_h(rats_res, draws, failed):

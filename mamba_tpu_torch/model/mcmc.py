@@ -18,9 +18,11 @@ raises; ``utils.graphs.disabled()`` runs it eagerly).  A loop that runs
 until no chain is left (a slice sampler's shrink trips, BHMC's wall hits,
 ABC's retries) tests a device flag on the host once per batch.  On a CUDA
 device ``timing`` reports the graphs a run captured (``graphs``, the
-Gibbs blocks' among them), the seconds their captures took
-(``capture_s``, part of ``sample_s``), the replays and the host tests
-(``host_tests``).
+Gibbs blocks' among them; a body cut at its collectives on a mesh's data
+axis counts one per segment), the seconds their captures took
+(``capture_s``, part of ``sample_s``), the replays (one per segment), the
+host tests (``host_tests``), and the collectives run between replays
+(``collectives``) with their host seconds (``collective_s``).
 
 Random numbers come from per-chain threefry keys (``ops/random.py``), as
 in the JAX package: chain ``i`` (its global index) starts from
@@ -178,8 +180,10 @@ def _run(cm, kernels, keys, state, tunes, burnin, n_kept, thin, meter):
     timing = {"sample_s": sample_s, "fetch_s": fetch_s}
     if cm.device.type == "cuda":
         # graphs captured in this run (at a sampler's first step, inside
-        # sample_s), the seconds their captures took, warm-ups included,
-        # the replays and the host tests of a device flag
+        # sample_s; a body cut at its collectives counts one per segment),
+        # the seconds their captures took, warm-ups included, the replays
+        # (one per segment), the host tests of a device flag, and the
+        # collectives run between replays with their host seconds
         timing.update({k: graphs.STATS[k] - graphs0[k] for k in graphs0})
     return keys, state, tunes, labels, value, timing
 

@@ -51,7 +51,7 @@ M, N = T.shape
 def build():
     model = Model(
         t=Stochastic(2, lambda r, beta, tcensor: Truncated(
-            Weibull(r, torch.exp(-beta / r)[:, None].expand(M, N)),
+            Weibull(r, torch.exp(-beta / r)[:, None].expand(tcensor.shape)),
             tcensor, torch.inf), monitor=False),
         r=Stochastic(lambda: Exponential(1000.0)),
         beta=Stochastic(1, lambda: Normal(torch.zeros(M), 10.0),

@@ -23,7 +23,10 @@ names the axes:
 
 Collectives run at the sampler boundary, on the outputs of
 ``torch.func.vmap``, never inside it.  Under gloo a CUDA tensor is staged
-through the host; NCCL reduces on the device.  A mesh axis of size one
+through the host; NCCL reduces on the device.  Inside a captured body
+(``utils/graphs.py``) a collective is not issued: it hands itself to the
+capture as a cut between two CUDA graphs, with buffers of its own (pinned
+host ones under gloo), and runs between their replays.  A mesh axis of size one
 needs no collective, so a one-rank mesh gives the run without a mesh bit
 for bit.
 
@@ -43,6 +46,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from ..utils import graphs
 
 #: the chain axis's default name, as in the JAX package
 CHAIN_AXIS = "chains"
@@ -310,14 +315,34 @@ class MeshComm:
 
     def _all_sum(self, group, tensors):
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        buf = flat.cpu() if self._staged(group) else flat
-        dist.all_reduce(buf, group=group)
-        buf = buf.to(flat.device)
+        if graphs.capturing():
+            buf = graphs.cut("all_reduce", flat,
+                             lambda: self._reducer(group, flat))
+        else:
+            graphs.issued("all_reduce", flat)
+            buf = flat.cpu() if self._staged(group) else flat
+            dist.all_reduce(buf, group=group)
+            buf = buf.to(flat.device)
         out, at = [], 0
         for t in tensors:
             out.append(buf[at:at + t.numel()].reshape(t.shape))
             at += t.numel()
         return out
+
+    def _reducer(self, group, flat):
+        """A captured body's all-reduce of ``flat`` as a cut between two of
+        its graphs (``utils.graphs.cut``): ``(out, issue)``.  Under gloo
+        through a pinned host buffer of its own into a device buffer; under
+        NCCL in place, on the stream, with no host copy and no wait."""
+        if not self._staged(group):
+            return flat, lambda: dist.all_reduce(flat, group=group)
+        host, out = _host_like(flat), torch.empty_like(flat)
+
+        def issue():
+            host.copy_(flat)
+            dist.all_reduce(host, group=group)
+            out.copy_(host, non_blocking=True)
+        return out, issue
 
     def data_sum(self, *tensors):
         """Each tensor summed over the data group (one all-reduce for all;
@@ -345,6 +370,11 @@ class MeshComm:
         order (staged through the host under gloo; a host tensor goes to
         the card under NCCL)."""
         buf = x.movedim(dim, 0).contiguous()
+        if graphs.capturing():
+            out = graphs.cut("all_gather", buf,
+                             lambda: self._gatherer(group, size, buf))
+            return out.movedim(0, dim)
+        graphs.issued("all_gather", buf)
         if self._staged(group):
             buf = buf.cpu()
         elif buf.device.type == "cpu":
@@ -352,6 +382,23 @@ class MeshComm:
         parts = [torch.empty_like(buf) for _ in range(size)]
         dist.all_gather(parts, buf, group=group)
         return torch.cat(parts).to(x.device).movedim(0, dim)
+
+    def _gatherer(self, group, size, buf):
+        """A captured body's all-gather of ``buf`` along dim 0 as a cut
+        (``_reducer``'s form): gloo through pinned host buffers of its own,
+        NCCL into the device buffer on the stream."""
+        out = buf.new_empty((size * buf.shape[0],) + tuple(buf.shape[1:]))
+        if not self._staged(group):
+            return out, lambda: dist.all_gather_into_tensor(out, buf,
+                                                            group=group)
+        host_in, host_out = _host_like(buf), _host_like(out)
+        parts = list(host_out.view((size,) + tuple(buf.shape)).unbind(0))
+
+        def issue():
+            host_in.copy_(buf)
+            dist.all_gather(parts, host_in, group=group)
+            out.copy_(host_out, non_blocking=True)
+        return out, issue
 
     def gather_chains(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """Every chain rank's ``x`` concatenated along its chain dim ``dim``
@@ -546,6 +593,11 @@ class BlockCoords:
 
 #: the coordinates of a block that holds no slice
 WHOLE = BlockCoords()
+
+
+def _host_like(x: torch.Tensor) -> torch.Tensor:
+    """A host buffer of ``x``'s shape and dtype, pinned for a CUDA ``x``."""
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:

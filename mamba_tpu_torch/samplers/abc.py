@@ -30,7 +30,8 @@ Proposals are made in the block's link-transformed space, like the
 reference (unlist/relist with transform=true, abc.jl:45, 103-110).  On a
 mesh's data axis the summaries read the observed and simulated data whole:
 each data rank gathers its slices (``cm.whole``) before summarizing, and
-the block takes its plain loop.  ``summary`` and ``dist`` run inside the
+each gather cuts the captured bodies (``utils.graphs.cut``).  ``summary``
+and ``dist`` run inside the
 captured bodies: a user function that waits for the device or copies from
 the host fails the capture, with ``graphs``' message, which names
 ``utils.graphs.disabled()``.
@@ -53,7 +54,7 @@ import torch
 
 from ..ops import random as R
 from ..utils import graphs
-from .base import BlockKernel, SamplerSpec, drawing, replays
+from .base import BlockKernel, SamplerSpec, drawing
 
 #: draws of the ``maxdraw`` loop scored together, per chain
 DRAWS_PER_CALL = 25
@@ -251,7 +252,7 @@ class ABC(SamplerSpec):
 
         bodies = {"first": lambda b, s: first(b, s, rest),
                   "more": lambda b, s: batch(b, s, DRAWS_PER_CALL)}
-        cap = drawing(bodies, eager=not replays(cm, self.params, draws=True))
+        cap = drawing(bodies, eager=not graphs.enabled())
 
         def step(key, state, tune: ABCTune, adapt):
             theta0 = vpack(state)

@@ -39,8 +39,13 @@ the way out (``samplers/custom.py``).
 Under a mesh's data axis a block's ``logf`` on one rank is a part of its
 density; every vmapped value and gradient is completed over the data group
 (``cm.block_sum``, one all-reduce) right after the vmapped call, outside
-it.  A block of a sampler that can hold slices (``holds_slices``: NUTS,
-ChEES-HMC, HMC and MALA with unit mass) holds each named sampled site as
+it.  Such a block replays too: its captured bodies are cut at each
+collective (the density's all-reduce, a sum over coordinates, the
+all-gather of a whole value), and the collectives run between the
+segments' replays (``utils/graphs.py``), as GSPMD puts them into the JAX
+package's compiled program; only ``utils.graphs.disabled()`` gives the
+plain loops.  A block of a sampler that can hold slices (``holds_slices``:
+NUTS, ChEES-HMC, HMC and MALA with unit mass) holds each named sampled site as
 the rank's slice where the compiler allows it: its flat vector is the
 rank's coordinates, and ``bind`` gives the kernels the block's
 coordinates (``coords=``, a ``parallel.mesh.BlockCoords``), whose sums
@@ -119,11 +124,12 @@ class SamplerSpec:
         state with that node's parents' whole values (``cm.block_prepare``,
         once per step, before a captured step loads it), or gathers them in
         each density call (``cm.block_density``).  A block whose density is
-        summed over a mesh's data group (``cm.block_split``) takes the
-        plain loop: that sum is an all-reduce, which a CUDA graph does not
-        capture (DGS's rule).  So does every block built under
-        ``utils.graphs.disabled()``.  A chain-axis-only mesh has no
-        collective inside a leapfrog, and replays."""
+        summed over a mesh's data group (``cm.block_split``) replays as
+        well: its captured loop is cut at each collective
+        (``utils.graphs.cut``).  ``graphed`` takes the coordinates too
+        (``graphed(density, coords=...)``) where the sampler holds
+        slices.  Only a block built under ``utils.graphs.disabled()`` takes
+        the plain loop."""
         vpack, vunpack = cm.block_maps(self.params, self.transform)
         density = cm.block_density(self.params, self.transform,
                                    grad=self.needs_grad)
@@ -139,8 +145,8 @@ class SamplerSpec:
                 return candidate_logf(density, state)
 
         captured = None
-        if graphed is not None and replays(cm, self.params):
-            captured = graphed(density)
+        if graphed is not None and graphs.enabled():
+            captured = graphed(density, **kw)
 
         def init(key, state):
             state = prepare(state)
@@ -155,27 +161,13 @@ class SamplerSpec:
             else:
                 captured.load_state(st)
                 x2, tune2 = kernel_step(key, x, tune, make_f(st), adapt,
-                                        graphed=captured)
+                                        graphed=captured, **kw)
             return {**state, **vunpack(x2, st)}, tune2
 
         return BlockKernel(init, step)
 
     def __repr__(self):
         return f"{type(self).__name__}({list(self.params)})"
-
-
-def replays(cm, params, draws: bool = False) -> bool:
-    """Whether the block of ``params`` takes its captured step: not built
-    under ``utils.graphs.disabled()``, and its density not summed over a
-    mesh's data group (``cm.block_split``), an all-reduce that a CUDA
-    graph does not capture.  A block whose bodies draw from the model
-    (``draws``: MISS, ABC) also takes its plain loop on a mesh with a data
-    axis, where a site is drawn whole from parameters gathered over the
-    data group (``cm.forward_sample``); so does a Gibbs block, whose
-    ``fn`` reads whole values gathered over the group (``WholeValues``).
-    On a chain-axis-only mesh every block replays."""
-    return (graphs.enabled() and not cm.block_split(params)
-            and not (draws and cm.comm.data_size > 1))
 
 
 def candidate_logf(vlogf, state):

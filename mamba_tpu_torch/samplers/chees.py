@@ -42,7 +42,9 @@ The stand-alone ``chees_step`` runs the ``L`` leapfrogs as a plain loop
 (``_trajectory``); the engine replays one captured leapfrog ``L`` times
 (``GraphedTrajectory``), with the step size a tensor on the device, as the
 JAX engine runs the trajectory as a ``lax.while_loop``.  Momentum, the MH
-test and the adaptation, with its collectives, stay outside the graph.
+test and the adaptation, with its collectives, stay outside the graph.  On
+a data rank the captured leapfrog is cut once, at its split density's
+all-reduce (``utils.graphs.cut``).
 """
 
 from __future__ import annotations
@@ -344,7 +346,7 @@ class ChEESHMC(SamplerSpec):
                                                           **kw),
             lambda key, x, tune, f, adapt, graphed=None, **kw: self.kernel_step(
                 key, x, tune, f, adapt, cm.comm, graphed, **kw),
-            graphed=GraphedTrajectory)
+            graphed=lambda density, coords=WHOLE: GraphedTrajectory(density))
 
     def kernel_init(self, key, x0, logfgrad, comm=None, coords=WHOLE):
         return chees_init(key, x0, logfgrad, self.epsilon, self.traj,

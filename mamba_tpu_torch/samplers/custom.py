@@ -12,10 +12,11 @@ buffer ``key`` and the model state from the ``Captured``'s state, calls
 ``fn`` and writes the new values into buffers of the body, which the step
 then copies out (the engine never writes a state tensor in place, and
 ``Captured.load_state`` skips a tensor it loaded before, so every value a
-step returns is a fresh tensor: a copy of the block's few values).  The
-plain step calls ``fn`` eagerly: under ``utils.graphs.disabled()`` and on
-a mesh with a data axis, where ``WholeValues`` gathers over the data group
-(``base.replays(..., draws=True)``).
+step returns is a fresh tensor: a copy of the block's few values).  On a
+mesh's data axis ``WholeValues`` gathers over the data group inside the
+body, and each gather cuts the captured body (``utils.graphs.cut``).  The
+plain step, under ``utils.graphs.disabled()`` alone, calls ``fn``
+eagerly.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from typing import Callable
 import torch
 
 from ..model.whole import WholeValues
-from .base import BlockKernel, SamplerSpec, drawing, replays
+from ..utils import graphs
+from .base import BlockKernel, SamplerSpec, drawing
 
 
 class Gibbs(SamplerSpec):
@@ -70,7 +72,7 @@ class Gibbs(SamplerSpec):
         def init(key, state):
             return ()
 
-        if not replays(cm, self.params, draws=True):
+        if not graphs.enabled():
             def step(key, state, tune, adapt):
                 new = self._values(cm, key, state)
                 return {**state, **{k: torch.as_tensor(v, dtype=cm.dtype,

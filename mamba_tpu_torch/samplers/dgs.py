@@ -27,7 +27,7 @@ import torch
 from ..ops import random as R
 from ..ops.distributions.base import param_like
 from ..utils import graphs
-from .base import BlockKernel, SamplerSpec, candidate_logf, replays
+from .base import BlockKernel, SamplerSpec, candidate_logf
 
 
 class DGSTune(NamedTuple):
@@ -121,8 +121,9 @@ class DGS(SamplerSpec):
     support (reference DGS ctor, dgs.jl:56-84).  Support bounds are frozen
     when the block is built.  On a CUDA device the sweep is replayed from a
     CUDA graph (``GraphedSweep``), so the block density must not copy from
-    the host; a sweep whose density is split over a mesh's data axis runs
-    eagerly, its sum over the data group outside any graph."""
+    the host; a sweep whose density is split over a mesh's data axis is
+    cut at each density call's sum over the data group, which runs between
+    the segments' replays (``utils.graphs.cut``)."""
 
     transform = False
 
@@ -135,7 +136,7 @@ class DGS(SamplerSpec):
             tune0 = dgs_support(dist, cm.sites[name].shape, cm.dtype, cm.device)
             pack, unpack, _, _ = cm.block_functions((name,), False)
             vlogf = cm.block_density((name,), False)
-            graphed = cm.device.type == "cuda" and replays(cm, (name,))
+            graphed = cm.device.type == "cuda" and graphs.enabled()
 
             def sweep(x, noise, state, tune0=tune0, vlogf=vlogf):
                 return _sweep(x, noise, tune0, candidate_logf(vlogf, state))

@@ -146,8 +146,10 @@ class HMC(SamplerSpec):
 
     def build(self, cm):
         return self.bind(cm, self.kernel_init, self.kernel_step,
-                         graphed=lambda density: captured(
-                             trajectory_bodies, density, grad=True))
+                         graphed=lambda density, coords=WHOLE: captured(
+                             functools.partial(trajectory_bodies,
+                                               coords=coords),
+                             density, grad=True))
 
     def kernel_init(self, key, x0, logfgrad, coords=WHOLE):
         return hmc_init(x0, self.epsilon, self.L, self.Sigma)

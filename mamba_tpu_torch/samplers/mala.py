@@ -96,8 +96,9 @@ class MALA(SamplerSpec):
 
     def build(self, cm):
         return self.bind(cm, self.kernel_init, self.kernel_step,
-                         graphed=lambda density: captured(step_bodies, density,
-                                                          grad=True))
+                         graphed=lambda density, coords=WHOLE: captured(
+                             functools.partial(step_bodies, coords=coords),
+                             density, grad=True))
 
     def kernel_init(self, key, x0, logfgrad, coords=WHOLE):
         return mala_init(x0, self.epsilon, self.Sigma)

@@ -18,8 +18,9 @@ from the block's per-chain keys, which the step loads into the buffer
 ``key`` (one key split off per site), so that a replay draws the numbers
 the body run eagerly draws; the plain loop runs the same body eagerly.  On a mesh's
 data axis the draw is made at the site's whole shape (``forward_sample``),
-so every data rank takes the unsharded run's stream and keeps its slice;
-there the block takes its plain loop.
+so every data rank takes the unsharded run's stream and keeps its slice:
+the all-gathers of the site's parameters cut the captured body
+(``utils.graphs.cut``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import numpy as np
 import torch
 
 from ..ops import random as R
-from .base import BlockKernel, SamplerSpec, drawing, replays
+from ..utils import graphs
+from .base import BlockKernel, SamplerSpec, drawing
 
 
 def missing_masks(cm, params) -> dict[str, np.ndarray]:
@@ -59,7 +61,7 @@ class MISS(SamplerSpec):
                  for n, m in missing_masks(cm, self.params).items()}
 
         cap = drawing(impute_bodies(cm, masks),
-                      eager=not replays(cm, self.params, draws=True))
+                      eager=not graphs.enabled())
 
         def init(key, state):
             return ()

@@ -35,7 +35,8 @@ On a mesh's data axis a block may hold some sites as the rank's slice
 (``coords``, a ``parallel.mesh.BlockCoords``, which the engine passes): the
 momentum is drawn at the rank's counters of the unsharded flat vector, and the kinetic energy, the step-size search's and the U-turn
 checks' sums over coordinates are completed over the data group, so every
-rank takes the same tree.  Such a block takes the plain loop.
+rank takes the same tree.  In the engine such a block replays its captured
+leaf, cut at its density's all-reduce and at its sums' (``utils/graphs.py``).
 
 The slice-variable formulation, uniform proposal selection within the
 candidate set, divergence cutoff (+1000), U-turn criterion (nuts.jl:183-187)
@@ -235,15 +236,27 @@ def _subtree_turned_slots(x_ck, r_ck, x, r, pm, idx_min, idx_max, minv):
     as int tensors, ``(1,)`` for every chain or ``(C, 1)`` per chain: the
     check runs over all ``max_depth`` slots and masks out those outside the
     range, as the JAX package's loop over traced slots does
-    (nuts.py:155-182)."""
-    slots = torch.arange(x_ck.shape[1], dtype=idx_max.dtype, device=x.device)
-    inrange = (slots >= idx_min) & (slots <= idx_max)
+    (nuts.py:155-182).  ``_leaf`` takes its two halves, ``_slot_terms``
+    and ``_turned_in``, around one sum with its kinetic energy."""
+    return _turned_in(*WHOLE.sums(*_slot_terms(x_ck, r_ck, x, r, pm, minv)),
+                      idx_min, idx_max)
+
+
+def _slot_terms(x_ck, r_ck, x, r, pm, minv):
+    """``_turn_terms`` against every slot of the buffers."""
     dx = pm[:, None, None] * (x[:, None, :] - x_ck)
     v_ck = r_ck if minv is None else minv[:, None, :] * r_ck
     v = r if minv is None else minv * r
-    turned = ((torch.sum(dx * v_ck, dim=-1) < 0)
-              | (torch.sum(dx * v[:, None, :], dim=-1) < 0))
-    return (turned & inrange).any(dim=-1)
+    return dx * v_ck, dx * v[:, None, :]
+
+
+def _turned_in(start, end, idx_min, idx_max):
+    """``_turned`` over the slots ``idx_min..idx_max`` of the sums
+    ``(C, max_depth)`` of ``_slot_terms``."""
+    slots = torch.arange(start.shape[1], dtype=idx_max.dtype,
+                         device=start.device)
+    inrange = (slots >= idx_min) & (slots <= idx_max)
+    return (((start < 0) | (end < 0)) & inrange).any(dim=-1)
 
 
 def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
@@ -313,7 +326,7 @@ def _build_subtree(x0, r0, grad0, pm, j, eps, logfgrad, logp0, logu0,
 _LEAF_OUT = ("x", "r", "grad", "xprop", "nprime", "sprime", "alpha", "nalpha")
 
 
-def _leaf(b, logfgrad):
+def _leaf(b, logfgrad, coords=WHOLE):
     """One leaf of ``_build_subtree`` for every chain, on the leaf step's
     tensors ``b``, which it updates in place: the leaf index ``b["leaf"]``
     ``(1,)`` lives on the device and advances by one, the leaf's uniform is
@@ -322,12 +335,18 @@ def _leaf(b, logfgrad):
     leaf), the checkpoint write is masked to the even leaves' active
     chains, and the U-turn check runs over every slot, masked to the range.
     No host integer and no host sync, so a CUDA graph of it serves every
-    leaf of every level."""
+    leaf of every level.  The kinetic energy and the U-turn checks' dot
+    products are one sum over the block's ``coords`` (on a data rank one
+    all-reduce, the leaf's second cut after its density's), on every leaf,
+    so that every leaf cuts at the same places."""
     x, r, grad, minv, act = b["x"], b["r"], b["grad"], b["minv"], b["sprime"]
     leaf = b["leaf"]
     xn, rn, logf, gn = _leapfrog(x, r, grad, b["step"], logfgrad, minv)
     a2 = _col(act)
-    logp = logf - _kinetic(rn, minv)
+    kinetic, start, end = coords.sums(
+        rn * rn if minv is None else rn * (minv * rn),
+        *_slot_terms(b["x_ck"], b["r_ck"], xn, rn, b["pm"], minv))
+    logp = logf - 0.5 * kinetic
     logp = torch.where(torch.isnan(logp), -torch.inf, logp)
     valid = act & (b["logu0"] < logp)
     diverged = ~(b["logu0"] < logp + 1000.0)
@@ -337,8 +356,7 @@ def _leaf(b, logfgrad):
     idx_min = b["ck_min"].index_select(0, leaf)
     idx_max = b["ck_max"].index_select(0, leaf)
     even = (leaf & 1) == 0
-    turned = ~even & _subtree_turned_slots(b["x_ck"], b["r_ck"], xn, rn,
-                                           b["pm"], idx_min, idx_max, minv)
+    turned = ~even & _turned_in(start, end, idx_min, idx_max)
     sprime = act & ~diverged & ~turned
 
     b["alpha"].add_(torch.where(
@@ -360,10 +378,10 @@ def _leaf(b, logfgrad):
     leaf.add_(1)
 
 
-def _leaf_on(density, b, state):
+def _leaf_on(density, coords, b, state):
     """``_leaf`` with the density ``density(x, state) -> (logf, grad)`` on
-    the model state ``state``."""
-    _leaf(b, lambda x: density(x, state))
+    the model state ``state``, summing over the block's ``coords``."""
+    _leaf(b, lambda x: density(x, state), coords)
 
 
 class GraphedSubtree:
@@ -375,13 +393,14 @@ class GraphedSubtree:
     level changes a shape.  Takes the arguments of ``_build_subtree`` and
     returns the same values; it does not use ``logfgrad``, ``x_ck`` or
     ``r_ck``: the leaf step keeps its own checkpoint slots, which every
-    level writes before it reads them."""
+    level writes before it reads them.  ``coords``: the block's
+    coordinates on a data rank, whose sums the leaf takes."""
 
-    def __init__(self, density, max_depth: int):
+    def __init__(self, density, max_depth: int, coords=WHOLE):
         self.max_depth = max_depth
         # the body holds the density, not this object: no reference cycle,
         # so the graph goes when the kernel does
-        self.cap = Captured(functools.partial(_leaf_on, density))
+        self.cap = Captured(functools.partial(_leaf_on, density, coords))
 
     def load_state(self, state):
         self.cap.load_state(state)
@@ -573,8 +592,8 @@ class NUTS(SamplerSpec):
 
     def build(self, cm):
         return self.bind(cm, self.kernel_init, self.kernel_step,
-                         graphed=lambda density: GraphedSubtree(
-                             density, self.max_depth))
+                         graphed=lambda density, coords=WHOLE: GraphedSubtree(
+                             density, self.max_depth, coords))
 
     def kernel_step(self, key, x, tune, logfgrad, adapt, graphed=None,
                     coords=WHOLE):

@@ -42,7 +42,7 @@ import torch
 
 from ..ops import random as rnd
 from ..utils import graphs
-from .base import (BlockKernel, SamplerSpec, candidate_logf, plain, replays,
+from .base import (BlockKernel, SamplerSpec, candidate_logf, plain,
                    validatesimplex)
 
 #: simplex trips per batch of a captured step, between two host tests: of
@@ -243,7 +243,7 @@ class SliceSimplex(SamplerSpec):
                                     candidate_logf(density, state))
             per_site.append((K, torch.func.vmap(pack), torch.func.vmap(unpack),
                              graphs.Captured(bodies,
-                                             eager=not replays(cm, (name,))),
+                                             eager=not graphs.enabled()),
                              cm.block_prepare((name,))))
 
         def init(key, state):

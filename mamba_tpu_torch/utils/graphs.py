@@ -22,8 +22,8 @@ or device drops the graph, which is captured again at the next ``run``.
 The capture runs the body twice on a side stream, each time from the
 tensors as they stand (first-use work, such as building a kernel's library
 or functorch's caches, happens there, never inside the capture), puts the
-tensors back, and captures the body in one graph, which ``run(n)`` replays
-``n`` times.
+tensors back, and captures the body in one graph (one per segment where
+it reaches a collective, below), which ``run(n)`` replays ``n`` times.
 A failed capture raises; there is no eager fallback on a CUDA device.  On
 the CPU nothing is captured: ``run`` calls the body eagerly on the same
 tensors.
@@ -48,12 +48,31 @@ advances in place, so that a replay draws the next numbers, as the body
 run eagerly would.  The warm-ups put the counter back with the other
 tensors.  The other samplers make every draw before their replay.
 
+A body may reach a collective over a mesh's data group (a split density's
+all-reduce, the all-gather of a whole value: ``parallel/mesh.py``), as the
+JAX package's compiled program holds the all-reduces and all-gathers that
+GSPMD inserts.  A CUDA graph cannot hold a collective that goes through
+the host, so the capture cuts the body there: the collective hands itself
+to the capture (``cut``), which ends the graph being captured, records the
+collective as a host step (``Cut``: its input, which the graph before it
+writes, and an output buffer allocated once, which the graph after it
+reads) without issuing it, and captures the rest of the body in a new
+graph that shares the first one's memory pool.  A captured body is thus a
+``Program``: segments (CUDA graphs) and the cuts between them, which
+``run(n)`` replays in capture order, segment 0, cut 0, segment 1 and so
+on, ``n`` times.  The warm-ups issue their collectives for real, and the
+capture checks that it meets the same collectives, of the same shapes
+and dtypes, in the same order; a capture that differs raises.  Every rank
+of a data group runs the same bodies the same number of times, so all cut
+at the same places.
+
 A kernel wrapper counts its launches with ``count_launch``: a launch made
-while a graph is being captured goes to that graph's tally, and every
-replay adds its tally to the counts, so a count read after a run holds
-every launch the device made, replays included.  ``disabled()`` makes the
-engine build its samplers without captured steps (their plain loops), for
-a density that cannot be captured and for the graph-against-plain checks.
+while a graph is being captured goes to the tally of the segment being
+captured, and every replay adds the tallies to the counts, so a count read
+after a run holds every launch the device made, replays included.
+``disabled()`` makes the engine build its samplers without captured steps
+(their plain loops), for a density that cannot be captured and for the
+graph-against-plain checks: it is the one way to the plain loops.
 """
 
 from __future__ import annotations
@@ -61,19 +80,26 @@ from __future__ import annotations
 import contextlib
 import gc
 import time
+import warnings
 
 import torch
 
-__all__ = ["Captured", "count_launch", "capturing", "disabled", "enabled",
-           "idle", "until_done", "STATS"]
+__all__ = ["Captured", "Cut", "Program", "count_launch", "capturing", "cut",
+           "disabled", "enabled", "idle", "issued", "until_done", "STATS"]
 
-#: graphs captured, seconds spent capturing them (warm-ups included), graph
-#: replays and host tests of a device flag (``until_done``), since the
-#: process started; ``model/mcmc.py`` reports what each run added
-STATS = {"graphs": 0, "capture_s": 0.0, "replays": 0, "host_tests": 0}
+#: graphs captured (a body cut at its collectives counts one per segment),
+#: seconds spent capturing them (warm-ups included), graph replays (one per
+#: segment), host tests of a device flag (``until_done``), collectives run
+#: between replays and the host seconds they took, since the process
+#: started; ``model/mcmc.py`` reports what each run added
+STATS = {"graphs": 0, "capture_s": 0.0, "replays": 0, "host_tests": 0,
+         "collectives": 0, "collective_s": 0.0}
 
-#: launch tallies of the captures in progress (one per nesting level)
+#: launch tallies of the captures in progress (one per nesting level; a
+#: ``_Recording`` is the tally of the segment it captures)
 _CAPTURING: list[dict] = []
+#: the collectives each warm-up in progress issued, as signatures
+_WARMING: list[list] = []
 _DISABLED = [False]
 #: bodies being run eagerly by ``Captured.run`` (nesting depth)
 _EAGER = [0]
@@ -92,6 +118,104 @@ def count_launch(fn) -> None:
 def capturing() -> bool:
     """Whether a graph is being captured in this process."""
     return bool(_CAPTURING)
+
+
+class Cut:
+    """A collective between two segments of a captured body: ``issue()``
+    reads ``inp``, which the segment before it writes, and writes ``out``,
+    which the segment after it reads (the same tensor for a collective in
+    place).  ``kind`` names it (``"all_reduce"``, ``"all_gather"``)."""
+
+    __slots__ = ("kind", "inp", "out", "issue")
+
+    def __init__(self, kind: str, inp: torch.Tensor, out: torch.Tensor, issue):
+        self.kind, self.inp, self.out, self.issue = kind, inp, out, issue
+
+    def run(self) -> None:
+        t0 = time.perf_counter()
+        self.issue()
+        STATS["collectives"] += 1
+        STATS["collective_s"] += time.perf_counter() - t0
+
+
+def _signature(kind: str, inp: torch.Tensor) -> tuple:
+    return kind, tuple(inp.shape), inp.dtype
+
+
+def issued(kind: str, inp: torch.Tensor) -> None:
+    """A collective ``kind`` of ``inp`` issued eagerly (``parallel/mesh.py``):
+    noted while a body warms up, so that its capture can check that it
+    meets the same collectives."""
+    if _WARMING:
+        _WARMING[-1].append(_signature(kind, inp))
+
+
+def cut(kind: str, inp: torch.Tensor, make):
+    """Hand the collective ``kind`` of ``inp`` to the capture in progress:
+    ``make()`` allocates its buffers once and returns ``(out, issue)``
+    (``Cut``); the capture ends its segment there, records the cut without
+    issuing it, goes on in a new segment and returns ``out``, which the
+    rest of the body reads."""
+    rec = _CAPTURING[-1]
+    if not isinstance(rec, _Recording):
+        raise RuntimeError(f"a {kind} inside a capture that cannot cut")
+    return rec.cut(kind, inp, make)
+
+
+class _Recording(dict):
+    """A body's capture in progress, itself the launch tally of the
+    segment being captured (``count_launch``).  ``begin()`` starts a
+    segment's capture and ``end()`` ends it, returning its graph;
+    ``expected`` holds the signatures of the collectives the warm-up
+    issued."""
+
+    def __init__(self, begin, end, expected=None):
+        super().__init__()
+        self._begin, self._end, self.expected = begin, end, expected
+        self.segments: list = []       # (graph, launch tally)
+        self.cuts: list[Cut] = []
+
+    def _close(self) -> None:
+        self.segments.append((self._end(), dict(self)))
+        self.clear()
+
+    def cut(self, kind: str, inp: torch.Tensor, make):
+        k = len(self.cuts)
+        sig = _signature(kind, inp)
+        if self.expected is not None and (k >= len(self.expected)
+                                          or self.expected[k] != sig):
+            want = self.expected[k] if k < len(self.expected) else "none"
+            raise RuntimeError(
+                f"capture cut {k} is a collective {sig}, where the warm-up "
+                f"issued {want}: the body must meet the same collectives at "
+                f"every run")
+        self._close()
+        out, issue = make()
+        self.cuts.append(Cut(kind, inp, out, issue))
+        self._begin()
+        return out
+
+    def finish(self) -> None:
+        self._close()
+        if self.expected is not None and len(self.cuts) != len(self.expected):
+            raise RuntimeError(
+                f"the capture met {len(self.cuts)} collectives, where the "
+                f"warm-up issued {len(self.expected)}")
+
+
+class Program:
+    """A captured body: its segments' graphs, with each one's launch tally,
+    the cuts between them, and ``out``, what the body returned.
+    ``replay()`` runs segment 0, cut 0, segment 1 and so on."""
+
+    def __init__(self, segments, cuts, out):
+        self.segments, self.cuts, self.out = segments, cuts, out
+
+    def replay(self) -> None:
+        for (graph, _), c in zip(self.segments, self.cuts):
+            graph.replay()
+            c.run()
+        self.segments[-1][0].replay()
 
 
 def idle(flags: torch.Tensor) -> bool:
@@ -156,7 +280,7 @@ class Captured:
         self.bufs: dict[str, torch.Tensor] = {}
         self.state: dict[str, torch.Tensor] = {}
         self._loaded: dict[str, torch.Tensor] = {}
-        self.graphs: dict = {}              # name -> (graph, out, tally)
+        self.graphs: dict[str, Program] = {}
         self.replays = 0
 
     def _put(self, store: dict, name: str, value: torch.Tensor) -> None:
@@ -206,27 +330,34 @@ class Captured:
             return out
         if name not in self.graphs:
             self._capture(name)
-        graph, out, tally = self.graphs[name]
+        prog = self.graphs[name]
         for _ in range(n):
-            graph.replay()
+            prog.replay()
         self.replays += n
-        STATS["replays"] += n
-        for fn, launches in tally.items():
-            fn.launches += launches * n
-        return out
+        STATS["replays"] += n * len(prog.segments)
+        for _, tally in prog.segments:
+            for fn, launches in tally.items():
+                fn.launches += launches * n
+        return prog.out
 
-    def warm_up(self, body) -> None:
+    def warm_up(self, body) -> list:
         """Run ``body`` twice, each time from the tensors as they stand (as
         its replay will: a body that advances an index or a round counter
         on the device must not run past its range), then put the tensors
-        back."""
+        back.  Its collectives are issued; returns the signatures of the
+        second run's, which the capture must meet."""
         saved = {k: v.clone() for k, v in self.bufs.items()}
         for _ in range(2):
             for k, v in saved.items():
                 self.bufs[k].copy_(v)
-            body(self.bufs, self.state)
+            _WARMING.append([])
+            try:
+                body(self.bufs, self.state)
+            finally:
+                met = _WARMING.pop()
         for k, v in saved.items():
             self.bufs[k].copy_(v)
+        return met
 
     def _capture(self, name: str) -> None:
         t0 = time.perf_counter()
@@ -236,16 +367,36 @@ class Captured:
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):       # warm up before the capture
-            self.warm_up(body)
+            expected = self.warm_up(body)
         main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        tally: dict = {}
-        with _collector_paused():
-            _CAPTURING.append(tally)
+        pool = torch.cuda.graph_pool_handle()
+        graph = [None]
+
+        def begin():
+            graph[0] = torch.cuda.CUDAGraph()
+            graph[0].capture_begin(pool=pool, capture_error_mode="thread_local")
+
+        def end():
+            with warnings.catch_warnings():
+                # a segment between two collectives may launch nothing
+                warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+                graph[0].capture_end()
+            return graph[0]
+
+        rec = _Recording(begin, end, expected)
+        torch.cuda.synchronize(dev)
+        with _collector_paused(), torch.cuda.stream(side):
+            _CAPTURING.append(rec)
+            begin()
             try:
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                    out = body(self.bufs, self.state)
+                out = body(self.bufs, self.state)
+                rec.finish()
             except Exception as e:
+                if len(rec.segments) == len(rec.cuts):   # a capture is open
+                    try:
+                        graph[0].capture_end()
+                    except RuntimeError:     # invalidated by the failure
+                        pass
                 fn = getattr(body, "func", body)
                 raise RuntimeError(
                     f"capturing {getattr(fn, '__qualname__', fn)} "
@@ -256,8 +407,8 @@ class Captured:
             finally:
                 _CAPTURING.pop()
         torch.cuda.synchronize(dev)
-        self.graphs[name] = (graph, out, tally)
-        STATS["graphs"] += 1
+        self.graphs[name] = Program(rec.segments, rec.cuts, out)
+        STATS["graphs"] += len(rec.segments)
         STATS["capture_s"] += time.perf_counter() - t0
 
 

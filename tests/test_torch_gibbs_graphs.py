@@ -84,17 +84,17 @@ def test_gibbs_builds_a_captured_step_only_where_it_replays(monkeypatch):
     spec = model.samplers[1]
     spec.build(cm)
     assert len(caps) == 1 and not caps[0].eager
+    # only disabled() gives the plain step
     with graphs.disabled():
         spec.build(cm)
-    with monkeypatch.context() as m:
-        m.setattr(cm.comm, "data_size", 2)
-        spec.build(cm)
     assert len(caps) == 1
-    # a chain-axis-only mesh replays, as every other block does
-    with monkeypatch.context() as m:
-        m.setattr(cm.comm, "chain_size", 2)
-        spec.build(cm)
-    assert len(caps) == 2
+    # a mesh with a data axis replays, its gathers cut the body, and a
+    # chain-axis-only mesh replays, as every other block does
+    for axis in ("data_size", "chain_size"):
+        with monkeypatch.context() as m:
+            m.setattr(cm.comm, axis, 2)
+            spec.build(cm)
+    assert len(caps) == 3 and not any(c.eager for c in caps)
 
 
 @pytest.mark.parametrize("plain", [False, True])
@@ -187,6 +187,15 @@ class _CaptureForbids(TorchDispatchMode):
 
 
 class _Graph:
+    """A graph's stand-in: its capture records under ``_CaptureForbids``."""
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.mode = _CaptureForbids()
+        self.mode.__enter__()
+
+    def capture_end(self):
+        self.mode.__exit__(None, None, None)
+
     def replay(self):
         pass
 
@@ -205,8 +214,7 @@ def _capture_on_a_fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: _Stream())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda graph, **kw: _CaptureForbids())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda dev=None: None)
 
 

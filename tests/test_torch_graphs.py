@@ -18,7 +18,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from mamba_tpu.samplers import nuts as jnuts
 import mamba_tpu_torch as tmt
 from mamba_tpu_torch.models import glmm, rats
-from mamba_tpu_torch.parallel.mesh import WHOLE
+from mamba_tpu_torch.parallel.mesh import WHOLE, BlockCoords
 from mamba_tpu_torch.samplers import chees as tchees
 from mamba_tpu_torch.samplers import dgs as tdgs
 from mamba_tpu_torch.samplers import nuts as tnuts
@@ -253,15 +253,21 @@ def test_split_blocks_and_disabled_builds_take_the_plain_loop(monkeypatch):
     made = []
     real = tnuts.GraphedSubtree
     monkeypatch.setattr(tnuts, "GraphedSubtree",
-                        lambda *a, **k: made.append(1) or real(*a, **k))
+                        lambda *a, **k: made.append(a) or real(*a, **k))
     spec = model.samplers[0]
     spec.build(cm)
-    assert made == [1]
+    assert len(made) == 1
+    # only disabled() gives the plain loop
     with graphs.disabled():
         spec.build(cm)
+    assert len(made) == 1
+    # a block split over a data axis replays too, its leaf summing over the
+    # block's coordinates
+    coords = BlockCoords()
     monkeypatch.setattr(cm, "block_split", lambda *a, **k: True)
+    monkeypatch.setattr(cm, "block_coords", lambda *a, **k: coords)
     spec.build(cm)
-    assert made == [1]
+    assert len(made) == 2 and made[-1][2] is coords
 
 
 class _HostWatch(TorchDispatchMode):

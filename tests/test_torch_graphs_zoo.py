@@ -34,6 +34,7 @@ from mamba_tpu_torch.samplers import rwm as trwm
 from mamba_tpu_torch.samplers import slice as tslice
 from mamba_tpu_torch.samplers import slicesimplex as tss
 from mamba_tpu_torch.utils import graphs
+from _torch_card import _emulate_the_card
 from test_torch_graphs import _assert_tunes_equal, _HostWatch
 
 torch.set_num_threads(2)
@@ -365,16 +366,19 @@ def test_split_blocks_and_disabled_builds_take_the_plain_loops(monkeypatch):
     for spec in model.samplers:
         spec.build(cm)
     assert len(made) == 3
+    # only disabled() gives the plain loops
     with graphs.disabled():
         for spec in model.samplers:
             spec.build(cm)
+    assert len(made) == 3
+    # a block split over a data axis replays, cut at its collectives
     monkeypatch.setattr(cm, "block_split", lambda *a, **k: True)
     for spec in model.samplers:
         spec.build(cm)
-    assert len(made) == 3
+    assert len(made) == 6
     # the blocks whose bodies draw (MISS on mice, ABC on line_abc) take
-    # their plain loops under disabled(), split over a data axis, and on
-    # any mesh with a data axis, where a site is drawn whole
+    # their plain loops under disabled() alone: split, and on a mesh with a
+    # data axis, where a site is drawn whole, they replay
     flags = []
     real_drawing = base.drawing
 
@@ -400,55 +404,13 @@ def test_split_blocks_and_disabled_builds_take_the_plain_loops(monkeypatch):
                     for spec in model.samplers:
                         spec.build(cm)
             ways.append(list(flags))
-        assert ways == [[False] * blocks] + [[True] * blocks] * 3, (name, ways)
+        assert ways == ([[False] * blocks, [True] * blocks]
+                        + [[False] * blocks] * 2), (name, ways)
 
 
 # ---------------------------------------------------------------------------
 # replays and host tests, counted as on a CUDA device
 # ---------------------------------------------------------------------------
-
-class _FakeGraph:
-    """Stands in for a captured CUDA graph: a replay runs the body."""
-
-    def __init__(self, replay):
-        self.replay = replay
-
-
-def _fake_capture(self, name):
-    """``Captured._capture`` without a card: the same warm-up, then a
-    capture that records the body without running it (the body's launches
-    go to the tally, and the tensors, round counters among them, are put
-    back: a capture advances nothing)."""
-    body = self.bodies[name]
-    self.warm_up(body)
-    tally = {}
-    saved = {k: v.clone() for k, v in self.bufs.items()}
-    graphs._CAPTURING.append(tally)
-    try:
-        out = body(self.bufs, self.state)
-    finally:
-        graphs._CAPTURING.pop()
-    for k, v in saved.items():
-        self.bufs[k].copy_(v)
-
-    def replay():
-        graphs._CAPTURING.append({})      # the launches count from the tally
-        try:
-            body(self.bufs, self.state)
-        finally:
-            graphs._CAPTURING.pop()
-    self.graphs[name] = (_FakeGraph(replay), out, tally)
-    graphs.STATS["graphs"] += 1
-
-
-def _emulate_the_card(monkeypatch):
-    """Every ``Captured`` that is not ``eager`` takes its card path on the
-    CPU: warm-up, capture and replays, ``_FakeGraph``s in place of CUDA
-    graphs."""
-    monkeypatch.setattr(graphs.Captured, "device",
-                        property(lambda self: torch.device("cuda")))
-    monkeypatch.setattr(graphs.Captured, "_capture", _fake_capture)
-
 
 @pytest.mark.parametrize("arm", ENGINE_ARMS)
 def test_engine_through_emulated_captures_equals_the_plain_loops(arm, monkeypatch):
