@@ -179,12 +179,32 @@ through the port's public entry points (``mcmc``, ``advi``,
     that reaches a collective is cut there, and the collective runs
     between the segments' replays (``utils/graphs.py``); a block that
     cannot capture fails its phase.  Both ranks share the one card: no
-    number of (c)-(k) is a scaling figure.
+    number of (c)-(k) is a scaling figure.  (l) several data axes, as the
+    JAX package's PartitionSpecs name them, in four gloo processes of one
+    ``run_ranks`` call on the one card: rats NUTS on a (1, 2, 2) chains x
+    data x week mesh (``RATS_AXES_SPECS``: y cut by rat and by week, the
+    five weeks padded to six, Xm by week, alpha and beta by rat and so
+    replicated over week, their gradient summed over it), cut to
+    ``RATS_DATA_MESH_RUN`` under phase 6's mu_beta gate, then
+    ``MESH_GRAPH_RUN`` captured against plain, equal bit for bit; on a
+    (1, 2, 2) chains x data x obs mesh the fused GLMM with its groups over
+    the tuple ("data", "obs") (``GLMM_TUPLE_SPECS``: each rank launches the
+    kernel over its 2,500 groups) and the generic GLMM cut by groups and
+    observations (``GLMM_TWO_DIM_SPECS``), each block density and gradient
+    at the warm starts against the whole under phase 3's gates, then the
+    fused form under ChEES at ``MESH_CHEES_RUN``, captured, draws finite
+    and equal on every rank; in this process the kernel timed at a rank's
+    share (C = 1024, G = 2,500).  Four processes share the card: no number
+    of (l) is a scaling figure.
 
     python3 chip_smoke.py --mesh-rank <init_method> <rank> <dir>
 
 runs one rank of (c), (d), (e), (g), (h), (i), (j) and (k), and writes
-(f)'s files.
+(f)'s files;
+
+    python3 chip_smoke.py --axes-rank <init_method> <rank> <dir>
+
+one of (l)'s four.
 
 The kernel's paths (phases 3b's ChEES and centered GLMM arms, 5, 10, 12, 13 and 15's runs) each set its launch
 count to 0 just before they run and read it just after; a launch captured
@@ -1923,7 +1943,8 @@ def _data_only_gates(data_only, chees_draws, fixture_draws, failed):
         for form in ("fused", "generic"):
             d = res[form]
             if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL
-                    and d["cuts"] == {"y": {"b": 0}} and d["held"] == []
+                    and d["cuts"] == {"y": {"b": {"0": ["data"]}}}
+                    and d["held"] == []
                     and d["groups_split"] == half
                     and d["launches_split"] == (1 if form == "fused" else 0)):
                 failed.append(f"(j) rank {r} {form}: {d}")
@@ -1955,14 +1976,16 @@ def _data_only_gates(data_only, chees_draws, fixture_draws, failed):
 RATS_SPECS = {"y": ("data",), "alpha": ("data",), "beta": ("data",)}
 
 
-def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
+def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir, specs=RATS_SPECS,
+                    label="(h)", tag="rats"):
     """(h): the rats NUTS headline, cut to ``RATS_DATA_MESH_RUN``, at
     1024 chains on a (1, 2) data mesh with y, alpha and beta named: each
     rank holds 15 of the 30 rats' y, alpha and beta, and its NUTS block
     sums over its coordinates across the two ranks (its captured leaf cut
     at the density's all-reduce and at the leaf's sums).  The
     golden mu_beta gate of phase 6; its wall per leapfrog; the draws saved
-    for the parent's check that both ranks agree."""
+    for the parent's check that both ranks agree.  (l) runs it on its own
+    mesh and ``specs`` (``tag`` names its files)."""
     from mamba_tpu_torch.models import rats
     iters, burnin = RATS_DATA_MESH_RUN
     model, inputs, inits = rats.build("nuts")
@@ -1970,7 +1993,7 @@ def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
     try:
         sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
                       chains=CHAINS, verbose=False, device=DEVICE, mesh=mesh,
-                      site_specs=RATS_SPECS)
+                      site_specs=specs)
     finally:
         restore()
     res = {**_timing(sim, CHAINS, iters), **_nuts_work(torch, depths)}
@@ -1979,10 +2002,12 @@ def _rats_data_mesh(torch, mt, nuts, mesh, rank, outdir):
     state = sim.states["state"]
     res["shapes"] = {k: list(state[k].shape) for k in ("y", "alpha", "beta")}
     res["held"] = sorted(sim.compiled._held)
-    log(f"(h) rank {rank}, rats NUTS on a (1, 2) data mesh ({CHAINS} chains, "
-        f"{iters} iters, {burnin} burnin): " + json.dumps(res))
-    res.update(_rats_gates(mt, rats, sim, f"(h) rank {rank}"))
-    np.save(Path(outdir) / f"rats_draws{rank}.npy", sim.value)
+    res["group_collectives"] = sim.timing.get("group_collectives", {})
+    shape = tuple(mesh.mesh.shape)
+    log(f"{label} rank {rank}, rats NUTS on a {shape} data mesh ({CHAINS} "
+        f"chains, {iters} iters, {burnin} burnin): " + json.dumps(res))
+    res.update(_rats_gates(mt, rats, sim, f"{label} rank {rank}"))
+    np.save(Path(outdir) / f"{tag}_draws{rank}.npy", sim.value)
     return res
 
 
@@ -2059,8 +2084,10 @@ def _mesh_graph_arms(mt, glmm, warm):
             "glmm_chees_data": glmm_chees(DATA_SPECS)}
 
 
-def _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank, outdir):
-    """(k): each of ``_mesh_graph_arms`` on the (1, 2) data mesh for
+def _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank, outdir,
+                 arms=None, label="(k)"):
+    """(k): each of ``_mesh_graph_arms`` (or ``arms``, (l)'s) on the
+    (1, 2) data mesh (or ``mesh``) for
     ``MESH_GRAPH_RUN``, through the engine's captured steps (each body cut
     at its collectives, which run between the segments' replays) and under
     ``graphs.disabled()`` (the plain loops), from one seed: draws, tunes,
@@ -2074,7 +2101,8 @@ def _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank, outdir):
     from mamba_tpu_torch.utils import graphs
     iters, burnin = MESH_GRAPH_RUN
     res = {}
-    for name, build in _mesh_graph_arms(mt, glmm, warm).items():
+    arms = arms or _mesh_graph_arms(mt, glmm, warm)
+    for name, build in arms.items():
         out, sims, seen = {}, {}, {}
         for way in ("captured", "plain"):
             model, inputs, inits, specs, unit = build()
@@ -2116,19 +2144,21 @@ def _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank, outdir):
         cap["equal"] = (_same_run(torch, sims["captured"], sims["plain"])
                         and seen["captured"] == seen["plain"])
         if not cap["equal"]:
-            raise AssertionError(f"(k) rank {rank} {name}: the captured run "
-                                 f"differs from the plain loops")
+            raise AssertionError(f"{label} rank {rank} {name}: the captured "
+                                 f"run differs from the plain loops")
         u = unit[:-1]
         if not (cap["graphs"] > 0 and cap[f"collectives_per_{u}"] > 0
                 and plain["graphs"] == 0):
-            raise AssertionError(f"(k) rank {rank} {name}: not captured, "
+            raise AssertionError(f"{label} rank {rank} {name}: not captured, "
                                  f"or no collective between replays: {out}")
+        cap["group_collectives"] = sims["captured"].timing.get(
+            "group_collectives", {})
         np.save(Path(outdir) / f"graph_{name}_draws{rank}.npy",
                 sims["captured"].value)
         del sims
-        log(f"(k) rank {rank}, {name} captured against plain on a (1, 2) "
-            f"data mesh ({CHAINS} chains, {iters} iters, {burnin} burnin): "
-            + json.dumps(out))
+        log(f"{label} rank {rank}, {name} captured against plain on a "
+            f"{tuple(mesh.mesh.shape)} data mesh ({CHAINS} chains, {iters} "
+            f"iters, {burnin} burnin): " + json.dumps(out))
         res[name] = out
     return res
 
@@ -2190,6 +2220,154 @@ def mesh_rank(init, rank, outdir):
         dist.destroy_process_group()
 
 
+#: (l)'s layouts, as the JAX package's PartitionSpecs name them: rats cut by
+#: rat and by week (the five weeks padded to six), the fused GLMM's groups
+#: over a tuple of axes, the generic GLMM cut on two dims (y (G, n), x
+#: (G, n, P), z (G,), z's gradient summed over obs)
+RATS_AXES_SPECS = {"y": ("data", "week"), "Xm": ("week",), "alpha": ("data",),
+                   "beta": ("data",)}
+GLMM_TUPLE_SPECS = {"y": (None, ("data", "obs")),
+                    "xt": (None, None, ("data", "obs")),
+                    "z": (("data", "obs"),)}
+GLMM_TWO_DIM_SPECS = {"y": ("data", "obs"), "x": ("data", "obs", None),
+                      "z": ("data",)}
+#: (l)'s ranks: four gloo processes on the one card, a (1, 2, 2) mesh
+AXES_RANKS = 4
+
+
+def _axes_glmm(torch, mt, glmm, fg, chees, warm, mesh, rank, outdir):
+    """(l)'s GLMM arms on the (1, 2, 2) chains x data x obs mesh: the
+    fused form with its groups over ("data", "obs") (each rank 2,500 of
+    the 10,000) and the generic form cut by groups and observations, each
+    block density and gradient at the warm starts completed over the
+    group against the whole; then the fused form under ChEES at
+    ``MESH_CHEES_RUN``, captured, its kernel launches counted through the
+    segments' replays."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    res = {}
+    for fused, specs in ((True, GLMM_TUPLE_SPECS), (False, GLMM_TWO_DIM_SPECS)):
+        model, inputs, inits, _ = glmm.build(MESH_G, fused=fused)
+        starts = [dict(w, y=inits[0]["y"]) for w in warm]
+        whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+        split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                                 comm=MeshComm(mesh), site_specs=specs)
+        d = _split_against_whole(torch, fg, whole, split,
+                                 _chain_inits(whole, starts, CHAINS))
+        d["layouts"] = {k: {str(i): list(a) for i, a in v.items()}
+                        for k, v in split._held.items()}
+        d["block_shape"] = list(split.inputs["xt" if fused else "x"].shape)
+        res["fused" if fused else "generic"] = d
+        del whole, split
+    run, sim, tunes = _glmm_chees_run(
+        torch, mt, glmm, fg, chees, warm,
+        f"(l) rank {rank}, the fused GLMM's groups over (data, obs)",
+        mesh=mesh, site_specs=GLMM_TUPLE_SPECS)
+    np.save(Path(outdir) / f"axes_glmm_draws{rank}.npy", sim.value)
+    run["tunes"] = tunes
+    run["z_shape"] = list(sim.states["state"]["z"].shape)
+    run["group_collectives"] = sim.timing.get("group_collectives", {})
+    res["chees"] = run
+    return res
+
+
+def axes_rank(init, rank, outdir):
+    """One of the four ranks of the mesh phase's (l): several data axes."""
+    import torch
+    import torch.distributed as dist
+    import mamba_tpu_torch as mt
+    from mamba_tpu_torch.models import glmm, rats
+    from mamba_tpu_torch.ops import fused_glmm as fg
+    from mamba_tpu_torch.parallel import distributed_init, make_mesh
+    from mamba_tpu_torch.samplers import chees, nuts
+    outdir = Path(outdir)
+    with np.load(outdir / "warm.npz") as f:
+        warm_arrays = {k: f[k] for k in f.files}
+    _, _, inits, _ = glmm.build(MESH_G, fused=True)
+    warm = [dict(inits[0], **{k: v[i] for k, v in warm_arrays.items()})
+            for i in range(CHAINS)]
+    distributed_init(init, AXES_RANKS, rank, device_type="cpu",
+                     timeout=MESH_GROUP_TIMEOUT)
+    try:
+        weeks = make_mesh({"chains": 1, "data": 2, "week": 2}, "cpu")
+        obs = make_mesh({"chains": 1, "data": 2, "obs": 2}, "cpu")
+        res = {}
+        t0 = time.perf_counter()
+        res["rats"] = _rats_data_mesh(torch, mt, nuts, weeks, rank, outdir,
+                                      specs=RATS_AXES_SPECS, label="(l)",
+                                      tag="axes_rats")
+        res["rats"]["wall_s"] = time.perf_counter() - t0
+
+        def rats_axes():
+            model, inputs, inits = rats.build("nuts")
+            return model, inputs, inits, RATS_AXES_SPECS, "leapfrogs"
+        t0 = time.perf_counter()
+        res["graphs"] = _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm,
+                                     weeks, rank, outdir,
+                                     arms={"rats_axes": rats_axes}, label="(l)")
+        res["graphs"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["glmm"] = _axes_glmm(torch, mt, glmm, fg, chees, warm, obs, rank,
+                                 outdir)
+        res["glmm"]["wall_s"] = time.perf_counter() - t0
+        (outdir / f"axes{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def _axes_gates(ranks, rats_draws, graph_draws, glmm_draws, failed):
+    """(l)'s gates on the four ranks' results (``axes_rank``, whose rats
+    run raised on the mu_beta gate and whose captured rats run raised
+    where it differed from its plain loops already): the draws finite and
+    equal on every rank; each rank holding 15 rats of alpha and beta and
+    15 x 3 of y; the fused GLMM's ranks each over 2,500 groups, its
+    kernel launched in the run, both forms' density and gradient against
+    the whole under phase 3's gates.  Appends what fails to ``failed``."""
+    for label, draws in (("rats", rats_draws), ("graphs", graph_draws),
+                         ("glmm", glmm_draws)):
+        if not (all(np.array_equal(d, draws[0]) for d in draws)
+                and np.isfinite(draws[0]).all()):
+            failed.append(f"(l) {label}: finite draws, equal on every rank")
+    iters, burnin = MESH_CHEES_RUN
+    if glmm_draws[0].shape != (iters - burnin, 5, CHAINS):
+        failed.append(f"(l) glmm: draws shaped {glmm_draws[0].shape}")
+    quarter = MESH_G // AXES_RANKS
+    for r, res in enumerate(ranks):
+        rats_ = res["rats"]
+        if (rats_["shapes"] != {"y": [CHAINS, 15, 3], "alpha": [CHAINS, 15],
+                                "beta": [CHAINS, 15]}
+                or rats_["held"] != ["alpha", "beta"]):
+            failed.append(f"(l) rank {r}: holds {rats_['shapes']}, held "
+                          f"{rats_['held']}")
+        g = res["glmm"]
+        for form, held, shape in (
+                ("fused", {"z": {"0": ["data", "obs"]}}, [4, 10, quarter]),
+                ("generic", {"z": {"0": ["data"]}}, [MESH_G // 2, 5, 4])):
+            d = g[form]
+            if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL
+                    and d["layouts"] == held and d["block_shape"] == shape
+                    and d["launches_split"] == (1 if form == "fused" else 0)):
+                failed.append(f"(l) rank {r} {form}: {d}")
+        run = g["chees"]
+        if run["z_shape"] != [CHAINS, quarter] or run["kernel_launches"] <= 0:
+            failed.append(f"(l) rank {r} ChEES: z {run['z_shape']}, "
+                          f"{run['kernel_launches']} launches")
+    if any(res["glmm"]["chees"]["tunes"] != ranks[0]["glmm"]["chees"]["tunes"]
+           for res in ranks):
+        failed.append("(l) ChEES: (epsilon, traj) equal on every rank")
+    keys = ("sample_s", "wall_s", "leapfrog_steps", "wall_ms_per_leapfrog",
+            "mu_beta_mean", "group_collectives")
+    return {"rats": {k: [res["rats"][k] for res in ranks] for k in keys},
+            "graphs": [res["graphs"] for res in ranks],
+            "glmm": [{form: res["glmm"][form] for form in ("fused", "generic")}
+                     for res in ranks],
+            "chees": [{k: v for k, v in res["glmm"]["chees"].items()
+                       if k not in ("tunes", "steps_per_iteration")}
+                      for res in ranks],
+            "wall_s": [res["rats"]["wall_s"] + res["graphs"]["wall_s"]
+                       + res["glmm"]["wall_s"] for res in ranks]}
+
+
 def _local_views_gates(local, draws, failed):
     """(e)'s gates on both ranks' results (``_local_views``): finite draws
     equal on both ranks, each rank's density and gradient against the
@@ -2242,11 +2420,15 @@ def _local_views_gates(local, draws, failed):
 class _RankView:
     """Data rank ``rank`` of a (1, 2) chains x data mesh as one process
     holds it, for timing its part of a density (no collective is called)."""
-    chain_axis, data_axis = "chains", "data"
+    chain_axis, data_axis, data_axes = "chains", "data", ("data",)
     chain_rank, chain_size, data_size = 0, 1, 2
 
     def __init__(self, rank):
         self.data_rank = rank
+
+    @property
+    def data_shape(self):
+        return (self.data_size,)
 
 
 #: density calls timed per figure of ``_rank_density_ms``
@@ -2363,6 +2545,16 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
         res["restart"]["write_s"] = {
             "chain_mesh": [r["write_s"] for r in ranks],
             "local": [r["local"]["write_s"] for r in ranks]}
+        t0 = time.perf_counter()                                  # (l)
+        run_ranks(lambda r, init: [sys.executable, str(Path(__file__).resolve()),
+                                   "--axes-rank", init, r, tmp],
+                  AXES_RANKS, timeout=MESH_RANKS_TIMEOUT)
+        res["four_ranks_s"] = time.perf_counter() - t0
+        axes = [json.loads((Path(tmp) / f"axes{r}.json").read_text())
+                for r in range(AXES_RANKS)]
+        axes_draws = {k: [np.load(Path(tmp) / f"{k}_draws{r}.npy")
+                          for r in range(AXES_RANKS)]
+                      for k in ("axes_rats", "graph_rats_axes", "axes_glmm")}
     log("mesh (f), a sharded run's file restarted on one device: "
         + json.dumps(res["restart"]))
     iters, burnin = MESH_CHEES_RUN
@@ -2408,6 +2600,18 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
         failed.append("(k) the fused kernel's launches in captured segments")
     if res["launches_j"] <= 0:
         failed.append("(j) the fused kernel's launches")
+    res["axes"] = _axes_gates(axes, axes_draws["axes_rats"],
+                              axes_draws["graph_rats_axes"],
+                              axes_draws["axes_glmm"], failed)
+    res["axes"]["four_ranks_s"] = res["four_ranks_s"]
+    # the fused kernel in (l)'s captured ChEES run, each rank over 2,500
+    # groups, through the segments' replays
+    res["launches_l"] = sum(r["glmm"]["chees"]["kernel_launches"] for r in axes)
+    res["launches"] += res["launches_l"]
+    if res["launches_l"] <= 0:
+        failed.append("(l) the fused kernel's launches")
+    log("mesh (l), several data axes on a (1, 2, 2) mesh: "
+        + json.dumps(res["axes"]))
     res["rats"] = _rats_gates_h([r["rats"] for r in ranks], rats_draws, failed)
     log("mesh (h), rats NUTS on a (1, 2) data mesh: " + json.dumps(res["rats"]))
     res["rats_chains"] = _rats_chains_gates(rats_chain_draws, rats_draws_6,
@@ -2425,9 +2629,10 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
                                  time_reps=20 if timed else 0)
                      for C, G, timed in ((512, 10_000, True),
                                          (1024, 5_000, True),
-                                         (513, 5_000, False))]
+                                         (513, 5_000, False),
+                                         (1024, MESH_G // AXES_RANKS, True))]
     log("mesh: " + json.dumps({k: v for k, v in res.items() if k != "kernel"}))
-    for case in res["kernel"][:2]:
+    for case in (res["kernel"][i] for i in (0, 1, 3)):
         log(f"mesh: kernel at C={case['C']}, G={case['G']}: {case['ms']:.4f} ms, "
             f"bound {case['bound']['bound_ms']:.4f} ms "
             f"({case['pct_of_bound']:.1f}%), plain {case['plain_ms']:.3f} ms")
@@ -3044,7 +3249,16 @@ def main() -> int:
         "floors_ms": {k[:-3]: v for k, v in bound.items() if k.endswith("_ms")
                       and k != "bound_ms"},
         "pct_of_bound": slice_case["pct_of_bound"],
-        "library_ms": None}, _threefry_line(threefry, sum(draws.values()))]}))
+        "library_ms": None,
+        # a data rank's launch at 1024 chains over its share of the groups:
+        # (e)/(j)'s 5,000 of two ranks, (l)'s 2,500 of four
+        "rank_ms": {str(c["G"]): c["ms"] for c in mesh_res["kernel"]
+                    if c["C"] == CHAINS and "ms" in c},
+        "rank_bound_ms": {str(c["G"]): c["bound"]["bound_ms"]
+                          for c in mesh_res["kernel"]
+                          if c["C"] == CHAINS and "ms" in c},
+        "launches_l": mesh_res["launches_l"]},
+        _threefry_line(threefry, sum(draws.values()))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3054,5 +3268,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--axes-rank"]:
+        axes_rank(sys.argv[2], int(sys.argv[3]), sys.argv[4])
         sys.exit(0)
     sys.exit(main())

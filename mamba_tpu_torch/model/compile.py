@@ -19,10 +19,13 @@ masking to -inf (reference distributionstruct.jl:138-140).
 Node functions run under ``with torch.device(cm.device)``, so a model
 lambda's fresh tensors (``torch.zeros(G)``) land beside the state.
 
-Under a mesh with a data axis (``comm.data_size > 1``) each data rank holds
-and evaluates only its slice (``parallel.mesh.data_block``) of the arrays
-that ``site_specs`` names on the data axis, as GSPMD does in the JAX
-package:
+Under a mesh with data axes (``comm.data_size > 1``) each data rank holds
+and evaluates only its block (``parallel.mesh.DataGroup.block``) of the
+arrays that ``site_specs`` names on the data axes, as GSPMD does in the
+JAX package.  An array's **layout** is ``{dim: axes}``: each dim it is cut
+on, by the product of its axes' sizes (a spec's tuple entry, its first
+axis major).  "Slice" below is a rank's block under a layout; "the data
+group" is every rank that shares the rank's chain rank:
 
 - ``inputs`` hold the rank's slice of every named input;
 - the chain-stacked state holds the slice of every named data site
@@ -40,17 +43,23 @@ package:
   slices and whole values may come out a slice (line's ``mu = xmat @
   beta``); which nodes do, and along which dim, is found at compile time.
 
-A rank's block density sums its part of every named term (the slice's
-terms, padding masked out), the Jacobian of the slices it maps and, on
-data rank 0 alone, every other term and the Jacobian of the whole sites:
-the parts sum to the density over the data group (``logpdf``).  A block
-call is completed by one all-reduce (``block_sum``): of the value and the
-whole coordinates' gradient where the block holds slices (each slice
-coordinate's gradient is the rank's own), else of the value and the whole
-gradient.  To
+A value cut over a set S of the data axes is held alike by the ranks
+that differ on the other data axes only, and counts once: on the ranks at
+index 0 of every data axis outside S (``_counts``).  A rank's block
+density sums its part of every named term it counts (the slice's terms,
+padding masked out), the Jacobian of the slices it maps and counts, and,
+on data rank 0 alone, every other term and the Jacobian of the whole
+sites: the parts sum to the density over the data group (``logpdf``).  A
+block call is completed by one all-reduce over the data group
+(``block_sum``): of the value and the whole coordinates' gradient where
+the block holds slices, else of the value and the whole gradient; a slice
+coordinate's gradient is the rank's own, summed over the data axes its
+site is replicated on (one all-reduce per such set of axes: rats'
+``alpha``, cut by rat, over ``week``).  To
 know the parts are right, the compiler evaluates the graph at a probe
-state once whole and once on every slice, all on this host (every rank is
-given whole inputs), and refuses, naming the node, a model whose named
+state once whole and once on every rank's slices (every block of the
+group), all on this host (every rank is given whole inputs), and refuses,
+naming the node, a model whose named
 terms' parts do not sum to the term or whose unnamed terms change on a
 slice, where none of the resolutions below confirms them; a named
 sampled site is held in
@@ -118,9 +127,9 @@ A node resolved or gathered whole from an array that the data axis pads
 (``_unpadded``, ``WholeValues``): its value is the unsharded run's, not
 a count of the padding.
 
-What stays refused, each by a ValueError that names it: a dim of a spec
-that names the chain axis (and a second data axis: ``MeshComm``); a
-named sampled site whose data dim is an event dim of a law that reads a
+What stays refused, each by a ValueError that names it: a spec that
+names the chain axis, or an axis on two dims (``parallel.mesh.data_dim``);
+a named sampled site whose data dim is an event dim of a law that reads a
 slice; a named term that reads a node its block gathers per density call
 (each rank's part would need every rank's gradient); a node gathered
 from another gathered node; and anything whose parts the probe cannot
@@ -138,8 +147,7 @@ import torch
 
 from ..ops import random as R
 from ..ops.distributions.base import dist_flatten, keys_lead
-from ..parallel.mesh import (WHOLE, BlockCoords, MeshComm, data_block,
-                             data_dim)
+from ..parallel.mesh import WHOLE, BlockCoords, DataGroup, MeshComm, data_dim
 from ..utils.convert import to_tensor
 from ..utils.pytree import RavelSpec, elementwise_names, make_ravel_spec
 from .model import Model
@@ -201,6 +209,9 @@ class CompiledModel:
         self.dtype = dtype or default_dtype(self.device)
         #: this rank's collectives over the run's mesh (none: the identity)
         self.comm = comm or MeshComm()
+        #: the data axes as this rank sees them: its blocks under a layout
+        self._geo = DataGroup(self.comm.data_axes, self.comm.data_shape,
+                              self.comm.data_rank)
         #: per-site likelihood masks (True = real observation); masked-out
         #: entries contribute exactly 0 to every log density
         self.masks = {k: np.asarray(v, dtype=bool)
@@ -218,18 +229,18 @@ class CompiledModel:
         self.stochastic = model.keys("stochastic")
         self.logical = model.keys("logical")
 
-        # ---- the data axis (``_plan_views``); empty without one ---------
-        #: every array named on the data axis: the dim its spec shards
-        self._data_dims: dict[str, int] = {}
+        # ---- the data axes (``_plan_views``); empty without them --------
+        #: every array named on the data axes: its layout (``{dim: axes}``)
+        self._data_dims: dict[str, dict] = {}
         #: nodes this rank holds in part (named inputs, named observed
-        #: sites, logicals that come out a slice): the dim of the slice
-        self.local_dims: dict[str, int] = {}
-        #: named sampled sites, whole in the state: the dim the density's
-        #: env cuts
-        self._env_dims: dict[str, int] = {}
+        #: sites, logicals that come out a slice): the slice's layout
+        self.local_dims: dict[str, dict] = {}
+        #: named sampled sites, whole in the state: the layout the
+        #: density's env cuts
+        self._env_dims: dict[str, dict] = {}
         #: named sampled sites this rank holds as its slice, in the state and
-        #: in its blocks' flat vectors (module docstring): their dim
-        self._held: dict[str, int] = {}
+        #: in its blocks' flat vectors (module docstring): their layout
+        self._held: dict[str, dict] = {}
         #: named sampled sites whole in the state: why each is not held
         self._whole_reasons: dict[str, str] = {}
         #: logical nodes that are neither whole nor a slice on a data rank
@@ -238,39 +249,40 @@ class CompiledModel:
         #: (``_part_plan``)
         self._local_plans: dict[str, tuple] = {}
         #: per site held in part, or named sampled site, whose distribution
-        #: reads slices: each parameter's sliced dim (None: whole, -1:
+        #: reads slices: each parameter's layout (None: whole, -1:
         #: neither) and its ndim
         self._leaf_dims: dict[str, list] = {}
         #: named sampled sites whose prior reads slices, whole in the state
-        #: (not ``_held``): the dim of the slice the density maps and sums
-        #: (``block_functions``)
-        self._part_sites: dict[str, int] = {}
+        #: (not ``_held``): the layout of the slice the density maps and
+        #: sums (``block_functions``)
+        self._part_sites: dict[str, dict] = {}
         #: logicals that read only constants (inputs, data with no missing
         #: entries), evaluated whole once: (the rank's value, the whole)
         self._consts: dict[str, tuple] = {}
         #: logicals that read only whole state values and constants,
-        #: computed from the whole values: the dim the env cuts (None: whole)
-        self._recut: dict[str, int | None] = {}
+        #: computed from the whole values: the layout the env cuts (None:
+        #: whole)
+        self._recut: dict[str, dict | None] = {}
         #: the data sites a constant reads: every chain's init must hold
         #: the example's value (``mcmc``'s ``_chain_inits`` checks)
         self.const_data: frozenset = frozenset()
         #: per node or term, the whole parents it reads as the rank's slice
-        #: of them: the dim each is cut along
-        self._cuts: dict[str, dict[str, int]] = {}
+        #: of them: the layout each is cut by (one dim)
+        self._cuts: dict[str, dict[str, dict]] = {}
         #: mixed nodes that a density term reads, computed whole on every
         #: rank from parents gathered over the data group: per node, the
-        #: parents it reads in part and their data dims
-        self._gathered: dict[str, dict[str, int]] = {}
-        #: every gathered node's parents read in part: their data dims
-        self._gather_dims: dict[str, int] = {}
+        #: parents it reads in part and their layouts
+        self._gathered: dict[str, dict[str, dict]] = {}
+        #: every gathered node's parents read in part: their layouts
+        self._gather_dims: dict[str, dict] = {}
         #: each padded length of a data dim: its length as given
         self._given: dict[int, int] = {}
         #: padded lengths that are padded from two lengths, or real for
         #: another array
         self._ambiguous: set = set()
         #: mixed nodes computed from unpadded parents and padded back: the
-        #: dim padded
-        self._padded_back: dict[str, int] = {}
+        #: dims padded
+        self._padded_back: dict[str, tuple] = {}
         #: the gathered parents' whole values at the example inits
         self._example_wholes: dict = {}
         # --- resolve shapes / bijectors with one eager forward pass -------
@@ -302,6 +314,8 @@ class CompiledModel:
         #: how ``_site_lp`` applies each mask (``_mask_plan``)
         self._plans = {n: self._mask_plan(n, dists[n], m)
                        for n, m in self.masks.items()}
+        for spec in (site_specs or {}).values():   # the refusals, on any mesh
+            data_dim(spec, self.comm.data_axes, self.comm.chain_axis)
         if self.comm.data_size > 1 and site_specs:
             self._plan_views(site_specs, state)
 
@@ -360,8 +374,8 @@ class CompiledModel:
         if name in self._recut:
             whole = self._call_with(node, env, wenv)
             wenv[name] = whole
-            dim = self._recut[name]
-            return whole if dim is None else self._block(whole, dim)
+            layout = self._recut[name]
+            return whole if layout is None else self._block(whole, layout)
         return self._call(node, env)
 
     def _call_with(self, node, env, wenv):
@@ -443,23 +457,26 @@ class CompiledModel:
         the parts against the whole at the probe state (``_probe_state``
         of the ``example`` state), keep this rank's slices and drop the
         rest."""
-        comm = self.comm
+        comm, geo = self.comm, self._geo
         size, nodes = comm.data_size, self.model.nodes
         dims = {}
         for name, spec in site_specs.items():
             if name not in self.inputs and name not in example:
                 continue
-            dim = data_dim(spec, comm.data_axis, comm.chain_axis)
-            if dim is None:
+            layout = geo.layout(data_dim(spec, comm.data_axes, comm.chain_axis))
+            if not layout:
                 continue
             shape = tuple((self.inputs.get(name, example.get(name))).shape)
-            if dim >= len(shape):
-                raise ValueError(f"site spec {spec} of {name!r} names dim "
-                                 f"{dim}, but its value has shape {shape}")
-            if shape[dim] % size:
-                raise ValueError(f"dim {dim} of {name!r} ({shape[dim]}) "
-                                 f"does not divide over the data axis")
-            dims[name] = dim
+            for dim, axes in layout.items():
+                if dim >= len(shape):
+                    raise ValueError(f"site spec {spec} of {name!r} names "
+                                     f"dim {dim}, but its value has shape "
+                                     f"{shape}")
+                if shape[dim] % geo.count(axes):
+                    raise ValueError(f"dim {dim} of {name!r} ({shape[dim]}) "
+                                     f"does not divide over the data axes "
+                                     f"{axes}")
+            dims[name] = layout
         if not dims:
             return
         self._data_dims = dims
@@ -470,7 +487,7 @@ class CompiledModel:
         arrays = {**self.inputs, **state}
 
         def cut(name, x, k):
-            return data_block(x, dims[name], k, size)
+            return geo.block(x, dims[name], k)
 
         # the graph whole and on every slice, on this host, in topo order:
         # how each node's slices relate to its whole value (``_classify``).
@@ -479,7 +496,7 @@ class CompiledModel:
         # padded tails dropped (``_unpadded``).  A mixed node that reads
         # only constants (``const``) or only whole state values and
         # constants (``run_whole``) is resolved: its whole value, cut where
-        # the slices' shape says (``_cut_dim``), as the rank will hold it.
+        # the slices' shape says (``_cut_layout``), as the rank will hold it.
         # Any other that a density term reads is gathered: every rank
         # computes it whole from its parents gathered over the data group.
         # A node or term that fails on the slices, or comes out mixed, may
@@ -510,12 +527,12 @@ class CompiledModel:
                 if how == "mixed":
                     value = self._unpadded(node, whole, sliced, value)
                     if const[name] or run_whole[name]:
-                        d = _cut_dim(value, parts)
+                        d = _cut_layout(value, parts, geo)
                         if d is not False:
                             resolved[name] = d
                             how = d
                             parts = [value if d is None else
-                                     data_block(value, d, k, size)
+                                     geo.block(value, d, k)
                                      for k in range(size)]
                     if how == "mixed" and name in read_by_terms:
                         gathered[name] = self._gathered_parents(
@@ -548,10 +565,9 @@ class CompiledModel:
                                    and (name in data or reads[name]))
         observed = data
         # keep this rank's slices, as copies that own their memory
-        r = comm.data_rank
         owned = {n: d for n, d in resolved.items() if const[n]}
         self._consts = {
-            n: (whole[n] if d is None else data_block(whole[n], d, r, size)
+            n: (whole[n] if d is None else geo.block(whole[n], d)
                 .clone(memory_format=torch.contiguous_format), whole[n])
             for n, d in owned.items()}
         recut = {n: d for n, d in resolved.items() if n not in owned}
@@ -580,7 +596,8 @@ class CompiledModel:
         self._gathered = gathered
         self._gather_dims = {p: d for g in gathered.values()
                              for p, d in g.items()}
-        self.inputs = {n: cut(n, v, r).clone(memory_format=torch.contiguous_format)
+        self.inputs = {n: geo.block(v, dims[n]).clone(
+                           memory_format=torch.contiguous_format)
                        if n in dims else v for n, v in self.inputs.items()}
         self.local_dims = {n: d for n, d in sliced.items()
                            if n not in self.sites or n in observed
@@ -596,11 +613,12 @@ class CompiledModel:
                                     **self._example_wholes})
         self.example_dists = {n: self._node_dist(n, local_env)
                               for n in self.stochastic}
-        self._local_plans = {n: self._part_plan(n, r, self.example_dists[n],
+        self._local_plans = {n: self._part_plan(n, comm.data_rank,
+                                                self.example_dists[n],
                                                 dists[n], reads[n], observed)
                              for n in dims if n in self.sites}
         self._leaf_dims = {
-            n: _leaf_dims(dists[n], [d[n] for d in part_dists], tol)
+            n: _leaf_dims(dists[n], [d[n] for d in part_dists], tol, geo)
             for n in (*self.local_state, *self._part_sites) if reads[n]}
         # the whole-mask plans of named sites hold whole constants
         self._plans = {n: p for n, p in self._plans.items() if n not in dims}
@@ -611,33 +629,36 @@ class CompiledModel:
         padded for one array and real for another, is ambiguous
         (``_ambiguous``): ``_trim`` refuses to cut it."""
         given, real = {}, set()
-        for n, d in dims.items():
-            length = tuple((self.inputs.get(n, example.get(n))).shape)[d]
-            g = self.pads.get(n, {}).get(d)
-            if g is None or g == length:
-                real.add(length)
-            else:
-                given.setdefault(length, set()).add(g)
+        for n, layout in dims.items():
+            for d in layout:
+                length = tuple((self.inputs.get(n, example.get(n))).shape)[d]
+                g = self.pads.get(n, {}).get(d)
+                if g is None or g == length:
+                    real.add(length)
+                else:
+                    given.setdefault(length, set()).add(g)
         self._ambiguous = {n for n, g in given.items()
                            if len(g) > 1 or n in real}
         return {n: min(g) for n, g in given.items() if n not in self._ambiguous}
 
-    def _trim(self, x, dim, lead: int = 0, what: str = "a value"):
-        """``x`` with the padded tail of its data dim ``dim`` dropped (the
-        length as given, ``_given``): the unsharded run's value.  ``x``
-        itself where ``dim`` is None or is not padded.  ``what`` names
-        ``x`` in the refusal of an ambiguous length."""
-        if dim is None:
-            return x
-        n = x.shape[lead + dim]
-        if n in self._ambiguous:
-            raise ValueError(
-                f"{what} has {n} entries along the data axis, a length that "
-                f"the axis pads for one array and another array has as "
-                f"given: its padded tail cannot be told apart.  Give the "
-                f"data axis lengths it divides")
-        g = self._given.get(n)
-        return x if g is None else x.narrow(lead + dim, 0, g)
+    def _trim(self, x, dims, lead: int = 0, what: str = "a value"):
+        """``x`` with the padded tail of each of its data dims ``dims`` (a
+        layout, or a tuple of dims) dropped (the length as given,
+        ``_given``): the unsharded run's value.  ``x`` itself where
+        ``dims`` is None or none is padded.  ``what`` names ``x`` in the
+        refusal of an ambiguous length."""
+        for dim in dims or ():
+            n = x.shape[lead + dim]
+            if n in self._ambiguous:
+                raise ValueError(
+                    f"{what} has {n} entries along the data axis, a length "
+                    f"that the axis pads for one array and another array has "
+                    f"as given: its padded tail cannot be told apart.  Give "
+                    f"the data axes lengths they divide")
+            g = self._given.get(n)
+            if g is not None:
+                x = x.narrow(lead + dim, 0, g)
+        return x
 
     def trim(self, name: str, x, lead: int = 0):
         """The whole value ``x`` of node ``name`` without the entries the
@@ -652,25 +673,27 @@ class CompiledModel:
 
     def _pad_back(self, name: str, t, shape: tuple, lead: int = 0):
         """``t``, a node's value computed from unpadded parents, edge-padded
-        back to its padded ``shape`` (``lead`` dims before the node's own),
-        as a padded array holds its tail; records the dim."""
+        back to its padded ``shape`` (``lead`` dims before the node's own)
+        along each padded dim, as a padded array holds its tail; records
+        the dims."""
         have = tuple(t.shape[lead:])
         if have == tuple(shape):
             return t
         diff = [d for d in range(len(shape)) if len(have) == len(shape)
                 and have[d] != shape[d]]
-        if len(diff) != 1 or self._given.get(shape[diff[0]]) != have[diff[0]]:
+        if not diff or any(self._given.get(shape[d]) != have[d] for d in diff):
             raise ValueError(
-                f"node {name!r} is computed from arrays the data axis pads, "
+                f"node {name!r} is computed from arrays the data axes pad, "
                 f"and its value without their padding is shaped {have}, "
                 f"not its padded shape {tuple(shape)} less the padding")
-        d = diff[0]
-        self._padded_back[name] = d
-        ax = lead + d
-        tail = t.narrow(ax, have[d] - 1, 1)
-        more = list(t.shape)
-        more[ax] = shape[d] - have[d]
-        return torch.cat([t, tail.expand(more)], dim=ax)
+        self._padded_back[name] = tuple(diff)
+        for d in diff:
+            ax = lead + d
+            tail = t.narrow(ax, have[d] - 1, 1)
+            more = list(t.shape)
+            more[ax] = shape[d] - have[d]
+            t = torch.cat([t, tail.expand(more)], dim=ax)
+        return t
 
     def _unpadded(self, node, whole: dict, sliced: dict, value):
         """A mixed node's whole value as the unsharded run has it: computed
@@ -692,16 +715,20 @@ class CompiledModel:
         computes whole from whole state values and constants
         (``run_whole``) or gathers, cut along one of its dims whose length
         is the whole length of a data dim the node reads (its own, for a
-        named site)."""
-        lengths = {tuple(whole[d].shape)[sliced[d]] for d in node.deps
-                   if d in sliced}
+        named site), by that data dim's axes: a cut is ``{dim: axes}``."""
+        lengths: dict = {}
+        named = [(whole[d], sliced[d]) for d in node.deps if d in sliced]
         if name in self._data_dims and name in whole:
-            lengths.add(tuple(whole[name].shape)[self._data_dims[name]])
+            named.append((whole[name], self._data_dims[name]))
+        for value, layout in named:
+            for dim, axes in layout.items():
+                lengths.setdefault(tuple(value.shape)[dim], []).append(axes)
         opts = []
         for d in node.deps:
             if d in sliced or not (run_whole.get(d) or d in gathered):
                 continue
-            at = [i for i, n in enumerate(tuple(whole[d].shape)) if n in lengths]
+            at = [{i: axes} for i, n in enumerate(tuple(whole[d].shape))
+                  for axes in dict.fromkeys(lengths.get(n, ()))]
             if at:
                 opts.append((d, at))
         out = []
@@ -713,10 +740,10 @@ class CompiledModel:
 
     def _call_cut(self, node, env: dict, combo: dict, k: int):
         """``node`` on slice ``k``'s env, each parent of ``combo`` read as
-        its block ``k`` along the dim ``combo`` gives."""
-        size = self.comm.data_size
+        rank ``k``'s block under the layout ``combo`` gives."""
+        geo = self._geo
         with torch.device(self.device):
-            return node.fn(*[data_block(env[d], combo[d], k, size)
+            return node.fn(*[geo.block(env[d], combo[d], k)
                              if d in combo else env[d] for d in node.deps])
 
     def _slices_of(self, name, node, value, envs, options, tol):
@@ -727,7 +754,7 @@ class CompiledModel:
         error, parts = None, None
         try:
             parts = [self._call_cut(node, e, {}, k) for k, e in enumerate(envs)]
-            how = _classify(value, parts, tol)
+            how = _classify(value, parts, tol, self._geo)
             if how != "mixed":
                 return parts, how, {}
         except _EVAL_ERRORS as e:
@@ -738,7 +765,7 @@ class CompiledModel:
                        for k, e in enumerate(envs)]
             except _EVAL_ERRORS:
                 continue
-            how = _classify(value, got, tol)
+            how = _classify(value, got, tol, self._geo)
             if how != "mixed":
                 return got, how, combo
         if parts is None:
@@ -793,11 +820,12 @@ class CompiledModel:
                          for k in range(size)]
             except ValueError as e:
                 raise _Failed(e) from e
+            layout = self._data_dims[name]
             try:
                 parts = [self._part_lp(plans[k], pds[k],
-                                       data_block(value, self._data_dims[name],
-                                                  k, size))
-                         for k in range(size)]
+                                       self._geo.block(value, layout, k))
+                         for k in range(size)
+                         if self._geo.leads(layout, k)]
             except _EVAL_ERRORS as e:
                 raise _Failed(ValueError(
                     f"the density of {name!r} cannot be evaluated on a data "
@@ -882,7 +910,8 @@ class CompiledModel:
             elif any(p[0] not in ("local", "cut") for p in plans[n]):
                 reasons[n] = "a rank's part of its density is not its slice's"
             elif (len(site.unconstrained_shape) != len(site.shape)
-                  or site.unconstrained_shape[d] != site.shape[d]):
+                  or any(site.unconstrained_shape[i] != site.shape[i]
+                         for i in d)):
                 reasons[n] = ("its unconstrained shape does not keep the data "
                               "dim")
             else:
@@ -894,15 +923,16 @@ class CompiledModel:
                     held[n] = d
         return held, reasons
 
-    def _maps_slices(self, dim, plans, value, whole, parts, tol) -> str:
+    def _maps_slices(self, layout, plans, value, whole, parts, tol) -> str:
         """Why a site's bijector does not map each data rank's slice
         alone at the probe state ("" where it does): each slice's bijector
         (of the rank's distribution, cut by its plan) must take the slice
         of the whole unconstrained value to the slice of ``value`` and
         back, and the slices' Jacobians sum to the whole's.  A slice's
         distribution shaped beyond the slice (a parameter the data axis
-        does not cut) does not map it."""
-        size = self.comm.data_size
+        does not cut) does not map it.  Each slice's Jacobian counts once,
+        on the ranks that count the site (``DataGroup.leads``)."""
+        geo = self._geo
         ev = max(whole.event_ndim, 0)
         try:
             b = whole.bijector()
@@ -910,8 +940,8 @@ class CompiledModel:
             logdets = []
             for k, (plan, part) in enumerate(zip(plans, parts)):
                 dk = self._slice_dist(plan, part)
-                uk = data_block(u, dim, k, size)
-                vk = data_block(value, dim, k, size)
+                uk = geo.block(u, layout, k)
+                vk = geo.block(value, layout, k)
                 shape = tuple(dk.batch_shape) + tuple(dk.event_shape)
                 if not _fits(shape, tuple(vk.shape)):
                     return (f"data rank {k}'s distribution is shaped {shape}, "
@@ -921,7 +951,8 @@ class CompiledModel:
                         and _close(bk.inverse(vk), uk, tol)):
                     return (f"its bijector on data rank {k}'s slice is not "
                             f"the whole's")
-                logdets.append(torch.sum(bk.event_log_det(uk, ev)))
+                if geo.leads(layout, k):
+                    logdets.append(torch.sum(bk.event_log_det(uk, ev)))
             if not _lp_close(logdets, torch.sum(b.event_log_det(u, ev)), tol):
                 return "its slices' Jacobians do not sum to the whole's"
         except _EVAL_ERRORS as e:
@@ -932,7 +963,7 @@ class CompiledModel:
         """A data rank's distribution of a named site as its part reads it
         (``_part_plan``): cut to the slice under a ``"cut"`` plan."""
         if plan[0] == "cut":
-            return self._cut_dist(dist, *plan[1:5], plan[6])
+            return self._cut_dist(dist, plan[1], plan[3])
         return dist
 
     def _slice_bijector(self, name: str, dist):
@@ -1000,53 +1031,68 @@ class CompiledModel:
 
         - ``("local", mask_plan)``: the distribution reads sliced values,
           so it is the slice's own (a law whose batch dims hold the data
-          dim: its rows); or its batch does not reach the data dim, which
-          recycles it over the value's leading dims (a law per row read
-          whole: birats' ``MvNormal(mu_beta, Sigma)``); ``log_prob`` of
-          the slice;
-        - ``("cut", from_right, lo, hi, length, mask_plan, rows)``: a
-          distribution with whole parameters, each parameter cut to entries
-          lo..hi-1 of the site's data dim (``from_right`` dims from its
-          last) where it has the dim's whole ``length``; ``rows``: a
-          multivariate law per row (the data dim among its batch dims,
-          its events whole), whose parameters carry event dims after it;
+          dims: its rows); or its batch does not reach the data dims,
+          which recycles it over the value's leading dims (a law per row
+          read whole: birats' ``MvNormal(mu_beta, Sigma)``); ``log_prob``
+          of the slice;
+        - ``("cut", cuts, mask_plan, rows)``: a distribution with whole
+          parameters, each parameter cut, for each ``(from_right, lo, hi,
+          length)`` of ``cuts``, to entries lo..hi-1 of a data dim of the
+          site (``from_right`` dims from its last) where it has the dim's
+          whole ``length``; ``rows``: a multivariate law per row (the data
+          dims among its batch dims, its events whole), whose parameters
+          carry event dims after them;
         - ``("range", lo, hi, consts, 0)``: a whole distribution whose one
-          event splits along the data dim (``_mask_plan``'s range, the
+          event splits along the one data dim (``_mask_plan``'s range, the
           slice's values starting at 0);
         - ``("zero",)``: the slice is all padding.
 
         ``mask_plan`` is ``_mask_plan`` of the slice's pad mask."""
         shape = self.sites[name].shape
-        dim, size = self._data_dims[name], self.comm.data_size
-        per = shape[dim] // size
-        lo, hi = k * per, (k + 1) * per
+        layout = self._data_dims[name]
+        spans = {}
+        for dim, (index, count) in self._geo.blocks(layout, k).items():
+            per = shape[dim] // count
+            spans[dim] = (index * per, (index + 1) * per)
         mask = self.masks.get(name)
-        part_mask = None if mask is None else data_block(mask, dim, k, size)
+        part_mask = None if mask is None else self._geo.block(mask, layout, k)
         if part_mask is not None and not part_mask.any():
             return ("zero",)
         rows = len(shape) - max(whole.event_ndim, 0)
         if reads:
-            if name not in observed and dim >= rows:
+            at = [d for d in layout if d >= rows]
+            if name not in observed and at:
                 raise ValueError(
                     f"sampled site {name!r} is named on the data axis at dim "
-                    f"{dim}, an event dim of its {type(whole).__name__}, "
+                    f"{at[0]}, an event dim of its {type(whole).__name__}, "
                     f"which reads {reads}, which a data rank holds in part: "
                     f"a slice of an event is not that event's density")
             return ("local", self._mask_plan(name, part, part_mask))
+
+        def cuts(dims):
+            return tuple((len(shape) - d, *spans[d], shape[d]) for d in dims)
         if whole.event_ndim <= 0:
-            return ("cut", len(shape) - dim, lo, hi, shape[dim],
-                    self._mask_plan(name, whole, part_mask), False)
-        # a law per row: its batch dims hold the data dim, its events whole;
-        # a batch that does not reach the data dim recycles the law over it
+            return ("cut", cuts(layout), self._mask_plan(name, whole, part_mask),
+                    False)
+        # a law per row: its batch dims hold the data dims, its events whole;
+        # a batch that does not reach a data dim recycles the law over it
         batch = tuple(whole.batch_shape)
-        at = len(batch) - (rows - dim)
-        if dim < rows and at >= 0 and batch[at] == shape[dim]:
-            return ("cut", len(shape) - dim, lo, hi, shape[dim],
-                    self._mask_plan(name, whole, part_mask), True)
-        if dim < rows and (at < 0 or batch[at] == 1):
+        cut, recycled = [], []
+        for dim in layout:
+            at = len(batch) - (rows - dim)
+            if dim < rows and at >= 0 and batch[at] == shape[dim]:
+                cut.append(dim)
+            elif dim < rows and (at < 0 or batch[at] == 1):
+                recycled.append(dim)
+        if cut and len(cut) + len(recycled) == len(layout):
+            return ("cut", cuts(cut), self._mask_plan(name, whole, part_mask),
+                    True)
+        if recycled and len(recycled) == len(layout):
             return ("local", self._mask_plan(name, whole, part_mask))
-        if (len(shape) == whole.event_ndim
+        dim = next(iter(layout)) if len(layout) == 1 else None
+        if (dim is not None and len(shape) == whole.event_ndim
                 and getattr(whole, "event_split_dim", None) == dim):
+            lo, hi = spans[dim]
             take = np.zeros(shape, dtype=bool)
             take[(slice(None),) * dim + (slice(lo, hi),)] = True
             if mask is not None:
@@ -1054,10 +1100,11 @@ class CompiledModel:
             plan = self._mask_plan(name, whole, take)
             return plan[:4] + (plan[1] - lo,)
         raise ValueError(
-            f"site {name!r} is named on the data axis at dim {dim}, but its "
-            f"{type(whole).__name__} reads only whole values and cannot be "
-            f"cut there: name the arrays its parameters come from on the "
-            f"data axis too, so that it is the slice's own")
+            f"site {name!r} is named on the data axes at dims "
+            f"{sorted(layout)}, but its {type(whole).__name__} reads only "
+            f"whole values and cannot be cut there: name the arrays its "
+            f"parameters come from on the data axes too, so that it is the "
+            f"slice's own")
 
     def block_split(self, params: tuple[str, ...], prior_only: bool = False) -> bool:
         """Whether the block's density is split over the data axis: its
@@ -1098,22 +1145,50 @@ class CompiledModel:
         block (the identity otherwise): of the value and the whole
         gradient, or, where the block holds slices (``block_coords``), of
         the value and the whole coordinates' gradient alone, ``(C, 1 +
-        whole dim)``: a slice coordinate's gradient is the rank's own.  It
-        is called on the outputs of ``torch.func.vmap``, never inside it."""
+        whole dim)``.  A slice coordinate's gradient is the rank's own
+        where its site is cut over every data axis; one whose site is
+        replicated over some data axes is summed over those (the ranks
+        that hold it alike), one all-reduce per such set of axes, in a
+        fixed order.  It is called on the outputs of ``torch.func.vmap``,
+        never inside it."""
         if not self.block_split(params, prior_only):
             return _identity
         coords = self.block_coords(params)
         if prior_only or coords.index is None:
             return self.comm.data_sum
         whole, comm = coords.whole, self.comm
+        replicated = self._replicated_positions(params)
 
         def complete(value, grad=None):
             if grad is None:
                 return comm.data_sum(value)
             (head,) = comm.data_sum(torch.cat(
                 [value[..., None], grad.index_select(-1, whole)], dim=-1))
-            return head[..., 0], grad.index_copy(-1, whole, head[..., 1:])
+            grad = grad.index_copy(-1, whole, head[..., 1:])
+            for axes, at in replicated:
+                (g,) = comm.data_sum(grad.index_select(-1, at), axes=axes)
+                grad = grad.index_copy(-1, at, g)
+            return head[..., 0], grad
         return complete
+
+    def _replicated_positions(self, params) -> list:
+        """The block's slice coordinates whose sites are replicated over
+        some data axes, grouped by those axes: ``[(axes, positions in the
+        rank's flat vector)]``, in the data axes' order."""
+        spec = self.block_ravel_spec(tuple(params), True)
+        geo, groups = self._geo, {}
+        for p, o, n in zip(spec.names, spec.offsets, spec.sizes):
+            if p not in self._held:
+                continue
+            cut = geo.axes_of(self._held[p])
+            axes = tuple(a for a in geo.axes if a not in cut
+                         and geo.sizes[a] > 1)
+            if axes:
+                groups.setdefault(axes, []).append(np.arange(o, o + n))
+        order = sorted(groups, key=lambda axes: [geo.axes.index(a)
+                                                 for a in axes])
+        return [(axes, torch.as_tensor(np.concatenate(groups[axes]),
+                                       device=self.device)) for axes in order]
 
     def block_coords(self, params: tuple[str, ...]) -> BlockCoords:
         """The block's flat coordinates on this data rank
@@ -1127,27 +1202,32 @@ class CompiledModel:
         key = ("coords", tuple(params))
         if key in self._block_cache:
             return self._block_cache[key]
-        size = self.comm.data_size
+        geo = self._geo
         full = make_ravel_spec(
             {p: np.zeros(self.sites[p].unconstrained_shape) for p in params},
             dtype=self.dtype)
         indices = []
-        for k in range(size):
+        for k in range(self.comm.data_size):
             at = []
             for p, shape, offset, n in zip(full.names, full.shapes,
                                            full.offsets, full.sizes):
                 ids = offset + np.arange(n).reshape(shape)
                 if p in self._held:
-                    ids = data_block(ids, self._held[p], k, size)
+                    ids = geo.block(ids, self._held[p], k)
                 at.append(ids.reshape(-1))
             indices.append(torch.as_tensor(np.concatenate(at),
                                            device=self.device))
         spec = self.block_ravel_spec(tuple(params), True)
-        whole = torch.as_tensor(np.concatenate(
-            [np.arange(o, o + n, dtype=np.int64) for p, o, n in
-             zip(spec.names, spec.offsets, spec.sizes) if p not in self._held]
-            + [np.zeros(0, dtype=np.int64)]), device=self.device)
-        out = BlockCoords(self.comm, indices, whole, full.total)
+
+        def positions(keep):
+            return torch.as_tensor(np.concatenate(
+                [np.arange(o, o + n, dtype=np.int64) for p, o, n in
+                 zip(spec.names, spec.offsets, spec.sizes) if keep(p)]
+                + [np.zeros(0, dtype=np.int64)]), device=self.device)
+        whole = positions(lambda p: p not in self._held)
+        counted = positions(lambda p: p in self._held
+                            and geo.leads(self._held[p]))
+        out = BlockCoords(self.comm, indices, whole, full.total, counted)
         self._block_cache[key] = out
         return out
 
@@ -1177,23 +1257,23 @@ class CompiledModel:
         return self._apply(self._plans.get(name), dist, value, support_mask)
 
     @staticmethod
-    def _cut_dist(dist, from_right: int, lo: int, hi: int, length: int,
-                  rows: bool = False):
-        """A distribution cut to entries lo..hi-1 of a dim ``from_right``
-        dims from the value's last: every parameter that has the dim's
-        whole ``length`` there (by broadcasting) is cut.  ``rows``: the
-        parameters may carry event dims of their own after it (a matrix per
-        row), so the first such dim at or before that place is cut; the
-        compiler's check of the parts at the probe state refuses a wrong
-        cut."""
+    def _cut_dist(dist, cuts, rows: bool = False):
+        """A distribution cut, for each ``(from_right, lo, hi, length)`` of
+        ``cuts``, to entries lo..hi-1 of a dim ``from_right`` dims from the
+        value's last: every parameter that has the dim's whole ``length``
+        there (by broadcasting) is cut.  ``rows``: the parameters may carry
+        event dims of their own after it (a matrix per row), so the first
+        such dim at or before that place is cut; the compiler's check of
+        the parts at the probe state refuses a wrong cut."""
         leaves, rebuild = dist_flatten(dist)
         out = []
         for t in leaves:
-            first = t.dim() - from_right
-            for ax in range(first, -1 if rows else first - 1, -1):
-                if ax >= 0 and t.shape[ax] == length:
-                    t = t.narrow(ax, lo, hi - lo)
-                    break
+            for from_right, lo, hi, length in cuts:
+                first = t.dim() - from_right
+                for ax in range(first, -1 if rows else first - 1, -1):
+                    if ax >= 0 and t.shape[ax] == length:
+                        t = t.narrow(ax, lo, hi - lo)
+                        break
             out.append(t)
         return rebuild(out)
 
@@ -1203,28 +1283,38 @@ class CompiledModel:
         if plan[0] == "local":
             return self._apply(plan[1], dist, value, support_mask)
         if plan[0] == "cut":
-            return self._apply(plan[5], self._cut_dist(dist, *plan[1:5],
-                                                       plan[6]),
+            return self._apply(plan[2], self._cut_dist(dist, plan[1], plan[3]),
                                value, support_mask)
         return self._apply(plan, dist, value, support_mask)
 
     def logpdf_part(self, state: dict,
                     terms: tuple[str, ...] | None = None) -> torch.Tensor:
         """This data rank's part of ``logpdf``: its part of every named
-        term, and on data rank 0 every other term.  Without a data axis,
-        ``logpdf`` itself.  Vmappable; sum the parts over the data group
-        outside ``vmap`` (``comm.data_sum``)."""
+        term it counts (``_counts``), and on data rank 0 every other term.
+        Without a data axis, ``logpdf`` itself.  Vmappable; sum the parts
+        over the data group outside ``vmap`` (``comm.data_sum``)."""
         env = self._eval_env(state)
         names = self.stochastic if terms is None else terms
-        lead = self.comm.data_rank == 0
         lp = torch.zeros((), dtype=self.dtype, device=self.device)
         for n in names:
+            if not self._counts(n):
+                continue
             if n in self._local_plans:
                 lp = lp + self._part_lp(self._local_plans[n],
                                         self._node_dist(n, env), env[n])
-            elif lead:
+            else:
                 lp = lp + self._site_lp(n, self._node_dist(n, env), env[n])
         return lp
+
+    def _counts(self, name: str) -> bool:
+        """Whether this rank counts term ``name`` (or the Jacobian of site
+        ``name``): a named one cut over a set S of the data axes on the
+        ranks at index 0 of every data axis outside S, each block once; any
+        other on data rank 0."""
+        layout = self._data_dims.get(name)
+        if layout is None or name not in self._local_plans:
+            return self.comm.data_rank == 0
+        return self._geo.leads(layout)
 
     def logpdf(self, state: dict, terms: tuple[str, ...] | None = None) -> torch.Tensor:
         """Sum of stochastic log-densities (constrained space, no Jacobian)
@@ -1265,20 +1355,21 @@ class CompiledModel:
         holds it (its whole shape unless it holds it in part)."""
         shape = (self.sites[name].shape if name in self.sites
                  else self.logical_shapes[name])
-        d = self.local_dims.get(name)
-        if d is None:
+        layout = self.local_dims.get(name)
+        if layout is None:
             return tuple(shape)
-        return shape[:d] + (shape[d] // self.comm.data_size,) + shape[d + 1:]
+        return self._geo.shape_of(shape, layout)
 
     def local(self, name: str, x, lead: int = 0):
         """This data rank's slice of a whole value ``x`` (array or tensor,
         ``lead`` dims before the node's own) of a node it holds in part
         (``local_dims``); ``x`` itself for any other node."""
-        dim = self.local_dims.get(name)
-        return x if dim is None else self._block(x, lead + dim)
+        layout = self.local_dims.get(name)
+        return x if layout is None else self._block(x, layout, lead)
 
-    def _block(self, x, dim: int):
-        return data_block(x, dim, self.comm.data_rank, self.comm.data_size)
+    def _block(self, x, layout, lead: int = 0):
+        """This rank's block of ``x`` under ``layout``."""
+        return self._geo.block(x, layout, lead=lead)
 
     def whole(self, name: str, x: torch.Tensor, lead: int = 0) -> torch.Tensor:
         """The whole value of node ``name`` from this rank's ``x`` (``lead``
@@ -1291,15 +1382,15 @@ class CompiledModel:
                 f"node {name!r} is computed from a data rank's slices and is "
                 f"neither whole nor a slice of the whole: read it through "
                 f"WholeValues, which computes it from whole values")
-        dim = self.local_dims.get(name)
-        return x if dim is None else self.comm.gather_data(x, lead + dim)
+        layout = self.local_dims.get(name)
+        return x if layout is None else self.comm.gather_data(x, layout, lead)
 
     def _env_value(self, name: str, value):
         """A state value as the density's env holds it: a named sampled
         site whole in the state cut to this rank's slice (a site held in
         part is its slice already)."""
-        dim = self._env_dims.get(name)
-        return value if dim is None else self._block(value, dim)
+        layout = self._env_dims.get(name)
+        return value if layout is None else self._block(value, layout)
 
     # ---- block machinery ----------------------------------------------
     def block_terms(self, params: tuple[str, ...]) -> tuple[str, ...]:
@@ -1320,10 +1411,8 @@ class CompiledModel:
         for p in params:
             shape = (self.sites[p].unconstrained_shape if transform
                      else self.sites[p].shape)
-            d = self._held.get(p)
-            if d is not None:
-                shape = (shape[:d] + (shape[d] // self.comm.data_size,)
-                         + shape[d + 1:])
+            if p in self._held:
+                shape = self._geo.shape_of(shape, self._held[p])
             shapes[p] = shape
         example = {p: np.zeros(s) for p, s in shapes.items()}
         return make_ravel_spec(example, dtype=self.dtype)
@@ -1353,8 +1442,9 @@ class CompiledModel:
         terms = params if prior_only else self.block_terms(params)
         spec = self.block_ravel_spec(params, transform)
         pset = set(params)
-        # split over the data axis: this rank sums its part of every named
-        # term, and data rank 0 alone every other term and the Jacobian
+        # split over the data axes: this rank sums its part of every named
+        # term it counts (``_counts``), and data rank 0 alone every other
+        # term and the Jacobian of the whole sites
         split = self.block_split(params, prior_only)
         lead = not split or self.comm.data_rank == 0
         # a node gathered per call: the density's gradient in the gathered
@@ -1401,17 +1491,18 @@ class CompiledModel:
                 elif name in pset:
                     dist = self._call(node, env)
                     dists[name] = dist
-                    dim = self._part_sites.get(name) if transform else None
-                    if transform and (dim is not None or name in self._held):
+                    cut = self._part_sites.get(name) if transform else None
+                    if transform and (cut is not None or name in self._held):
                         # held in part, or its prior (and so its bijector)
                         # reads slices: the rank maps its slice, with its
-                        # slice's Jacobian
+                        # slice's Jacobian where it counts the site
                         b = self._slice_bijector(name, dist)
-                        u = (parts[name] if dim is None
-                             else self._block(parts[name], dim))
+                        u = (parts[name] if cut is None
+                             else self._block(parts[name], cut))
                         values[name] = env[name] = b.forward(u)
-                        part_logdet = part_logdet + torch.sum(
-                            b.event_log_det(u, max(dist.event_ndim, 0)))
+                        if self._geo.leads(self._held.get(name, cut)):
+                            part_logdet = part_logdet + torch.sum(
+                                b.event_log_det(u, max(dist.event_ndim, 0)))
                         continue
                     if transform:
                         b = dist.bijector()
@@ -1448,7 +1539,7 @@ class CompiledModel:
                 # a block site is in its support by construction in
                 # unconstrained space: no masking (keeps autodiff clean)
                 support = not (transform and n in pset)
-                if n in self._local_plans:
+                if n in self._local_plans and self._counts(n):
                     lp = lp + self._part_lp(self._local_plans[n], dists[n],
                                             env[n], support)
             if lead:
@@ -1550,18 +1641,20 @@ class CompiledModel:
             return vjp(ct)[0]
         return pull
 
-    def _rank_slice(self, x, dim: int, lead: int = 0):
-        """This rank's block of a whole value without its padded tail:
-        ``x`` zero-padded to its padded length along ``dim``, then cut."""
-        ax = lead + dim
-        n = x.shape[ax]
-        padded = next((length for length, g in self._given.items()
-                       if g == n), n)
-        if padded != n:
-            more = list(x.shape)
-            more[ax] = padded - n
-            x = torch.cat([x, x.new_zeros(more)], dim=ax)
-        return self._block(x, ax)
+    def _rank_slice(self, x, layout, lead: int = 0):
+        """This rank's block of a whole value without its padded tails:
+        ``x`` zero-padded to its padded length along each dim of
+        ``layout``, then cut."""
+        for dim in layout:
+            ax = lead + dim
+            n = x.shape[ax]
+            padded = next((length for length, g in self._given.items()
+                           if g == n), n)
+            if padded != n:
+                more = list(x.shape)
+                more[ax] = padded - n
+                x = torch.cat([x, x.new_zeros(more)], dim=ax)
+        return self._block(x, layout, lead)
 
     def block_prepare(self, params: tuple[str, ...], prior_only: bool = False):
         """``prepare(state) -> state``: the chain-stacked state a block step
@@ -1602,11 +1695,16 @@ class CompiledModel:
     def join_wholes(self, per_rank: list) -> dict:
         """Every data rank's chain-stacked slices of the gathered parents,
         in data-rank order, joined into their whole values without the
-        padded tails, keyed by ``_wkey``."""
-        return {_wkey(p): self._trim(torch.cat([r[p] for r in per_rank],
-                                               dim=1 + d), d, lead=1,
-                                     what=f"{p!r}, which a gathered node reads,")
-                for p, d in self._gather_dims.items()}
+        padded tails, keyed by ``_wkey``: each from the ranks that count
+        it (``DataGroup.leads``), which hold its blocks once each."""
+        geo, out = self._geo, {}
+        for p, layout in self._gather_dims.items():
+            parts = torch.stack([r[p] for k, r in enumerate(per_rank)
+                                 if geo.leads(layout, k)])
+            out[_wkey(p)] = self._trim(
+                geo.assemble(parts, layout, lead=1), layout, lead=1,
+                what=f"{p!r}, which a gathered node reads,")
+        return out
 
     def _flat_parts(self, params, transform: bool, state: dict) -> dict:
         """The block's values as its flat vector holds them, per site, from
@@ -1636,14 +1734,14 @@ class CompiledModel:
         every rank holds the whole flat vector and the whole values."""
         pack, unpack, spec, _ = self.block_functions(params, transform,
                                                      prior_only)
-        joined = ({p: self._part_sites[p] + 1 for p in params
+        joined = ({p: self._part_sites[p] for p in params
                    if p in self._part_sites} if transform else {})
         vunpack = torch.func.vmap(unpack)
         if not joined:
             return torch.func.vmap(pack), vunpack
 
         def join(values):
-            return {p: self.comm.gather_data(v, joined[p]) if p in joined
+            return {p: self.comm.gather_data(v, joined[p], 1) if p in joined
                     else v for p, v in values.items()}
 
         vparts = torch.func.vmap(
@@ -1715,14 +1813,14 @@ class CompiledModel:
             return dist
         leaves, rebuild = dist_flatten(dist)
         out = []
-        for t, (dim, ndim) in zip(leaves, dims):
-            if dim == -1:
+        for t, (layout, ndim) in zip(leaves, dims):
+            if layout == -1:
                 raise ValueError(
                     f"site {name!r} cannot be drawn whole on a data rank: a "
                     f"parameter of its distribution is neither whole nor a "
                     f"slice of the whole")
-            out.append(t if dim is None
-                       else self.comm.gather_data(t, dim + t.dim() - ndim))
+            out.append(t if layout is None
+                       else self.comm.gather_data(t, layout, t.dim() - ndim))
         return rebuild(out)
 
     # ---- monitoring ----------------------------------------------------
@@ -1820,18 +1918,22 @@ class CompiledModel:
         if all(local is None for _, _, _, local, _ in selections):
             return rows
         every = self.comm.gather_data(rows[None], 0)   # (ranks, draws, width, C)
-        out, at = [], 0
+        geo, out, at = self._geo, [], 0
         for n, _, idx, local, width in selections:
             seg = every[:, :, at:at + width]
             at += width
             if local is None:
                 out.append(seg[0])
                 continue
-            # the columns of a slice are the C order of its reversed shape
+            # the columns of a slice are the C order of its reversed shape:
+            # its blocks, from the ranks that count them, joined there
+            layout = self.local_dims[n]
             rev = tuple(reversed(local))
-            ax = len(local) - self.local_dims[n]
-            v = torch.cat([s.reshape((s.shape[0],) + rev + (s.shape[-1],))
-                           for s in seg], dim=ax)
+            parts = torch.stack([
+                s.reshape((s.shape[0],) + rev + (s.shape[-1],))
+                for k, s in enumerate(seg) if geo.leads(layout, k)])
+            v = geo.assemble(parts, {len(local) - 1 - d: axes
+                                     for d, axes in layout.items()}, lead=1)
             v = v.reshape(v.shape[0], -1, v.shape[-1])
             out.append(v if idx is None else v[:, idx])
         return torch.cat(out, dim=1)
@@ -1863,39 +1965,46 @@ def _close(a, b, tol: float) -> bool:
                                equal_nan=True))
 
 
-def _classify(whole, parts, tol: float):
-    """How the data slices' values ``parts`` of a node relate to its whole
-    value: None if every part is the whole, the dim ``d`` if they are
-    equal blocks of it along ``d`` in rank order, else ``"mixed"``."""
+def _classify(whole, parts, tol: float, geo: DataGroup):
+    """How the data ranks' values ``parts`` of a node relate to its whole
+    value: None if every part is the whole, the layout (``{dim: axes}``)
+    under which each is the rank's block of it, else ``"mixed"``."""
     whole = torch.as_tensor(whole)
     parts = [torch.as_tensor(p) for p in parts]
     if all(p.shape == whole.shape for p in parts):
         return None if all(_close(p, whole, tol) for p in parts) else "mixed"
     shape = parts[0].shape
-    if any(p.shape != shape for p in parts) or len(shape) != whole.dim():
+    if any(p.shape != shape for p in parts):
         return "mixed"
-    diff = [d for d in range(whole.dim()) if shape[d] != whole.shape[d]]
-    if len(diff) != 1 or shape[diff[0]] * len(parts) != whole.shape[diff[0]]:
-        return "mixed"
-    return diff[0] if _close(torch.cat(parts, diff[0]), whole, tol) else "mixed"
+    for layout in geo.layouts(whole.shape, shape):
+        if all(_close(p, geo.block(whole, layout, k), tol)
+               for k, p in enumerate(parts)):
+            return layout
+    return "mixed"
 
 
-def _cut_dim(whole, parts):
+def _cut_layout(whole, parts, geo: DataGroup):
     """How a resolved node's whole value is cut for the data ranks whose
     own computation gave ``parts``: None (whole) if they have its shape,
-    the one dim where their shapes are an equal split of it, else False."""
+    else the layout under which their shapes are its blocks and the ranks
+    that would hold the same block computed the same part, else False."""
     whole = torch.as_tensor(whole)
-    shapes = {tuple(torch.as_tensor(p).shape) for p in parts}
+    parts = [torch.as_tensor(p) for p in parts]
+    shapes = {tuple(p.shape) for p in parts}
     if shapes == {tuple(whole.shape)}:
         return None
     if len(shapes) != 1:
         return False
-    (shape,) = shapes
-    diff = [d for d in range(whole.dim()) if len(shape) == whole.dim()
-            and shape[d] != whole.shape[d]]
-    if len(diff) != 1 or shape[diff[0]] * len(parts) != whole.shape[diff[0]]:
-        return False
-    return diff[0]
+    for layout in geo.layouts(whole.shape, next(iter(shapes))):
+        seen = {}
+        for k, p in enumerate(parts):
+            at = tuple(geo.blocks(layout, k).items())
+            if at in seen and not torch.equal(seen[at], p):
+                break
+            seen.setdefault(at, p)
+        else:
+            return layout
+    return False
 
 
 def _reads(model, names) -> set:
@@ -1911,15 +2020,15 @@ def _reads(model, names) -> set:
     return out
 
 
-def _leaf_dims(whole, parts, tol: float) -> list:
-    """Per parameter of a distribution (``dist_flatten``'s leaves): the dim
-    along which the slices' parameters ``parts`` are blocks of the whole
-    one (None: whole; -1: neither), and its ndim."""
+def _leaf_dims(whole, parts, tol: float, geo: DataGroup) -> list:
+    """Per parameter of a distribution (``dist_flatten``'s leaves): the
+    layout under which the slices' parameters ``parts`` are blocks of the
+    whole one (None: whole; -1: neither), and its ndim."""
     leaves = dist_flatten(whole)[0]
     split = [dist_flatten(p)[0] for p in parts]
     out = []
     for i, w in enumerate(leaves):
-        how = _classify(w, [s[i] for s in split], tol)
+        how = _classify(w, [s[i] for s in split], tol, geo)
         out.append((-1 if how == "mixed" else how, w.dim()))
     return out
 

@@ -22,7 +22,8 @@ Gibbs blocks' among them; a body cut at its collectives on a mesh's data
 axis counts one per segment), the seconds their captures took
 (``capture_s``, part of ``sample_s``), the replays (one per segment), the
 host tests (``host_tests``), and the collectives run between replays
-(``collectives``) with their host seconds (``collective_s``).
+(``collectives``) with their host seconds (``collective_s``) and their
+count per group of mesh axes (``group_collectives``).
 
 Random numbers come from per-chain threefry keys (``ops/random.py``), as
 in the JAX package: chain ``i`` (its global index) starts from
@@ -37,10 +38,12 @@ key, and ``mcmc(mc, iters)`` continues exactly.
 
 With ``mesh`` (``parallel.make_mesh``), each rank of the mesh's chain axis
 runs the loop on its block of the chains, each chain on its own key; the
-ranks of a data axis run the same chains and sum their parts of the split
-densities (``model/compile.py``).  Each data
-rank holds only its slice of the inputs and sites that ``site_specs``
-names on the data axis, as GSPMD does in the JAX package: a named
+ranks of the data axes (every other axis: a data group) run the same
+chains and sum their parts of the split densities (``model/compile.py``).
+Each data rank holds only its block of the inputs and sites that
+``site_specs`` names on the data axes, as GSPMD does in the JAX package:
+a spec's entry is None, one axis or a tuple of axes, and a value cut over
+some of the data axes is replicated over the others; a named
 *sampled* site too where every block that samples it can hold slices
 (NUTS, ChEES-HMC, HMC and MALA with unit mass) and the compiler finds it
 read only as a slice; such a block sums over its coordinates across the
@@ -163,6 +166,7 @@ def _run(cm, kernels, keys, state, tunes, burnin, n_kept, thin, meter):
 
     _sync(cm.device)
     graphs0 = dict(graphs.STATS)
+    groups0 = dict(graphs.GROUP_COLLECTIVES)
     t0 = time.perf_counter()
     for _ in range(burnin):
         keys, state, tunes = gibbs_iter(keys, state, tunes, True)
@@ -183,8 +187,13 @@ def _run(cm, kernels, keys, state, tunes, burnin, n_kept, thin, meter):
         # sample_s; a body cut at its collectives counts one per segment),
         # the seconds their captures took, warm-ups included, the replays
         # (one per segment), the host tests of a device flag, and the
-        # collectives run between replays with their host seconds
+        # collectives run between replays with their host seconds, and
+        # those per group of mesh axes (``"data,week"``)
         timing.update({k: graphs.STATS[k] - graphs0[k] for k in graphs0})
+        timing["group_collectives"] = {
+            ",".join(g): n - groups0.get(g, 0)
+            for g, n in graphs.GROUP_COLLECTIVES.items()
+            if n != groups0.get(g, 0)}
     return keys, state, tunes, labels, value, timing
 
 
@@ -215,17 +224,18 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     3-16).  ``device`` is required for a new run; chain ``i`` draws from
     ``fold_in(key(seed), i)`` on that device.
 
-    ``mesh`` (a ``DeviceMesh`` with a ``chain_axis`` and at most one data
-    axis) shards the chains over its chain axis: ``chains`` must divide by
-    it, and each rank keys its chains by their global indices, so the run
-    draws the numbers of the run without a mesh.  ``site_specs`` maps site names
-    to per-dim specs (None, or mesh axis names, e.g. ``{"y": ("data",)}``):
-    each data rank holds and evaluates its slice of every input and site
-    named on the data axis (a sampled site stays whole in the state where
-    a block that samples it cannot hold slices, or the compiler finds it
-    read whole: ``model/compile.py``); a dim the
-    axis does not divide is edge-padded and masked out (reference
-    semantics).  The data axis takes what GSPMD takes: a node that reads
+    ``mesh`` (a ``DeviceMesh`` with a ``chain_axis`` and any number of
+    data axes) shards the chains over its chain axis: ``chains`` must
+    divide by it, and each rank keys its chains by their global indices,
+    so the run draws the numbers of the run without a mesh.
+    ``site_specs`` maps site names to per-dim specs, as a ``PartitionSpec``
+    takes them (None, an axis name or a tuple of them, e.g. ``{"y":
+    ("data", "week")}`` or ``{"y": (None, ("data", "obs"))}``): each data
+    rank holds and evaluates its block of every input and site named on
+    the data axes (a sampled site stays whole in the state where a block
+    that samples it cannot hold slices, or the compiler finds it read
+    whole: ``model/compile.py``); each dim its axes do not divide is
+    edge-padded and masked out (reference semantics).  The data axis takes what GSPMD takes: a node that reads
     a whole value as the rank's slice of it (the GLMM with only y and its
     covariates named reads its slice of the whole b), a density term that
     reads a node computed from the chain state and slices (each rank

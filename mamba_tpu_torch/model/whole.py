@@ -12,7 +12,9 @@ class WholeValues(Mapping):
     """Every node's value as a reader outside the vmapped density reads it
     (a Gibbs or custom block, a monitor): whole.  A value that this data
     rank holds in part (``cm.local_dims``) is gathered over the data group
-    when it is first read; one that is neither whole nor a slice
+    when it is first read, its padded tails dropped (``cm.trim``), so that
+    a Gibbs block's ``fn`` reads the array as given, as the unsharded run
+    does; one that is neither whole nor a slice
     (``cm.mixed``) is computed again from its parents' whole values, each
     gathered or computed again in turn, their padded tails dropped
     (``cm.trim``: an array the data axis pads, ``cm.pads``, is read as it
@@ -41,9 +43,9 @@ class WholeValues(Mapping):
                     value = torch.func.vmap(node.fn, in_dims=dims)(*args)
                 value = cm.pad_back(name, value, lead=1)
             elif name in self._nodes:
-                value = cm.whole(name, self._nodes[name], 1)
+                value = cm.trim(name, cm.whole(name, self._nodes[name], 1), 1)
             else:
-                value = cm.whole(name, self._inputs[name])
+                value = cm.trim(name, cm.whole(name, self._inputs[name]))
             self._whole[name] = value
         return self._whole[name]
 

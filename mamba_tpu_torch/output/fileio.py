@@ -96,9 +96,9 @@ def _whole_states(mc) -> dict:
     chains = next(iter(state.values())).shape[0]
     whole = {}
     for n, v in state.items():
-        dim = cm.local_dims.get(n) if n in cm.local_state else None
-        v = comm.gather_leaf(v, f"state[{n!r}]", chains,
-                             None if dim is None else dim + 1)
+        layout = cm.local_dims.get(n) if n in cm.local_state else None
+        v = comm.gather_leaf(v, f"state[{n!r}]", chains, None if layout is None
+                             else {d + 1: axes for d, axes in layout.items()})
         for d, length in cm.pads.get(n, {}).items():
             v = v.narrow(d + 1, 0, length)
         whole[n] = v.clone(memory_format=torch.contiguous_format)

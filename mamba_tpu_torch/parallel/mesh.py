@@ -12,14 +12,20 @@ names the axes:
   the chains and runs the engine's host loop on them; cross-chain
   statistics (ChEES, SMC) and the kept draws are collectives over the
   ranks of that axis;
-- at most one **data axis** (any other name): the ranks of one data group
-  run the same chains with the same random stream.  Each holds only its
-  slice (``data_block`` of the dim ``data_dim`` reads from its spec) of
-  every input and site that ``site_specs`` shards over the data axis
-  (a sampled site where its sampler can hold a slice: ``BlockCoords``),
-  and evaluates its density's terms on that slice; the samplers sum the
-  parts over the group (``MeshComm.data_sum``), and a reader of a whole
-  value gathers it (``MeshComm.gather_data``).
+- any number of **data axes** (every other name): the ranks that share a
+  chain rank are a **data group**, the product of the data axes flattened
+  in mesh order, and run the same chains with the same random stream.
+  ``site_specs`` takes what a ``PartitionSpec`` takes: an entry per dim of
+  an array, ``None``, one axis or a tuple of axes, whose sizes multiply
+  and whose first axis is major (``data_dim``: a map of dims to axes; an
+  axis names one dim at most).  Each rank holds only its block
+  (``DataGroup.block``) of every input and site so named (a sampled site
+  where its sampler can hold a slice: ``BlockCoords``), and evaluates its
+  density's terms on that block.  A value cut over a set S of the data
+  axes is replicated over the others, and counts once: on the ranks at
+  index 0 of every data axis outside S (``DataGroup.leads``).  The
+  samplers sum the parts over the group (``MeshComm.data_sum``), and a
+  reader of a whole value gathers it (``MeshComm.gather_data``).
 
 Collectives run at the sampler boundary, on the outputs of
 ``torch.func.vmap``, never inside it.  Under gloo a CUDA tensor is staged
@@ -31,7 +37,7 @@ needs no collective, so a one-rank mesh gives the run without a mesh bit
 for bit.
 
 ``pad_axes`` and ``pad_mask`` are numpy, with the JAX package's semantics:
-a sharded dim that the mesh axis does not divide is edge-padded and its
+each sharded dim that its mesh axes do not divide is edge-padded and its
 tail masked out of the likelihood; the padded length then divides, and
 ``data_block`` cuts it into equal slices.
 """
@@ -39,6 +45,7 @@ tail masked out of the likelihood; the padded length then divides, and
 from __future__ import annotations
 
 import datetime
+import itertools
 import math
 import os
 
@@ -217,29 +224,36 @@ def pad_mask(shape: tuple, pads: dict[int, tuple[int, int]]) -> np.ndarray:
     return mask
 
 
-def data_dim(spec, data_axis: str, chain_axis: str = CHAIN_AXIS) -> int | None:
-    """The dim of an array that its site spec shards over ``data_axis``
-    (None if no dim is).  A spec names the data axis on one dim at most,
-    and never the chain axis: the chain axis is the engine's leading dim,
-    not one of a site's own."""
-    dims = []
+def data_dim(spec, data_axes, chain_axis: str = CHAIN_AXIS) -> dict:
+    """The dims of an array that its site spec cuts over the data axes
+    ``data_axes`` (a name or a tuple of names), each with the axes that
+    cut it in the spec's order (its first axis major): ``{dim: axes}``,
+    empty if no dim is cut.  Names of other axes are left out.  An axis
+    names one dim at most, and a spec never names the chain axis: the
+    chain axis is the engine's leading dim, not one of a site's own."""
+    data_axes = (data_axes,) if isinstance(data_axes, str) else tuple(data_axes)
+    out, seen = {}, {}
     for dim, entry in enumerate(tuple(spec)):
         names = _spec_names(entry)
         if chain_axis in names:
             raise ValueError(f"site spec {spec} names the chain axis "
                              f"{chain_axis!r}")
-        if data_axis in names:
-            dims.append(dim)
-    if len(dims) > 1:
-        raise ValueError(f"site spec {spec} names the data axis "
-                         f"{data_axis!r} on more than one dim")
-    return dims[0] if dims else None
+        for n in names:
+            if n in seen and n in data_axes:
+                raise ValueError(f"site spec {spec} names the data axis "
+                                 f"{n!r} on more than one dim")
+            seen[n] = dim
+        axes = tuple(n for n in names if n in data_axes)
+        if axes:
+            out[dim] = axes
+    return out
 
 
 def data_block(x, dim: int, rank: int, size: int):
     """The ``rank``-th of ``size`` equal, consecutive blocks of ``x`` along
     ``dim`` (a view of a tensor).  The dim's length is the padded one
-    ``pad_axes`` leaves, so it divides; any other length raises."""
+    ``pad_axes`` leaves, so it divides; any other length raises.  A rank's
+    block over several dims is this along each (``DataGroup.block``)."""
     n = x.shape[dim]
     per, rem = divmod(n, size)
     if rem:
@@ -248,32 +262,185 @@ def data_block(x, dim: int, rank: int, size: int):
     return x[(slice(None),) * dim + (slice(rank * per, (rank + 1) * per),)]
 
 
+class DataGroup:
+    """The data axes of a mesh (``axes``, their sizes ``shape``, in mesh
+    order) as one rank of a data group sees them: ``rank``, its place in
+    the group flattened row-major.  A **layout** is ``{dim: axes}``
+    (``data_dim``): the dims of an array cut over the data axes, each by
+    the product of its axes' sizes, its first axis major, as
+    ``NamedSharding`` orders the blocks.  Group ranks ``k`` other than the
+    rank's own serve the compiler's probe, which evaluates every block."""
+
+    def __init__(self, axes=(), shape=(), rank: int = 0):
+        self.axes = tuple(axes)
+        self.shape = tuple(int(n) for n in shape)
+        self.sizes = dict(zip(self.axes, self.shape))
+        self.size = math.prod(self.shape)
+        self.rank = rank
+
+    def coords(self, k: int | None = None) -> dict:
+        """Group rank ``k``'s (default: this rank's) index on each axis."""
+        k = self.rank if k is None else k
+        if not self.axes:
+            return {}
+        return dict(zip(self.axes, (int(i) for i in
+                                    np.unravel_index(k, self.shape))))
+
+    def layout(self, layout) -> dict:
+        """``layout`` without its axes of size one (a cut into one block)
+        and the dims left with none."""
+        out = {}
+        for dim, axes in dict(layout).items():
+            axes = tuple(a for a in axes if self.sizes.get(a, 1) > 1)
+            if axes:
+                out[int(dim)] = axes
+        return out
+
+    def count(self, axes) -> int:
+        """The blocks that ``axes`` cut a dim into."""
+        return math.prod(self.sizes[a] for a in axes)
+
+    def blocks(self, layout, k: int | None = None) -> dict:
+        """Per dim of ``layout``, rank ``k``'s block there: ``(index,
+        count)``."""
+        c = self.coords(k)
+        out = {}
+        for dim, axes in layout.items():
+            index = 0
+            for a in axes:
+                index = index * self.sizes[a] + c[a]
+            out[dim] = (index, self.count(axes))
+        return out
+
+    def block(self, x, layout, k: int | None = None, lead: int = 0):
+        """Rank ``k``'s block of ``x`` (``lead`` dims before the array's
+        own) under ``layout``."""
+        for dim, (index, count) in self.blocks(layout, k).items():
+            x = data_block(x, lead + dim, index, count)
+        return x
+
+    def shape_of(self, shape, layout) -> tuple:
+        """A block's shape of an array of ``shape`` under ``layout``."""
+        return tuple(n // self.count(layout[d]) if d in layout else n
+                     for d, n in enumerate(shape))
+
+    def axes_of(self, layout) -> tuple:
+        """The axes that ``layout`` cuts by, in mesh order."""
+        used = {a for axes in layout.values() for a in axes}
+        return tuple(a for a in self.axes if a in used)
+
+    def leads(self, axes, k: int | None = None) -> bool:
+        """Whether rank ``k`` counts a value cut over ``axes`` (or a
+        layout's): it is at index 0 of every data axis outside them, so
+        that each block counts once over the group."""
+        if isinstance(axes, dict):
+            axes = self.axes_of(axes)
+        c = self.coords(k)
+        return all(c[a] == 0 for a in self.axes if a not in axes)
+
+    def layouts(self, whole, part) -> list:
+        """The layouts under which a block of an array shaped ``whole`` is
+        shaped ``part``, the axes of each dim in mesh order first."""
+        whole, part = tuple(whole), tuple(part)
+        if len(whole) != len(part):
+            return []
+        options = []
+        for d, (w, p) in enumerate(zip(whole, part)):
+            if w == p:
+                continue
+            if p <= 0 or w % p:
+                return []
+            axes = [a for a in self.axes if self.sizes[a] > 1]
+            options.append([(d, t) for r in range(1, len(axes) + 1)
+                            for t in itertools.permutations(axes, r)
+                            if self.count(t) == w // p])
+        out = []
+        for choice in itertools.product(*options):
+            used = [a for _, t in choice for a in t]
+            if len(used) == len(set(used)):
+                out.append(dict(choice))
+        return out
+
+    def assemble(self, parts, layout, lead: int = 0):
+        """The whole array from its blocks ``parts (n, ...)``, one per rank
+        of the axes ``axes_of(layout)`` in their row-major order (an
+        all-gather over those axes; ``lead`` dims before the array's
+        own)."""
+        axes = self.axes_of(layout)
+        sizes = [self.sizes[a] for a in axes]
+        block = tuple(parts.shape[1:])
+        x = parts.reshape(tuple(sizes) + block)
+        order, shape = [], []
+        for i, n in enumerate(block):
+            cut = layout.get(i - lead, ()) if i >= lead else ()
+            order += [axes.index(a) for a in cut] + [len(axes) + i]
+            shape.append(n * self.count(cut))
+        return x.permute(order).reshape(shape)
+
+
+def _data_groups(mesh: DeviceMesh, names: tuple, data_axes: tuple) -> dict:
+    """A process group per set of the mesh's data axes that cuts into more
+    than one rank (``{axes: group}``, axes in mesh order): an axis's own
+    is the mesh's; one over several axes is made here, every rank making
+    every such group in the same order (``dist.new_subgroups_by_
+    enumeration``: every rank of the world takes part), once per mesh."""
+    made = getattr(mesh, "_mamba_data_groups", None)
+    if made is not None:
+        return made
+    ranks = mesh.mesh
+    made = {}
+    for r in range(1, len(data_axes) + 1):
+        for axes in itertools.combinations(data_axes, r):
+            if math.prod(ranks.shape[names.index(a)] for a in axes) == 1:
+                continue
+            if len(axes) == 1:
+                made[axes] = mesh.get_group(axes[0])
+                continue
+            at = [names.index(a) for a in axes]
+            rest = [i for i in range(len(names)) if i not in at]
+            every = ranks.permute(rest + at).reshape(
+                -1, math.prod(ranks.shape[i] for i in at))
+            made[axes], _ = dist.new_subgroups_by_enumeration(
+                [row.tolist() for row in every])
+    mesh._mamba_data_groups = made
+    return made
+
+
 class MeshComm:
-    """Collectives of one rank over a mesh's chain axis and its data axis.
+    """Collectives of one rank over a mesh's chain axis and its data axes.
     ``MeshComm()`` (no mesh) is one rank on both: every collective is the
-    identity, and so is every collective over an axis of size one.
+    identity, and so is every collective over axes of size one.
+
+    ``data_axes``, ``data_shape``: the mesh's data axes (every axis but the
+    chain axis) and their sizes, in mesh order; ``data_rank``,
+    ``data_size``: this rank's place in its data group, flattened
+    row-major, and the group's size; ``data``: the group's ``DataGroup``.
 
     - ``chain_sum``/``chain_mean``: over every chain of every chain rank;
     - ``gather_chains``: chain-stacked rows of every chain rank, in global
       chain order;
     - ``chain_broadcast``: chain rank 0's value on every chain rank;
     - ``data_sum``: the parts of a split density, summed over the data
-      group;
-    - ``gather_data``: the slices of the data group's ranks, joined in
-      data-rank order: the whole value; ``gather_data_many``: several
-      tensors of every data rank in one all-gather;
+      group, or over the ranks that differ on some of its axes only;
+    - ``gather_data``: the blocks of the data group's ranks joined into
+      the whole value; ``gather_data_many``: several tensors of every
+      data rank in one all-gather;
     - ``gather_leaf``: a leaf of a resume state as one device would hold
       it (``output.fileio.write_chains``).
 
-    The chain axis's ranks hold the same number of chains."""
+    A collective over several data axes runs on a process group of its
+    own, which every rank makes at construction, in the same order.  The
+    chain axis's ranks hold the same number of chains."""
 
     def __init__(self, mesh: DeviceMesh | None = None,
                  chain_axis: str = CHAIN_AXIS):
         self.mesh = mesh
         self.chain_axis = chain_axis
-        self.data_axis = None
+        self.data_axes, self.data_shape = (), ()
         self.chain_rank, self.chain_size, self._chain_group = 0, 1, None
-        self.data_rank, self.data_size, self._data_group = 0, 1, None
+        self.data_rank, self.data_size = 0, 1
+        self._groups: dict = {}
+        self.data = DataGroup()
         if mesh is None:
             return
         if not isinstance(mesh, DeviceMesh):
@@ -283,18 +450,18 @@ class MeshComm:
         if chain_axis not in names:
             raise ValueError(f"mesh axes {names} have no chain axis "
                              f"{chain_axis!r}")
-        others = [n for n in names if n != chain_axis]
-        if len(others) > 1:
-            raise ValueError(f"mesh axes {names}: the chain axis and at most "
-                             f"one data axis")
         self.chain_rank = mesh.get_local_rank(chain_axis)
         self.chain_size = mesh.size(names.index(chain_axis))
         self._chain_group = mesh.get_group(chain_axis)
-        if others:
-            self.data_axis = others[0]
-            self.data_rank = mesh.get_local_rank(self.data_axis)
-            self.data_size = mesh.size(names.index(self.data_axis))
-            self._data_group = mesh.get_group(self.data_axis)
+        self.data_axes = tuple(n for n in names if n != chain_axis)
+        self.data_shape = tuple(mesh.size(names.index(n))
+                                for n in self.data_axes)
+        coords = tuple(mesh.get_local_rank(n) for n in self.data_axes)
+        self.data_size = math.prod(self.data_shape)
+        self.data_rank = (int(np.ravel_multi_index(coords, self.data_shape))
+                          if coords else 0)
+        self.data = DataGroup(self.data_axes, self.data_shape, self.data_rank)
+        self._groups = _data_groups(mesh, names, self.data_axes)
 
     @property
     def sharded(self) -> bool:
@@ -307,19 +474,31 @@ class MeshComm:
                              f"{self.chain_size} ranks of the chain axis")
         return nchains // self.chain_size
 
+    def _data_group(self, axes=None):
+        """``(axes, group, size)`` of the ranks that differ from this one
+        on the data axes ``axes`` alone (default: all of them, the data
+        group), axes of size one left out; ``group`` is None where that
+        is this rank alone."""
+        axes = self.data_axes if axes is None else tuple(axes)
+        axes = tuple(a for a in self.data_axes
+                     if a in axes and self.data.sizes[a] > 1)
+        if not axes:
+            return (), None, 1
+        return axes, self._groups[axes], self.data.count(axes)
+
     # ---- collectives ---------------------------------------------------
     @staticmethod
     def _staged(group) -> bool:
         """gloo reduces host tensors: CUDA tensors go through the host."""
         return dist.get_backend(group) != "nccl"
 
-    def _all_sum(self, group, tensors):
+    def _all_sum(self, group, tensors, over: tuple):
         flat = torch.cat([t.reshape(-1) for t in tensors])
         if graphs.capturing():
             buf = graphs.cut("all_reduce", flat,
-                             lambda: self._reducer(group, flat))
+                             lambda: self._reducer(group, flat), over)
         else:
-            graphs.issued("all_reduce", flat)
+            graphs.issued("all_reduce", flat, over)
             buf = flat.cpu() if self._staged(group) else flat
             dist.all_reduce(buf, group=group)
             buf = buf.to(flat.device)
@@ -344,18 +523,21 @@ class MeshComm:
             out.copy_(host, non_blocking=True)
         return out, issue
 
-    def data_sum(self, *tensors):
-        """Each tensor summed over the data group (one all-reduce for all;
-        one dtype).  Returns a tuple."""
-        if self.data_size == 1:
+    def data_sum(self, *tensors, axes=None):
+        """Each tensor summed over the data group, or over the ranks that
+        differ from this one on the data axes ``axes`` alone (one
+        all-reduce for all; one dtype).  Returns a tuple."""
+        over, group, _ = self._data_group(axes)
+        if group is None:
             return tensors
-        return tuple(self._all_sum(self._data_group, tensors))
+        return tuple(self._all_sum(group, tensors, over))
 
     def chain_sum(self, *tensors):
         """Each tensor summed over the chain ranks.  Returns a tuple."""
         if self.chain_size == 1:
             return tensors
-        return tuple(self._all_sum(self._chain_group, tensors))
+        return tuple(self._all_sum(self._chain_group, tensors,
+                                   (self.chain_axis,)))
 
     def chain_mean(self, x: torch.Tensor) -> torch.Tensor:
         """Mean over dim 0 of the chain-stacked ``x`` across every chain of
@@ -365,16 +547,16 @@ class MeshComm:
         (s,) = self.chain_sum(torch.sum(x, dim=0))
         return s / (x.shape[0] * self.chain_size)
 
-    def _gather(self, group, size, x, dim):
+    def _gather(self, group, size, x, dim, over: tuple):
         """Every rank's ``x`` of ``group`` joined along ``dim`` in rank
         order (staged through the host under gloo; a host tensor goes to
         the card under NCCL)."""
         buf = x.movedim(dim, 0).contiguous()
         if graphs.capturing():
             out = graphs.cut("all_gather", buf,
-                             lambda: self._gatherer(group, size, buf))
+                             lambda: self._gatherer(group, size, buf), over)
             return out.movedim(0, dim)
-        graphs.issued("all_gather", buf)
+        graphs.issued("all_gather", buf, over)
         if self._staged(group):
             buf = buf.cpu()
         elif buf.device.type == "cpu":
@@ -405,14 +587,24 @@ class MeshComm:
         in chain-rank order: the global chain order."""
         if self.chain_size == 1:
             return x
-        return self._gather(self._chain_group, self.chain_size, x, dim)
+        return self._gather(self._chain_group, self.chain_size, x, dim,
+                            (self.chain_axis,))
 
-    def gather_data(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every data rank's slice ``x`` concatenated along ``dim`` in
-        data-rank order: the whole (padded) value that ``data_block`` cut."""
-        if self.data_size == 1:
+    def gather_data(self, x: torch.Tensor, layout, lead: int = 0) -> torch.Tensor:
+        """The whole (padded) value that ``DataGroup.block`` cut, from this
+        rank's block ``x`` (``lead`` dims before the array's own) and those
+        of the ranks that differ from it on the layout's axes: one
+        all-gather over those axes.  ``layout`` is ``{dim: axes}``, or a
+        dim cut over every data axis in mesh order (the data group's
+        blocks concatenated in data-rank order)."""
+        if isinstance(layout, int):
+            layout = {layout: self.data_axes}
+        layout = self.data.layout(layout)
+        over, group, size = self._data_group(self.data.axes_of(layout))
+        if group is None:
             return x
-        return self._gather(self._data_group, self.data_size, x, dim)
+        every = self._gather(group, size, x[None], 0, over)
+        return self.data.assemble(every, layout, lead)
 
     def gather_data_many(self, tensors) -> list:
         """Every data rank's ``tensors`` (a list), in data-rank order: one
@@ -420,16 +612,17 @@ class MeshComm:
         ``CompiledModel.with_wholes``).  Returns a list per rank of lists
         shaped as ``tensors``."""
         tensors = list(tensors)
-        if self.data_size == 1:
+        over, group, size = self._data_group()
+        if group is None:
             return [tensors]
-        out = [[None] * len(tensors) for _ in range(self.data_size)]
+        out = [[None] * len(tensors) for _ in range(size)]
         groups: dict = {}
         for i, t in enumerate(tensors):
             groups.setdefault(t.dtype, []).append(i)
         for ids in groups.values():
             flat = torch.cat([tensors[i].reshape(-1) for i in ids])
-            every = self._gather(self._data_group, self.data_size, flat[None], 0)
-            for r in range(self.data_size):
+            every = self._gather(group, size, flat[None], 0, over)
+            for r in range(size):
                 at = 0
                 for i in ids:
                     n = tensors[i].numel()
@@ -447,14 +640,14 @@ class MeshComm:
         return buf.to(x.device)
 
     # ---- a resume state, whole ----------------------------------------
-    def _agree(self, group, size, x, label: str) -> None:
+    def _agree(self, group, size, x, label: str, over: tuple) -> None:
         """Raise, naming ``label``, unless every rank of ``group`` holds the
         same ``x`` (a tensor, NaN equal to NaN, or a Python value).  Every
         rank sees the same gathered values, so all raise together."""
         if size == 1:
             return
         if isinstance(x, torch.Tensor):
-            every = self._gather(group, size, x[None], 0).to(x.device)
+            every = self._gather(group, size, x[None], 0, over).to(x.device)
             same = all(_same(p, x) for p in every)
         else:
             every = [None] * size
@@ -468,8 +661,9 @@ class MeshComm:
                     data_dim=None, coords: "BlockCoords | None" = None):
         """One leaf of a rank's resume state as one device would hold it:
 
-        - ``data_dim`` given (a site this data rank holds in part): the
-          slices joined over the data group along that dim;
+        - ``data_dim`` given (a site this data rank holds in part: its
+          layout, ``{dim: axes}`` with the chain dim counted): the blocks
+          joined over the data group (``gather_data``);
         - ``coords`` holding a slice (a tune leaf per coordinate of a block
           that holds slices: NUTS's and ChEES's inverse mass): the ranks'
           coordinates joined into the unsharded flat order
@@ -491,9 +685,11 @@ class MeshComm:
         elif coords is not None and coords.index is not None:
             x = coords.join(x)
         else:
-            self._agree(self._data_group, self.data_size, x, label)
+            over, group, size = self._data_group()
+            self._agree(group, size, x, label, over)
         if chains is None:
-            self._agree(self._chain_group, self.chain_size, x, label)
+            self._agree(self._chain_group, self.chain_size, x, label,
+                        (self.chain_axis,))
             return x
         if not (isinstance(x, torch.Tensor) and x.dim()
                 and x.shape[0] == chains):
@@ -508,39 +704,47 @@ class BlockCoords:
 
     On a data axis a block of a sampler that can hold slices (NUTS,
     ChEES-HMC, unit-mass HMC and MALA) holds each named sampled site as
-    this rank's slice, as GSPMD shards it: the block's flat vector is the
+    this rank's block, as GSPMD shards it: the block's flat vector is the
     unsharded one's coordinates ``index`` (in its order), the whole sites'
     coordinates (``whole``, positions in the rank's vector), which every
-    rank holds equally, and the rank's slice coordinates (``part``).
+    rank holds equally, and the rank's slice coordinates (``part``).  A
+    slice coordinate whose site is cut over a set S of the data axes is
+    held alike by the ranks that differ on the other data axes only;
+    ``counted`` are the slice coordinates this rank counts (it is at index
+    0 of every data axis outside its site's S), so that each counts once.
     ``WHOLE`` (``BlockCoords()``) is a block that holds no slice: its sums
     are ``torch.sum`` over the last dim and its draws the unsharded ones.
 
     - ``sums``: sums over the coordinates (a momentum's kinetic energy, a
       U-turn's dot products): the whole coordinates summed locally plus
-      ``data_sum`` of the slice coordinates' local sums (one all-reduce
-      for all), so every rank holds the same bits;
+      ``data_sum`` of the counted slice coordinates' local sums (one
+      all-reduce for all over the data group), so every rank holds the
+      same bits;
     - ``randn``: a standard normal per coordinate from the block's
       per-chain keys, drawn only at the rank's counters ``index`` of the
       unsharded flat vector (partitionable threefry, as GSPMD draws it), so
-      every rank draws the unsharded run's numbers;
+      every rank draws the unsharded run's numbers, and the ranks that
+      share a coordinate the same ones;
     - ``cut``: a per-coordinate value of the unsharded flat vector (a
       warm-start inverse mass) cut to the rank's coordinates;
     - ``join``: a per-coordinate leaf of every data rank put back into the
-      unsharded flat order (a collective)."""
+      unsharded flat order, each coordinate from any one of the ranks that
+      hold it (a collective)."""
 
     def __init__(self, comm: MeshComm | None = None, indices=None,
-                 whole=None, dim: int | None = None):
+                 whole=None, dim: int | None = None, counted=None):
         self.comm = comm or MeshComm()
         #: every data rank's ``index``, in data-rank order (None: no slice)
         self.indices = indices
         self.index = None if indices is None else indices[self.comm.data_rank]
         self.whole = whole
-        self.part = None
+        self.part = self.counted = None
         if indices is not None:
             mask = torch.ones(len(self.index), dtype=torch.bool,
                               device=self.index.device)
             mask[whole] = False
             self.part = torch.nonzero(mask).reshape(-1)
+            self.counted = self.part if counted is None else counted
         #: the unsharded flat vector's length
         self.dim = dim
 
@@ -549,7 +753,7 @@ class BlockCoords:
         over the data group (one all-reduce for all).  Returns a tuple."""
         if self.index is None:
             return tuple(torch.sum(x, dim=-1) for x in xs)
-        parts = self.comm.data_sum(*(torch.sum(x.index_select(-1, self.part),
+        parts = self.comm.data_sum(*(torch.sum(x.index_select(-1, self.counted),
                                                dim=-1) for x in xs))
         return tuple(torch.sum(x.index_select(-1, self.whole), dim=-1) + p
                      for x, p in zip(xs, parts))

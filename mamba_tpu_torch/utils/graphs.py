@@ -61,8 +61,9 @@ graph that shares the first one's memory pool.  A captured body is thus a
 ``Program``: segments (CUDA graphs) and the cuts between them, which
 ``run(n)`` replays in capture order, segment 0, cut 0, segment 1 and so
 on, ``n`` times.  The warm-ups issue their collectives for real, and the
-capture checks that it meets the same collectives, of the same shapes
-and dtypes, in the same order; a capture that differs raises.  Every rank
+capture checks that it meets the same collectives, over the same group
+of mesh axes, of the same shapes and dtypes, in the same order; a capture
+that differs raises.  Every rank
 of a data group runs the same bodies the same number of times, so all cut
 at the same places.
 
@@ -85,7 +86,8 @@ import warnings
 import torch
 
 __all__ = ["Captured", "Cut", "Program", "count_launch", "capturing", "cut",
-           "disabled", "enabled", "idle", "issued", "until_done", "STATS"]
+           "disabled", "enabled", "idle", "issued", "until_done", "STATS",
+           "GROUP_COLLECTIVES"]
 
 #: graphs captured (a body cut at its collectives counts one per segment),
 #: seconds spent capturing them (warm-ups included), graph replays (one per
@@ -94,6 +96,9 @@ __all__ = ["Captured", "Cut", "Program", "count_launch", "capturing", "cut",
 #: started; ``model/mcmc.py`` reports what each run added
 STATS = {"graphs": 0, "capture_s": 0.0, "replays": 0, "host_tests": 0,
          "collectives": 0, "collective_s": 0.0}
+#: the collectives run between replays, per group of mesh axes they ran
+#: over (``("data", "week")``)
+GROUP_COLLECTIVES: dict[tuple, int] = {}
 
 #: launch tallies of the captures in progress (one per nesting level; a
 #: ``_Recording`` is the tally of the segment it captures)
@@ -124,42 +129,46 @@ class Cut:
     """A collective between two segments of a captured body: ``issue()``
     reads ``inp``, which the segment before it writes, and writes ``out``,
     which the segment after it reads (the same tensor for a collective in
-    place).  ``kind`` names it (``"all_reduce"``, ``"all_gather"``)."""
+    place).  ``kind`` names it (``"all_reduce"``, ``"all_gather"``) and
+    ``group`` the mesh axes it runs over."""
 
-    __slots__ = ("kind", "inp", "out", "issue")
+    __slots__ = ("kind", "inp", "out", "issue", "group")
 
-    def __init__(self, kind: str, inp: torch.Tensor, out: torch.Tensor, issue):
+    def __init__(self, kind: str, inp: torch.Tensor, out: torch.Tensor, issue,
+                 group: tuple = ()):
         self.kind, self.inp, self.out, self.issue = kind, inp, out, issue
+        self.group = tuple(group)
 
     def run(self) -> None:
         t0 = time.perf_counter()
         self.issue()
         STATS["collectives"] += 1
         STATS["collective_s"] += time.perf_counter() - t0
+        GROUP_COLLECTIVES[self.group] = GROUP_COLLECTIVES.get(self.group, 0) + 1
 
 
-def _signature(kind: str, inp: torch.Tensor) -> tuple:
-    return kind, tuple(inp.shape), inp.dtype
+def _signature(kind: str, inp: torch.Tensor, group: tuple = ()) -> tuple:
+    return kind, tuple(group), tuple(inp.shape), inp.dtype
 
 
-def issued(kind: str, inp: torch.Tensor) -> None:
-    """A collective ``kind`` of ``inp`` issued eagerly (``parallel/mesh.py``):
-    noted while a body warms up, so that its capture can check that it
-    meets the same collectives."""
+def issued(kind: str, inp: torch.Tensor, group: tuple = ()) -> None:
+    """A collective ``kind`` of ``inp`` over the mesh axes ``group``
+    issued eagerly (``parallel/mesh.py``): noted while a body warms up, so
+    that its capture can check that it meets the same collectives."""
     if _WARMING:
-        _WARMING[-1].append(_signature(kind, inp))
+        _WARMING[-1].append(_signature(kind, inp, group))
 
 
-def cut(kind: str, inp: torch.Tensor, make):
-    """Hand the collective ``kind`` of ``inp`` to the capture in progress:
-    ``make()`` allocates its buffers once and returns ``(out, issue)``
-    (``Cut``); the capture ends its segment there, records the cut without
-    issuing it, goes on in a new segment and returns ``out``, which the
-    rest of the body reads."""
+def cut(kind: str, inp: torch.Tensor, make, group: tuple = ()):
+    """Hand the collective ``kind`` of ``inp`` over the mesh axes
+    ``group`` to the capture in progress: ``make()`` allocates its buffers
+    once and returns ``(out, issue)`` (``Cut``); the capture ends its
+    segment there, records the cut without issuing it, goes on in a new
+    segment and returns ``out``, which the rest of the body reads."""
     rec = _CAPTURING[-1]
     if not isinstance(rec, _Recording):
         raise RuntimeError(f"a {kind} inside a capture that cannot cut")
-    return rec.cut(kind, inp, make)
+    return rec.cut(kind, inp, make, group)
 
 
 class _Recording(dict):
@@ -179,9 +188,9 @@ class _Recording(dict):
         self.segments.append((self._end(), dict(self)))
         self.clear()
 
-    def cut(self, kind: str, inp: torch.Tensor, make):
+    def cut(self, kind: str, inp: torch.Tensor, make, group: tuple = ()):
         k = len(self.cuts)
-        sig = _signature(kind, inp)
+        sig = _signature(kind, inp, group)
         if self.expected is not None and (k >= len(self.expected)
                                           or self.expected[k] != sig):
             want = self.expected[k] if k < len(self.expected) else "none"
@@ -191,7 +200,7 @@ class _Recording(dict):
                 f"every run")
         self._close()
         out, issue = make()
-        self.cuts.append(Cut(kind, inp, out, issue))
+        self.cuts.append(Cut(kind, inp, out, issue, group))
         self._begin()
         return out
 

@@ -30,13 +30,13 @@ class _Replaying(graphs._Recording):
         super().__init__(None, None)
         self.recorded, self.at = cuts, 0
 
-    def cut(self, kind, inp, make):
+    def cut(self, kind, inp, make, group=()):
         if self.at == len(self.recorded):
             raise RuntimeError(f"a {kind} the capture did not record")
         c = self.recorded[self.at]
         self.at += 1
-        have, want = (graphs._signature(kind, inp),
-                      graphs._signature(c.kind, c.inp))
+        have, want = (graphs._signature(kind, inp, group),
+                      graphs._signature(c.kind, c.inp, c.group))
         if have != want:
             raise RuntimeError(f"a captured body's collective changed: "
                                f"{have} where the capture recorded {want}")

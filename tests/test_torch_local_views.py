@@ -44,14 +44,23 @@ torch.set_num_threads(2)
 RANKS_TIMEOUT, GROUP_TIMEOUT = 150, 60
 
 
+#: a layout (``{dim: axes}``) of one dim over the data axis
+def _on(dim):
+    return {dim: ("data",)}
+
+
 class _DataRank:
     """Rank ``r`` of a (1, 2) chains x data mesh, for evaluating each part
     of a split density in one process (no collectives are called)."""
-    chain_axis, data_axis = "chains", "data"
+    chain_axis, data_axis, data_axes = "chains", "data", ("data",)
     chain_rank, chain_size, data_size = 0, 1, 2
 
     def __init__(self, r):
         self.data_rank = r
+
+    @property
+    def data_shape(self):
+        return (self.data_size,)
 
 
 def _jax():
@@ -62,20 +71,21 @@ def _jax():
 
 def test_data_slice_cuts_equal_blocks_by_spec():
     """A rank's slice: ``data_block`` of the dim ``data_dim`` reads from
-    the spec."""
+    the spec (a map of the dims cut to their axes)."""
     x = np.arange(2 * 6 * 4).reshape(2, 6, 4)
-    dim = data_dim((None, "data"), "data")
-    assert dim == 1
+    (dim,) = data_dim((None, "data"), "data")
+    assert data_dim((None, "data"), "data") == {1: ("data",)}
     parts = [data_block(x, dim, r, 3) for r in range(3)]
     assert all(p.shape == (2, 2, 4) for p in parts)
     np.testing.assert_array_equal(np.concatenate(parts, 1), x)
     t = torch.as_tensor(x)
+    (dim,) = data_dim(("data", None), "data")
     np.testing.assert_array_equal(          # a chain-stacked array: dim + 1
-        data_block(t, 1 + data_dim(("data", None), "data"), 1, 2), x[:, 3:])
-    assert data_dim((None, None), "data") is None
-    assert data_dim(("model",), "data") is None
+        data_block(t, 1 + dim, 1, 2), x[:, 3:])
+    assert data_dim((None, None), "data") == {}
+    assert data_dim(("model",), "data") == {}
     with pytest.raises(ValueError, match="does not divide"):
-        data_block(x, data_dim(("data",), "data"), 0, 3)
+        data_block(x, *data_dim(("data",), "data"), 0, 3)
     with pytest.raises(ValueError, match="names the chain axis"):
         data_dim(("chains",), "data")
     with pytest.raises(ValueError, match="more than one dim"):
@@ -443,8 +453,9 @@ def test_each_rank_holds_only_its_slices(case):
             np.testing.assert_array_equal(local[k], cm.local(k, state[k], 1))
     # the slices of the two ranks are the whole, in data-rank order (a
     # padded case's: the unsharded input and its padded tail)
-    for k, d in ranks[0].local_dims.items():
+    for k, layout in ranks[0].local_dims.items():
         if k in ranks[0].inputs:
+            (d,) = layout
             joined = torch.cat([cm.inputs[k] for cm in ranks], d)
             np.testing.assert_array_equal(joined[tuple(
                 slice(0, n) for n in whole.inputs[k].shape)], whole.inputs[k])
@@ -468,7 +479,7 @@ def _joined(ranks, values, transform):
         d = ranks[0]._part_sites.get(p) if transform else None
         d = ranks[0]._held.get(p, d)
         out[p] = (values[0][p] if d is None
-                  else torch.cat([v[p] for v in values], d + 1))
+                  else torch.cat([v[p] for v in values], next(iter(d)) + 1))
     return out
 
 
@@ -570,14 +581,15 @@ def test_the_plans_of_the_fused_glmm():
     _, ranks, _, _ = _port("glmm_fused_local")
     assert ranks[1]._local_plans["y"][0] == "local"
     assert ranks[1]._local_plans["z"][0] == "cut"
-    assert ranks[1].local_dims == {"y": 1, "xt": 2, "z": 0, "b": 0}
-    assert ranks[1]._held == {"z": 0}
+    assert ranks[1].local_dims == {"y": _on(1), "xt": _on(2), "z": _on(0),
+                                   "b": _on(0)}
+    assert ranks[1]._held == {"z": _on(0)}
     # with only y and xt named, z and b stay whole, and y reads the rank's
     # slice of b: the kernel runs over the rank's groups
     for case in ("glmm_fused_data", "glmm_generic_data"):
         _, ranks, _, _ = _port(case)
         for cm in ranks:
-            assert cm._cuts == {"y": {"b": 0}}, case
+            assert cm._cuts == {"y": {"b": _on(0)}}, case
             assert cm._local_plans["y"][0] == "local" and not cm._held
             assert "b" not in cm.local_dims and "z" not in cm.local_dims
             assert cm.block_coords(("beta", "z", "s2")).index is None
@@ -627,7 +639,7 @@ def test_a_term_that_reads_mean_y_is_refused_by_name():
     model, inputs, init, _ = _line_ss_tau(tmt)
     for r in (0, 1):
         cm = _compile_rank(model, inputs, init, LINE6_SPECS, r)
-        assert cm._gathered == {"ss": {"y": 0, "mu": 0}} and cm.mixed == {"ss"}
+        assert cm._gathered == {"ss": {"y": _on(0), "mu": _on(0)}} and cm.mixed == {"ss"}
         assert cm.block_gathers(("beta",)) == "call"
         assert cm.block_gathers(("tau",)) == "step"
         assert cm.block_gathers(("s2",)) == ""
@@ -651,8 +663,8 @@ def test_a_centering_logical_at_symmetric_inits_is_refused_by_name():
     alpha = torch.as_tensor(state["alpha"])
     for r in (0, 1):
         cm = _compile_rank(model, inputs, init, RATS_SPECS, r)
-        assert cm._recut == {"alpha_c": 0} and not cm.mixed
-        assert cm.local_dims["alpha_c"] == 0
+        assert cm._recut == {"alpha_c": _on(0)} and not cm.mixed
+        assert cm.local_dims["alpha_c"] == _on(0)
         local = cm.cut_state({k: torch.as_tensor(v) for k, v in state.items()})
         got = torch.func.vmap(cm.eval_logicals)(local)["alpha_c"]
         want = alpha - alpha.mean(1, keepdim=True)
@@ -669,7 +681,7 @@ def test_a_centering_logical_at_symmetric_inits_is_refused_by_name():
     model.set_samplers(_rats_centred(tmt)[0].samplers)
     for r in (0, 1):
         cm = _compile_rank(model, inputs, init, RATS_SPECS, r)
-        assert cm._recut == {"alpha_c": 0, "a2": 0} and not cm.mixed
+        assert cm._recut == {"alpha_c": _on(0), "a2": _on(0)} and not cm.mixed
         local = cm.cut_state({k: torch.as_tensor(v) for k, v in state.items()})
         got = torch.func.vmap(cm.eval_logicals)(local)["alpha_c"]
         np.testing.assert_allclose(got, want[:, 15 * r:15 * r + 15],
@@ -692,7 +704,7 @@ def test_a_term_that_reads_mean_y_is_refused_when_y_has_missing_entries():
     init = dict(inits[0], tau=0.0)
     for r in (0, 1):
         cm = _compile_rank(with_tau, inputs, init, LINE6_SPECS, r)
-        assert cm._gathered == {"ybar": {"y": 0}} and not cm._consts
+        assert cm._gathered == {"ybar": {"y": _on(0)}} and not cm._consts
         # MISS moves y, so a density of its block would gather per call;
         # it draws y from y's law, which does not read ybar
         assert [cm.block_gathers(s.params) for s in with_tau.samplers] == [
@@ -744,12 +756,12 @@ def test_what_reads_a_slice_where_it_cannot_is_refused_by_name():
         cm.whole("ss", nodes["ss"], 1)
     # a sampled site on the data axis whose prior reads a slice
     cm = _compile_rank(*_line_u(True)(tmt)[:3], U_SPECS)
-    assert cm._part_sites == {"u": 0}
+    assert cm._part_sites == {"u": _on(0)}
     # ... one whose law has event dims too, where the data dim is a batch
     # dim of its law: its rows (``CASES["line_v"]``)
     for r in (0, 1):
         cm = _compile_rank(*_line_v(tmt)[:3], V_SPECS, r)
-        assert cm._part_sites == {"v": 0}
+        assert cm._part_sites == {"v": _on(0)}
         assert cm._local_plans["v"][0] == "local"
     # a law per row whose batch does not hold the data dim is recycled over
     # the rows: each rank's part is the law on its rows
@@ -758,12 +770,12 @@ def test_what_reads_a_slice_where_it_cannot_is_refused_by_name():
     for r in (0, 1):
         cm = _compile_rank(model, inputs, init, BIRATS_SPECS, r)
         assert cm._local_plans["beta"][0] == "local"
-        assert cm._held == {"beta": 0}
+        assert cm._held == {"beta": _on(0)}
     # the generic GLMM with y and x named but not z: b stays whole, and y
     # reads the rank's slice of it (``CASES["glmm_generic_data"]``)
     model, inputs, inits, _ = tglmm.build(G=G, n=10, seed=2)
     cm = _compile_rank(model, inputs, inits[0], GLMM_GENERIC_DATA)
-    assert cm._cuts == {"y": {"b": 0}}
+    assert cm._cuts == {"y": {"b": _on(0)}}
     # a spec that names the chain axis, or a length that does not divide
     with pytest.raises(ValueError, match="names the chain axis"):
         _compile_rank(model, inputs, inits[0], {"y": ("chains", None)})
@@ -932,8 +944,8 @@ def test_what_stays_refused_raises_a_value_error_that_names_it(case):
     kernel's shape error, the generic form's broadcast), a named site
     whose data dim is an event dim of the law that reads a slice, a spec
     that names the chain axis, and a named term that reads a node its
-    block gathers per density call.  (A second data axis:
-    tests/test_torch_parallel.py.)"""
+    block gathers per density call.  (Several data axes, and an axis
+    named on two dims: tests/test_torch_data_axes.py.)"""
     build, specs, message, at_compile = STAYS_REFUSED[case]
     model, inputs, init = build()
     if at_compile:

@@ -46,11 +46,15 @@ def _mesh(axes=None):
 class _DataRank:
     """Rank ``r`` of a (1, 2) chains x data mesh, for evaluating each part
     of a split density in one process (no collectives are called)."""
-    chain_axis, data_axis = "chains", "data"
+    chain_axis, data_axis, data_axes = "chains", "data", ("data",)
     chain_rank, chain_size, data_size = 0, 1, 2
 
     def __init__(self, r):
         self.data_rank = r
+
+    @property
+    def data_shape(self):
+        return (self.data_size,)
 
 
 LINE_SPECS = {"y": ("data",), "xmat": ("data", None)}
@@ -253,8 +257,13 @@ def test_make_mesh_rejects_a_shape_that_is_not_the_world():
         MeshComm(object())
     with pytest.raises(ValueError, match="no chain axis"):
         MeshComm(_mesh({"data": 1}))
-    with pytest.raises(ValueError, match="at most one data axis"):
-        MeshComm(_mesh({"chains": 1, "a": 1, "b": 1}))
+    # several data axes: a one-rank comm of two is the identity
+    comm = MeshComm(_mesh({"chains": 1, "a": 1, "b": 1}))
+    assert comm.data_axes == ("a", "b") and comm.data_shape == (1, 1)
+    assert comm.data_size == 1 and comm.data_rank == 0 and not comm.sharded
+    x = torch.arange(6.0).reshape(2, 3)
+    assert comm.data_sum(x)[0] is x and comm.data_sum(x, axes=("b",))[0] is x
+    assert comm.gather_data(x, {0: ("a",), 1: ("b",)}) is x
 
 
 def test_comm_of_one_rank_is_the_identity():

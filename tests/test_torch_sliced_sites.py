@@ -47,11 +47,15 @@ RATS_BLOCK = ("alpha", "beta", "mu_alpha", "mu_beta")
 class _DataRank:
     """Rank ``r`` of a (1, 2) chains x data mesh, for evaluating each part
     of a split density in one process (no collectives are called)."""
-    chain_axis, data_axis = "chains", "data"
+    chain_axis, data_axis, data_axes = "chains", "data", ("data",)
     chain_rank, chain_size, data_size = 0, 1, 2
 
     def __init__(self, r):
         self.data_rank = r
+
+    @property
+    def data_shape(self):
+        return (self.data_size,)
 
 
 def _rats(pkg):
@@ -118,7 +122,7 @@ def test_each_rank_s_parts_of_a_block_call_match_the_reference(case):
     scale = np.abs(want_g).max()
     parts = []
     for cm in ranks:
-        assert cm._held == {k: 0 for k in held}
+        assert cm._held == {k: {0: ("data",)} for k in held}
         local = cm.cut_state(state)
         for k, shape in held.items():
             assert tuple(local[k].shape) == (C,) + shape
@@ -206,7 +210,8 @@ def test_a_site_a_centring_logical_reads_stays_whole():
     centred.set_samplers(model.samplers)
     cm = tmt.compile_model(centred, inputs, inits[0], device="cpu",
                            comm=_DataRank(0), site_specs=RATS_SPECS)
-    assert cm._held == {"beta": 0} and cm._env_dims == {"alpha": 0}
+    assert (cm._held == {"beta": {0: ("data",)}}
+            and cm._env_dims == {"alpha": {0: ("data",)}})
     assert cm._whole_reasons == {
         "alpha": "a logical computed from its whole value reads it"}
     assert cm.local_shape("alpha") == (30,) and cm.local_shape("beta") == (15,)
@@ -225,7 +230,8 @@ def test_a_slice_its_bijector_cannot_map_alone_is_named():
     local = [("local",)] * 2
 
     def why(*parts):
-        return cm._maps_slices(0, local, value, whole, list(parts), 1e-8)
+        return cm._maps_slices({0: ("data",)}, local, value, whole,
+                               list(parts), 1e-8)
     half = tmt.Normal(torch.zeros(G // 2), 1.0)
     assert why(half, half) == ""
     assert why(whole, whole) == (f"data rank 0's distribution is shaped "
