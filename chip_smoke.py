@@ -1369,14 +1369,15 @@ def phase_zoo_mv(torch, mt):
 
 
 def _glmm_chees_run(torch, mt, glmm, fg, chees, warm, label,
-                    run=MESH_CHEES_RUN, **mesh_kw):
+                    run=MESH_CHEES_RUN, build=None, **mesh_kw):
     """The GLMM at full width under ChEES-HMC from the ADVI draws ``warm``
-    for ``run``'s iterations and burnin, on ``mesh_kw``'s mesh if given.
+    for ``run``'s iterations and burnin, on ``mesh_kw``'s mesh if given
+    (``build() -> (model, inputs)``: another form of it, (m)'s).
     Gated on finite draws of the run's shape and on kernel launches >=
     gradient evaluations; returns its numbers, the run and (epsilon, traj)
     after every iteration."""
     iters, burnin = run
-    model, inputs, _, _ = glmm.build(MESH_G, fused=True)
+    model, inputs = (build() if build else glmm.build(MESH_G, fused=True)[:2])
     model = _chees_block(mt, model, max_steps=256, mass_window=40)
     steps, restore_steps = _recording(chees, "_steps", lambda L: L)
     tunes, restore_tunes = _recording(
@@ -2163,9 +2164,270 @@ def _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank, outdir,
     return res
 
 
+#: (m)'s jaws run, on the mesh and without it (iterations, burnin), at
+#: ``FIXTURE_CHAINS``; and the float32 bound of their draws' difference,
+#: relative to the draws' scale
+JAWS_MESH_RUN, JAWS_DRAWS_RTOL = (40, 20), 1e-4
+
+
+def _glmm_sum0(mt, glmm, torch):
+    """(m)'s full-width arm: (g)(i)'s GLMM (z ~ Normal(w, 1), w named, so
+    a rank holds z in part) with the sum-to-zero random effect b =
+    sqrt(s2) * (z - mean(z)), which every rank computes whole from z
+    gathered in each density call of the (beta, z, s2) block: each rank's
+    y reads its 5,000 groups of it through the fused kernel, and the
+    block sums its gradient in z over the two ranks before each rank
+    pulls its slice back."""
+    base, inputs, inits = _glmm_w(mt, glmm)
+    model = mt.Model(**{**base.nodes, "b": mt.Logical(
+        1, lambda s2, z: torch.sqrt(s2) * (z - torch.mean(z)),
+        monitor=False)})
+    model.set_samplers(base.samplers)
+    return model, inputs, inits
+
+
+def _per_call_against_whole(torch, fg, whole, split, state):
+    """The (beta, z, s2) block density and gradient of ``split``, a data
+    rank's compiled model that gathers per call, completed by
+    ``block_density`` (the all-gather of z, the all-reduce of the gradient
+    in it, the density's all-reduce), against ``whole``'s at the whole
+    state ``state``: their errors, each one's launches and the ms of one
+    call's gather and gradient sum at this size, staged under gloo."""
+    params = ("beta", "z", "s2")
+    pack, _, _, logf = whole.block_functions(params, True)
+    fg.glmm_loglik_grads.launches = 0
+    gw, vw = torch.func.vmap(torch.func.grad_and_value(logf))(
+        torch.func.vmap(pack)(state), state)
+    n_whole = fg.glmm_loglik_grads.launches
+    local = split.block_prepare(params)(split.cut_state(state))
+    x = split.block_maps(params, True)[0](local)
+    density = split.block_density(params, True, grad=True)
+    fg.glmm_loglik_grads.launches = 0
+    v, g = density(x, local)
+    n_split = fg.glmm_loglik_grads.launches
+    coords = split.block_coords(params)
+    gw = gw[:, coords.index]
+    vw, gw, v, g = vw.double(), gw.double(), v.double(), g.double()
+    z = local["z"]
+    wz = torch.zeros(CHAINS, MESH_G, device=DEVICE)
+    ms = {}
+    for name, fn in (("gather_ms", lambda: split.comm.gather_data_many([z])),
+                     ("grad_sum_ms", lambda: split.comm.data_sum(wz))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DATA_SUM_REPS):
+            fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) / DATA_SUM_REPS
+    return {"lp_rel_err": float(((v - vw).abs() / vw.abs()).max()),
+            "grad_rel_err": float((g - gw).abs().max() / gw.abs().max()),
+            "launches_split": n_split, "launches_whole": n_whole,
+            "held": sorted(split._held), "gathered": {
+                k: sorted(v) for k, v in split._gathered.items()},
+            "cuts": split._cuts, "groups_split": split.inputs["xt"].shape[-1],
+            "grad_shape": list(g.shape), **ms}
+
+
+def _gathered_fixture_models(mt, torch):
+    """(m)'s small layouts: name -> ((model, inputs, inits), site_specs,
+    the gradient block held to the whole, the run).  Line's y2, named,
+    reading ss = sum((y - mu)**2), which beta's block gathers per call
+    (item 11); v ~ MvNormal(stack([w, w]), I) named on its event dim
+    (item 10); tau's prior on g2 = sum(h**2), h = mu - mean(mu) a slice
+    computed from a gathered node (item 12); line's own five points, which
+    the axis pads to six, beside w and u of six as given, tau's prior on
+    mean(y) (item 13)."""
+    from mamba_tpu_torch.models import line
+    six = np.array([1.0, 3.0, 3.0, 3.0, 5.0, 6.0])
+
+    def line_with(extra, sampled, y=six):
+        model, inputs, inits = line.build()
+        model = mt.Model(**{**model.nodes, **extra})
+        model.set_samplers([mt.NUTS("beta"), mt.Slice("s2", 3.0)]
+                           + [mt.Slice(n, 1.0) for n in sampled])
+        w = np.linspace(-0.6, 0.9, 6)
+        if y is None:
+            return model, dict(inputs, w=w), [dict(
+                i, tau=0.5, u=np.zeros(6)) for i in inits]
+        inputs = {"xmat": np.stack([np.ones(6), np.arange(1.0, 7.0)], 1),
+                  "w": w}
+        return model, inputs, [dict(i, y=y, y2=y + 0.5, tau=0.5, v=np.linspace(
+            -1.0, 1.2, 12).reshape(6, 2)) for i in inits]
+
+    ss = mt.Logical(lambda y, mu: torch.sum((y - mu) ** 2), monitor=False)
+    block = ("beta", "s2", "tau")
+    return {
+        "named_reader": (line_with({
+            "ss": ss, "tau": mt.Stochastic(lambda ss: mt.Normal(0.1 * ss, 1.0)),
+            "y2": mt.Stochastic(1, lambda mu, ss: mt.Normal(mu + 0.01 * ss, 1.0),
+                                monitor=False)}, ["tau"]),
+            {**LINE6_SPECS, "y2": ("data",)}, block, FIXTURE_RUN),
+        "v_event": (line_with({"v": mt.Stochastic(2, lambda w: mt.MvNormal(
+            torch.stack([w, w], 1), torch.eye(2, dtype=w.dtype)),
+            monitor=False)}, ["v"]),
+            {**LINE6_SPECS, "w": ("data",), "v": (None, "data")},
+            ("beta", "s2", "v"), FIXTURE_RUN),
+        "nested": (line_with({
+            "g1": mt.Logical(lambda mu: torch.mean(mu), monitor=False),
+            "h": mt.Logical(1, lambda mu, g1: mu - g1, monitor=False),
+            "g2": mt.Logical(lambda h: torch.sum(h ** 2), monitor=False),
+            "tau": mt.Stochastic(lambda g2: mt.Normal(0.1 * g2, 1.0))},
+            ["tau"]), LINE6_SPECS, block, FIXTURE_RUN),
+        "padded": (line_with({
+            "ybar": mt.Logical(lambda y: torch.mean(y), monitor=False),
+            "tau": mt.Stochastic(lambda ybar: mt.Normal(ybar, 1.0)),
+            "u": mt.Stochastic(1, lambda w: mt.Normal(w, 1.0), monitor=False)},
+            ["tau", "u"], y=None),
+            {**LINE6_SPECS, "w": ("data",), "u": ("data",)},
+            ("beta", "s2", "tau", "u"), FIXTURE_RUN),
+    }
+
+
+#: what each of (m)'s small layouts' blocks does with gathered nodes
+GATHERED_FIXTURE_GATHERS = {"named_reader": "call", "v_event": "",
+                            "nested": "call", "padded": ""}
+
+
+def _gathered_terms(torch, mt, glmm, fg, nuts, chees, warm, mesh, rank,
+                    outdir):
+    """(m): the last layouts the data axis refused, on the (1, 2) data
+    mesh in this rank.  The full-width arm (``_glmm_sum0``): its density
+    and gradient at the warm starts against the whole, ChEES at
+    ``MESH_CHEES_RUN``, and 3/2 captured against plain (``_mesh_graphs``,
+    its cuts per gradient); jaws with y and x named by boy under its
+    Slice + AMWG scheme, against the whole at its inits and its run against
+    the same run without a mesh; then the small layouts
+    (``_gathered_fixture_models``), each against the unsharded model at its
+    inits and a short run.  Draws saved for the parent's check that both
+    ranks agree."""
+    from mamba_tpu_torch.model.mcmc import _chain_inits
+    from mamba_tpu_torch.models import jaws
+    from mamba_tpu_torch.parallel.mesh import MeshComm
+    res = {}
+    model, inputs, inits = _glmm_sum0(mt, glmm, torch)
+    starts = [dict(w, y=inits[0]["y"]) for w in warm]
+    whole = mt.compile_model(model, inputs, inits[0], device=DEVICE)
+    split = mt.compile_model(model, inputs, inits[0], device=DEVICE,
+                             comm=MeshComm(mesh), site_specs=W_SPECS)
+    res["density"] = _per_call_against_whole(
+        torch, fg, whole, split, _chain_inits(whole, starts, CHAINS))
+    del whole, split
+    log(f"(m) rank {rank}, the sum-to-zero GLMM's density against the "
+        f"whole: " + json.dumps(res["density"]))
+    run, sim, tunes = _glmm_chees_run(
+        torch, mt, glmm, fg, chees, warm,
+        f"(m) rank {rank}, the sum-to-zero GLMM, b gathered per call",
+        build=lambda: _glmm_sum0(mt, glmm, torch)[:2], mesh=mesh,
+        site_specs=W_SPECS)
+    np.save(Path(outdir) / f"sum0_draws{rank}.npy", sim.value)
+    run["tunes"] = tunes
+    run["z_shape"] = list(sim.states["state"]["z"].shape)
+    res["chees"] = run
+    del sim
+
+    def sum0_graphs():
+        model, inputs, _ = _glmm_sum0(mt, glmm, torch)
+        model = _chees_block(mt, model, max_steps=256, mass_window=40,
+                             traj=MESH_GRAPH_CHEES_TRAJ)
+        return model, inputs, warm, W_SPECS, "gradients"
+    res["graphs"] = _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm,
+                                 mesh, rank, outdir, arms={"sum0": sum0_graphs},
+                                 label="(m)")["sum0"]
+    model, inputs, inits = jaws.build()
+    specs = {"y": ("data",), "x": ("data",)}
+    res["jaws"] = _fixture_at_inits(torch, mt, mesh, model, inputs, inits,
+                                    specs, ("beta0", "beta1"))
+    iters, burnin = JAWS_MESH_RUN
+    sims = [mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                    chains=FIXTURE_CHAINS, verbose=False, device=DEVICE,
+                    **kw) for kw in ({"mesh": mesh, "site_specs": specs}, {})]
+    diff = np.abs(sims[0].value.astype(np.float64) - sims[1].value)
+    res["jaws"].update({
+        "whole_terms": sorted(sims[0].compiled._whole_terms),
+        "y_shape": list(sims[0].states["state"]["y"].shape),
+        "draws_max_abs_diff": float(diff.max()),
+        "draws_rel_diff": float(diff.max() / np.abs(sims[1].value).max()),
+        "sample_s": [s.timing["sample_s"] for s in sims]})
+    np.save(Path(outdir) / f"gfix_jaws_draws{rank}.npy", sims[0].value)
+    del sims
+    fixtures = {}
+    for name, ((model, inputs, inits), specs, block, run) in (
+            _gathered_fixture_models(mt, torch).items()):
+        out = _fixture_at_inits(torch, mt, mesh, model, inputs, inits, specs,
+                                block)
+        iters, burnin = run
+        sim = mt.mcmc(model, inputs, inits, iters, burnin=burnin,
+                      chains=FIXTURE_CHAINS, verbose=False, device=DEVICE,
+                      mesh=mesh, site_specs=specs)
+        out["sample_s"] = sim.timing["sample_s"]
+        out["whole_terms"] = sorted(sim.compiled._whole_terms)
+        np.save(Path(outdir) / f"gfix_{name}_draws{rank}.npy", sim.value)
+        fixtures[name] = out
+    res["fixtures"] = fixtures
+    log(f"(m) rank {rank}: " + json.dumps(
+        {k: v for k, v in res.items() if k != "graphs"}))
+    return res
+
+
+#: (m)'s small layouts' draws, saved by name
+GATHERED_DRAWS = ("sum0", "gfix_jaws", *(f"gfix_{n}" for n in
+                                         GATHERED_FIXTURE_GATHERS))
+
+
+def _gathered_gates(gathered, draws, graph_draws, failed):
+    """(m)'s gates on both ranks' results (``_gathered_terms``; its
+    captured run already raised where it differs from its plain loops):
+    the full-width arm's density and gradient against the whole, one
+    launch per call over each rank's G/2 groups, z held and gathered, the
+    gradient in it summed; its ChEES draws finite and equal on both ranks;
+    jaws against the whole and its run against the run without a mesh;
+    each small layout against the unsharded model; every run's draws
+    finite and equal on both ranks.  Appends what fails to ``failed``."""
+    half = MESH_G // 2
+    iters, burnin = MESH_CHEES_RUN
+    for name in (*GATHERED_DRAWS, "graph_sum0"):
+        a, b = (graph_draws if name == "graph_sum0" else draws[name])
+        if not (np.array_equal(a, b) and np.isfinite(a).all()):
+            failed.append(f"(m) {name}: finite draws, equal on both ranks")
+    if draws["sum0"][0].shape != (iters - burnin, 5, CHAINS):
+        failed.append(f"(m) ChEES draws shaped {draws['sum0'][0].shape}")
+    if gathered[0]["chees"]["tunes"] != gathered[1]["chees"]["tunes"]:
+        failed.append("(m) ChEES: (epsilon, traj) equal on both ranks")
+    for r, res in enumerate(gathered):
+        d = res["density"]
+        if not (d["lp_rel_err"] <= LP_RTOL and d["grad_rel_err"] <= GRAD_RTOL
+                and d["launches_split"] == 1 and d["groups_split"] == half
+                and d["held"] == ["z"] and d["gathered"] == {"b": ["z"]}
+                and res["chees"]["z_shape"] == [CHAINS, half]):
+            failed.append(f"(m) rank {r} the sum-to-zero GLMM: {d}, z "
+                          f"{res['chees']['z_shape']}")
+        j = res["jaws"]
+        if not (j["lp_rel_err"] <= LP_RTOL and j["block_lp_rel_err"] <= LP_RTOL
+                and j["grad_rel_err"] <= GRAD_RTOL
+                and j["whole_terms"] == ["y"] and j["y_shape"][1:] == [40]
+                and j["draws_rel_diff"] <= JAWS_DRAWS_RTOL):
+            failed.append(f"(m) rank {r} jaws: {j}")
+        for name, want in GATHERED_FIXTURE_GATHERS.items():
+            f = res["fixtures"][name]
+            if not (f["lp_rel_err"] <= LP_RTOL
+                    and f["block_lp_rel_err"] <= LP_RTOL
+                    and f["grad_rel_err"] <= GRAD_RTOL
+                    and f["rows_rel_err"] <= LP_RTOL
+                    and f["gathers"] == want):
+                failed.append(f"(m) rank {r} {name}: {f}")
+    return {"density": [r["density"] for r in gathered],
+            "chees": [{k: v for k, v in r["chees"].items() if k != "tunes"}
+                      for r in gathered],
+            "graphs": [r["graphs"] for r in gathered],
+            "jaws": [r["jaws"] for r in gathered],
+            "fixtures": [r["fixtures"] for r in gathered],
+            "wall_s": [r["wall_s"] for r in gathered]}
+
+
 def mesh_rank(init, rank, outdir):
-    """One rank of the mesh phase's (c), (d), (e), (g), (h), (i), (j) and (k):
-    two processes over gloo, both on this process's card."""
+    """One rank of the mesh phase's (c), (d), (e), (g), (h), (i), (j), (k)
+    and (m): two processes over gloo, both on this process's card."""
     import torch
     import torch.distributed as dist
     import mamba_tpu_torch as mt
@@ -2215,6 +2477,10 @@ def mesh_rank(init, rank, outdir):
         res["graphs"] = _mesh_graphs(torch, mt, glmm, fg, nuts, chees, warm,
                                      data_mesh, rank, outdir)
         res["graphs"]["wall_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["gathered"] = _gathered_terms(torch, mt, glmm, fg, nuts, chees,
+                                          warm, data_mesh, rank, outdir)
+        res["gathered"]["wall_s"] = time.perf_counter() - t0
         (outdir / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2534,6 +2800,10 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
                              for r in range(2)] for k in FIXTURES}
         graph_draws = {k: [np.load(Path(tmp) / f"graph_{k}_draws{r}.npy")
                            for r in range(2)] for k in MESH_GRAPH_ARMS}
+        gathered_draws = {k: [np.load(Path(tmp) / f"{k}_draws{r}.npy")
+                              for r in range(2)] for k in GATHERED_DRAWS}
+        graph_sum0_draws = [np.load(Path(tmp) / f"graph_sum0_draws{r}.npy")
+                            for r in range(2)]
         failed = []
         t0 = time.perf_counter()                                  # (f)
         res["restart"] = {
@@ -2596,6 +2866,19 @@ def phase_mesh(torch, mt, glmm, fg, chees, glmm_cases, warm, tunes_10,
                             for r in ranks for k in ("glmm_chees_local",
                                                      "glmm_chees_data"))
     res["launches"] += res["launches_k"]
+    res["gathered"] = _gathered_gates([r["gathered"] for r in ranks],
+                                      gathered_draws, graph_sum0_draws, failed)
+    log("mesh (m), named terms on gathered nodes, events cut, nested gathers "
+        "and padded lengths: " + json.dumps(res["gathered"]))
+    # the fused kernel in (m)'s ChEES run and its captured 3/2 run, each
+    # rank over its 5,000 groups, through the segments' replays
+    res["launches_m"] = sum(
+        r["gathered"]["chees"]["kernel_launches"]
+        + r["gathered"]["graphs"]["captured"]["kernel_launches"]
+        for r in ranks)
+    res["launches"] += res["launches_m"]
+    if res["launches_m"] <= 0:
+        failed.append("(m) the fused kernel's launches")
     if res["launches_k"] <= 0:
         failed.append("(k) the fused kernel's launches in captured segments")
     if res["launches_j"] <= 0:
@@ -3257,7 +3540,8 @@ def main() -> int:
         "rank_bound_ms": {str(c["G"]): c["bound"]["bound_ms"]
                           for c in mesh_res["kernel"]
                           if c["C"] == CHAINS and "ms" in c},
-        "launches_l": mesh_res["launches_l"]},
+        "launches_l": mesh_res["launches_l"],
+        "launches_m": mesh_res["launches_m"]},
         _threefry_line(threefry, sum(draws.values()))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

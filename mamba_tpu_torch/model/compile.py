@@ -96,16 +96,30 @@ it can, in topo order on the slices:
 - a mixed node that a density term reads and that reads the chain state
   and slices (``ss = sum((y - mu)**2)``, ``mean(y)`` of a y that MISS
   imputes) is gathered (``_gathered``): every rank computes it whole from
-  the parents it holds in part, gathered over the data group with their
-  padded tails dropped (``with_wholes``).  A block that does not move
-  those parents gathers them once per step, before it (``block_prepare``),
-  and a captured step loads them with the state; a block that moves them
-  gathers them once per density call (``block_density``): the rank's
-  slices from the flat vector, one all-gather, the density's gradient in
-  the gathered parents (the same on every rank: the reading terms count
-  on data rank 0 alone, the other ranks add their gradient and nothing
-  else), and the rank's own slice of it pulled back to the flat vector;
-  such a block is split and keeps its plain loop;
+  its leaves, the nodes it reads in part, gathered over the data group
+  with their padded tails dropped (``with_wholes``).  Where such a node
+  reads a slice computed from another gathered node (``h = mu -
+  mean(mu)``), that slice is no leaf: its own parents held in part are,
+  and it is computed whole on the way (``_paths``).  A block that does not
+  move the leaves gathers them once per step, before it
+  (``block_prepare``), and a captured step loads them with the state; a
+  block that moves them gathers them once per density call
+  (``block_density``): the rank's slices from the flat vector, one
+  all-gather, the density's gradient in the gathered leaves, and the
+  rank's own slice of it pulled back to the flat vector.  Each rank's
+  gradient there is that of the terms it counts (a named term's part, as
+  the sum-to-zero effect ``b = sqrt(s2) * (z - mean(z))`` that each
+  rank's y reads its groups of, and on data rank 0 every other term), so
+  one all-reduce over the data group sums them first, as GSPMD transposes
+  an all-gather;
+- a named site whose data dims cut an event of its law along a dim the
+  law does not split (``_cuts_an_event``: jaws' one 80-long
+  ``BDiagNormal`` event cut by boy) is a whole term (``_whole_terms``), as
+  GSPMD gathers the event: computed from the whole values of what it
+  reads in part (a constant's fixed at compile time, a sampled site's
+  from its whole value in the state, any other gathered as a gathered
+  node's leaves are) and counted on data rank 0.  A sampled site with a
+  whole term stays whole in the state;
 - a named sampled site whose prior reads a slice: each rank's part is its
   slice's ``log_prob`` and the Jacobian of its slice under the slice's
   bijector, where the data dim is a batch dim of its law (its rows) and
@@ -125,15 +139,17 @@ it can, in topo order on the slices:
 A node resolved or gathered whole from an array that the data axis pads
 (``pads``) is computed from the array as given, its padded tail dropped
 (``_unpadded``, ``WholeValues``): its value is the unsharded run's, not
-a count of the padding.
+a count of the padding.  Which dims of a node hold padding is the node's
+own record (``_padded``): an array's from ``pads``, a slice's from the
+padded slices it reads (a dim of its layout as long as one of their
+padded dims, cut by the same axes), which the probe confirms (moving the
+arrays' padded tails moves no other entry), so a padded length that
+another array has as given is no ambiguity.
 
-What stays refused, each by a ValueError that names it: a spec that
-names the chain axis, or an axis on two dims (``parallel.mesh.data_dim``);
-a named sampled site whose data dim is an event dim of a law that reads a
-slice; a named term that reads a node its block gathers per density call
-(each rank's part would need every rank's gradient); a node gathered
-from another gathered node; and anything whose parts the probe cannot
-confirm against the whole, whatever the evaluation raised.
+What stays refused, each by a ValueError that names it: what
+``NamedSharding`` refuses, a spec that names the chain axis or an axis on
+two dims (``parallel.mesh.data_dim``), and anything whose parts the probe
+cannot confirm against the whole, whatever the evaluation raised.
 """
 
 from __future__ import annotations
@@ -270,20 +286,30 @@ class CompiledModel:
         #: of them: the layout each is cut by (one dim)
         self._cuts: dict[str, dict[str, dict]] = {}
         #: mixed nodes that a density term reads, computed whole on every
-        #: rank from parents gathered over the data group: per node, the
-        #: parents it reads in part and their layouts
+        #: rank from leaves gathered over the data group: per node, the
+        #: leaves it reads in part and their layouts (``_gathered_parents``)
         self._gathered: dict[str, dict[str, dict]] = {}
-        #: every gathered node's parents read in part: their layouts
+        #: every node gathered over the data group (the leaves of the
+        #: gathered nodes and of the whole terms): its layout
         self._gather_dims: dict[str, dict] = {}
-        #: each padded length of a data dim: its length as given
-        self._given: dict[int, int] = {}
-        #: padded lengths that are padded from two lengths, or real for
-        #: another array
-        self._ambiguous: set = set()
-        #: mixed nodes computed from unpadded parents and padded back: the
-        #: dims padded
-        self._padded_back: dict[str, tuple] = {}
-        #: the gathered parents' whole values at the example inits
+        #: per gathered node, the slices between it and its leaves, computed
+        #: whole on the way, in topo order (``_gathered_parents``)
+        self._paths: dict[str, list] = {}
+        #: named sites whose data dims cut an event of their law: per term,
+        #: the nodes it reads in part (itself among them), whose whole
+        #: values it is computed from (``_node_dist``, ``_term_value``)
+        self._whole_terms: dict[str, dict] = {}
+        #: the whole values of the constants that a whole term reads in
+        #: part, fixed at compile time, keyed by ``_wkey``
+        self._fixed_wholes: dict = {}
+        #: named sampled sites, whole in the state, that a whole term reads
+        self._state_wholes: frozenset = frozenset()
+        #: per node that holds padding along a data dim: each such dim's
+        #: (length as given, padded length), from ``pads`` for an array, from
+        #: the padded slices it reads for a slice (``_slice_padding``), and
+        #: from its shape for a node computed whole (``_pad_back``)
+        self._padded: dict[str, dict[int, tuple[int, int]]] = {}
+        #: the gathered nodes' leaves' whole values at the example inits
         self._example_wholes: dict = {}
         # --- resolve shapes / bijectors with one eager forward pass -------
         state = {}
@@ -336,8 +362,10 @@ class CompiledModel:
     def _eval_env(self, state: dict) -> dict:
         """All node values: inputs + stochastic state + logicals in topo
         order (on a data axis, this rank's env: module docstring)."""
-        env = dict(self.inputs)
+        env = {**self.inputs, **self._fixed_wholes}
         env.update({n: self._env_value(n, v) for n, v in state.items()})
+        env.update({_wkey(n): state[n] for n in self._state_wholes
+                    if n in state})
         wenv = self._whole_env(state)
         for name in self.model.topo:
             node = self.model.nodes[name]
@@ -358,14 +386,20 @@ class CompiledModel:
         """A logical node's value in a rank's env (module docstring): a
         constant's stored value; a recut node computed from the whole
         values ``wenv`` and cut; a gathered node computed whole from its
-        parents' whole values where the env carries them (``_wkey``); any
+        leaves' whole values where the env carries them (``_wkey``), the
+        slices between them computed whole on the way (``_paths``); any
         other from ``env``.  Keeps in ``wenv`` the whole value of a
         constant or recut node."""
-        parents = self._gathered.get(name)
-        if parents and _wkey(next(iter(parents))) in env:
+        leaves = self._gathered.get(name)
+        if leaves and all(_wkey(d) in env for d in leaves):
+            done: dict = {}
             with torch.device(self.device):
-                return node.fn(*[env[_wkey(d)] if d in parents else env[d]
-                                 for d in node.deps])
+                for m in (*self._paths.get(name, ()), name):
+                    done[m] = self.model.nodes[m].fn(*[
+                        done[d] if d in done else env[_wkey(d)]
+                        if d in leaves else env[d]
+                        for d in self.model.nodes[m].deps])
+            return done[name]
         if name in self._consts:
             value, whole = self._consts[name]
             if wenv is not None:
@@ -384,7 +418,23 @@ class CompiledModel:
                              for d in node.deps])
 
     def _node_dist(self, name: str, env: dict):
-        return self._call(self.model.nodes[name], env)
+        """Stochastic ``name``'s distribution in ``env``: a whole term's
+        (``_whole_terms``) from the whole values, without their padded
+        tails, of what it reads in part."""
+        node = self.model.nodes[name]
+        parts = self._whole_terms.get(name)
+        if parts is None:
+            return self._call(node, env)
+        with torch.device(self.device):
+            return node.fn(*[self._trim(env[_wkey(d)], d) if d in parts
+                             else env[d] for d in node.deps])
+
+    def _term_value(self, name: str, env: dict):
+        """The value that stochastic ``name``'s term scores in ``env``: a
+        whole term's whole value without its padded tail."""
+        if name in self._whole_terms:
+            return self._trim(env[_wkey(name)], name)
+        return env[name]
 
     def node_dist(self, name: str, state: dict):
         """Distribution of a stochastic node given ONE chain's state."""
@@ -480,7 +530,7 @@ class CompiledModel:
         if not dims:
             return
         self._data_dims = dims
-        self._given = self._given_lengths(dims, example)
+        padded = self._padded = self._array_pads(dims, example)
         tol = torch.finfo(self.dtype).eps ** 0.5
         example_env = self._eval_env(example)
         state = self._probe_state(example)
@@ -498,19 +548,28 @@ class CompiledModel:
         # constants (``run_whole``) is resolved: its whole value, cut where
         # the slices' shape says (``_cut_layout``), as the rank will hold it.
         # Any other that a density term reads is gathered: every rank
-        # computes it whole from its parents gathered over the data group.
+        # computes it whole from its leaves gathered over the data group.
         # A node or term that fails on the slices, or comes out mixed, may
-        # read a whole parent as the rank's slice of it (``_cut_options``)
+        # read a whole parent as the rank's slice of it (``_cut_options``).
+        # A named term whose data dims cut an event of its law is computed
+        # whole (``_whole_terms``).  A slice's padding (``_padded``) is
+        # that of the padded slices it reads, dim by dim
+        # (``_slice_padding``); ``shaken`` holds the floating padded arrays
+        # with their padded tails moved, and the slices computed from them,
+        # which confirm it (``_shaken``)
         data = self._data_sites()
         observed = set(self.model.keys("observed"))
         read_by_terms = _reads(self.model, self.stochastic)
         const = {n: True for n in self.inputs}
         run_whole = {n: n not in dims for n in self.inputs}
         whole = dict(arrays)
+        shaken = {n: _shake(whole[n], rec) for n, rec in padded.items()
+                  if whole[n].is_floating_point()}
         envs = [{n: cut(n, v, k) if n in dims else v
                  for n, v in arrays.items()} for k in range(size)]
         sliced, mixed, resolved, reads = dict(dims), set(), {}, {}
-        cuts, gathered, plans, dists = {}, {}, {}, {}
+        cuts, gathered, plans, dists, paths = {}, {}, {}, {}, {}
+        whole_terms = self._whole_terms = {}
         part_dists = [{} for _ in range(size)]
         for name in self.model.topo:
             node = nodes[name]
@@ -524,8 +583,18 @@ class CompiledModel:
                                                    options, tol)
                 if cut_:
                     cuts[name] = cut_
+                if isinstance(how, dict):
+                    rec = self._slice_padding(name, node, how, value, sliced)
+                    if rec:
+                        padded[name] = rec
+                    if any(d in shaken for d in node.deps):
+                        shaken[name] = self._shaken(name, node, value, rec,
+                                                    {**whole, **shaken})
                 if how == "mixed":
-                    value = self._unpadded(node, whole, sliced, value)
+                    unpadded = self._unpadded(node, whole)
+                    if unpadded is not None:
+                        value = self._pad_back(name, unpadded,
+                                               tuple(value.shape))
                     if const[name] or run_whole[name]:
                         d = _cut_layout(value, parts, geo)
                         if d is not False:
@@ -536,7 +605,11 @@ class CompiledModel:
                                      for k in range(size)]
                     if how == "mixed" and name in read_by_terms:
                         gathered[name] = self._gathered_parents(
-                            name, node, sliced, gathered)
+                            name, node, sliced, gathered, paths)
+                        # computed whole from the leaves as given: the
+                        # unsharded run's value, which its readers read
+                        if unpadded is not None:
+                            value = unpadded
                         parts = [value] * size
                 whole[name] = value
                 for e, part in zip(envs, parts):
@@ -555,7 +628,11 @@ class CompiledModel:
             if cut_:
                 cuts[name] = cut_
                 reads[name] = sorted(set(reads[name]) | set(cut_))
-            if plan is not None:
+            if plan == "whole":
+                whole_terms[name] = {**{d: sliced[d] for d in node.deps
+                                        if d in sliced}, name: dims[name]}
+                self._check_whole_term(name, whole)
+            elif plan is not None:
                 plans[name] = plan
             for k, pd in enumerate(pds):
                 part_dists[k][name] = pd
@@ -577,13 +654,30 @@ class CompiledModel:
                       if n in self.logical_shapes and n in sliced
                       and n not in resolved})
         self._recut = recut
-        self.const_data = frozenset(
-            n for n in _reads(self.model, owned) if n in self.sites)
         self._held, self._whole_reasons = self._held_sites(
             dims, data, recut, plans, state, dists, part_dists, tol)
         self._part_sites = {n: dims[n] for n in dims
                             if n in self.sites and n not in data and reads[n]
-                            and n not in self._held}
+                            and n not in self._held and n not in whole_terms}
+        # what a whole term reads in part: a constant's whole value is
+        # fixed now, a sampled site whole in the state is read there, and
+        # any other is gathered, as a gathered node's leaves are
+        fixed, gather = {}, {}
+        for t, parts_ in whole_terms.items():
+            for n, d in parts_.items():
+                if const[n]:
+                    fixed[n] = self._trim(example_env[n], n).clone(
+                        memory_format=torch.contiguous_format)
+                elif not (n in self.sites and n not in data
+                          and n not in self._held
+                          and n not in self._part_sites):
+                    gather[n] = d
+        self._fixed_wholes = {_wkey(n): v for n, v in fixed.items()}
+        self._state_wholes = frozenset(
+            n for parts_ in whole_terms.values() for n in parts_
+            if n not in fixed and n not in gather)
+        self.const_data = frozenset(
+            n for n in (*_reads(self.model, owned), *fixed) if n in self.sites)
         for n, d in self._part_sites.items():
             why = self._maps_slices(d, plans[n], state[n], dists[n],
                                     [p[n] for p in part_dists], tol)
@@ -594,8 +688,9 @@ class CompiledModel:
                     f"data rank holds in part, but {why}")
         self._cuts = cuts
         self._gathered = gathered
-        self._gather_dims = {p: d for g in gathered.values()
-                             for p, d in g.items()}
+        self._paths = {n: p for n, p in paths.items() if p}
+        self._gather_dims = {**{p: d for g in gathered.values()
+                                for p, d in g.items()}, **gather}
         self.inputs = {n: geo.block(v, dims[n]).clone(
                            memory_format=torch.contiguous_format)
                        if n in dims else v for n, v in self.inputs.items()}
@@ -605,10 +700,8 @@ class CompiledModel:
         self._env_dims = {n: d for n, d in sliced.items()
                           if n in self.sites and n not in self.local_dims}
         self.mixed = frozenset(mixed)
-        self._example_wholes = {
-            _wkey(p): self._trim(example_env[p], d,
-                                 what=f"{p!r}, which a gathered node reads,")
-            for p, d in self._gather_dims.items()}
+        self._example_wholes = {_wkey(p): self._trim(example_env[p], p)
+                                for p in self._gather_dims}
         local_env = self._eval_env({**self.cut_state(example, lead=0),
                                     **self._example_wholes})
         self.example_dists = {n: self._node_dist(n, local_env)
@@ -616,55 +709,111 @@ class CompiledModel:
         self._local_plans = {n: self._part_plan(n, comm.data_rank,
                                                 self.example_dists[n],
                                                 dists[n], reads[n], observed)
-                             for n in dims if n in self.sites}
+                             for n in dims
+                             if n in self.sites and n not in whole_terms}
         self._leaf_dims = {
             n: _leaf_dims(dists[n], [d[n] for d in part_dists], tol, geo)
-            for n in (*self.local_state, *self._part_sites) if reads[n]}
-        # the whole-mask plans of named sites hold whole constants
+            for n in (*self.local_state, *self._part_sites)
+            if reads[n] and n not in whole_terms}
+        # the whole-mask plans of named sites hold whole constants; a whole
+        # term's mask is its mask without the padded tail
         self._plans = {n: p for n, p in self._plans.items() if n not in dims}
+        for t in whole_terms:
+            mask = self.masks.get(t)
+            if mask is not None:
+                mask = self._trim(torch.as_tensor(mask), t).numpy()
+                if not mask.all():
+                    self._plans[t] = self._mask_plan(
+                        t, self.example_dists[t], mask)
 
-    def _given_lengths(self, dims: dict, example: dict) -> dict:
-        """Each padded length of a dim that the data axis shards, and its
-        length as given (``pads``).  A length padded from two lengths, or
-        padded for one array and real for another, is ambiguous
-        (``_ambiguous``): ``_trim`` refuses to cut it."""
-        given, real = {}, set()
+    def _array_pads(self, dims: dict, example: dict) -> dict:
+        """Per array named on the data axes that the axes pad (``pads``):
+        each padded dim's (length as given, padded length)."""
+        out = {}
         for n, layout in dims.items():
-            for d in layout:
-                length = tuple((self.inputs.get(n, example.get(n))).shape)[d]
-                g = self.pads.get(n, {}).get(d)
-                if g is None or g == length:
-                    real.add(length)
-                else:
-                    given.setdefault(length, set()).add(g)
-        self._ambiguous = {n for n, g in given.items()
-                           if len(g) > 1 or n in real}
-        return {n: min(g) for n, g in given.items() if n not in self._ambiguous}
+            shape = tuple((self.inputs.get(n, example.get(n))).shape)
+            rec = {d: (g, shape[d]) for d, g in self.pads.get(n, {}).items()
+                   if d in layout and g != shape[d]}
+            if rec:
+                out[n] = rec
+        return out
 
-    def _trim(self, x, dims, lead: int = 0, what: str = "a value"):
-        """``x`` with the padded tail of each of its data dims ``dims`` (a
-        layout, or a tuple of dims) dropped (the length as given,
-        ``_given``): the unsharded run's value.  ``x`` itself where
-        ``dims`` is None or none is padded.  ``what`` names ``x`` in the
-        refusal of an ambiguous length."""
-        for dim in dims or ():
-            n = x.shape[lead + dim]
-            if n in self._ambiguous:
+    def _slice_padding(self, name, node, how: dict, value, sliced) -> dict:
+        """The padding of slice ``name`` (layout ``how``, whole ``value``)
+        from the slices it reads (``sliced``): each dim of its layout whose
+        length is the padded length of a padded dim of one of them, cut
+        by the same data axes, carries that dim's padding (``{dim: (given,
+        padded length)}``).  Raises, naming it, where two such dims differ
+        in their length as given."""
+        out = {}
+        for dim, axes in how.items():
+            recs = {rec for d in node.deps if d in sliced
+                    for pd, rec in self._padded.get(d, {}).items()
+                    if sliced[d].get(pd) == axes
+                    and rec[1] == value.shape[dim]}
+            if len(recs) > 1:
                 raise ValueError(
-                    f"{what} has {n} entries along the data axis, a length "
-                    f"that the axis pads for one array and another array has "
-                    f"as given: its padded tail cannot be told apart.  Give "
-                    f"the data axes lengths they divide")
-            g = self._given.get(n)
-            if g is not None:
-                x = x.narrow(lead + dim, 0, g)
+                    f"dim {dim} of node {name!r} is cut by the data axes "
+                    f"{axes} beside padded dims of lengths as given "
+                    f"{sorted(g for g, _ in recs)}: its padding cannot be "
+                    f"told apart")
+            if recs:
+                out[dim] = recs.pop()
+        return out
+
+    def _shaken(self, name, node, value, rec: dict, env: dict):
+        """Slice ``name``'s value in ``env``, where the padded arrays'
+        tails are moved (``_shake``).  Raises, naming it, where that cannot
+        be evaluated or moves an entry outside the padded tails of its
+        record ``rec`` (``_slice_padding``): the probe cannot confirm its
+        padding."""
+        try:
+            moved = self._call(node, env)
+        except _EVAL_ERRORS as e:
+            raise ValueError(
+                f"node {name!r} is a slice of arrays the data axes pad, and "
+                f"it cannot be evaluated with their padded tails moved, "
+                f"which confirms its padding: {e}") from e
+        if _moved_outside(value, moved, rec):
+            raise ValueError(
+                f"node {name!r} is a slice of arrays the data axes pad, and "
+                f"entries outside its padded tails {rec} move with theirs: "
+                f"its padding cannot be confirmed")
+        return moved
+
+    def _check_whole_term(self, name: str, whole: dict) -> None:
+        """Raise, naming it, unless whole term ``name`` is finite at the
+        probe state ``whole``, computed from the whole values of what it
+        reads in part without their padded tails (``_node_dist``)."""
+        env = {**whole, **{_wkey(d): whole[d]
+                           for d in self._whole_terms[name]}}
+        try:
+            lp = self._apply(None, self._node_dist(name, env),
+                             self._term_value(name, env))
+        except _EVAL_ERRORS as e:
+            raise ValueError(
+                f"the density of {name!r}, whose data dims cut an event of "
+                f"its law, cannot be computed whole from the whole values "
+                f"of what it reads in part: {e}") from e
+        if not torch.isfinite(lp):
+            raise ValueError(
+                f"the density of {name!r}, computed whole, is {float(lp)} at "
+                f"the probe state")
+
+    def _trim(self, x, name: str, lead: int = 0):
+        """``x``, a value of node ``name`` (``lead`` dims before its own),
+        without the padded tail of each dim that its record of padding
+        (``_padded``) names: the unsharded run's value.  ``x`` itself where
+        it has no padding (a value already trimmed among them)."""
+        for dim, (given, length) in self._padded.get(name, {}).items():
+            if x.shape[lead + dim] == length:
+                x = x.narrow(lead + dim, 0, given)
         return x
 
     def trim(self, name: str, x, lead: int = 0):
         """The whole value ``x`` of node ``name`` without the entries the
         data axis padded (``lead`` dims before the node's own)."""
-        return self._trim(x, self.local_dims.get(
-            name, self._padded_back.get(name)), lead, f"node {name!r}")
+        return self._trim(x, name, lead)
 
     def pad_back(self, name: str, x, lead: int = 0):
         """A logical's whole value ``x`` computed from unpadded parents
@@ -674,39 +823,31 @@ class CompiledModel:
     def _pad_back(self, name: str, t, shape: tuple, lead: int = 0):
         """``t``, a node's value computed from unpadded parents, edge-padded
         back to its padded ``shape`` (``lead`` dims before the node's own)
-        along each padded dim, as a padded array holds its tail; records
-        the dims."""
+        along each dim where the two differ by the padding of an array it
+        reads; records the dims (``_padded``)."""
         have = tuple(t.shape[lead:])
         if have == tuple(shape):
             return t
+        seen = {rec for n in self.padded_reads(name)
+                for rec in self._padded.get(n, {}).values()}
         diff = [d for d in range(len(shape)) if len(have) == len(shape)
                 and have[d] != shape[d]]
-        if not diff or any(self._given.get(shape[d]) != have[d] for d in diff):
+        if not diff or any((have[d], shape[d]) not in seen for d in diff):
             raise ValueError(
                 f"node {name!r} is computed from arrays the data axes pad, "
                 f"and its value without their padding is shaped {have}, "
                 f"not its padded shape {tuple(shape)} less the padding")
-        self._padded_back[name] = tuple(diff)
-        for d in diff:
-            ax = lead + d
-            tail = t.narrow(ax, have[d] - 1, 1)
-            more = list(t.shape)
-            more[ax] = shape[d] - have[d]
-            t = torch.cat([t, tail.expand(more)], dim=ax)
-        return t
+        self._padded[name] = {d: (have[d], shape[d]) for d in diff}
+        return _pad_tail(t, self._padded[name], lead)
 
-    def _unpadded(self, node, whole: dict, sliced: dict, value):
+    def _unpadded(self, node, whole: dict):
         """A mixed node's whole value as the unsharded run has it: computed
-        from its parents with the padded tails dropped (``_trim``), and
-        padded back to ``value``'s shape (the padded run's)."""
+        from its parents with the padded tails dropped (``_trim``); None
+        where it reads no padded array."""
         if not self.padded_reads(node.name):
-            return value
-        args = [self._trim(whole[d], sliced.get(d, self._padded_back.get(d)),
-                           what=f"{d!r}, which node {node.name!r} reads whole,")
-                for d in node.deps]
+            return None
         with torch.device(self.device):
-            out = node.fn(*args)
-        return self._pad_back(node.name, out, tuple(value.shape))
+            return node.fn(*[self._trim(whole[d], d) for d in node.deps])
 
     def _cut_options(self, name, node, whole, sliced, run_whole,
                      gathered) -> list:
@@ -780,8 +921,10 @@ class CompiledModel:
         at the probe state: a named term's parts sum to it, an unnamed one
         is the same on every slice.  Uncut first, then each of ``options``
         (``_cut_options``).  Returns the slices' distributions, a named
-        term's plan per rank (``_part_plan``) and the parents read cut; if
-        none holds, raises the uncut reading's error, naming ``name``."""
+        term's plan per rank (``_part_plan``) and the parents read cut.  If
+        none holds, a named term whose data dims cut an event of its law
+        (``_cuts_an_event``) is computed whole (the plan ``"whole"``); any
+        other raises the uncut reading's error, naming ``name``."""
         size = self.comm.data_size
         whole_lp = self._site_lp(name, dist, value)
         if not torch.isfinite(whole_lp):
@@ -849,32 +992,44 @@ class CompiledModel:
             except _Failed:
                 continue
             return pds, plans, combo
+        if named and self._cuts_an_event(name, dist):
+            # GSPMD gathers the event: the term is computed whole
+            return [dist] * size, "whole", {}
         raise first
 
-    def _gathered_parents(self, name, node, sliced, gathered) -> dict:
-        """The parents that a gathered node reads in part (each with its
-        data dim): every rank gathers them over the data group and computes
-        the node whole.  Refused by name where such a parent is computed
-        from another gathered node, or where the node's whole value has the
-        shape of a padded array (its padded tail would be read whole)."""
-        parents = {d: sliced[d] for d in node.deps if d in sliced}
-        for d in parents:
-            if d in self.model.nodes and isinstance(self.model.nodes[d],
-                                                    LogicalNode):
-                inner = sorted(_reads(self.model, [d]) & set(gathered))
-                if inner:
-                    raise ValueError(
-                        f"node {name!r} reads {d!r}, a data rank's slice "
-                        f"computed from {inner}, which every rank gathers "
-                        f"whole: a node gathered from another gathered node "
-                        f"is not supported")
-        if name in self._padded_back:
-            raise ValueError(
-                f"node {name!r} is computed from the whole of "
-                f"{self.padded_reads(name)}, which the data axis pads, and "
-                f"keeps their padded shape: a density term would read its "
-                f"padded tail whole")
-        return parents
+    def _cuts_an_event(self, name: str, dist) -> bool:
+        """Whether named site ``name``'s data dims cut an event of its law
+        ``dist`` along a dim it does not split (``event_split_dim``, whose
+        range of a rank is held to its slice's own)."""
+        rows = len(self.sites[name].shape) - max(dist.event_ndim, 0)
+        split = getattr(dist, "event_split_dim", None)
+        return any(d >= rows and d != split for d in self._data_dims[name])
+
+    def _gathered_parents(self, name, node, sliced, gathered, paths) -> dict:
+        """The leaves that a gathered node reads in part (each with its
+        layout): every rank gathers them over the data group and computes
+        the node whole.  A parent held in part that is a slice computed
+        from another gathered node is no leaf: its own parents held in part
+        are, in turn, and it is computed whole on the way (``paths[name]``,
+        in topo order), so that a per-call block's gradient flows back
+        through it to the leaves."""
+        leaves, between = {}, set()
+
+        def visit(d):
+            n = self.model.nodes.get(d)
+            if not (isinstance(n, LogicalNode)
+                    and _reads(self.model, [d]) & set(gathered)):
+                leaves.setdefault(d, sliced[d])
+            elif d not in between:
+                between.add(d)
+                for p in n.deps:
+                    if p in sliced:
+                        visit(p)
+        for d in node.deps:
+            if d in sliced:
+                visit(d)
+        paths[name] = [n for n in self.model.topo if n in between]
+        return leaves
 
     def _held_sites(self, dims, data, recut, plans, state, dists, part_dists,
                     tol) -> tuple[dict, dict]:
@@ -900,7 +1055,11 @@ class CompiledModel:
             site = self.sites[n]
             cannot = sorted({type(s).__name__ for s in holds.get(n, ())
                              if not getattr(s, "holds_slices", False)})
-            if not holds.get(n):
+            if n in self._whole_terms:
+                reasons[n] = (f"its data dims cut an event of its "
+                              f"{type(dists[n]).__name__}: its density is "
+                              f"computed whole, from its whole value")
+            elif not holds.get(n):
                 reasons[n] = "no sampler block samples it"
             elif cannot:
                 reasons[n] = (f"sampled by a block that cannot hold a slice "
@@ -1119,15 +1278,15 @@ class CompiledModel:
     def block_gathers(self, params: tuple[str, ...],
                       prior_only: bool = False) -> str:
         """How the block's density gets the gathered nodes it reads
-        (``_gathered``): ``""`` if it reads none; ``"step"`` if the block
-        moves none of their parents, which are then gathered once per block
-        step, before it (``block_prepare``); ``"call"`` if it moves some,
-        which are then gathered once per density call (``block_density``)."""
-        if not self._gathered:
-            return ""
+        (``_gathered``) and the whole terms' parts that are gathered
+        (``_gather_reads``): ``""`` if it reads none; ``"step"`` if the
+        block moves none of their leaves, which are then gathered once per
+        block step, before it (``block_prepare``); ``"call"`` if it moves
+        some, which are then gathered once per density call
+        (``block_density``)."""
         params = tuple(params)
-        terms = params if prior_only else self.block_terms(params)
-        read = _reads(self.model, terms) & set(self._gathered)
+        read = self._gather_reads(params if prior_only
+                                  else self.block_terms(params))
         if not read:
             return ""
         pset = set(params)
@@ -1135,8 +1294,18 @@ class CompiledModel:
         def moves(p):
             return p in pset or (isinstance(self.model.nodes.get(p), LogicalNode)
                                  and bool(pset & _reads(self.model, [p])))
-        return ("call" if any(moves(p) for g in read for p in self._gathered[g])
-                else "step")
+        return "call" if any(moves(p) for p in read) else "step"
+
+    def _gather_reads(self, terms) -> set:
+        """The gathered leaves (``_gather_dims``) that the terms ``terms``
+        read: those of the gathered nodes they read, and the parts of the
+        whole terms among them that are gathered."""
+        out = set()
+        for g in _reads(self.model, terms) & set(self._gathered):
+            out.update(self._gathered[g])
+        for t in terms:
+            out.update(set(self._whole_terms.get(t, ())) & set(self._gather_dims))
+        return out
 
     def block_sum(self, params: tuple[str, ...], prior_only: bool = False):
         """``f(value, grad=None) -> tuple`` that completes the block's
@@ -1303,7 +1472,8 @@ class CompiledModel:
                 lp = lp + self._part_lp(self._local_plans[n],
                                         self._node_dist(n, env), env[n])
             else:
-                lp = lp + self._site_lp(n, self._node_dist(n, env), env[n])
+                lp = lp + self._site_lp(n, self._node_dist(n, env),
+                                        self._term_value(n, env))
         return lp
 
     def _counts(self, name: str) -> bool:
@@ -1447,39 +1617,22 @@ class CompiledModel:
         # term and the Jacobian of the whole sites
         split = self.block_split(params, prior_only)
         lead = not split or self.comm.data_rank == 0
-        # a node gathered per call: the density's gradient in the gathered
-        # parents is the same on every rank, and each rank pulls its own
-        # slice of it back (``block_density``).  The terms that read it count
-        # on data rank 0 alone, so the other ranks add their gradient in
-        # the gathered parents and nothing else (``logf``)
-        per_call = self.block_gathers(params, prior_only) == "call"
-        if per_call:
-            wdep = {n for n in self.model.topo
-                    if n in self._gathered or (n in self.logical_shapes and
-                                               _reads(self.model, [n])
-                                               & set(self._gathered))}
-            named = sorted(n for n in terms if n in self._local_plans and
-                           (_reads(self.model, [n]) & wdep))
-            if named:
-                raise ValueError(
-                    f"the terms {named}, which a data rank holds in part, "
-                    f"read {sorted(set(self._gathered) & wdep)}, which every "
-                    f"rank gathers whole for each density call of the block "
-                    f"of {list(params)}: only a term that a data rank does "
-                    f"not hold in part may read such a node")
 
         def pack(state):
             return spec.ravel(self._flat_parts(params, transform, state))
 
-        def _decode(flat, state):
+        def _decode(flat, state, only=None):
             """Walk topo order decoding block sites (whose bijectors may
             depend on parents) and recomputing intermediate logicals.  The
             block's sites are decoded whole (``values``, and the Jacobian);
-            the env holds them as the density reads them."""
+            the env holds them as the density reads them.  ``only``: the
+            logicals to compute (no term's distribution)."""
             parts = spec.unravel(flat)
-            env = dict(self.inputs)
+            env = {**self.inputs, **self._fixed_wholes}
             env.update({n: self._env_value(n, v) for n, v in state.items()
                         if n not in pset})
+            env.update({_wkey(n): state[n] for n in self._state_wholes
+                        if n in state and n not in pset})
             wenv = self._whole_env(state, skip=pset)
             logdet = torch.zeros((), dtype=self.dtype, device=self.device)
             part_logdet = torch.zeros_like(logdet)
@@ -1487,9 +1640,10 @@ class CompiledModel:
             for name in self.model.topo:
                 node = self.model.nodes[name]
                 if isinstance(node, LogicalNode):
-                    env[name] = self._logical(name, node, env, wenv)
+                    if only is None or name in only:
+                        env[name] = self._logical(name, node, env, wenv)
                 elif name in pset:
-                    dist = self._call(node, env)
+                    dist = self._node_dist(name, env)
                     dists[name] = dist
                     cut = self._part_sites.get(name) if transform else None
                     if transform and (cut is not None or name in self._held):
@@ -1515,22 +1669,17 @@ class CompiledModel:
                     env[name] = self._env_value(name, values[name])
                     if wenv is not None and name in self._env_dims:
                         wenv[name] = values[name]
-                elif name in terms:
-                    dists[name] = self._call(node, env)
+                    if name in self._state_wholes:
+                        env[_wkey(name)] = values[name]
+                elif name in terms and only is None:
+                    dists[name] = self._node_dist(name, env)
             return env, dists, logdet, part_logdet, values
 
-        def unpack(flat, state):
-            return _decode(flat, state)[4]
+        # unpack computes what the block's sites' laws read, no term
+        bijected = _reads(self.model, params)
 
-        def whole_terms(env, dists, logdet):
-            """The terms a rank counts on data rank 0 alone, and the
-            Jacobian of the whole sites."""
-            lp = logdet
-            for n in terms:
-                if n not in self._local_plans:
-                    lp = lp + self._site_lp(n, dists[n], env[n],
-                                            not (transform and n in pset))
-            return lp
+        def unpack(flat, state):
+            return _decode(flat, state, bijected)[4]
 
         def logf(flat, state):
             env, dists, logdet, part_logdet, _ = _decode(flat, state)
@@ -1543,14 +1692,15 @@ class CompiledModel:
                     lp = lp + self._part_lp(self._local_plans[n], dists[n],
                                             env[n], support)
             if lead:
-                lp = lp + whole_terms(env, dists, logdet)
-            elif per_call:
-                # the gradient in the gathered parents alone: the flat
-                # vector held fixed, a value of exactly 0
-                env, dists, logdet, _, _ = _decode(flat.detach(), state)
-                u = whole_terms(env, dists, logdet)
-                u = torch.where(torch.isfinite(u), u, torch.zeros_like(u))
-                lp = lp + (u - u.detach())
+                # the terms counted on data rank 0 alone, and the Jacobian
+                # of the whole sites
+                rest = logdet
+                for n in terms:
+                    if n not in self._local_plans:
+                        rest = rest + self._site_lp(
+                            n, dists[n], self._term_value(n, env),
+                            not (transform and n in pset))
+                lp = lp + rest
             if not transform:
                 # Reference early -Inf exit (simulation.jl:77-90): when block
                 # params leave their support, downstream terms may evaluate to
@@ -1572,16 +1722,19 @@ class CompiledModel:
         (``block_sum``): ``(value, grad)`` with ``grad``, else the value.
         Called outside ``vmap``.
 
-        A block that moves the parents of a gathered node it reads
+        A block that moves the leaves of a gathered node it reads
         (``block_gathers``: ``"call"``) gathers them once per call, in four
-        steps: the rank's slices of the parents from ``x`` (vmapped); one
+        steps: the rank's slices of the leaves from ``x`` (vmapped); one
         all-gather of them, outside ``vmap``, the padded tails dropped; the
-        density and its gradient in ``x`` and in the gathered parents
-        (every rank evaluates the reading terms on the same whole value,
-        whose value counts on data rank 0 alone); and each rank's own slice
-        of the parents' cotangent pulled back through the first step (a
-        vjp).  The whole coordinates' shares join ``block_sum``'s
-        all-reduce."""
+        density and its gradient in ``x`` and in the gathered leaves; and
+        each rank's own slice of the leaves' cotangent pulled back through
+        the first step (a vjp), on the ranks that count the slice.  Each
+        rank's cotangent is its own terms': the named terms' parts (the
+        sum-to-zero effect b = sqrt(s2) * (z - mean(z)) that each rank's y
+        reads its groups of) and, on data rank 0, the rest, so one
+        all-reduce over the data group sums them first: the transpose of
+        the all-gather.  The whole coordinates' shares join
+        ``block_sum``'s all-reduce."""
         _, _, _, logf = self.block_functions(params, transform, prior_only)
         total = self.block_sum(params, prior_only)
         if self.block_gathers(params, prior_only) != "call":
@@ -1609,50 +1762,57 @@ class CompiledModel:
         def density(x, state):
             wholes = self._gathered_from(parents(x, state))
             (gx, gw), v = gv(x, state, wholes)
+            gw = dict(zip(gw, self.comm.data_sum(*gw.values())))
             return total(v, gx + pull(x, state, gw))
         return density
 
     def block_parents(self, params: tuple[str, ...], transform: bool,
                       prior_only: bool = False):
         """``parents(flat, state) -> {name: value}``: this rank's slices of
-        the gathered nodes' parents (``_gather_dims``) at ONE chain's flat
-        vector, as the block's density computes them."""
+        the gathered leaves (``_gather_dims``) at ONE chain's flat vector,
+        as the block's density computes them."""
         self.block_functions(params, transform, prior_only)
         decode = self._block_cache[("decode", tuple(params), bool(transform),
                                     bool(prior_only))]
+        only = _reads(self.model, [n for n in (*self._gather_dims, *params)
+                                   if n in self.model.nodes])
+        only.update(self._gather_dims)
 
         def parents(flat, state):
-            env = decode(flat, state)[0]
+            env = decode(flat, state, only)[0]
             return {p: env[p] for p in self._gather_dims}
         return parents
 
     def block_pull(self, params: tuple[str, ...], transform: bool,
                    prior_only: bool = False):
         """``pull(flat, state, gw) -> (dim,)``: ONE chain's gradient in the
-        gathered parents' whole values ``gw`` (keyed by ``_wkey``), this
+        gathered leaves' whole values ``gw`` (keyed by ``_wkey``), this
         rank's slice of it (zero in the padded tail) pulled back to its
-        flat vector through ``block_parents``."""
+        flat vector through ``block_parents``.  A slice held alike by the
+        ranks that differ on the data axes it is not cut over counts on
+        one of them (``DataGroup.leads``), so each block's share is pulled
+        back once over the data group."""
         parents = self.block_parents(params, transform, prior_only)
+        geo = self._geo
 
         def pull(flat, state, gw):
-            ct = {p: self._rank_slice(gw[_wkey(p)], d)
-                  for p, d in self._gather_dims.items()}
+            ct = {}
+            for p, d in self._gather_dims.items():
+                s = self._rank_slice(gw[_wkey(p)], p, d)
+                ct[p] = s if geo.leads(d) else torch.zeros_like(s)
             _, vjp = torch.func.vjp(lambda x: parents(x, state), flat)
             return vjp(ct)[0]
         return pull
 
-    def _rank_slice(self, x, layout, lead: int = 0):
-        """This rank's block of a whole value without its padded tails:
-        ``x`` zero-padded to its padded length along each dim of
-        ``layout``, then cut."""
-        for dim in layout:
+    def _rank_slice(self, x, name: str, layout, lead: int = 0):
+        """This rank's block of node ``name``'s whole value without its
+        padded tails: ``x`` zero-padded back to its padded length along
+        each dim of its record (``_padded``), then cut by ``layout``."""
+        for dim, (given, length) in self._padded.get(name, {}).items():
             ax = lead + dim
-            n = x.shape[ax]
-            padded = next((length for length, g in self._given.items()
-                           if g == n), n)
-            if padded != n:
+            if x.shape[ax] == given:
                 more = list(x.shape)
-                more[ax] = padded - n
+                more[ax] = length - given
                 x = torch.cat([x, x.new_zeros(more)], dim=ax)
         return self._block(x, layout, lead)
 
@@ -1665,8 +1825,7 @@ class CompiledModel:
         priors read such a node (their bijectors).  The identity
         otherwise."""
         mode = self.block_gathers(params, prior_only)
-        if mode == "call" and not (_reads(self.model, tuple(params))
-                                   & set(self._gathered)):
+        if mode == "call" and not self._gather_reads(tuple(params)):
             mode = ""
         return self.with_wholes if mode else _same
 
@@ -1701,9 +1860,8 @@ class CompiledModel:
         for p, layout in self._gather_dims.items():
             parts = torch.stack([r[p] for k, r in enumerate(per_rank)
                                  if geo.leads(layout, k)])
-            out[_wkey(p)] = self._trim(
-                geo.assemble(parts, layout, lead=1), layout, lead=1,
-                what=f"{p!r}, which a gathered node reads,")
+            out[_wkey(p)] = self._trim(geo.assemble(parts, layout, lead=1),
+                                       p, lead=1)
         return out
 
     def _flat_parts(self, params, transform: bool, state: dict) -> dict:
@@ -1773,12 +1931,12 @@ class CompiledModel:
         for name in self.model.topo:
             if name not in names:
                 continue
-            if _reads(self.model, [name]) & set(self._gathered):
+            if self._gather_reads([name]):
                 dist = self.stacked_node_dist(name, self.with_wholes(out))
             else:
                 dist = self.stacked_node_dist(name, out)
             part = name in self.local_dims
-            if part or name in self._leaf_dims:
+            if (part or name in self._leaf_dims) and name not in self._whole_terms:
                 dist = self._whole_stacked(name, dist)
             target = tuple(self.sites[name].shape)
             stacked = bool(dist_flatten(dist)[0])
@@ -1795,6 +1953,9 @@ class CompiledModel:
             else:
                 with keys_lead("draw"):
                     val = dist.sample(sub, (chains,) + lead)
+            if name in self._padded and name in self._whole_terms:
+                # drawn whole without its padded tail: padded back
+                val = _pad_tail(val, self._padded[name], lead=1)
             if tuple(val.shape[1:]) != target:      # trailing recycling
                 val = val.expand((chains,) + target)
             if part:
@@ -1943,6 +2104,46 @@ def _column_major(v: torch.Tensor) -> torch.Tensor:
     """Julia's ``vec``: the column-major flatten of ``v``."""
     return torch.reshape(v.permute(*reversed(range(v.dim()))) if v.dim() > 1
                          else v, (-1,))
+
+
+def _shake(x: torch.Tensor, record: dict) -> torch.Tensor:
+    """``x`` with the padded tail of each dim of ``record`` (``{dim: (given,
+    padded length)}``) moved by distinct amounts."""
+    x = x.clone()
+    for dim, (given, length) in record.items():
+        at = (slice(None),) * dim + (slice(given, length),)
+        step = torch.arange(1, 1 + length - given, dtype=x.dtype,
+                            device=x.device)
+        x[at] = x[at] + step.reshape((-1,) + (1,) * (x.dim() - dim - 1))
+    return x
+
+
+def _moved_outside(value, moved, record: dict) -> bool:
+    """Whether an entry of ``moved`` differs from ``value`` (NaN equal to
+    NaN) outside the padded tail of each dim of ``record`` (``{dim:
+    (given, padded length)}``)."""
+    if moved.shape != value.shape:
+        return True
+    changed = ~((moved == value) | (torch.isnan(moved) & torch.isnan(value)))
+    for dim, (given, length) in record.items():
+        changed.narrow(dim, given, length - given).fill_(False)
+    return bool(changed.any())
+
+
+def _pad_tail(t: torch.Tensor, record: dict, lead: int = 0) -> torch.Tensor:
+    """``t``, a value without its padded tails, edge-padded along each dim
+    of ``record`` (``{dim: (given, padded length)}``; ``lead`` dims before
+    the value's own) to its padded length, as a padded array holds its
+    tail."""
+    for dim, (given, length) in record.items():
+        ax = lead + dim
+        if t.shape[ax] != given:
+            continue
+        tail = t.narrow(ax, given - 1, 1)
+        more = list(t.shape)
+        more[ax] = length - given
+        t = torch.cat([t, tail.expand(more)], dim=ax)
+    return t
 
 
 def _fits(shape: tuple, within: tuple) -> bool:

@@ -239,12 +239,21 @@ def mcmc(model_or_mc, inputs=None, inits=None, iters: int = 1000, *,
     a whole value as the rank's slice of it (the GLMM with only y and its
     covariates named reads its slice of the whole b), a density term that
     reads a node computed from the chain state and slices (each rank
-    gathers that node's parents and computes it whole: once per step, or
-    once per density call of a block that moves them), and a value
+    gathers that node's leaves and computes it whole: once per step, or
+    once per density call of a block that moves them, also where the
+    node reads a slice computed from another gathered node), a named term
+    that reads such a node (the sum-to-zero effect ``b = sqrt(s2) * (z -
+    mean(z))``, y's groups reading their slice of it: the block sums its
+    gradient in the gathered leaves over the data group before each rank
+    pulls its slice back), a named site whose data dims cut an event of
+    its law (jaws' ``BDiagNormal`` cut by boy: the term is computed whole
+    from the whole values, as GSPMD gathers the event), and a value
     computed from an array the axis pads, which is computed from the
-    array as given, so the run is the unsharded run's.  What the compiler
-    cannot confirm at its probe state it refuses with a ValueError that
-    names the node."""
+    array as given (each node's padding its own record), so the run is
+    the unsharded run's.  What stays refused, with a ValueError that names
+    it: what ``NamedSharding`` refuses (the chain axis in a spec, an axis
+    on two dims) and what the compiler cannot confirm at its probe
+    state."""
     if isinstance(model_or_mc, ModelChains):
         return _mcmc_restart(model_or_mc, inputs if inputs is not None else iters,
                              verbose=verbose, progress=progress)

@@ -318,7 +318,10 @@ class BernoulliLogitGLMM(Distribution):
         return self.Xt.shape[1:]
 
     def _logits(self):
-        return torch.einsum("pig,p->ig", self.Xt, self.beta) + self.b[None, :]
+        """The (n, G) logits, led by any batch of the parameters (a
+        chain-stacked law: ``forward_sample``, ``predict``)."""
+        return (torch.einsum("...pig,...p->...ig", self.Xt, self.beta)
+                + self.b[..., None, :])
 
     def log_prob(self, x):
         return bernoulli_logit_glmm_loglik.apply(self.Xt, x, self.beta,

@@ -157,7 +157,9 @@ def predict(mc: ModelChains, nodekeys=None, seed: int = 0) -> ModelChains:
     """Posterior-predictive draws of observed output nodes for every stored
     draw (reference modelstats.jl:71-102): draw ``j`` of chain ``i`` from
     the key ``fold_in(fold_in(key(seed), i), j)``, as the JAX package keys
-    it (no global generator is touched)."""
+    it (no global generator is touched).  On a mesh's data axis each
+    site is gathered whole, its padded tail dropped (``cm.trim``): the
+    unsharded run's draws of the data as given."""
     cm = mc.compiled
     outputs = mc.model.keys("observed")
     if nodekeys is None:
@@ -170,19 +172,16 @@ def predict(mc: ModelChains, nodekeys=None, seed: int = 0) -> ModelChains:
     draw_state = _draw_state_fn(mc)
 
     from ..utils.pytree import elementwise_names
-    labels = []
-    for n in nodekeys:
-        labels.extend(elementwise_names(n, cm.sites[n].shape))
-
     rows, bases = _flat_batch(mc)
     states = torch.func.vmap(draw_state)(rows, bases)
     m, n = mc.nchains, mc.niter
     base = R.chain_keys(seed, range(m), cm.device)[:, None].expand(m, n, 2)
     keys = R.fold_in(base, torch.arange(n, device=cm.device).expand(m, n))
     drawn = cm.forward_sample(keys.reshape(m * n, 2), states, names=nodekeys)
-    flat = []
+    flat, labels = [], []
     for n in nodekeys:
-        v = cm.whole(n, drawn[n], 1)       # (C*n, *shape), column-major out
+        v = cm.trim(n, cm.whole(n, drawn[n], 1), 1)   # (C*n, *shape)
+        labels.extend(elementwise_names(n, tuple(v.shape[1:])))
         flat.append(v.permute(0, *reversed(range(1, v.dim())))
                     .reshape(v.shape[0], -1))
     vals = torch.cat(flat, dim=1).reshape(mc.nchains, mc.niter, -1)

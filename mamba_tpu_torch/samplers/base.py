@@ -121,9 +121,11 @@ class SamplerSpec:
         coordinates, ``coords=cm.block_coords(params)`` (``WHOLE`` where
         the block holds no slice).  A block whose density reads a node that
         every data rank gathers whole (``cm.block_gathers``) takes the
-        state with that node's parents' whole values (``cm.block_prepare``,
+        state with that node's leaves' whole values (``cm.block_prepare``,
         once per step, before a captured step loads it), or gathers them in
-        each density call (``cm.block_density``).  A block whose density is
+        each density call (``cm.block_density``, which sums the gradient in
+        them over the data group: one more cut of a captured body).  A
+        block whose density is
         summed over a mesh's data group (``cm.block_split``) replays as
         well: its captured loop is cut at each collective
         (``utils.graphs.cut``).  ``graphed`` takes the coordinates too

@@ -13,7 +13,12 @@ counted once.
    ("week",)``, ``alpha``, ``beta: ("data",)``, the five weeks padded to
    six), the fused GLMM's groups over a tuple of axes (``y: (None,
    ("data", "obs"))``) and the generic GLMM cut on two dims (``y:
-   ("data", "obs")``, ``z: ("data",)``).  For each: the completed block
+   ("data", "obs")``, ``z: ("data",)``); and two blocks that gather per
+   density call a leaf cut on ``data`` alone, replicated over ``obs`` (so
+   one of the two ranks that hold a slice alike pulls it back): line's ss
+   = sum((y - mu)**2), read by tau's prior and by y2, named, and the
+   sum-to-zero GLMM's b = sqrt(s2) * (z - mean(z)) with z on ``data``
+   (tests/test_torch_gathered_terms.py).  For each: the completed block
    density and gradient against the JAX package's unsharded ones, the
    ranks' ``logpdf`` parts against its ``logpdf``, a run on the emulated
    card (tests/_torch_card.py) equal to its plain loops bit for bit and
@@ -45,6 +50,7 @@ from mamba_tpu_torch.utils import graphs
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _torch_card import _emulate_the_card  # noqa: E402
+from test_torch_gathered_terms import _named_reader, _sum0  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -54,7 +60,8 @@ RANKS_TIMEOUT, GROUP_TIMEOUT = 240, 60
 C, MORE = 2, 3
 #: each arm's run (iterations, burnin): rats's NUTS trees are deep enough
 #: at its start that its run is cut to keep the module within its time
-RUNS = {"rats": (8, 4), "glmm_fused": (20, 10), "glmm_generic": (20, 10)}
+RUNS = {"rats": (8, 4), "glmm_fused": (20, 10), "glmm_generic": (20, 10),
+        "line_ss": (10, 5), "glmm_sum0": (10, 5)}
 RATS_BLOCK = ("alpha", "beta", "mu_alpha", "mu_beta")
 GLMM_BLOCK = ("beta", "z", "s2")
 G = 16
@@ -81,6 +88,19 @@ def _glmm(pkg, fused):
     return model, inputs, inits[0]
 
 
+def _monitored(build):
+    """``build`` with every sampled node monitored (DIC reads them)."""
+    def monitored(pkg):
+        import dataclasses
+        model, inputs, init = build(pkg)
+        for n in model.keys("stochastic"):
+            if n not in model.keys("observed"):
+                model.nodes[n] = dataclasses.replace(model.nodes[n],
+                                                     monitor=True)
+        return model, inputs, init
+    return monitored
+
+
 #: name: (build, the second data axis, site_specs, block, the site drawn
 #: by ``forward_sample``)
 ARMS = {
@@ -94,6 +114,12 @@ ARMS = {
     "glmm_generic": (lambda pkg: _glmm(pkg, False), "obs",
                      {"y": ("data", "obs"), "x": ("data", "obs", None),
                       "z": ("data",)}, GLMM_BLOCK, "y"),
+    "line_ss": (_monitored(_named_reader), "obs",
+                {"y": ("data",), "xmat": ("data", None), "y2": ("data",)},
+                ("beta", "s2", "tau"), "y2"),
+    "glmm_sum0": (_monitored(_sum0(True, G)), "obs",
+                  {"y": (None, "data"), "xt": (None, None, "data"),
+                   "z": ("data",), "w": ("data",)}, GLMM_BLOCK, "y"),
 }
 
 
@@ -104,7 +130,7 @@ def _states(init):
     out = {}
     for k, v in init.items():
         v = np.asarray(v, dtype=float)
-        if k == "y":
+        if k in ("y", "y2"):
             out[k] = np.broadcast_to(v, (C,) + v.shape).copy()
         elif k.startswith("s2"):
             out[k] = v * rng.gamma(4.0, 0.25, size=(C,) + (1,) * v.ndim)
@@ -331,7 +357,8 @@ def test_the_completed_density_matches_the_jax_package(ranks, arm):
     held = json.loads(str(res[0][f"{arm}:held"]))
     assert held == {"rats": {"alpha": {"0": ["data"]}, "beta": {"0": ["data"]}},
                     "glmm_fused": {"z": {"0": ["data", "obs"]}},
-                    "glmm_generic": {"z": {"0": ["data"]}}}[arm]
+                    "glmm_generic": {"z": {"0": ["data"]}},
+                    "line_ss": {}, "glmm_sum0": {"z": {"0": ["data"]}}}[arm]
 
 
 @pytest.mark.parametrize("arm", list(ARMS))
@@ -424,14 +451,17 @@ def _rank_arm(name, rank, out_dir):
     state = cm.cut_state({k: torch.as_tensor(v) for k, v in np_state.items()})
     out = {}
     # the completed block density and gradient, and the logpdf parts
+    st = cm.block_prepare(block)(state)
     v, g = cm.block_density(block, True, grad=True)(
-        cm.block_maps(block, True)[0](state), state)
+        cm.block_maps(block, True)[0](st), st)
     coords = cm.block_coords(block)
     out["v"], out["g"] = v.numpy(), g.numpy()
-    out["index"] = coords.index.numpy()
+    out["index"] = (np.arange(g.shape[1]) if coords.index is None
+                    else coords.index.numpy())
     out["held"] = json.dumps({k: {str(d): list(a) for d, a in l.items()}
                               for k, l in cm._held.items()})
-    out["logpdf_part"] = torch.func.vmap(cm.logpdf_part)(state).numpy()
+    out["logpdf_part"] = torch.func.vmap(cm.logpdf_part)(
+        cm.with_wholes(state)).numpy()
     # forward_sample keeps the rank's block of the whole draw
     keys = R.chain_keys(3, range(C))
     out["forward"] = cm.forward_sample(keys, state, names=(drawn,))[

@@ -341,7 +341,7 @@ PARITY = {"rats": (_rats_case, RATS_SPECS, RATS_BLOCK, ["all_reduce"]),
           "glmm_fused_data": (_glmm_case, GLMM_DATA, GLMM_BLOCK,
                               ["all_reduce"]),
           "line_ss_tau": (_line_ss_case, LINE6_SPECS, ("beta", "s2", "tau"),
-                          ["all_gather", "all_reduce"])}
+                          ["all_gather", "all_reduce", "all_reduce"])}
 
 
 def _states(init):
@@ -401,8 +401,9 @@ def test_the_completed_density_in_a_capture_matches_the_jax_package(ranks,
     group between the segments of an emulated capture (rats, and the fused
     GLMM with only its data named, whose y reads its slice of the whole b:
     the density's all-reduce; line's beta block whose tau prior reads ss,
-    gathered per density call: the all-gather of ss's parents, then the
-    all-reduce, with the vjp of the rank's slice between them), against
+    gathered per density call: the all-gather of ss's parents, the
+    all-reduce of the gradient in them, then the density's all-reduce,
+    with the vjp of the rank's slice between them), against
     the JAX package's compiled block density and gradient at the same
     state, at the rank's coordinates (1e-10)."""
     import jax

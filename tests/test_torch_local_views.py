@@ -418,26 +418,28 @@ def _locals(ranks, state, xs=None, block=None, transform=True):
 def _rank_blocks(ranks, block, state, transform, xs):
     """Each rank's block value and gradient at its flat vector: a block
     that gathers per call (``block_gathers``) evaluates its density on the
-    parents gathered from every rank's ``x``, and adds its slice of their
-    cotangent pulled back (``block_pull``), as ``block_density`` does with
-    its collectives."""
+    parents gathered from every rank's ``x``, sums the ranks' cotangents
+    of them, and adds its slice of the sum pulled back (``block_pull``),
+    as ``block_density`` does with its collectives."""
     per_call = ranks[0].block_gathers(block) == "call"
     locals_ = _locals(ranks, state, xs if per_call else None, block,
                       transform)
-    out = []
+    if not per_call:
+        return [_block(cm, block, st, transform, x)
+                for cm, x, st in zip(ranks, xs, locals_)]
+    parts = []
     for cm, x, st in zip(ranks, xs, locals_):
-        if not per_call:
-            out.append(_block(cm, block, st, transform, x))
-            continue
         logf = cm.block_functions(block, transform)[3]
         wholes = {k: v for k, v in st.items() if k.endswith("@whole")}
         base = {k: v for k, v in st.items() if k not in wholes}
         (gx, gw), v = torch.func.vmap(torch.func.grad_and_value(
             lambda x, s, w: logf(x, {**s, **w}), argnums=(0, 2)))(
             x, base, wholes)
-        gx = gx + torch.func.vmap(cm.block_pull(block, transform))(x, base, gw)
-        out.append((x, v, gx))
-    return out
+        parts.append((base, v, gx, gw))
+    total = {k: sum(p[3][k] for p in parts) for k in parts[0][3]}
+    return [(x, v, gx + torch.func.vmap(cm.block_pull(block, transform))(
+                x, base, total))
+            for cm, x, (base, v, gx, _) in zip(ranks, xs, parts)]
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -855,12 +857,15 @@ def test_what_reads_the_whole_of_a_padded_array_is_refused_by_name(case):
     tmt.compile_model(model, inputs, init, device="cpu")
 
 
-def test_a_padded_length_that_another_array_has_as_given_is_refused_by_name():
+def test_a_padded_length_that_another_array_has_as_given_is_taken():
     """line's own five points padded to six, and w named with six entries
-    as given: the compiler cannot tell y's padded tail from w's last
-    entry, so mean(y), which it computes from y as given, is refused,
-    naming y and the node; without mean(y) the model compiles."""
-    for extra, refused in ((_ybar_prior_pkg, True), (lambda pkg: dict(
+    as given: 6 is y's padded length and w's real one.  Each array's
+    padding is its own record (``_padded``: y's and xmat's from ``pads``,
+    mu's from xmat's), not a length, so mean(y) is computed from y as
+    given and w is not trimmed; with or without mean(y) the model
+    compiles, and its parts are held to the unsharded model in
+    tests/test_torch_gathered_terms.py."""
+    for extra, reads_ybar in ((_ybar_prior_pkg, True), (lambda pkg: dict(
             tau=pkg.Stochastic(lambda: pkg.Normal(0.0, 1.0))), False)):
         model, inputs, init, masks = _pad5(extra)(tmt)
         ref = _pad5(extra)(tmt, True)
@@ -871,18 +876,15 @@ def test_a_padded_length_that_another_array_has_as_given_is_refused_by_name():
         init = dict(init, u=np.zeros(6))
         specs = {**LINE_SPECS, "w": ("data",), "u": ("data",)}
         pads = {"y": {0: 5}, "xmat": {0: 5}}
-
-        def rank(r):
-            return tmt.compile_model(model, inputs, init, device="cpu",
-                                     masks=masks, comm=_DataRank(r),
-                                     site_specs=specs, pads=pads)
-        if refused:
-            with pytest.raises(ValueError, match=r"'y', which node 'ybar' "
-                               r"reads whole, has 6 entries along the data "
-                               r"axis"):
-                rank(0)
-        else:
-            assert rank(1)._ambiguous == {6}
+        for r in (0, 1):
+            cm = tmt.compile_model(model, inputs, init, device="cpu",
+                                   masks=masks, comm=_DataRank(r),
+                                   site_specs=specs, pads=pads)
+            assert cm._padded["y"] == cm._padded["xmat"] == {0: (5, 6)}
+            assert "w" not in cm._padded and "u" not in cm._padded
+            if reads_ybar:
+                np.testing.assert_allclose(
+                    cm._consts["ybar"][1], np.mean(ref[2]["y"]), rtol=1e-15)
 
 
 def _rolled_glmm(fused):
@@ -902,37 +904,15 @@ def _rolled_glmm(fused):
     return rolled, inputs, inits[0]
 
 
-def _named_reader():
-    """line_ss_tau with a second observed site y2, named, whose law reads
-    ss: beta's block gathers ss per call and y2's parts would each need
-    the gradient of every rank's part."""
-    model, inputs, init, _ = _line_ss_tau(tmt)
-    nodes = dict(model.nodes, y2=tmt.Stochastic(1, lambda mu, ss: tmt.Normal(
-        mu + 0.01 * ss, 1.0), monitor=False))
-    named = tmt.Model(**nodes)
-    named.set_samplers(model.samplers)
-    return named, inputs, dict(init, y2=init["y"] + 0.5)
-
-
-#: what stays refused: (model, inputs, init), site_specs, the message, and
-#: whether the compiler refuses it (else the block of beta, when built)
+#: what stays refused: (model, inputs, init), site_specs and the message
 STAYS_REFUSED = {
     "fused_glmm_probe_mismatch": (lambda: _rolled_glmm(True), GLMM_DATA,
-                                  r"the density of 'y' cannot be evaluated",
-                                  True),
+                                  r"the density of 'y' cannot be evaluated"),
     "generic_glmm_probe_mismatch": (lambda: _rolled_glmm(False),
                                     GLMM_GENERIC_DATA,
-                                    r"the density of 'y' cannot be evaluated",
-                                    True),
-    "event_dim": (lambda: _line_v(tmt)[:3],
-                  {**LINE6_SPECS, "w": ("data",), "v": (None, "data")},
-                  r"sampled site 'v' is named on the data axis at dim 1, an "
-                  r"event dim of its MvNormal", True),
+                                    r"the density of 'y' cannot be evaluated"),
     "chain_axis": (lambda: _line_v(tmt)[:3], {"y": ("chains",)},
-                   r"names the chain axis 'chains'", True),
-    "named_term_reads_a_node_gathered_per_call": (
-        _named_reader, {**LINE6_SPECS, "y2": ("data",)},
-        r"the terms \['y2'\].*read \['ss'\]", False),
+                   r"names the chain axis 'chains'"),
 }
 
 
@@ -941,20 +921,16 @@ def test_what_stays_refused_raises_a_value_error_that_names_it(case):
     """What the data axis still refuses, each by a ValueError that names
     the node or the axis, never a raw error of the evaluation: the GLMM
     whose parts no cut of its whole b confirms at the probe (the fused
-    kernel's shape error, the generic form's broadcast), a named site
-    whose data dim is an event dim of the law that reads a slice, a spec
-    that names the chain axis, and a named term that reads a node its
-    block gathers per density call.  (Several data axes, and an axis
-    named on two dims: tests/test_torch_data_axes.py.)"""
-    build, specs, message, at_compile = STAYS_REFUSED[case]
+    kernel's shape error, the generic form's broadcast) and a spec that
+    names the chain axis.  (Several data axes, and an axis named on two
+    dims: tests/test_torch_data_axes.py.  A named site whose data dims cut
+    an event of its law, and a named term that reads a node its block
+    gathers per density call, are taken: tests/test_torch_gathered_terms
+    .py.)"""
+    build, specs, message = STAYS_REFUSED[case]
     model, inputs, init = build()
-    if at_compile:
-        with pytest.raises(ValueError, match=message):
-            _compile_rank(model, inputs, init, specs)
-    else:
-        cm = _compile_rank(model, inputs, init, specs)
-        with pytest.raises(ValueError, match=message):
-            cm.block_functions(("beta",), True)
+    with pytest.raises(ValueError, match=message):
+        _compile_rank(model, inputs, init, specs)
     tmt.compile_model(model, inputs, init, device="cpu")
 
 

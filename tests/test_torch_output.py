@@ -195,6 +195,28 @@ def test_predict_matches_in_distribution(runs):
         tmt.predict(tsim, ["beta"])
 
 
+def test_predict_of_the_fused_glmm_matches_under_the_same_keys():
+    """The fused GLMM's predictive draws (``BernoulliLogitGLMM.sample`` on
+    the chain-stacked parameters of every stored draw), from one JAX run's
+    draws carried into a port ``ModelChains``: under the same keys (seed 1)
+    the JAX package's draws, its fused form in Pallas's interpret mode."""
+    from mamba_tpu.models import glmm as jglmm
+    from mamba_tpu_torch.models import glmm as tglmm
+    built = []
+    for pkg in (jglmm, tglmm):
+        model, inputs, inits, _ = pkg.build(G=6, n=3, seed=1, fused=True)
+        model.nodes["z"] = dataclasses.replace(model.nodes["z"], monitor=True)
+        built.append((model, inputs, inits))
+    (jmodel, jinputs, jinits), (tmodel, tinputs, _) = built
+    jsim = jmt.mcmc(jmodel, jinputs, jinits, 12, burnin=6, chains=2,
+                    verbose=False)
+    tsim = _port_chains(jsim, tmodel, tinputs)
+    t, j = tmt.predict(tsim, seed=1), jmt.predict(jsim, seed=1)
+    assert t.names == j.names and len(t.names) == 18
+    assert t.value.shape == j.value.shape == (6, 18, 2)
+    np.testing.assert_array_equal(t.value, j.value)
+
+
 def test_model_stats_need_every_sampled_node_monitored():
     from mamba_tpu_torch.models import glmm
     model, inputs, inits, _ = glmm.build(G=6, n=3, seed=1, fused=True)
